@@ -6,12 +6,16 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``jwave_pro_tpu_torch/csrc`` with nvcc,
-checks each kernel against its plain PyTorch version, drives the main path
-(MODWT Db4 level 5 forward, inverse and fused denoise over 32 signals of
-2^20 float32 samples, and the 1D forward at N = 2^24) through the public
-API, shows from the kernels' launch counters that the path ran through
-them, and times kernel against plain version with CUDA events.  Every
-check prints a line; any failure exits non-zero.  The second-to-last line
+checks each kernel against its plain PyTorch version, and drives two paths
+through the public API: the MODWT path (Db4 level 5 forward, inverse and
+fused denoise over 32 signals of 2^20 float32 samples, and the 1D forward
+at N = 2^24), and the statistics and packet-tree path (wavelet variance,
+Hurst exponent and correlation at 32 × 2^20, the packet tree and its
+inverse at 32 × 2^18 level 3, greedy and orthogonal matching pursuit at
+8 × 65536 level 3 with 16 atoms).  The kernels' launch counters, set to 0
+before each path and read after it, show that the path ran through them;
+CUDA events time each kernel against its plain version.  Every check
+prints a line; any failure exits non-zero.  The second-to-last line
 is a JSON object describing each kernel; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 package beside it, it exits non-zero and prints no result.
@@ -33,6 +37,9 @@ LEVEL = 5
 MAIN_SHAPE = (32, 1 << 20)   # bench.py's north-star shape
 MAIN_1D = 1 << 24            # the 1D (N,) contract at full size
 SEED = 0
+# the statistics and packet-tree path (bench.py:339, :118, :145)
+PACKET_SHAPE, PACKET_LEVEL = (32, 1 << 18), 3
+MP_SHAPE, MP_LEVEL, MP_ATOMS = (8, 65536), 3, 16
 
 
 class Smoke:
@@ -55,6 +62,30 @@ class Smoke:
 
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
+
+
+def time_pair(jt, kern, plain, arg):
+    """(kernel ms, plain ms) by CUDA events, in the order plain, kernel,
+    kernel, plain: the two orders cancel drift."""
+    tp1 = jt.time_chain(plain, arg, k=3, repeats=3)
+    tk1 = jt.time_chain(kern, arg, k=10, repeats=5)
+    tk2 = jt.time_chain(kern, arg, k=10, repeats=5)
+    tp2 = jt.time_chain(plain, arg, k=3, repeats=3)
+    return (tk1 + tk2) / 2 * 1e3, (tp1 + tp2) / 2 * 1e3
+
+
+def wall_ms(torch, fn, repeats: int = 3) -> float:
+    """Median host-clock ms of ``fn()`` ending in a synchronize (for calls
+    that loop on the host, such as matching pursuit)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[len(times) // 2]
 
 
 def card_line() -> str:
@@ -240,17 +271,13 @@ def run(smoke: Smoke, torch, jt) -> dict:
     }
     times = {}
     for name, (arg, kern, plain) in pairs.items():
-        samples = arg.shape[-1] * (arg.shape[-2] if arg.ndim > 1 else 1)
-        # plain, kernel, kernel, plain: the two orders cancel drift
-        tp1 = jt.time_chain(plain, arg, k=3, repeats=3)
-        tk1 = jt.time_chain(kern, arg, k=10, repeats=5)
-        tk2 = jt.time_chain(kern, arg, k=10, repeats=5)
-        tp2 = jt.time_chain(plain, arg, k=3, repeats=3)
-        tk, tp = (tk1 + tk2) / 2, (tp1 + tp2) / 2
-        times[name] = (tk * 1e3, tp * 1e3)
-        print(f"  {name} {tuple(arg.shape)}: kernel {tk * 1e3:.4f} ms "
-              f"({samples / tk:.4e} samples/s), plain {tp * 1e3:.4f} ms "
-              f"({samples / tp:.4e} samples/s) [{card}]", flush=True)
+        times[name] = report_time(jt, name, arg, kern, plain, card)
+
+    slice_launches, slice_errs, slice_times = run_slice(
+        smoke, torch, jt, dev, signal, card)
+    launches.update(slice_launches)
+    errs.update(slice_errs)
+    times.update(slice_times)
 
     src = "jwave_pro_tpu_torch/csrc/"
     tpu = "jwave_pro_tpu/kernels/"
@@ -259,6 +286,10 @@ def run(smoke: Smoke, torch, jt) -> dict:
         "modwt_fwd_1d": ("modwt.cu", "modwt_pallas.py:286"),
         "modwt_inv": ("modwt.cu", "modwt_pallas.py:564"),
         "modwt_denoise": ("denoise.cu", "denoise_pallas.py:68"),
+        "modwt_var": ("variance.cu", "variance_pallas.py:80"),
+        "modwpt_fwd": ("modwpt.cu", "modwpt_pallas.py:128"),
+        "modwpt_select": ("modwpt.cu", "modwpt_pallas.py:264"),
+        "modwpt_inv": ("modwpt.cu", "modwpt_pallas.py:468"),
     }
     return {"kernels": [
         {"name": name, "route": "cuda", "source": src + meta[name][0],
@@ -266,6 +297,220 @@ def run(smoke: Smoke, torch, jt) -> dict:
          "max_abs_err": errs[name], "ms": times[name][0],
          "plain_ms": times[name][1]}
         for name in meta]}
+
+
+def report_time(jt, name, arg, kern, plain, card):
+    """Time kernel against plain version and print both with the card."""
+    samples = arg.shape[-1] * (arg.shape[-2] if arg.ndim > 1 else 1)
+    tk, tp = time_pair(jt, kern, plain, arg)
+    print(f"  {name} {tuple(arg.shape)}: kernel {tk:.4f} ms "
+          f"({samples / tk * 1e3:.4e} samples/s), plain {tp:.4f} ms "
+          f"({samples / tp * 1e3:.4e} samples/s) [{card}]", flush=True)
+    return tk, tp
+
+
+def run_slice(smoke: Smoke, torch, jt, dev, signal, card):
+    """The statistics and packet-tree path: phases 10-14.  Returns the
+    launches on its main path, each kernel's max-abs-err against its plain
+    version there, and (kernel ms, plain ms) per kernel."""
+    from jwave_pro_tpu_torch.kernels import modwpt_cuda as kp
+    from jwave_pro_tpu_torch.kernels import variance_cuda as kv
+
+    w = jt.wavelet(WAVELET)
+
+    def rel_err(a, b) -> float:
+        return float(((a.double() - b.double()).abs()
+                      / b.double().abs().clamp_min(1e-30)).max())
+
+    print("== phase 10: variance and packet kernels vs plain (small shapes, "
+          "N = 100003, halo > N)", flush=True)
+    small = ((16, 8192, 5, 3), (32, 100003, 5, 3), (4, 16, 4, 4))
+    for b, n, lv_var, lv_pkt in small:
+        x = signal(b, n)
+        smoke.check(f"var ({b}, {n}) L{lv_var} vs plain (relative)",
+                    rel_err(kv.modwt_var_cuda(x, w, lv_var),
+                            kv.modwt_var_plain(x, w, lv_var)), 1e-4)
+        c = kp.modwpt_fwd_cuda(x, w, lv_pkt)
+        smoke.check(f"packet fwd ({b}, {n}) L{lv_pkt} vs plain",
+                    max_err(c, kp.modwpt_fwd_plain(x, w, lv_pkt)), 1e-5)
+        smoke.check(f"packet inv ({b}, {n}) L{lv_pkt} vs plain",
+                    max_err(kp.modwpt_inv_cuda(c, w),
+                            kp.modwpt_inv_plain(c, w)), 1e-4)
+        smoke.check(f"packet round trip ({b}, {n}) L{lv_pkt}",
+                    max_err(kp.modwpt_inv_cuda(c, w), x), 1e-4)
+        a, t, v = kp.modwpt_select_cuda(x, w, lv_pkt)
+        want_t = torch.argmax(c.abs(), dim=-1)
+        want_v = torch.gather(c, -1, want_t[..., None])[..., 0]
+        smoke.require(f"select ({b}, {n}) L{lv_pkt} = arg-max over the "
+                      f"forward kernel's output (positions, values exact)",
+                      torch.equal(t.long(), want_t)
+                      and torch.equal(v, want_v) and torch.equal(a, v.abs()))
+        cp = kp.modwpt_fwd_plain(x, w, lv_pkt)
+        at_t = torch.gather(cp, -1, t.long()[..., None])[..., 0]
+        smoke.check(f"select ({b}, {n}) value vs plain at its position",
+                    max_err(v, at_t), 1e-5)
+        smoke.check(f"select ({b}, {n}) plain |w| there vs plain max",
+                    max_err(at_t.abs(), kp.modwpt_select_plain(
+                        x, w, lv_pkt)[0]), 1e-5)
+    x = signal(16, 8192)
+    x16 = x.bfloat16()
+    smoke.check("bf16 var vs bf16 plain (relative)",
+                rel_err(kv.modwt_var_cuda(x16, w, 5),
+                        kv.modwt_var_plain(x16, w, 5)), 1e-4)
+    c32 = kp.modwpt_fwd_cuda(x, w, 3)
+    c16 = kp.modwpt_fwd_cuda(x16, w, 3)
+    smoke.require("bf16 packet fwd dtype", c16.dtype == torch.bfloat16)
+    smoke.check("bf16 packet fwd vs f32 packet fwd", max_err(c16, c32), 5e-2)
+    smoke.check("bf16 packet round trip", max_err(kp.modwpt_inv_cuda(c16, w),
+                                                  x), 1e-1)
+    a16, t16, v16 = kp.modwpt_select_cuda(x16, w, 3)
+    c16f = kp.modwpt_fwd_cuda(x16.float(), w, 3)
+    smoke.require("bf16 select = arg-max over the forward of its f32 values",
+                  torch.equal(t16.long(), torch.argmax(c16f.abs(), dim=-1)))
+
+    print("== phase 11: gradients through the packet autograd pair",
+          flush=True)
+    x = signal(8, 4096)
+    wts = signal(8, 8, 4096)
+    xk = x.clone().requires_grad_()
+    (kp.modwpt_fused(xk, w, 3) * wts).sum().backward()
+    xp = x.clone().requires_grad_()
+    (jt.modwpt(xp, w, 3, method="direct") * wts).sum().backward()
+    smoke.check("grad of modwpt_fused vs plain autograd",
+                max_err(xk.grad, xp.grad), 1e-4)
+    ck = wts.clone().requires_grad_()
+    (kp.imodwpt_fused(ck, w) * x).sum().backward()
+    cp = wts.clone().requires_grad_()
+    (jt.imodwpt(cp, w, method="direct") * x).sum().backward()
+    smoke.check("grad of imodwpt_fused vs plain autograd",
+                max_err(ck.grad, cp.grad), 1e-4)
+
+    print(f"== phase 12: statistics {MAIN_SHAPE} L{LEVEL}, packet tree "
+          f"{PACKET_SHAPE} L{PACKET_LEVEL}, matching pursuit {MP_SHAPE} "
+          f"L{MP_LEVEL} K={MP_ATOMS}, f32 {WAVELET}, through the public API",
+          flush=True)
+    x = signal(*MAIN_SHAPE)
+    y = 0.5 * x + signal(*MAIN_SHAPE)
+    xp = signal(*PACKET_SHAPE)
+    xm = signal(*MP_SHAPE)
+    counters = {"modwt_var": kv.modwt_var_cuda,
+                "modwpt_fwd": kp.modwpt_fwd_cuda,
+                "modwpt_inv": kp.modwpt_inv_cuda,
+                "modwpt_select": kp.modwpt_select_cuda}
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    var = jt.modwt_variance(x, w, LEVEL)
+    hurst = jt.modwt_hurst(x, w, LEVEL)
+    rho = jt.modwt_correlation(x, y, w, LEVEL)
+    cp = jt.modwpt(xp, w, PACKET_LEVEL)
+    xpr = jt.imodwpt(cp, w)
+    mp = jt.matching_pursuit(xm, w, MP_LEVEL, MP_ATOMS)
+    omp = jt.matching_pursuit(xm, w, MP_LEVEL, MP_ATOMS, orthogonalize=True)
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    print(f"  launches on the statistics and packet-tree path: {launches}",
+          flush=True)
+    for name, count in launches.items():
+        smoke.require(f"{name} kernel launched", count >= 1, f"({count})")
+    b = MAIN_SHAPE[0]
+    for name, t, shape in (
+            ("variance", var, (LEVEL, b)), ("hurst", hurst, (b,)),
+            ("correlation", rho, (LEVEL, b)),
+            ("packet coeffs", cp, (1 << PACKET_LEVEL,) + PACKET_SHAPE),
+            ("packet reconstruction", xpr, PACKET_SHAPE),
+            ("MP residual", mp.residual, MP_SHAPE),
+            ("OMP amps", omp.amps, (MP_SHAPE[0], MP_ATOMS))):
+        smoke.require(f"{name} shape {shape} and finite",
+                      tuple(t.shape) == shape
+                      and bool(torch.isfinite(t).all()))
+    # references: the f64 plain path on two rows
+    ref = jt.modwt_variance(x[:2].double(), w, LEVEL, method="direct")
+    smoke.check("variance vs f64 direct path (relative)",
+                rel_err(var[:, :2], ref), 1e-4)
+    ref = jt.modwt_correlation(x[:2].double(), y[:2].double(), w, LEVEL,
+                               method="direct")
+    smoke.check("correlation (polarization, f32) vs f64 direct path",
+                max_err(rho[:, :2], ref), 1e-3)
+    smoke.require("white-noise Hurst exponent within 0.1 of 1/2",
+                  bool(((hurst - 0.5).abs() < 0.1).all()),
+                  f"(range {float(hurst.min()):.4f}..{float(hurst.max()):.4f})")
+    smoke.check("packet round trip at full width", max_err(xpr, xp), 1e-4)
+    for name, r in (("MP", mp), ("OMP", omp)):
+        smoke.check(f"{name} reconstruct + residual vs input",
+                    max_err(jt.mp_reconstruct(r, w) + r.residual, xm), 1e-3)
+    e_in = (xm.double() ** 2).sum(-1)
+    e_id = (e_in - (mp.amps.double() ** 2).sum(-1)
+            - (mp.residual.double() ** 2).sum(-1)).abs()
+    smoke.check("MP greedy energy identity over ‖x‖²",
+                float(e_id.max() / e_in.max()), 1e-3)
+    mp_d = jt.matching_pursuit(xm, w, MP_LEVEL, MP_ATOMS, method="direct")
+    omp_d = jt.matching_pursuit(xm, w, MP_LEVEL, MP_ATOMS, method="direct",
+                                orthogonalize=True)
+    for name, r, rd in (("MP", mp, mp_d), ("OMP", omp, omp_d)):
+        smoke.require(f"{name} first pick = the method='direct' run's",
+                      torch.equal(r.nodes[:, 0], rd.nodes[:, 0])
+                      and torch.equal(r.shifts[:, 0], rd.shifts[:, 0]))
+        same = int(((r.nodes == rd.nodes) & (r.shifts == rd.shifts)).sum())
+        print(f"  {name}: {same} of {r.nodes.numel()} picks agree with "
+              f"method='direct'", flush=True)
+
+    # each kernel against its plain version at the path's shapes (these
+    # launches are not counted above)
+    a, t, v = kp.modwpt_select_cuda(xm, w, MP_LEVEL)
+    cm = kp.modwpt_fwd_plain(xm, w, MP_LEVEL)
+    at_t = torch.gather(cm, -1, t.long()[..., None])[..., 0]
+    errs = {
+        "modwt_var": smoke.check(
+            "var vs plain at the path's shape", max_err(
+                kv.modwt_var_cuda(x, w, LEVEL),
+                kv.modwt_var_plain(x, w, LEVEL)), 1e-4),
+        "modwpt_fwd": smoke.check(
+            "packet fwd vs plain at the path's shape",
+            max_err(cp, kp.modwpt_fwd_plain(xp, w, PACKET_LEVEL)), 1e-5),
+        "modwpt_inv": smoke.check(
+            "packet inv vs plain at the path's shape",
+            max_err(xpr, kp.modwpt_inv_plain(cp, w)), 1e-4),
+        "modwpt_select": smoke.check(
+            "select value vs plain at the MP shape", max_err(v, at_t), 1e-5),
+    }
+    smoke.check("select: plain |w| at its positions vs plain max",
+                max_err(at_t.abs(), cm.abs().amax(-1)), 1e-5)
+    del cm
+
+    print(f"== phase 13: times (CUDA events, median) on {card}", flush=True)
+    pairs = {
+        "modwt_var": (x, lambda u: kv.modwt_var_cuda(u, w, LEVEL),
+                      lambda u: kv.modwt_var_plain(u, w, LEVEL)),
+        "modwpt_fwd": (xp, lambda u: kp.modwpt_fwd_cuda(u, w, PACKET_LEVEL),
+                       lambda u: kp.modwpt_fwd_plain(u, w, PACKET_LEVEL)),
+        "modwpt_inv": (cp, lambda u: kp.modwpt_inv_cuda(u, w),
+                       lambda u: kp.modwpt_inv_plain(u, w)),
+        "modwpt_select": (xm, lambda u: kp.modwpt_select_cuda(u, w, MP_LEVEL),
+                          lambda u: kp.modwpt_select_plain(u, w, MP_LEVEL)),
+    }
+    times = {}
+    for name, (arg, kern, plain) in pairs.items():
+        times[name] = report_time(jt, name, arg, kern, plain, card)
+
+    print(f"== phase 14: matching pursuit wall time {MP_SHAPE} K={MP_ATOMS} "
+          f"(host clock, median of 3) on {card}", flush=True)
+    for ortho in (False, True):
+        name = "OMP" if ortho else "MP"
+
+        def run_mp(method):
+            return lambda: jt.matching_pursuit(xm, w, MP_LEVEL, MP_ATOMS,
+                                               method=method,
+                                               orthogonalize=ortho)
+
+        td1 = wall_ms(torch, run_mp("direct"))
+        tk1 = wall_ms(torch, run_mp("auto"))
+        tk2 = wall_ms(torch, run_mp("auto"))
+        td2 = wall_ms(torch, run_mp("direct"))
+        print(f"  {name}: select kernel path {(tk1 + tk2) / 2:.3f} ms, "
+              f"method='direct' {(td1 + td2) / 2:.3f} ms [{card}]",
+              flush=True)
+    return launches, errs, times
 
 
 def main() -> int:

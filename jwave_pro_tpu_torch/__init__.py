@@ -1,24 +1,39 @@
 """jwave_pro_tpu_torch — the PyTorch + CUDA port of ``jwave_pro_tpu``.
 
-This slice holds the MODWT forward → shrink → inverse path: the wavelet
-registry, ``modwt``/``imodwt``/``modwt_mra``, the 1D denoise, and the
-hand-written CUDA kernels behind them (``kernels/``, built from ``csrc/``
-with ``nvcc`` on first launch).  Names and signatures match the JAX package;
-tensors stay on the device they arrive on.  Importing this package never
-imports JAX or ``jwave_pro_tpu``.
+These slices hold the MODWT forward → shrink → inverse path (the wavelet
+registry, ``modwt``/``imodwt``/``modwt_mra``, the 1D denoise), the MODWT
+statistics (variance and its confidence band, covariance, correlation,
+cross-correlation, Hurst exponent, change points), the 1D shift-invariant
+packet tree (``modwpt`` and its tree, MRA and best basis) with matching
+pursuit, and the hand-written CUDA kernels behind them (``kernels/``, built
+from ``csrc/`` with ``nvcc`` on first launch).  Names and signatures match
+the JAX package; tensors stay on the device they arrive on.  Importing this
+package never imports JAX or ``jwave_pro_tpu``.
 
     import jwave_pro_tpu_torch as jt
     w = jt.wavelet("Daubechies 4")
     c = jt.modwt(x, w, 5)            # (6, B, N)
     y = jt.modwt_denoise(x, w, 5, method="fused")
+    v = jt.modwt_variance(x, w, 5)   # (5, B)
+    p = jt.modwpt(x, w, 3)           # (8, B, N)
+    r = jt.matching_pursuit(x, w, 3, 16)
 """
 from .exceptions import JWaveException, JWaveFailure, NotKnown
 from .ops import (
     MAX_DECOMPOSITION_LEVEL, bayes_threshold, circular_convolve,
-    circular_convolve_adjoint, hard_threshold, imodwt, mad_sigma, modwt,
+    circular_convolve_adjoint, hard_threshold, imodwpt, imodwt,
+    log_energy_cost, mad_sigma, modwpt, modwpt_basis_reconstruct,
+    modwpt_best_basis, modwpt_mra, modwpt_node_path, modwpt_tree, modwt,
     modwt_base_filters, modwt_denoise, modwt_denoise_inplace, modwt_mra,
-    soft_threshold, sure_threshold, universal_threshold,
+    shannon_entropy_cost, soft_threshold, sure_threshold, threshold_cost,
+    universal_threshold,
 )
+from .ops.analysis import (
+    ChangePoints, VarianceCI, modwt_changepoints, modwt_correlation,
+    modwt_covariance, modwt_cross_correlation, modwt_hurst, modwt_variance,
+    modwt_variance_ci, scale_energies,
+)
+from .ops.mp import MPResult, matching_pursuit, mp_reconstruct
 from .utils import time_chain
 from .wavelets import (
     REGISTRY, DiscreteWavelet, biorthogonal, coiflet, daubechies,
@@ -34,6 +49,13 @@ __all__ = [
     "modwt", "imodwt", "modwt_mra", "modwt_base_filters",
     "MAX_DECOMPOSITION_LEVEL", "circular_convolve",
     "circular_convolve_adjoint",
+    "modwpt", "imodwpt", "modwpt_tree", "modwpt_mra", "modwpt_best_basis",
+    "modwpt_basis_reconstruct", "modwpt_node_path",
+    "log_energy_cost", "shannon_entropy_cost", "threshold_cost",
+    "MPResult", "matching_pursuit", "mp_reconstruct",
+    "modwt_variance", "modwt_variance_ci", "VarianceCI", "modwt_covariance",
+    "modwt_correlation", "modwt_cross_correlation", "modwt_hurst",
+    "scale_energies", "ChangePoints", "modwt_changepoints",
     "soft_threshold", "hard_threshold", "mad_sigma", "universal_threshold",
     "sure_threshold", "bayes_threshold", "modwt_denoise",
     "modwt_denoise_inplace",

@@ -54,6 +54,22 @@ __device__ __forceinline__ void jw_stage_taps(const JwTaps& taps, float* sg,
   }
 }
 
+// Sum of one float per thread over the block, in a fixed order (warp
+// shuffles, then the warps' sums in warp order), so a result never depends
+// on scheduling.  The sum is valid in thread 0.  `scratch` holds
+// JW_THREADS / 32 floats.  Every thread must call it: it synchronises the
+// block, which also makes every shared-memory write before it visible.
+__device__ __forceinline__ float jw_block_sum(float v, float* scratch) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  if ((threadIdx.x & 31) == 0) scratch[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float s = 0.f;
+  if (threadIdx.x == 0)
+    for (int w = 0; w < (int)(blockDim.x >> 5); ++w) s += scratch[w];
+  __syncthreads();
+  return s;
+}
+
 // Lift the 48 KB default cap on dynamic shared memory, launch, and report
 // a refused launch (too much shared memory, bad grid), which would
 // otherwise never run and never show up in torch.cuda.synchronize().

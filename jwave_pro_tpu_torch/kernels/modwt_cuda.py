@@ -45,8 +45,12 @@ __all__ = [
 ]
 
 MAX_TAPS = 64                 # JW_MAX_TAPS in csrc/common.cuh
+WARPS = 512 // 32             # JW_THREADS / 32 in csrc/common.cuh
 SMEM_LIMIT = 232_448          # shared memory one H100 block may use (227 KB)
-TILES = {"fwd": 4096, "inv": 4096, "denoise": 2048}   # outputs per block
+# outputs per block; the packet kernels ('pfwd', 'select', 'pinv') keep
+# 2L - 1 or 2L window rows, hence the smaller tile
+TILES = {"fwd": 4096, "inv": 4096, "denoise": 2048, "var": 4096,
+         "pfwd": 2048, "select": 2048, "pinv": 2048}
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}   # JwDtype
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -59,21 +63,30 @@ def halo(m: int, level: int) -> int:
 
 def smem_bytes(level: int, m: int, kind: str) -> int:
     """Dynamic shared memory of one block: the taps plus the window rows
-    (two V buffers for 'fwd'; two V and one W for 'inv'; two V and L
-    W rows over a two-sided window for 'denoise')."""
+    (two V buffers for 'fwd' and 'var', which adds its warp sums; two V and
+    one W for 'inv'; two V and L W rows over a two-sided window for
+    'denoise'; the depth-first packet path's 2L − 1 rows for 'pfwd' and
+    'select', which adds (|w|, w, position) of two leaves per warp; 2L rows
+    for 'pinv')."""
     h, t = halo(m, level), TILES[kind]
     rows = {"fwd": 2 * (t + h), "inv": 3 * (t + h),
-            "denoise": (level + 2) * (t + 2 * h)}[kind]
+            "denoise": (level + 2) * (t + 2 * h),
+            "var": 2 * (t + h) + WARPS,
+            "pfwd": (2 * level - 1) * (t + h),
+            "select": (2 * level - 1) * (t + h) + 6 * WARPS,
+            "pinv": 2 * level * (t + h)}[kind]
     return 4 * (2 * MAX_TAPS + rows)
 
 
 def kernel_supported(n: int, level: int, m: int, kind: str) -> bool:
-    """Whether kernel ``kind`` ('fwd', 'inv', 'denoise') runs this shape.
+    """Whether kernel ``kind`` runs this shape: 'fwd', 'inv', 'denoise',
+    'var' (MODWT), 'pfwd', 'select', 'pinv' (MODWPT).
 
-    The counterpart of ``pallas_supported``/``denoise_fused_supported``,
+    The counterpart of the JAX package's ``pallas_supported`` family,
     re-derived from the 227 KB shared-memory budget of a block: any N runs,
-    the halo must fit (Db4 runs to L=11 forward, L=8 denoise; Db4 L13's
-    57,337-sample halo does not fit).
+    the halo must fit (Db4 runs to L=11 forward and variance, L=8 denoise,
+    packet forward and select, L=7 packet inverse; Db4 L13's 57,337-sample
+    halo does not fit).
     """
     return (1 <= n < 2 ** 31 and level >= 1 and 1 <= m <= MAX_TAPS
             and smem_bytes(level, m, kind) <= SMEM_LIMIT)

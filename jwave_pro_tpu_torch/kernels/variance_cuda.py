@@ -1,0 +1,105 @@
+"""Fused MODWT wavelet-variance kernel for the H100 (``csrc/variance.cu``).
+
+Replaces ``jwave_pro_tpu/kernels/variance_pallas.py`` ``_var_kernel``
+(``:80``): the forward cascade with each level's Σw² in place of the
+stores, so the coefficients never reach device memory.  Each block writes
+its tile's sums to a small ``(level+1, B, tiles)`` buffer; the wrapper adds
+the tiles up with torch (no atomics, so the statistic does not depend on
+the order the blocks ran in), as the JAX code finishes its 128-lane
+partials outside the kernel.
+
+What bounds it on the H100: one read per sample and no stores, so the
+cascade's shared-memory loads (2·M per sample and level) rather than
+device memory.  Any N runs: positions past N never count.
+
+Beside the kernel: its plain PyTorch version (:func:`modwt_var_plain`) and
+its launch counter (``modwt_var_cuda.launches``).  The result is float32
+for float32 and bfloat16 input alike.
+"""
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from ..ops.modwt import _check_level
+from ..wavelets.base import DiscreteWavelet
+from . import _build
+from .modwt_cuda import (
+    _I, _P, DTYPE_CODES, TILES, _compute_dtype, check_grid, check_operand,
+    halo, kernel_supported, kernel_taps, modwt_fwd_plain, smem_bytes,
+)
+
+__all__ = ["modwt_var_fused", "modwt_var_cuda", "modwt_var_plain"]
+
+
+def modwt_var_plain(x: torch.Tensor, wavelet: DiscreteWavelet,
+                    level: int) -> torch.Tensor:
+    """The variance kernel's function in plain PyTorch: ``(..., N)`` →
+    ``(level+1, ...)`` rows ``mean(W_1²) … mean(W_L²), mean(V_L²)``,
+    computed (and returned) in float32, float64 for float64 input."""
+    c = modwt_fwd_plain(x.to(_compute_dtype(x.dtype)), wavelet, level)
+    return torch.mean(c * c, dim=-1)
+
+
+@functools.cache
+def _lib():
+    lib = _build.library()
+    lib.jw_modwt_var.argtypes = [_P, _P, _I, _I, _I, _P, _P, _I, _I, _I, _I,
+                                 _I, _I, _P]
+    lib.jw_modwt_var.restype = _I
+    return lib
+
+
+def modwt_var_cuda(x: torch.Tensor, wavelet: DiscreteWavelet,
+                   level: int) -> torch.Tensor:
+    """Launch the variance kernel: x (B, N) → (level+1, B) float32."""
+    check_operand(x, "x", 2)
+    b, n = x.shape
+    m = wavelet.length
+    if not kernel_supported(n, level, m, "var"):
+        raise ValueError(f"unsupported shape {tuple(x.shape)} level {level} "
+                         f"for the fused variance kernel")
+    check_grid(b, n, "var")
+    tile = TILES["var"]
+    partial = torch.empty((level + 1, b, -(-n // tile)), dtype=torch.float32,
+                          device=x.device)
+    g, h = kernel_taps(wavelet)
+    lib = _lib()
+    code = lib.jw_modwt_var(
+        x.data_ptr(), partial.data_ptr(), b, n, level, g.ctypes.data,
+        h.ctypes.data, m, tile, halo(m, level), smem_bytes(level, m, "var"),
+        DTYPE_CODES[x.dtype], x.device.index,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, code, "fused variance kernel")
+    modwt_var_cuda.launches += 1
+    return partial.sum(dim=-1) / n
+
+
+modwt_var_cuda.launches = 0
+
+
+def modwt_var_fused(x: torch.Tensor, wavelet: DiscreteWavelet,
+                    level: int) -> torch.Tensor:
+    """Fused per-scale second moments: x (B, N) → (level+1, B), (N,) →
+    (level+1,), rows ``mean(W_1²) … mean(W_L²), mean(V_L²)``.
+
+    Rows 0..level−1 are the biased, all-N, circular wavelet variances ν²_j
+    of :func:`ops.analysis.modwt_variance`.  A CUDA tensor runs the kernel
+    or raises; a CPU tensor runs the plain version.  Raises for shapes
+    :func:`kernel_supported` rejects.
+    """
+    if x.ndim not in (1, 2):
+        raise ValueError(f"fused variance takes (N,) or (B, N), got "
+                         f"{tuple(x.shape)}")
+    n = x.shape[-1]
+    _check_level(n, level)
+    if not kernel_supported(n, level, wavelet.length, "var"):
+        raise ValueError(f"unsupported shape {tuple(x.shape)} for fused "
+                         f"variance")
+    if x.is_cuda:
+        out = modwt_var_cuda(x.contiguous().reshape(-1, n), wavelet, level)
+        return out.reshape((level + 1,) + tuple(x.shape[:-1]))
+    if x.device.type != "cpu":
+        raise ValueError(f"no variance kernel for device {x.device}")
+    return modwt_var_plain(x, wavelet, level)

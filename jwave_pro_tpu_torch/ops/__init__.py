@@ -7,11 +7,21 @@ from .modwt import (
     MAX_DECOMPOSITION_LEVEL, circular_convolve, circular_convolve_adjoint,
     imodwt, modwt, modwt_base_filters, modwt_mra,
 )
+from .modwpt import (
+    imodwpt, modwpt, modwpt_basis_reconstruct, modwpt_best_basis, modwpt_mra,
+    modwpt_node_path, modwpt_tree,
+)
+from .wpt import (
+    log_energy_cost, shannon_entropy_cost, sure_cost, threshold_cost,
+)
 
 __all__ = [
     "modwt", "imodwt", "modwt_mra", "modwt_base_filters",
     "MAX_DECOMPOSITION_LEVEL", "circular_convolve",
     "circular_convolve_adjoint",
+    "imodwpt", "modwpt", "modwpt_basis_reconstruct", "modwpt_best_basis",
+    "modwpt_mra", "modwpt_node_path", "modwpt_tree",
+    "log_energy_cost", "shannon_entropy_cost", "sure_cost", "threshold_cost",
     "soft_threshold", "hard_threshold", "mad_sigma", "universal_threshold",
     "sure_threshold", "bayes_threshold", "modwt_denoise",
     "modwt_denoise_inplace",

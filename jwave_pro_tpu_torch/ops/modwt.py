@@ -126,6 +126,12 @@ def _spectral(mult: np.ndarray, like: torch.Tensor) -> torch.Tensor:
     return torch.from_numpy(mult).to(device=like.device, dtype=like.dtype)
 
 
+def _composite_shape(mult: torch.Tensor, batch_ndim: int) -> torch.Tensor:
+    """Reshape the (R, F) stack to broadcast over leading batch dims."""
+    r, f = mult.shape
+    return mult.reshape((r,) + (1,) * batch_ndim + (f,))
+
+
 def _use_fft(method: str, n: int, m_base: int, dilation: int) -> bool:
     if method == "fft":
         return True
@@ -263,10 +269,9 @@ def modwt(x: torch.Tensor, wavelet: DiscreteWavelet, level: int,
     n = x.shape[-1]
     if method in ("fft", "auto") and _use_fft(method, n, g.shape[0], 1):
         # composite spectral cascade: one rfft + one batched irfft
-        mult = _composite_fft_multipliers(wavelet, level, n)
         xf = torch.fft.rfft(x)
-        mult = _spectral(mult, xf).reshape(
-            (level + 1,) + (1,) * (x.ndim - 1) + (-1,))
+        mult = _composite_shape(_spectral(
+            _composite_fft_multipliers(wavelet, level, n), xf), x.ndim - 1)
         return torch.fft.irfft(xf[None] * mult, n=n).to(x.dtype)
     rows = []
     v = x
@@ -304,9 +309,9 @@ def imodwt(coeffs: torch.Tensor, wavelet: DiscreteWavelet,
         # adjoint composite cascade: the per-level conj multipliers compose
         # to the conj of the forward stack — (level+1) rffts, ONE irfft
         cf = torch.fft.rfft(coeffs)
-        mult = _spectral(np.conj(_composite_fft_multipliers(wavelet, level, n)),
-                         cf).reshape((level + 1,) + (1,) * (coeffs.ndim - 2)
-                                     + (-1,))
+        mult = _composite_shape(_spectral(np.conj(
+            _composite_fft_multipliers(wavelet, level, n)), cf),
+            coeffs.ndim - 2)
         acc = torch.sum(cf * mult, dim=0)
         return torch.fft.irfft(acc, n=n).to(coeffs.dtype)
     for j in range(level, 0, -1):

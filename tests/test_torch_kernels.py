@@ -10,7 +10,13 @@ conftest:
 Tolerances: f32 forward 1e-5 and inverse 1e-4 absolute (the on-chip bounds
 the JAX package's TPU smoke holds its kernels to: both compute in f32 in a
 different order); bf16 one bf16 ulp plus the f32 noise (relative 2⁻⁷,
-absolute 1e-5), since both round the same f32 results once.
+absolute 1e-5), since both round the same f32 results once.  The variance
+1e-4 relative (the TPU smoke's bound; f32 sums in another order).  The
+packet select: positions and values exact against the arg-max over the
+packet forward kernel's own output (the same cascade, the same float
+operations); against the plain version the value within 1e-5, and the
+plain |w| at the kernel's position within 1e-5 of the plain maximum, which
+tolerates a near-tie in f32.
 """
 import numpy as np
 import pytest
@@ -18,7 +24,9 @@ import torch
 
 import jwave_pro_tpu_torch as jt
 from jwave_pro_tpu_torch.kernels import denoise_cuda as kd
+from jwave_pro_tpu_torch.kernels import modwpt_cuda as kp
 from jwave_pro_tpu_torch.kernels import modwt_cuda as kc
+from jwave_pro_tpu_torch.kernels import variance_cuda as kv
 
 pytestmark = pytest.mark.cuda
 
@@ -118,3 +126,143 @@ def test_gradients_through_the_kernel_pair(dev):
     xp = x.clone().requires_grad_()
     (jt.modwt(xp, DB4, 3, method="direct") * wts).sum().backward()
     torch.testing.assert_close(xk.grad, xp.grad, rtol=0, atol=1e-4)
+
+
+# -- the MODWT statistics and packet-tree kernels ----------------------------
+
+SLICE_SHAPES = [
+    (8, 4096, 3, "Daubechies 4"),
+    (3, 100003, 3, "Daubechies 4"),   # arbitrary N, ragged last tile
+    (2, 16, 4, "Daubechies 4"),       # halo (105) longer than the signal
+    (4, 5000, 2, "Symlet 8"),
+    (1, 1 << 16, 5, "Daubechies 4"),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch,n,level,name", SLICE_SHAPES)
+def test_variance_matches_plain(dev, batch, n, level, name, dtype):
+    w = jt.wavelet(name)
+    x = _signal(dev, batch, n, seed=5, dtype=dtype)
+    got = kv.modwt_var_cuda(x, w, level)
+    assert got.dtype == torch.float32 and got.shape == (level + 1, batch)
+    torch.testing.assert_close(got, kv.modwt_var_plain(x, w, level),
+                               rtol=1e-4, atol=0)
+    one = kv.modwt_var_fused(x[0], w, level)          # the (N,) contract
+    assert one.shape == (level + 1,)
+    torch.testing.assert_close(one, got[:, 0], rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch,n,level,name", SLICE_SHAPES)
+def test_packet_forward_and_inverse_match_plain(dev, batch, n, level, name,
+                                                dtype):
+    w = jt.wavelet(name)
+    x = _signal(dev, batch, n, seed=6, dtype=dtype)
+    c = kp.modwpt_fwd_cuda(x, w, level)
+    assert c.dtype == dtype and c.shape == (1 << level, batch, n)
+    _close(c, kp.modwpt_fwd_plain(x, w, level), dtype)
+    back = kp.modwpt_inv_cuda(c, w)
+    want = kp.modwpt_inv_plain(c, w)
+    if dtype == torch.bfloat16:
+        _close(back, want, dtype)
+        torch.testing.assert_close(back.float(), x.float(), rtol=0, atol=1e-1)
+    else:
+        torch.testing.assert_close(back, want, rtol=0, atol=1e-4)
+        torch.testing.assert_close(back, x, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch,n,level,name", SLICE_SHAPES)
+def test_select_matches_argmax_and_plain(dev, batch, n, level, name, dtype):
+    w = jt.wavelet(name)
+    x = _signal(dev, batch, n, seed=7, dtype=dtype)
+    a, t, v = kp.modwpt_select_cuda(x, w, level)
+    assert a.dtype == v.dtype == torch.float32 and t.dtype == torch.int32
+    assert t.shape == (1 << level, batch)
+    # exact against the first arg-max of the forward kernel's own output
+    c = kp.modwpt_fwd_cuda(x.float(), w, level)
+    want_t = torch.argmax(c.abs(), dim=-1)
+    assert torch.equal(t.long(), want_t)
+    assert torch.equal(v, torch.gather(c, -1, want_t[..., None])[..., 0])
+    assert torch.equal(a, v.abs())
+    # against the plain version, tolerating an f32 near-tie
+    pa, _, _ = kp.modwpt_select_plain(x, w, level)
+    cp = kp.modwpt_fwd_plain(x.float(), w, level)
+    at_t = torch.gather(cp, -1, t.long()[..., None])[..., 0]
+    torch.testing.assert_close(v, at_t, rtol=0, atol=1e-5)
+    torch.testing.assert_close(at_t.abs(), pa, rtol=0, atol=1e-5)
+
+
+def test_slice_public_path_launches_each_kernel(dev):
+    w = DB4
+    x = _signal(dev, 4, 8192, seed=8)
+    y = _signal(dev, 4, 8192, seed=9)
+    counters = (kv.modwt_var_cuda, kp.modwpt_fwd_cuda, kp.modwpt_inv_cuda,
+                kp.modwpt_select_cuda)
+    before = [fn.launches for fn in counters]
+    v = jt.modwt_variance(x, w, 5)
+    rho = jt.modwt_correlation(x, y, w, 5)
+    c = jt.modwpt(x, w, 3)
+    xr = jt.imodwpt(c, w)
+    r = jt.matching_pursuit(x, w, 3, 4)
+    torch.cuda.synchronize()
+    launched = [fn.launches - b for fn, b in zip(counters, before)]
+    # variance: 1; correlation: x+y, x−y, x, y; MP: one select per atom
+    assert launched == [5, 1, 1, 4]
+    assert v.shape == (5, 4) and v.dtype == torch.float32
+    torch.testing.assert_close(
+        v, jt.modwt_variance(x.double(), w, 5, method="direct").float(),
+        rtol=1e-4, atol=0)
+    assert bool(torch.all(rho.abs() <= 1.0 + 1e-5))
+    torch.testing.assert_close(xr, x, rtol=0, atol=1e-4)
+    torch.testing.assert_close(jt.mp_reconstruct(r, w) + r.residual, x,
+                               rtol=0, atol=1e-4)
+    direct = jt.matching_pursuit(x, w, 3, 4, method="direct")
+    assert torch.equal(r.nodes[:, 0], direct.nodes[:, 0])
+    assert torch.equal(r.shifts[:, 0], direct.shifts[:, 0])
+    assert c.device == x.device == r.residual.device
+
+
+def test_slice_auto_routes_f64_and_unsupported_shapes_to_plain(dev):
+    counters = (kv.modwt_var_cuda, kp.modwpt_fwd_cuda, kp.modwpt_select_cuda)
+    before = [fn.launches for fn in counters]
+    x64 = _signal(dev, 2, 1024, dtype=torch.float64)
+    jt.modwt_variance(x64, DB4, 3)
+    jt.modwpt(x64, DB4, 3)
+    jt.matching_pursuit(x64, DB4, 2, 2)
+    jt.modwpt(_signal(dev, 1, 1024), DB4, 9)       # Db4 L9 does not fit
+    assert [fn.launches for fn in counters] == before
+    with pytest.raises(ValueError, match="float32/bfloat16"):
+        jt.modwt_variance(x64, DB4, 3, method="fused")
+
+
+def test_slice_launchers_reject_what_the_kernel_does_not_take(dev):
+    x = _signal(dev, 4, 1024)
+    for launch in (kv.modwt_var_cuda, kp.modwpt_fwd_cuda,
+                   kp.modwpt_select_cuda):
+        with pytest.raises(ValueError, match="contiguous"):
+            launch(x[:, ::2], DB4, 2)
+        with pytest.raises(ValueError, match="float32/bfloat16"):
+            launch(x.double(), DB4, 2)
+        with pytest.raises(ValueError, match="unsupported shape"):
+            launch(x, DB4, 12)                    # the halo does not fit
+    with pytest.raises(ValueError, match="2\\^level"):
+        kp.modwpt_inv_cuda(_signal(dev, 3, 4, 1024), DB4)
+    with pytest.raises(ValueError, match="expected 3 dims"):
+        kp.modwpt_inv_cuda(x, DB4)
+
+
+def test_gradients_through_the_packet_pair(dev):
+    x = _signal(dev, 8, 4096, seed=10)
+    wts = _signal(dev, 8, 8, 4096, seed=11)
+    xk = x.clone().requires_grad_()
+    (kp.modwpt_fused(xk, DB4, 3) * wts).sum().backward()
+    xp = x.clone().requires_grad_()
+    (jt.modwpt(xp, DB4, 3, method="direct") * wts).sum().backward()
+    torch.testing.assert_close(xk.grad, xp.grad, rtol=0, atol=1e-4)
+    ck = wts.clone().requires_grad_()
+    (kp.imodwpt_fused(ck, DB4) * x).sum().backward()
+    cp = wts.clone().requires_grad_()
+    (jt.imodwpt(cp, DB4, method="direct") * x).sum().backward()
+    torch.testing.assert_close(ck.grad, cp.grad, rtol=0, atol=1e-4)

@@ -1,0 +1,284 @@
+"""The port's 1D MODWPT against the JAX package's, on the CPU.
+
+Inputs are numpy arrays from a seed handed to both packages.  Tolerances:
+
+* f64 transforms, tree, MRA and best-basis reconstruction, 1e-12 absolute:
+  both run the same float64 arithmetic (rolls and multiply-adds, or the
+  same host-built spectra through an FFT); only FFT library rounding
+  differs.  Best-basis masks are compared exactly, total costs to 1e-9
+  relative (sums of N·2^L logarithms).
+* the packet kernels' plain versions against the JAX Pallas kernels in
+  interpret mode, f32, 2e-5 absolute: the bound
+  ``tests/test_pallas_kernels.py`` holds the Pallas kernels to; both
+  compute in f32 in a different order.  Select positions are compared
+  exactly (the random inputs have no near-ties at f32 resolution), select
+  values to 2e-5.  bf16: one bf16 ulp (relative 2⁻⁷), both round the same
+  f32 results once.
+"""
+import functools
+import importlib
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+import jwave_pro_tpu as jw
+import jwave_pro_tpu_torch as jt
+from jwave_pro_tpu.kernels.modwpt_pallas import (
+    imodwpt_fused as jax_imodwpt_fused, modwpt_fused as jax_modwpt_fused,
+    modwpt_select_fused as jax_select_fused,
+)
+from jwave_pro_tpu_torch.kernels import modwpt_cuda as kp
+from jwave_pro_tpu_torch.kernels import modwt_cuda as kc
+
+port_modwpt = importlib.import_module("jwave_pro_tpu_torch.ops.modwpt")
+
+DB4 = "Daubechies 4"
+WAVELETS = [DB4, "Haar", "Symlet 8"]
+# (shape, level): power of 2, odd and 100-sample signals, 1D and batched,
+# every level 1..4
+CASES = [((64,), 4), ((2, 101), 2), ((3, 100), 1), ((2, 64), 3)]
+COSTS = ["shannon", "logenergy", "threshold", "sure"]
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax(fn, *static):
+    """JIT the JAX function once per static arguments."""
+    f = getattr(jw, fn)
+    return jax.jit(lambda a: f(a, *static))
+
+
+@pytest.mark.parametrize("method", ["direct", "fft", "auto_reference"])
+@pytest.mark.parametrize("name", WAVELETS)
+def test_modwpt_imodwpt_match_jax_f64(name, method):
+    wj, wt = jw.wavelet(name), jt.wavelet(name)
+    rng = np.random.default_rng(WAVELETS.index(name))
+    for shape, level in CASES:
+        x = rng.standard_normal(shape)
+        want = np.asarray(_jax("modwpt", wj, level, method)(x))
+        got = jt.modwpt(_t(x), wt, level, method=method)
+        assert got.dtype == torch.float64 and got.shape == want.shape
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-12,
+                                   err_msg=f"{name} {shape} L{level}")
+        back_want = np.asarray(_jax("imodwpt", wj, method)(want))
+        back = jt.imodwpt(_t(want), wt, method=method)
+        np.testing.assert_allclose(back.numpy(), back_want, rtol=0,
+                                   atol=1e-12)
+        np.testing.assert_allclose(back.numpy(), x, rtol=0, atol=1e-10)
+
+
+def test_auto_and_integer_input_match_jax():
+    wj, wt = jw.wavelet(DB4), jt.wavelet(DB4)
+    x = np.random.default_rng(7).standard_normal((2, 100))
+    want = np.asarray(_jax("modwpt", wj, 3, "auto")(x))
+    np.testing.assert_allclose(jt.modwpt(_t(x), wt, 3).numpy(), want,
+                               rtol=0, atol=1e-12)
+    np.testing.assert_allclose(jt.imodwpt(_t(want), wt).numpy(),
+                               np.asarray(_jax("imodwpt", wj, "auto")(want)),
+                               rtol=0, atol=1e-12)
+    xi = np.arange(64) % 5
+    got = jt.modwpt(torch.from_numpy(xi), wt, 2)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(jw.modwpt(xi, wj, 2)),
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("name", [DB4, "Haar"])
+def test_tree_and_mra_match_jax_f64(name):
+    wj, wt = jw.wavelet(name), jt.wavelet(name)
+    x = np.random.default_rng(3).standard_normal((2, 64))
+    want = _jax("modwpt_tree", wj, 3, "direct")(x)
+    got = jt.modwpt_tree(_t(x), wt, 3)
+    assert len(got) == 4
+    for g, w in zip(got, want):
+        assert tuple(g.shape) == w.shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0,
+                                   atol=1e-12)
+    mra = jt.modwpt_mra(_t(x), wt, 3)
+    np.testing.assert_allclose(
+        mra.numpy(), np.asarray(_jax("modwpt_mra", wj, 3, "direct")(x)),
+        rtol=0, atol=1e-12)
+    np.testing.assert_allclose(mra.sum(0).numpy(), x, atol=1e-10)
+
+
+def test_node_path_matches_jax():
+    for level in range(1, 5):
+        for node in range(1 << level):
+            assert (jt.modwpt_node_path(level, node)
+                    == jw.modwpt_node_path(level, node))
+    for args in ((2, 4), (2, -1)):
+        with pytest.raises(ValueError, match="out of range"):
+            jt.modwpt_node_path(*args)
+
+
+@pytest.mark.parametrize("cost", COSTS)
+def test_best_basis_and_reconstruct_match_jax_f64(cost):
+    wj, wt = jw.wavelet(DB4), jt.wavelet(DB4)
+    rng = np.random.default_rng(COSTS.index(cost))
+    t = np.arange(128)
+    x = (np.sin(2 * np.pi * 0.3 * t)[None] * np.ones((2, 1))
+         + 0.3 * rng.standard_normal((2, 128)))
+    masks_w, cost_w, tree_w = _jax("modwpt_best_basis", wj, 3, cost)(x)
+    masks, total, tree = jt.modwpt_best_basis(_t(x), wt, 3, cost)
+    for m, mw in zip(masks, masks_w):
+        assert m.dtype == torch.bool
+        np.testing.assert_array_equal(m.numpy(), np.asarray(mw))
+    np.testing.assert_allclose(float(total), float(cost_w), rtol=1e-9)
+    # every sample is covered by exactly one leaf of the basis
+    covered = sum(m.repeat_interleave(1 << (3 - l)).long()
+                  for l, m in enumerate(masks))
+    assert bool(torch.all(covered == 1))
+    rec = jt.modwpt_basis_reconstruct(tree, masks, wt)
+    rec_w = jw.modwpt_basis_reconstruct(
+        [jnp.asarray(r) for r in tree_w], masks_w, wj)
+    np.testing.assert_allclose(rec.numpy(), np.asarray(rec_w), rtol=0,
+                               atol=1e-12)
+    np.testing.assert_allclose(rec.numpy(), x, atol=1e-10)
+
+
+def test_cost_functions_match_jax():
+    jax_wpt = importlib.import_module("jwave_pro_tpu.ops.wpt")
+    port_wpt = importlib.import_module("jwave_pro_tpu_torch.ops.wpt")
+    c = np.random.default_rng(8).standard_normal((4, 33))
+    c[0, :5] = 0.0                             # 0·ln 0 and ln 0 terms
+    assert set(port_wpt._COSTS) == set(jax_wpt._COSTS)
+    for name, fn in port_wpt._COSTS.items():
+        np.testing.assert_allclose(fn(_t(c), axis=-1).numpy(),
+                                   np.asarray(jax_wpt._COSTS[name](c)),
+                                   rtol=1e-13, atol=1e-12, err_msg=name)
+    np.testing.assert_allclose(
+        port_wpt.sure_cost(_t(c), axis=0, threshold=0.5).numpy(),
+        np.asarray(jax_wpt.sure_cost(c, axis=0, threshold=0.5)), atol=1e-12)
+
+
+def test_validation_and_cpu_dispatch():
+    wt = jt.wavelet(DB4)
+    with pytest.raises(ValueError, match="2\\^level"):
+        jt.imodwpt(torch.zeros(3, 64), wt)
+    with pytest.raises(ValueError, match="exceeds"):
+        jt.modwpt(torch.zeros(8), wt, 4)
+    x = torch.zeros(8, 2048)
+    assert port_modwpt._try_kernel(x, wt, 3) is None
+    with pytest.raises(ValueError, match="fused kernel unavailable"):
+        jt.modwpt(x, wt, 3, method="pallas")
+    with pytest.raises(ValueError, match="fused kernel unavailable"):
+        jt.imodwpt(torch.zeros(8, 4, 2048), wt, method="pallas")
+
+
+# -- the kernels' plain versions against the JAX Pallas kernels --------------
+
+@pytest.mark.parametrize("batch,n,level", [
+    (8, 2048, 3),      # the JAX kernel tests' base shape
+    (2, 4096, 4),      # small batch, 16 nodes (folded in the JAX kernel)
+    (8, 5000, 2),      # arbitrary N (padded plan in the JAX kernel)
+])
+def test_packet_plain_versions_match_jax_interpret(batch, n, level):
+    rng = np.random.default_rng(batch * n + level)
+    x = rng.standard_normal((batch, n)).astype(np.float32)
+    wj, wt = jw.wavelet(DB4), jt.wavelet(DB4)
+    want = np.asarray(jax_modwpt_fused(jnp.asarray(x), wj, level,
+                                       interpret=True))
+    got = kp.modwpt_fused(_t(x), wt, level)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=2e-5)
+    back_want = np.asarray(jax_imodwpt_fused(jnp.asarray(want), wj,
+                                             interpret=True))
+    back = kp.imodwpt_fused(_t(want), wt)
+    np.testing.assert_allclose(back.numpy(), back_want, rtol=0, atol=2e-5)
+    np.testing.assert_allclose(back.numpy(), x, rtol=0, atol=2e-5)
+    val, shift, sval = (np.asarray(a) for a in jax_select_fused(
+        jnp.asarray(x), wj, level, interpret=True))
+    got_a, got_t, got_v = kp.modwpt_select_fused(_t(x), wt, level)
+    assert got_t.dtype == torch.int32 and got_t.shape == shift.shape
+    np.testing.assert_array_equal(got_t.numpy(), shift)
+    np.testing.assert_allclose(got_v.numpy(), sval, rtol=0, atol=2e-5)
+    np.testing.assert_allclose(got_a.numpy(), val, rtol=0, atol=2e-5)
+
+
+def test_select_plain_is_the_first_argmax_of_the_forward():
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (3, 300)).astype(np.float32))
+    w = jt.wavelet(DB4)
+    x[1, 40] = x[1, 41] = 50.0                  # an exact tie in the nodes
+    c = kp.modwpt_fwd_plain(x, w, 2)
+    a, t, v = kp.modwpt_select_plain(x, w, 2)
+    assert torch.equal(t.long(), torch.argmax(c.abs(), dim=-1))
+    assert torch.equal(v, torch.gather(c, -1, t.long()[..., None])[..., 0])
+    assert torch.equal(a, v.abs())
+
+
+def test_packet_plain_bf16_matches_jax_interpret():
+    x = np.random.default_rng(5).standard_normal((8, 2048)).astype(np.float32)
+    wj, wt = jw.wavelet(DB4), jt.wavelet(DB4)
+    want = np.asarray(jax_modwpt_fused(jnp.asarray(x, jnp.bfloat16), wj, 2,
+                                       interpret=True).astype(jnp.float32))
+    got = kp.modwpt_fused(_t(x).bfloat16(), wt, 2)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=2 ** -7,
+                               atol=1e-6)
+    back_want = np.asarray(jax_imodwpt_fused(
+        jnp.asarray(want, jnp.bfloat16), wj, interpret=True
+    ).astype(jnp.float32))
+    back = kp.imodwpt_fused(_t(want).bfloat16(), wt)
+    assert back.dtype == torch.bfloat16
+    np.testing.assert_allclose(back.float().numpy(), back_want, rtol=2 ** -7,
+                               atol=1e-6)
+    # bf16 in, f32 arithmetic, bf16 out
+    xt = _t(x[:2, :512]).bfloat16()
+    assert torch.equal(kp.modwpt_fwd_plain(xt, wt, 2),
+                       kp.modwpt_fwd_plain(xt.float(), wt, 2).bfloat16())
+
+
+def test_packet_kernel_supported_budget():
+    # Db4 L3: halo 7·7 = 49, every packet kernel takes any N
+    for kind in ("pfwd", "select", "pinv"):
+        assert kc.kernel_supported(1 << 18, 3, 8, kind)
+        assert kc.kernel_supported(100003, 3, 8, kind)
+        assert kc.kernel_supported(16, 4, 8, kind)        # halo > N
+        assert kc.smem_bytes(3, 8, kind) <= kc.SMEM_LIMIT
+    # shared memory grows with L, not 2^L: Db4 L8 forward and select fit,
+    # the inverse's 2L rows stop at L7
+    assert kc.kernel_supported(1 << 20, 8, 8, "pfwd")
+    assert kc.kernel_supported(1 << 20, 8, 8, "select")
+    assert kc.kernel_supported(1 << 20, 7, 8, "pinv")
+    assert not kc.kernel_supported(1 << 20, 8, 8, "pinv")
+    assert kp.select_fused_supported(8, 65536, 3, 8)
+    assert not kp.select_fused_supported(8, 65536, 9, 8)
+
+
+def test_fused_wrappers_raise_on_unsupported_input():
+    w = jt.wavelet(DB4)
+    with pytest.raises(ValueError, match="unsupported shape"):
+        kp.modwpt_fused(torch.zeros(1 << 10), w, 10)
+    with pytest.raises(ValueError):
+        kp.modwpt_fused(torch.zeros(2, 2, 64), w, 2)
+    with pytest.raises(ValueError, match="2\\^level"):
+        kp.imodwpt_fused(torch.zeros(3, 64), w)
+    with pytest.raises(ValueError):
+        kp.modwpt_select_fused(torch.zeros(64), w, 2)
+    for launch in (lambda: kp.modwpt_fwd_cuda(torch.zeros(2, 64), w, 2),
+                   lambda: kp.modwpt_inv_cuda(torch.zeros(4, 2, 64), w),
+                   lambda: kp.modwpt_select_cuda(torch.zeros(2, 64), w, 2)):
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            launch()
+
+
+@pytest.mark.parametrize("shape", [(2, 64), (96,)])
+def test_gradcheck_autograd_pair_f64(shape):
+    """Backward of each direction is the other kernel (Aᵀ = A⁻¹); on the
+    CPU both run their plain versions, so gradcheck sees the exact pair."""
+    w = jt.wavelet(DB4)
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(shape, dtype=torch.float64, generator=gen,
+                    requires_grad=True)
+    assert torch.autograd.gradcheck(lambda v: kp.modwpt_fused(v, w, 2), (x,))
+    c = torch.randn((4,) + shape, dtype=torch.float64, generator=gen,
+                    requires_grad=True)
+    assert torch.autograd.gradcheck(lambda v: kp.imodwpt_fused(v, w), (c,))
