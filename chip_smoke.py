@@ -12,7 +12,10 @@ fused denoise over 32 signals of 2^20 float32 samples, and the 1D forward
 at N = 2^24), and the statistics and packet-tree path (wavelet variance,
 Hurst exponent and correlation at 32 × 2^20, the packet tree and its
 inverse at 32 × 2^18 level 3, greedy and orthogonal matching pursuit at
-8 × 65536 level 3 with 16 atoms).  The kernels' launch counters, set to 0
+8 × 65536 level 3 with 16 atoms), and the 2D image path (forward,
+inverse, fused and pipeline denoise of sixteen 2048 × 2048 float32 frames
+at Db4 level 3, the quad-tree packets at level 2, the 2D MRA at
+2 × 512 × 512).  The kernels' launch counters, set to 0
 before each path and read after it, show that the path ran through them;
 CUDA events time each kernel against its plain version.  Every check
 prints a line; any failure exits non-zero.  The second-to-last line
@@ -40,6 +43,14 @@ SEED = 0
 # the statistics and packet-tree path (bench.py:339, :118, :145)
 PACKET_SHAPE, PACKET_LEVEL = (32, 1 << 18), 3
 MP_SHAPE, MP_LEVEL, MP_ATOMS = (8, 65536), 3, 16
+# the 2D image path: sixteen 4-megapixel frames (bench.py:417-443's Db4 L3
+# transforms at full frame size), bench.py's own (8, 512, 512) shape, the
+# quad-tree packets (bench.py:132) and the MRA
+IMAGE_SHAPE, IMAGE_LEVEL = (16, 2048, 2048), 3
+IMAGE_BENCH = (8, 512, 512)
+PACKET2_LEVEL = 2
+MRA_SHAPE = (2, 512, 512)
+IMAGE_THR = 0.8
 
 
 class Smoke:
@@ -273,11 +284,12 @@ def run(smoke: Smoke, torch, jt) -> dict:
     for name, (arg, kern, plain) in pairs.items():
         times[name] = report_time(jt, name, arg, kern, plain, card)
 
-    slice_launches, slice_errs, slice_times = run_slice(
-        smoke, torch, jt, dev, signal, card)
-    launches.update(slice_launches)
-    errs.update(slice_errs)
-    times.update(slice_times)
+    for run_part in (run_slice, run_image_slice):
+        part_launches, part_errs, part_times = run_part(
+            smoke, torch, jt, dev, signal, card)
+        launches.update(part_launches)
+        errs.update(part_errs)
+        times.update(part_times)
 
     src = "jwave_pro_tpu_torch/csrc/"
     tpu = "jwave_pro_tpu/kernels/"
@@ -290,6 +302,9 @@ def run(smoke: Smoke, torch, jt) -> dict:
         "modwpt_fwd": ("modwpt.cu", "modwpt_pallas.py:128"),
         "modwpt_select": ("modwpt.cu", "modwpt_pallas.py:264"),
         "modwpt_inv": ("modwpt.cu", "modwpt_pallas.py:468"),
+        "modwt2_fwd": ("modwt2.cu", "modwt2_pallas.py:192"),
+        "modwt2_inv": ("modwt2.cu", "modwt2_pallas.py:314"),
+        "modwt2_denoise": ("modwt2.cu", "modwt2_pallas.py:460"),
     }
     return {"kernels": [
         {"name": name, "route": "cuda", "source": src + meta[name][0],
@@ -299,9 +314,11 @@ def run(smoke: Smoke, torch, jt) -> dict:
         for name in meta]}
 
 
-def report_time(jt, name, arg, kern, plain, card):
-    """Time kernel against plain version and print both with the card."""
-    samples = arg.shape[-1] * (arg.shape[-2] if arg.ndim > 1 else 1)
+def report_time(jt, name, arg, kern, plain, card, samples=None):
+    """Time kernel against plain version and print both with the card;
+    ``samples`` defaults to the last two dims of ``arg``."""
+    if samples is None:
+        samples = arg.shape[-1] * (arg.shape[-2] if arg.ndim > 1 else 1)
     tk, tp = time_pair(jt, kern, plain, arg)
     print(f"  {name} {tuple(arg.shape)}: kernel {tk:.4f} ms "
           f"({samples / tk * 1e3:.4e} samples/s), plain {tp:.4f} ms "
@@ -510,6 +527,238 @@ def run_slice(smoke: Smoke, torch, jt, dev, signal, card):
         print(f"  {name}: select kernel path {(tk1 + tk2) / 2:.3f} ms, "
               f"method='direct' {(td1 + td2) / 2:.3f} ms [{card}]",
               flush=True)
+    return launches, errs, times
+
+
+def run_image_slice(smoke: Smoke, torch, jt, dev, signal, card):
+    """The 2D image path: phases 15-17.  Returns the new kernels' launches
+    on its full-width calls, each new kernel's max-abs-err against its
+    plain version there, and (kernel ms, plain ms) per new kernel.  The
+    packet kernels' launch counts and errors on this path are checked
+    here; their entries in the kernels line stay phase 12's."""
+    from jwave_pro_tpu_torch.kernels import modwpt_cuda as kp
+    from jwave_pro_tpu_torch.kernels import modwt2_cuda as k2
+
+    w = jt.wavelet(WAVELET)
+    lvl = IMAGE_LEVEL
+
+    print("== phase 15: 2D kernels vs plain (small shapes, halo > image, "
+          "Symlet 8, bf16)", flush=True)
+    small = (((2, 128, 256), 2, WAVELET, ("soft", "hard")),
+             ((3, 1000, 750), 3, WAVELET, ("soft",)),
+             ((2, 40, 24), 3, WAVELET, ("soft", "hard")),
+             ((1, 256, 256), 2, "Symlet 8", ("soft", "hard")))
+    for shape, lv, name, modes in small:
+        wv = jt.wavelet(name)
+        x = signal(*shape)
+        tag = f"{shape} L{lv} {name}"
+        c = k2.modwt2_fwd_cuda(x, wv, lv)
+        smoke.check(f"2D fwd {tag} vs plain",
+                    max_err(c, k2.modwt2_fwd_plain(x, wv, lv)), 1e-4)
+        xr = k2.modwt2_inv_cuda(c, wv)
+        smoke.check(f"2D inv {tag} vs plain",
+                    max_err(xr, k2.modwt2_inv_plain(c, wv)), 1e-4)
+        smoke.check(f"2D round trip {tag}", max_err(xr, x), 1e-4)
+        # thresholds that differ per image
+        thr = torch.linspace(0.3, 1.2, shape[0], device=dev)
+        for mode in modes:
+            d = k2.modwt2_denoise_cuda(x, thr, wv, lv, mode)
+            smoke.check(f"2D denoise {mode} {tag} vs plain", max_err(
+                d, k2.modwt2_denoise_plain(x, thr, wv, lv, mode)), 1e-4)
+            pipe = jt.modwt2_denoise(x, wv, lv, mode,
+                                     threshold=thr[:, None, None])
+            smoke.check(f"2D denoise {mode} {tag} vs kernel pipeline",
+                        max_err(d, pipe), 1e-4)
+    # reference on a small input: the f64 direct path on the host
+    x = signal(2, 40, 24)
+    ref = jt.modwt2(x.double().cpu(), w, 3, method="direct")
+    smoke.check("2D fwd (2, 40, 24) L3 vs f64 host direct path",
+                max_err(k2.modwt2_fwd_cuda(x, w, 3).cpu(), ref), 1e-5)
+    x = signal(4, 512, 512)
+    c32 = k2.modwt2_fwd_cuda(x, w, 3)
+    c16 = k2.modwt2_fwd_cuda(x.bfloat16(), w, 3)
+    smoke.require("bf16 2D fwd dtype", c16.dtype == torch.bfloat16)
+    smoke.check("bf16 2D fwd (4, 512, 512) L3 vs f32 fwd", max_err(c16, c32),
+                5e-2)
+    smoke.check("bf16 2D fwd vs bf16 plain",
+                max_err(c16, k2.modwt2_fwd_plain(x.bfloat16(), w, 3)), 5e-2)
+    smoke.check("bf16 2D round trip", max_err(k2.modwt2_inv_cuda(c16, w), x),
+                1e-1)
+    thr = torch.full((4,), IMAGE_THR, device=dev)
+    smoke.check("bf16 2D denoise vs f32 2D denoise", max_err(
+        k2.modwt2_denoise_cuda(x.bfloat16(), thr, w, 3),
+        k2.modwt2_denoise_cuda(x, thr, w, 3)), 1e-1)
+
+    print(f"== phase 16: 2D path {IMAGE_SHAPE} f32 {WAVELET} L{lvl}, packets "
+          f"L{PACKET2_LEVEL}, MRA {MRA_SHAPE}, through the public API",
+          flush=True)
+    x = signal(*IMAGE_SHAPE)
+    xm = signal(*MRA_SHAPE)
+    counters = {"modwt2_fwd": k2.modwt2_fwd_cuda,
+                "modwt2_inv": k2.modwt2_inv_cuda,
+                "modwt2_denoise": k2.modwt2_denoise_cuda,
+                "modwpt_fwd": kp.modwpt_fwd_cuda,
+                "modwpt_inv": kp.modwpt_inv_cuda}
+
+    def counted(what, calls, want):
+        """Run ``calls`` with every counter at 0 and require exactly the
+        launches ``want`` names (0 for the others)."""
+        torch.cuda.synchronize()
+        for fn in counters.values():
+            fn.launches = 0
+        out = calls()
+        torch.cuda.synchronize()
+        got = {name: fn.launches for name, fn in counters.items()}
+        want = {name: want.get(name, 0) for name in counters}
+        print(f"  launches on {what}: {got}", flush=True)
+        smoke.require(f"launches on {what} as expected", got == want,
+                      f"(want {want})")
+        return out, got
+
+    def estimate():
+        """The fused path's default threshold: universal, one per image."""
+        return jt.universal_threshold(
+            jt.modwt2(x, w, 1, method="direct")[2].flatten(-2))
+
+    def main_calls():
+        c = jt.modwt2(x, w, lvl)
+        xr = jt.imodwt2(c, w)
+        den_f = jt.modwt2_denoise(x, w, lvl, method="fused")
+        p = jt.modwpt2(x, w, PACKET2_LEVEL)
+        return c, xr, den_f, p, jt.imodwpt2(p, w)
+
+    # the packet pair runs one 1D launch per axis
+    (c, xr, den_f, p, xpr), launches = counted(
+        "the full-width 2D path", main_calls,
+        {"modwt2_fwd": 1, "modwt2_inv": 1, "modwt2_denoise": 1,
+         "modwpt_fwd": 2, "modwpt_inv": 2})
+    launches = {name: launches[name] for name in
+                ("modwt2_fwd", "modwt2_inv", "modwt2_denoise")}
+    den_p, _ = counted(
+        "the full-width pipeline denoise",
+        lambda: jt.modwt2_denoise(x, w, lvl, threshold=IMAGE_THR),
+        {"modwt2_fwd": 1, "modwt2_inv": 1})
+    mra, _ = counted("the 2D MRA", lambda: jt.modwt2_mra(xm, w, lvl),
+                     {"modwt2_fwd": 1, "modwt2_inv": 3 * lvl + 1})
+    nodes = 1 << PACKET2_LEVEL
+    for name, t, shape in (
+            ("2D coeffs", c, (3 * lvl + 1,) + IMAGE_SHAPE),
+            ("2D reconstruction", xr, IMAGE_SHAPE),
+            ("fused denoise", den_f, IMAGE_SHAPE),
+            ("pipeline denoise", den_p, IMAGE_SHAPE),
+            ("quad-tree packets", p, (nodes, nodes) + IMAGE_SHAPE),
+            ("packet reconstruction", xpr, IMAGE_SHAPE),
+            ("2D MRA", mra, (3 * lvl + 1,) + MRA_SHAPE)):
+        smoke.require(f"{name} shape {shape} and finite",
+                      tuple(t.shape) == shape
+                      and bool(torch.isfinite(t).all()))
+    smoke.check("2D round trip at full width", max_err(xr, x), 1e-4)
+    smoke.check("quad-tree packet round trip at full width",
+                max_err(xpr, x), 1e-4)
+    smoke.check("2D MRA sums to the image", max_err(mra.sum(0), xm), 1e-4)
+    del mra
+
+    # the packet kernels against their plain versions on the operands the
+    # quad tree gives them (these launches are not counted above): forward
+    # over the columns (B·C, R), then the rows (P·B·R, C); inverse over
+    # (P, P·B·R, C), then (P, B·C, R)
+    b, r, cols = IMAGE_SHAPE
+    lv2 = PACKET2_LEVEL
+    xt = x.swapaxes(-1, -2).reshape(-1, r)
+    fa = kp.modwpt_fwd_cuda(xt, w, lv2)
+    smoke.check(f"packet fwd vs plain at the quad tree's {tuple(xt.shape)}",
+                max_err(fa, kp.modwpt_fwd_plain(xt, w, lv2)), 1e-5)
+    xt = fa.reshape(nodes, b, cols, r).swapaxes(-1, -2).reshape(-1, cols)
+    del fa
+    fb = kp.modwpt_fwd_cuda(xt, w, lv2)
+    smoke.check(f"packet fwd vs plain at the quad tree's {tuple(xt.shape)}",
+                max_err(fb, kp.modwpt_fwd_plain(xt, w, lv2)), 1e-5)
+    smoke.require("modwpt2 = the packet kernel on these operands",
+                  torch.equal(fb.reshape((nodes, nodes) + IMAGE_SHAPE)
+                              .swapaxes(0, 1), p))
+    del xt, fb
+    ct = p.swapaxes(0, 1).reshape(nodes, -1, cols)
+    del p
+    ia = kp.modwpt_inv_cuda(ct, w)
+    smoke.check(f"packet inv vs plain at the quad tree's {tuple(ct.shape)}",
+                max_err(ia, kp.modwpt_inv_plain(ct, w)), 1e-4)
+    del ct
+    ct = ia.reshape(nodes, b, r, cols).swapaxes(-1, -2).reshape(nodes, -1, r)
+    del ia
+    ib = kp.modwpt_inv_cuda(ct, w)
+    smoke.check(f"packet inv vs plain at the quad tree's {tuple(ct.shape)}",
+                max_err(ib, kp.modwpt_inv_plain(ct, w)), 1e-4)
+    smoke.require("imodwpt2 = the packet kernel on these operands",
+                  torch.equal(ib.reshape(b, cols, r).swapaxes(-1, -2), xpr))
+    del ct, ib, xpr
+
+    # fused against the pipeline at the same thresholds: the scalar, and
+    # the fused path's own universal threshold per image (a (B,) array is
+    # one threshold per image under every method)
+    thr_u = estimate().float()
+    for name, fused, pipe in (
+            (f"threshold {IMAGE_THR}", jt.modwt2_denoise(
+                x, w, lvl, method="fused", threshold=IMAGE_THR), den_p),
+            ("universal threshold per image", den_f,
+             jt.modwt2_denoise(x, w, lvl, threshold=thr_u))):
+        err = max_err(fused, pipe)
+        smoke.check(f"fused vs pipeline denoise, {name}", err, 1e-4)
+        print(f"  fused vs pipeline, {name}: "
+              f"{'bit-exact' if err == 0 else 'not bit-exact'}", flush=True)
+    # each new kernel against its plain version at the path's shape (these
+    # launches are not counted above)
+    errs = {
+        "modwt2_fwd": smoke.check(
+            "2D fwd vs plain at the path's shape", max_err(
+                c, k2.modwt2_fwd_plain(x, w, lvl)), 1e-4),
+        "modwt2_inv": smoke.check(
+            "2D inv vs plain at the path's shape", max_err(
+                xr, k2.modwt2_inv_plain(c, w)), 1e-4),
+        "modwt2_denoise": smoke.check(
+            "2D denoise vs plain at the path's shape", max_err(
+                k2.modwt2_denoise_cuda(x, thr_u, w, lvl),
+                k2.modwt2_denoise_plain(x, thr_u, w, lvl)), 1e-4),
+    }
+    del xr, den_f, den_p
+
+    print(f"== phase 17: 2D times (CUDA events, median) on {card}",
+          flush=True)
+    times = {}
+    for shape in (IMAGE_SHAPE, IMAGE_BENCH):
+        xs = x if shape == IMAGE_SHAPE else signal(*shape)
+        cs = c if shape == IMAGE_SHAPE else k2.modwt2_fwd_cuda(xs, w, lvl)
+        th = thr_u[:shape[0]].contiguous()
+        pairs = {
+            "modwt2_fwd": (xs, lambda u: k2.modwt2_fwd_cuda(u, w, lvl),
+                           lambda u: k2.modwt2_fwd_plain(u, w, lvl)),
+            "modwt2_inv": (cs, lambda u: k2.modwt2_inv_cuda(u, w),
+                           lambda u: k2.modwt2_inv_plain(u, w)),
+            "modwt2_denoise": (
+                xs, lambda u: k2.modwt2_denoise_cuda(u, th, w, lvl),
+                lambda u: k2.modwt2_denoise_plain(u, th, w, lvl)),
+        }
+        for name, (arg, kern, plain) in pairs.items():
+            t = report_time(jt, name, arg, kern, plain, card,
+                            samples=math.prod(shape))
+            if shape == IMAGE_SHAPE:
+                times[name] = t
+    del c
+
+    walls = {
+        "modwt2_denoise(method='fused'), universal threshold": wall_ms(
+            torch, lambda: jt.modwt2_denoise(x, w, lvl, method="fused")),
+        "  of which the threshold estimate": wall_ms(torch, estimate),
+        "  of which the kernel": wall_ms(
+            torch, lambda: k2.modwt2_denoise_cuda(x, thr_u, w, lvl)),
+        f"modwt2_denoise pipeline, threshold {IMAGE_THR}": wall_ms(
+            torch, lambda: jt.modwt2_denoise(x, w, lvl,
+                                             threshold=IMAGE_THR)),
+        f"modwpt2 L{PACKET2_LEVEL}": wall_ms(
+            torch, lambda: jt.modwpt2(x, w, PACKET2_LEVEL)),
+    }
+    for name, ms in walls.items():
+        print(f"  wall {name} {IMAGE_SHAPE}: {ms:.3f} ms (host clock, median "
+              f"of 3) [{card}]", flush=True)
     return launches, errs, times
 
 

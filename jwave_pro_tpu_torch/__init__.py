@@ -5,8 +5,11 @@ registry, ``modwt``/``imodwt``/``modwt_mra``, the 1D denoise), the MODWT
 statistics (variance and its confidence band, covariance, correlation,
 cross-correlation, Hurst exponent, change points), the 1D shift-invariant
 packet tree (``modwpt`` and its tree, MRA and best basis) with matching
-pursuit, and the hand-written CUDA kernels behind them (``kernels/``, built
-from ``csrc/`` with ``nvcc`` on first launch).  Names and signatures match
+pursuit, the 2D undecimated image path (``modwt2``/``imodwt2``/
+``modwt2_mra``, ``modwt2_denoise`` with its single-pass ``method='fused'``,
+the quad-tree packets ``modwpt2`` and their tree and best basis), and the
+hand-written CUDA kernels behind them (``kernels/``, built from ``csrc/``
+with ``nvcc`` on first launch).  Names and signatures match
 the JAX package; tensors stay on the device they arrive on.  Importing this
 package never imports JAX or ``jwave_pro_tpu``.
 
@@ -17,13 +20,17 @@ package never imports JAX or ``jwave_pro_tpu``.
     v = jt.modwt_variance(x, w, 5)   # (5, B)
     p = jt.modwpt(x, w, 3)           # (8, B, N)
     r = jt.matching_pursuit(x, w, 3, 16)
+    c2 = jt.modwt2(img, w, 3)        # (10, B, R, C)
+    d2 = jt.modwt2_denoise(img, w, 3, method="fused")
 """
 from .exceptions import JWaveException, JWaveFailure, NotKnown
 from .ops import (
     MAX_DECOMPOSITION_LEVEL, bayes_threshold, circular_convolve,
-    circular_convolve_adjoint, hard_threshold, imodwpt, imodwt,
-    log_energy_cost, mad_sigma, modwpt, modwpt_basis_reconstruct,
-    modwpt_best_basis, modwpt_mra, modwpt_node_path, modwpt_tree, modwt,
+    circular_convolve_adjoint, hard_threshold, imodwpt, imodwpt2, imodwt,
+    imodwt2, log_energy_cost, mad_sigma, modwpt, modwpt2,
+    modwpt2_basis_reconstruct, modwpt2_best_basis, modwpt2_tree,
+    modwpt_basis_reconstruct, modwpt_best_basis, modwpt_mra,
+    modwpt_node_path, modwpt_tree, modwt, modwt2, modwt2_denoise, modwt2_mra,
     modwt_base_filters, modwt_denoise, modwt_denoise_inplace, modwt_mra,
     shannon_entropy_cost, soft_threshold, sure_threshold, threshold_cost,
     universal_threshold,
@@ -51,6 +58,9 @@ __all__ = [
     "circular_convolve_adjoint",
     "modwpt", "imodwpt", "modwpt_tree", "modwpt_mra", "modwpt_best_basis",
     "modwpt_basis_reconstruct", "modwpt_node_path",
+    "modwt2", "imodwt2", "modwt2_mra", "modwt2_denoise",
+    "modwpt2", "imodwpt2", "modwpt2_tree", "modwpt2_best_basis",
+    "modwpt2_basis_reconstruct",
     "log_energy_cost", "shannon_entropy_cost", "threshold_cost",
     "MPResult", "matching_pursuit", "mp_reconstruct",
     "modwt_variance", "modwt_variance_ci", "VarianceCI", "modwt_covariance",

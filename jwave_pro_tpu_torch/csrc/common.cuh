@@ -1,5 +1,5 @@
 // Shared pieces of the MODWT kernels: tap struct, dtype load/store, circular
-// indexing and the launch helper.  Kernels allocate nothing; each C entry
+// indexing, shrinkage and the launch helper.  Kernels allocate nothing; each C entry
 // point launches on the caller's stream and returns cudaGetLastError().
 #pragma once
 
@@ -44,6 +44,14 @@ __device__ __forceinline__ long long jw_index(long long p, long long n) {
   if (p >= 0 && p < n) return p;
   const long long r = p % n;
   return r < 0 ? r + n : r;
+}
+
+// sign(w) * max(|w| - t, 0) (soft) or w * 1[|w| > t] (hard), as
+// ops/denoise.py's soft_threshold / hard_threshold.
+__device__ __forceinline__ float jw_shrink(float w, float t, int hard) {
+  if (hard) return fabsf(w) > t ? w : 0.f;
+  const float a = fmaxf(fabsf(w) - t, 0.f);
+  return w > 0.f ? a : (w < 0.f ? -a : 0.f);
 }
 
 __device__ __forceinline__ void jw_stage_taps(const JwTaps& taps, float* sg,

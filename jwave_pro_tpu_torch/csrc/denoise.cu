@@ -15,14 +15,6 @@
 
 #include "common.cuh"
 
-// sign(w) * max(|w| - t, 0) (soft) or w * 1[|w| > t] (hard), as
-// ops/denoise.py's soft_threshold / hard_threshold.
-__device__ __forceinline__ float jw_shrink(float w, float t, int hard) {
-  if (hard) return fabsf(w) > t ? w : 0.f;
-  const float a = fmaxf(fabsf(w) - t, 0.f);
-  return w > 0.f ? a : (w < 0.f ? -a : 0.f);
-}
-
 template <typename T>
 __global__ void __launch_bounds__(JW_THREADS)
 jw_denoise_kernel(const T* __restrict__ x, const float* __restrict__ thr,

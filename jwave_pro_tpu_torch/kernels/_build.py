@@ -2,8 +2,11 @@
 
 All ``csrc/*.cu`` sources compile into one shared library with a plain C
 interface, loaded with ``ctypes`` (no PyTorch headers: seconds to build,
-not minutes).  The library lands in ``build/kernels/<hash>/`` at the root of
-the checkout, keyed on a hash of the sources and flags, so an edited source
+not minutes).  Each source compiles in its own ``nvcc`` process, all
+started together, and one more links the objects: a cold build takes as
+long as the largest source, not the sum.  The library lands in
+``build/kernels/<hash>/`` at the root of the checkout, keyed on a hash of
+the sources and flags, so an edited source
 rebuilds and an unchanged one loads the existing file.  Nothing is
 downloaded; a failed build raises with nvcc's stderr.
 """
@@ -23,7 +26,7 @@ __all__ = ["library", "build_dir", "NVCC_FLAGS"]
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 _LIB_NAME = "libjwave_kernels.so"
 
 
@@ -51,19 +54,34 @@ def build_dir() -> Path:
     return BUILD_ROOT / digest.hexdigest()[:16]
 
 
+def _run_all(cmds) -> None:
+    """Run the commands concurrently; raise with the stderr of each that
+    failed."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True))
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
+                          f"\n{err}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def _compile(target: Path) -> None:
     target.parent.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
     # build next to the target, then rename: concurrent builders never see
     # a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=target.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
-    os.replace(tmp, target)
+    with tempfile.TemporaryDirectory(dir=target.parent) as tmp:
+        objs = [str(Path(tmp) / f"{src.stem}.o") for src in _sources()]
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                  for obj, src in zip(objs, _sources())])
+        lib = str(Path(tmp) / _LIB_NAME)
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]])
+        os.replace(lib, target)
 
 
 @functools.cache

@@ -1,5 +1,5 @@
 from .denoise import (
-    bayes_threshold, hard_threshold, mad_sigma, modwt_denoise,
+    bayes_threshold, hard_threshold, mad_sigma, modwt2_denoise, modwt_denoise,
     modwt_denoise_inplace, soft_threshold, sure_threshold,
     universal_threshold,
 )
@@ -8,9 +8,11 @@ from .modwt import (
     imodwt, modwt, modwt_base_filters, modwt_mra,
 )
 from .modwpt import (
-    imodwpt, modwpt, modwpt_basis_reconstruct, modwpt_best_basis, modwpt_mra,
-    modwpt_node_path, modwpt_tree,
+    imodwpt, imodwpt2, modwpt, modwpt2, modwpt2_basis_reconstruct,
+    modwpt2_best_basis, modwpt2_tree, modwpt_basis_reconstruct,
+    modwpt_best_basis, modwpt_mra, modwpt_node_path, modwpt_tree,
 )
+from .modwt2d import imodwt2, modwt2, modwt2_mra
 from .wpt import (
     log_energy_cost, shannon_entropy_cost, sure_cost, threshold_cost,
 )
@@ -21,8 +23,10 @@ __all__ = [
     "circular_convolve_adjoint",
     "imodwpt", "modwpt", "modwpt_basis_reconstruct", "modwpt_best_basis",
     "modwpt_mra", "modwpt_node_path", "modwpt_tree",
+    "modwt2", "imodwt2", "modwt2_mra", "modwpt2", "imodwpt2", "modwpt2_tree",
+    "modwpt2_best_basis", "modwpt2_basis_reconstruct",
     "log_energy_cost", "shannon_entropy_cost", "sure_cost", "threshold_cost",
     "soft_threshold", "hard_threshold", "mad_sigma", "universal_threshold",
     "sure_threshold", "bayes_threshold", "modwt_denoise",
-    "modwt_denoise_inplace",
+    "modwt_denoise_inplace", "modwt2_denoise",
 ]

@@ -1,6 +1,7 @@
-"""Wavelet denoising: soft/hard thresholding + the 1D MODWT denoise pipeline.
+"""Wavelet denoising: soft/hard thresholding + the MODWT denoise pipelines.
 
-Counterpart of the 1D half of ``jwave_pro_tpu/ops/denoise.py``.  The
+Counterpart of the 1D and 2D MODWT parts of ``jwave_pro_tpu/ops/denoise.py``
+(``modwt3_denoise`` and the packet denoisers wait for their slices).  The
 reference demonstrates MODWT soft-threshold denoising in
 ``jwave/examples/MODWTExample.java:125-172`` (universal threshold
 σ·√(2·ln N) with σ estimated from level-1 detail coefficients via
@@ -18,7 +19,7 @@ from .modwt import imodwt, modwt
 __all__ = [
     "soft_threshold", "hard_threshold", "universal_threshold",
     "sure_threshold", "bayes_threshold",
-    "mad_sigma", "modwt_denoise", "modwt_denoise_inplace",
+    "mad_sigma", "modwt_denoise", "modwt_denoise_inplace", "modwt2_denoise",
 ]
 
 
@@ -189,3 +190,90 @@ def modwt_denoise_inplace(x: torch.Tensor, wavelet: DiscreteWavelet,
         raise TypeError(f"in-place denoise needs a floating tensor, got "
                         f"{x.dtype}")
     return x.copy_(modwt_denoise(x, wavelet, level, mode=mode, method=method))
+
+
+def _per_image(threshold, x: torch.Tensor, dtype: torch.dtype):
+    """A threshold array for the 2D pipeline, in the coefficients' ``dtype``
+    (a float64 NumPy array does not promote float32 bands): a 1-D array of
+    length B with a (B, R, C) input is one threshold per image,
+    ``(B, 1, 1)``; any other array broadcasts as given against the
+    ``(3L, ..., R, C)`` detail bands.  A number stays a Python number
+    (weakly typed, as in JAX)."""
+    if isinstance(threshold, (int, float)):
+        return threshold
+    t = torch.as_tensor(threshold, dtype=dtype, device=x.device)
+    if x.ndim == 3 and t.ndim == 1 and t.shape[0] == x.shape[0]:
+        return t.reshape(-1, 1, 1)
+    return t
+
+
+def modwt2_denoise(x: torch.Tensor, wavelet: DiscreteWavelet, level: int,
+                   mode: str = "soft", threshold=None,
+                   method: str = "auto") -> torch.Tensor:
+    """Image denoising via the 2D MODWT (undecimated, shift-invariant).
+
+    The 2D extension of :func:`modwt_denoise` (``MODWTExample.java:125-172``
+    pipeline): shrink every detail band (LH/HL/HH per level), keep LL,
+    invert.  σ is estimated from the finest diagonal band HH₁ (MAD/0.6745
+    over its R·C samples, per image), and ``threshold`` defaults to the
+    universal threshold σ·√(2·ln(R·C)); the strings ``'universal'``,
+    ``'sure'`` and ``'bayes'`` select the rule applied per band.
+
+    Accepted threshold shapes: a number (every band and image); a 1-D array
+    of length B with a batched ``(B, R, C)`` input, one threshold per image
+    under every method (the pipeline reshapes it to ``(B, 1, 1)``); any
+    other array broadcasts as given against the ``(3L, ..., R, C)`` detail
+    bands ('auto'/'direct') or must give one value per image ('fused').
+
+    ``method``: 'auto' (the fused 2D CUDA kernels for the transforms where
+    they apply), 'direct' (the plain separable path), or 'fused' — forward
+    → shrink → inverse as ONE CUDA kernel (``kernels/modwt2_cuda.py``; its
+    plain version on the CPU), for (R, C) or (B, R, C) input and
+    per-image thresholds (None/'universal'/number/array); the default
+    threshold then costs one extra single-level pass.  'sure' and 'bayes'
+    are rejected under 'fused', as in the JAX package.
+    """
+    from .modwt2d import imodwt2, modwt2
+
+    x = torch.as_tensor(x)
+    if method == "fused":
+        from ..kernels.modwt2_cuda import modwt2_denoise_fused
+
+        xf = x[None] if x.ndim == 2 else x
+        if xf.ndim != 3:
+            raise ValueError("method='fused' supports (R, C) or (B, R, C)")
+        if threshold is None or isinstance(threshold, str):
+            if threshold not in (None, "universal"):
+                raise ValueError(
+                    "method='fused' supports scalar-per-image thresholds "
+                    f"(None/'universal'/array), not {threshold!r}")
+            threshold = universal_threshold(
+                modwt2(xf, wavelet, 1, method="direct")[2].flatten(-2))
+        thr = torch.as_tensor(threshold, dtype=torch.float32,
+                              device=xf.device).ravel()
+        thr = thr.broadcast_to(xf.shape[:1]).contiguous()
+        out = modwt2_denoise_fused(xf, thr, wavelet, level, mode)
+        return out[0] if x.ndim == 2 else out
+    if method not in ("auto", "direct"):
+        raise ValueError(f"unknown method {method!r}")
+    c = modwt2(x, wavelet, level, method=method)   # (3L+1, ..., R, C)
+    n_bands = 3 * level
+    if threshold is None or isinstance(threshold, str):
+        kind = threshold or "universal"
+        hh1 = c[2].flatten(-2)                   # finest diagonal band
+        flat = c[:n_bands].flatten(-2)
+        if kind == "universal":
+            threshold = universal_threshold(hh1)
+        elif kind == "sure":
+            threshold = sure_threshold(flat, mad_sigma(hh1))
+        elif kind == "bayes":
+            threshold = bayes_threshold(flat, mad_sigma(hh1))
+        else:
+            raise ValueError(f"unknown threshold rule {threshold!r}")
+        threshold = threshold[..., None, None]
+    else:
+        threshold = _per_image(threshold, x, c.dtype)
+    shrink = soft_threshold if mode == "soft" else hard_threshold
+    details = shrink(c[:n_bands], threshold)
+    return imodwt2(torch.cat([details, c[n_bands:]], dim=0), wavelet,
+                   method=method)

@@ -1,7 +1,8 @@
-"""Maximal-Overlap Discrete Wavelet Packet Transform (MODWPT), 1D, in PyTorch.
+"""Maximal-Overlap Discrete Wavelet Packet Transform (MODWPT), 1D and 2D, in
+PyTorch.
 
-Counterpart of the 1D half of ``jwave_pro_tpu/ops/modwpt.py``; same
-semantics and names.  The shift-invariant analog of the wavelet packet
+Counterpart of the 1D and 2D parts of ``jwave_pro_tpu/ops/modwpt.py``; same
+semantics and names (``modwpt3`` waits for the 3D slice).  The shift-invariant analog of the wavelet packet
 transform (Percival & Walden 2000, §6.1): the MODWT's filter pipeline
 (unit-L2-normalized banks ÷ √2, ``MODWTTransform.java:452-484``), à-trous
 dilation per level and circular boundary, applied to every node of the full
@@ -20,7 +21,9 @@ rolled copy (``ops.modwt._conv_channels``); the sequency reorder is one
 index.  On a CUDA float32/bfloat16 tensor, ``method='auto'`` sends the
 shapes the kernels support to the fused CUDA kernels
 (``kernels/modwpt_cuda.py``); float64 and unsupported shapes take the plain
-path below.
+path below.  The 2D quad tree runs as two big-batch 1D packet transforms
+(the orthogonal-axis samples flattened into the batch), so it reaches the
+same kernels.
 """
 from __future__ import annotations
 
@@ -39,6 +42,8 @@ from .modwt import (
 __all__ = [
     "modwpt", "imodwpt", "modwpt_tree", "modwpt_mra",
     "modwpt_best_basis", "modwpt_basis_reconstruct", "modwpt_node_path",
+    "modwpt2", "imodwpt2", "modwpt2_tree", "modwpt2_best_basis",
+    "modwpt2_basis_reconstruct",
 ]
 
 
@@ -327,3 +332,161 @@ def modwpt_basis_reconstruct(tree, masks, wavelet: DiscreteWavelet,
         parents = _level_inverse(cur, g, h, l, method)
         cur = parents + mask_mul(tree[l - 1], masks[l - 1])
     return cur[0]
+
+
+# ---------------------------------------------------------------------------
+# 2D MODWPT — shift-invariant quad-tree (tensor product of two 1D trees)
+# ---------------------------------------------------------------------------
+
+def modwpt2(x: torch.Tensor, wavelet: DiscreteWavelet, level: int,
+            method: str = "auto") -> torch.Tensor:
+    """2D MODWPT: ``(..., R, C) → (2^level, 2^level, ..., R, C)``.
+
+    The undecimated quad tree: separability makes it the tensor product of
+    two 1D packet trees, so node ``(n_r, n_c)`` applies the row cascade of
+    1D node ``n_r`` and the column cascade of node ``n_c`` — both axes
+    sequency-ordered.  Node (0, 0) equals the 2D MODWT's LL_level.  Exactly
+    shift-invariant in both axes; every level preserves energy.
+
+    Computed as two big-batch 1D transforms (rows, then columns, the
+    orthogonal-axis samples flattened into the batch), so the fused packet
+    kernel runs both passes under ``method='auto'`` on a CUDA f32/bf16
+    tensor.  The result is a view with the node axes swapped into place.
+    """
+    x = _as_signal(x)
+    if x.ndim < 2:
+        raise ValueError("modwpt2 needs at least 2 dims (..., R, C)")
+    *lead, r, c = x.shape
+    _check_level(r, level)
+    _check_level(c, level)
+    p = 1 << level
+    xt = x.swapaxes(-1, -2).reshape(-1, r)               # (B·C, R)
+    nr = modwpt(xt, wavelet, level, method)              # (P, B·C, R)
+    nr = nr.reshape([p] + lead + [c, r]).swapaxes(-1, -2)
+    nc = modwpt(nr.reshape(-1, c), wavelet, level, method)   # (P, P·B·R, C)
+    nc = nc.reshape([p, p] + lead + [r, c])              # (n_col, n_row, ...)
+    return nc.swapaxes(0, 1)
+
+
+def imodwpt2(coeffs: torch.Tensor, wavelet: DiscreteWavelet,
+             method: str = "auto") -> torch.Tensor:
+    """Inverse 2D MODWPT: ``(2^level, 2^level, ..., R, C) → (..., R, C)``."""
+    coeffs = torch.as_tensor(coeffs)
+    if coeffs.ndim < 4:
+        raise ValueError("imodwpt2 expects (nodes_r, nodes_c, ..., R, C)")
+    pr, pc = coeffs.shape[0], coeffs.shape[1]
+    if pr != pc or pr < 2 or pr & (pr - 1):
+        raise ValueError(
+            f"leading node axes must be equal powers of two ≥ 2, got "
+            f"({pr}, {pc})")
+    *lead, r, c = coeffs.shape[2:]
+    t = coeffs.swapaxes(0, 1)                            # (n_col, n_row, ...)
+    sig_r = imodwpt(t.reshape(pc, -1, c), wavelet, method)   # (P·B·R, C)
+    sig_r = sig_r.reshape([pr] + lead + [r, c])
+    t = sig_r.swapaxes(-1, -2)                           # (P, ..., C, R)
+    sig = imodwpt(t.reshape(pr, -1, r), wavelet, method)     # (B·C, R)
+    return sig.reshape(lead + [c, r]).swapaxes(-1, -2)
+
+
+def _level_forward2(nodes: torch.Tensor, g, h, j: int, method: str
+                    ) -> torch.Tensor:
+    """One quad-tree level: (P, P, ..., R, C) → (2P, 2P, ..., R, C)."""
+    t = nodes.swapaxes(-1, -2)                # rows to the conv axis
+    t = _level_forward(t, g, h, j, method)    # (2P_r, P_c, ..., C, R)
+    t = t.swapaxes(-1, -2).swapaxes(0, 1)
+    t = _level_forward(t, g, h, j, method)    # (2P_c, 2P_r, ..., R, C)
+    return t.swapaxes(0, 1)
+
+
+def _level_inverse2(nodes: torch.Tensor, g, h, j: int, method: str
+                    ) -> torch.Tensor:
+    """One quad-tree adjoint level: (2P, 2P, ..., R, C) → (P, P, ...)."""
+    t = nodes.swapaxes(0, 1)                  # (2P_c, 2P_r, ..., R, C)
+    t = _level_inverse(t, g, h, j, method)    # (P_c, 2P_r, ..., R, C)
+    t = t.swapaxes(0, 1).swapaxes(-1, -2)
+    t = _level_inverse(t, g, h, j, method)    # (P_r, P_c, ..., C, R)
+    return t.swapaxes(-1, -2)
+
+
+def modwpt2_tree(x: torch.Tensor, wavelet: DiscreteWavelet, level: int,
+                 method: str = "auto") -> list[torch.Tensor]:
+    """Full quad tree: list over levels 0..level of ``(2^l, 2^l, ..., R, C)``.
+
+    Row 0 is the input under (1, 1) node axes; every level is a nested
+    energy-preserving analysis — the precondition for
+    :func:`modwpt2_best_basis`.
+    """
+    x = _as_signal(x)
+    _check_level(x.shape[-2], level)
+    _check_level(x.shape[-1], level)
+    g, h = modwt_base_filters(wavelet)
+    rows = [x[None, None]]
+    for j in range(1, level + 1):
+        rows.append(_level_forward2(rows[-1], g, h, j, method))
+    return rows
+
+
+def modwpt2_best_basis(x: torch.Tensor, wavelet: DiscreteWavelet,
+                       level: int, cost: str = "shannon",
+                       method: str = "auto"):
+    """Quad-tree Coifman–Wickerhauser best basis over the shift-invariant
+    2D packet tree.
+
+    Returns ``(masks, total_cost, tree)``: ``masks[l]`` is a boolean
+    ``(2^l, 2^l)`` grid — True where node (l, n_r, n_c) is a leaf of the
+    optimal basis.  Node costs are whole-node costs over all R·C samples
+    (summed over leading batch axes).
+    """
+    from .wpt import _COSTS
+
+    cost_fn = _COSTS[cost] if isinstance(cost, str) else cost
+    tree = modwpt2_tree(x, wavelet, level, method)
+
+    costs = []
+    for l in range(level + 1):
+        row = tree[l]                                  # (2^l, 2^l, ..., R, C)
+        flat = row.reshape((row.shape[0], row.shape[1], -1))
+        costs.append(cost_fn(flat, axis=-1))           # (2^l, 2^l)
+
+    best = costs[level]
+    split = []
+    for l in range(level - 1, -1, -1):
+        p = 1 << l
+        children = best.reshape(p, 2, p, 2).sum(dim=(1, 3))
+        take = children < costs[l]
+        split.append(take)
+        best = torch.where(take, children, costs[l])
+    split.reverse()
+
+    masks = []
+    reach = torch.ones((1, 1), dtype=torch.bool, device=best.device)
+    for l in range(level + 1):
+        if l < level:
+            leaf = reach & ~split[l]
+            nxt = reach & split[l]
+            reach = nxt.repeat_interleave(2, dim=0).repeat_interleave(2, dim=1)
+        else:
+            leaf = reach
+        masks.append(leaf)
+    return masks, best[0, 0], tree
+
+
+def modwpt2_basis_reconstruct(tree, masks, wavelet: DiscreteWavelet,
+                              method: str = "auto") -> torch.Tensor:
+    """Reconstruct the image from a quad-tree best-basis selection.
+
+    Bottom-up adjoint cascade mirroring :func:`modwpt_basis_reconstruct`.
+    """
+    level = len(masks) - 1
+    g, h = modwt_base_filters(wavelet)
+
+    def mask_mul(row, m):
+        shape = tuple(row.shape[:2]) + (1,) * (row.ndim - 2)
+        return row * torch.as_tensor(m, device=row.device).reshape(
+            shape).to(row.dtype)
+
+    cur = mask_mul(tree[level], masks[level])
+    for l in range(level, 0, -1):
+        parents = _level_inverse2(cur, g, h, l, method)
+        cur = parents + mask_mul(tree[l - 1], masks[l - 1])
+    return cur[0, 0]

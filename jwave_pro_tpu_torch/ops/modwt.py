@@ -173,8 +173,9 @@ def _level_conv(v, g, h, j, method, adjoint=False, w=None):
     return out_v, out_w
 
 
-def _combined_adjoint(v, w, g, h, d):
-    """Σ_k roll(g[k]·v + h[k]·w, −k·d) — one inverse MODWT level.
+def _combined_adjoint(v, w, g, h, d, dim: int = -1):
+    """Σ_k roll(g[k]·v + h[k]·w, −k·d) along ``dim`` — one inverse MODWT
+    level (the 2D inverse also runs it along the rows, ``dim=-2``).
 
     Only the SUM of the two adjoint branches is ever needed, so combining
     before rolling does one roll per tap instead of two.  ``g``/``h`` are
@@ -184,7 +185,7 @@ def _combined_adjoint(v, w, g, h, d):
     for k in range(len(g)):
         t = g[k] * v + h[k] * w
         if k:
-            t = torch.roll(t, -k * d, dims=-1)
+            t = torch.roll(t, -k * d, dims=dim)
         acc = t if acc is None else acc + t
     return acc
 

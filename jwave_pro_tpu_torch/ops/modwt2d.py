@@ -1,0 +1,180 @@
+"""2D separable MODWT (undecimated wavelet transform for images) in PyTorch.
+
+Counterpart of the 2D half of ``jwave_pro_tpu/ops/modwt2d.py``; same
+semantics and names.  Per level j the à-trous filter pair runs along the
+columns (last axis) and then along the rows, producing full-resolution
+detail bands and an approximation that feeds the next level.
+
+Band-letter convention: letters read in the order of the printed shape,
+(row, col), with L applying the scaling filter g and H the wavelet filter h
+along that axis.  ``modwt2`` returns ``(3·level+1, ..., R, C)``: rows
+``3(j−1) .. 3(j−1)+2`` are (LH_j, HL_j, HH_j) — (g@rows·h@cols,
+h@rows·g@cols, h@rows·h@cols) — and the last row is LL_J.  Perfect
+reconstruction follows per axis from the 1D identity
+``Conv_gᵀConv_g + Conv_hᵀConv_h = I`` (the √2-normalized MODWT filter bank).
+
+The JAX package transposes the row axis to the lane axis around every roll
+(a TPU layout matter); here the row pass makes no transposed copy: the
+forward rolls a ``movedim`` view, the inverse rolls ``dims=-2``.  On a
+CUDA float32/bfloat16 tensor, ``method='auto'`` sends the shapes the kernels
+support to the fused CUDA kernels (``kernels/modwt2_cuda.py``); float64,
+tensors that require a gradient (the 2D kernels have no backward) and
+unsupported shapes take the plain path below.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..wavelets.base import DiscreteWavelet
+from .modwt import (
+    MAX_DECOMPOSITION_LEVEL, _as_signal, _combined_adjoint, _conv_channels,
+    modwt_base_filters, taps_as,
+)
+
+__all__ = ["modwt2", "imodwt2", "modwt2_mra"]
+
+
+def _conv_axis_pair(x: torch.Tensor, g, h, d: int, axis: int,
+                    adjoint: bool = False):
+    """(x⋆g, x⋆h) along ``axis``, sharing the rolled copies."""
+    out = _conv_channels(x.movedim(axis, -1), (g, h), d, adjoint)
+    return out[..., 0, :].movedim(-1, axis), out[..., 1, :].movedim(-1, axis)
+
+
+def _check_nd(dims, level: int) -> None:
+    if level < 1 or level > MAX_DECOMPOSITION_LEVEL:
+        raise ValueError(f"level must be in [1, {MAX_DECOMPOSITION_LEVEL}]")
+    theo = min(d.bit_length() for d in dims) - 1
+    if level > theo:
+        raise ValueError(f"level {level} exceeds theoretical limit {theo} "
+                         f"for shape {tuple(dims)}")
+
+
+def _modwt2_direct(x: torch.Tensor, wavelet: DiscreteWavelet,
+                   level: int) -> torch.Tensor:
+    """The separable cascade in ``x``'s dtype: column pass (g, h) sharing
+    its rolls, then the row pass on each — the order fixes the letters."""
+    g, h = (taps_as(f, x.dtype) for f in modwt_base_filters(wavelet))
+    rows = []
+    ll = x
+    for j in range(1, level + 1):
+        d = 1 << (j - 1)
+        cl, ch = _conv_axis_pair(ll, g, h, d, -1)   # col pass (last axis)
+        ll, hl = _conv_axis_pair(cl, g, h, d, -2)   # row pass, shared rolls
+        lh, hh = _conv_axis_pair(ch, g, h, d, -2)
+        rows.extend([lh, hl, hh])
+    rows.append(ll)
+    return torch.stack(rows, dim=0)
+
+
+def _imodwt2_direct(coeffs: torch.Tensor, wavelet: DiscreteWavelet
+                    ) -> torch.Tensor:
+    """The adjoint cascade in ``coeffs``' dtype: undo the row pass, then
+    the column pass, siblings combined before each shift."""
+    g, h = (taps_as(f, coeffs.dtype) for f in modwt_base_filters(wavelet))
+    level = (coeffs.shape[0] - 1) // 3
+    ll = coeffs[3 * level]
+    for j in range(level, 0, -1):
+        d = 1 << (j - 1)
+        lh, hl, hh = (coeffs[3 * (j - 1) + k] for k in range(3))
+        cl = _combined_adjoint(ll, hl, g, h, d, dim=-2)
+        ch = _combined_adjoint(lh, hh, g, h, d, dim=-2)
+        ll = _combined_adjoint(cl, ch, g, h, d)
+    return ll
+
+
+def _try_kernel2(a: torch.Tensor, wavelet: DiscreteWavelet, level: int,
+                 inverse: bool = False):
+    """Dispatch a 2D transform to the fused CUDA kernel when device, dtype,
+    shape and autograd allow (the counterpart of ``_try_pallas2`` and of
+    the inverse gate).
+
+    Decided before any launch: CUDA float32/bfloat16 tensors of ndim 2/3
+    (forward) or 3/4 (inverse) at shapes :func:`kernel2d_supported` admits.
+    A tensor that requires a gradient returns None (the plain path): the 2D
+    kernels have no backward, as the JAX package's have no VJP.
+    """
+    if (not a.is_cuda or a.dtype not in (torch.float32, torch.bfloat16)
+            or a.requires_grad):
+        return None
+    if a.ndim not in ((3, 4) if inverse else (2, 3)):
+        return None
+    from ..kernels import modwt2_cuda as k2
+
+    r, c = a.shape[-2:]
+    if not k2.kernel2d_supported(r, c, level, wavelet.length,
+                                 "inv" if inverse else "fwd"):
+        return None
+    a = a.contiguous()
+    if inverse:
+        out = k2.modwt2_inv_cuda(a.reshape(a.shape[0], -1, r, c), wavelet)
+        return out.reshape(a.shape[1:])
+    out = k2.modwt2_fwd_cuda(a.reshape(-1, r, c), wavelet, level)
+    return out.reshape((3 * level + 1,) + tuple(a.shape))
+
+
+def modwt2(x: torch.Tensor, wavelet: DiscreteWavelet, level: int,
+           method: str = "auto") -> torch.Tensor:
+    """Forward 2D MODWT over the last two axes (any sizes).
+
+    Returns ``(3·level+1, ..., R, C)`` on ``x``'s device, in the band order
+    of the module docstring.  ``method``: 'auto' (the fused CUDA kernel for
+    CUDA f32/bf16 input of ndim 2 or 3 when the shape allows, else the
+    plain path), 'pallas' (the kernel; the JAX package's spelling — raises
+    where it cannot run), or 'direct' (the plain separable path).
+    """
+    x = _as_signal(x)
+    _check_nd(x.shape[-2:], level)
+    if method in ("auto", "pallas"):
+        out = _try_kernel2(x, wavelet, level)
+        if out is not None:
+            return out
+        if method == "pallas":
+            raise ValueError(
+                f"fused 2D kernel unavailable for shape {tuple(x.shape)} "
+                f"dtype {x.dtype} on device {x.device}"
+                f"{' (requires_grad)' if x.requires_grad else ''}")
+    elif method != "direct":
+        raise ValueError(f"unknown method {method!r}")
+    return _modwt2_direct(x, wavelet, level)
+
+
+def imodwt2(coeffs: torch.Tensor, wavelet: DiscreteWavelet,
+            method: str = "auto") -> torch.Tensor:
+    """Inverse 2D MODWT: ``(3·level+1, ..., R, C)`` → ``(..., R, C)``.
+
+    ``method`` as in :func:`modwt2` (the fused kernel takes
+    ``(3L+1, [B,] R, C)`` f32/bf16 stacks on a CUDA device).
+    """
+    coeffs = torch.as_tensor(coeffs)
+    if coeffs.shape[0] % 3 != 1:
+        raise ValueError(
+            f"2D MODWT coefficient stack must have 3·level+1 rows, got "
+            f"{coeffs.shape[0]}")
+    level = (coeffs.shape[0] - 1) // 3
+    if method in ("auto", "pallas"):
+        out = _try_kernel2(coeffs, wavelet, level, inverse=True)
+        if out is not None:
+            return out
+        if method == "pallas":
+            raise ValueError(
+                f"fused 2D inverse unavailable for shape "
+                f"{tuple(coeffs.shape)} dtype {coeffs.dtype} on device "
+                f"{coeffs.device}"
+                f"{' (requires_grad)' if coeffs.requires_grad else ''}")
+    elif method != "direct":
+        raise ValueError(f"unknown method {method!r}")
+    return _imodwt2_direct(coeffs, wavelet)
+
+
+def modwt2_mra(x: torch.Tensor, wavelet: DiscreteWavelet,
+               level: int) -> torch.Tensor:
+    """Additive 2D MRA: per-band components summing to the image,
+    ``(3·level+1, ..., R, C)``."""
+    c = modwt2(x, wavelet, level)
+    comps = []
+    for i in range(c.shape[0]):
+        ci = torch.zeros_like(c)
+        ci[i] = c[i]
+        comps.append(imodwt2(ci, wavelet))
+    return torch.stack(comps, dim=0)

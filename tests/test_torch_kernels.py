@@ -16,7 +16,10 @@ packet select: positions and values exact against the arg-max over the
 packet forward kernel's own output (the same cascade, the same float
 operations); against the plain version the value within 1e-5, and the
 plain |w| at the kernel's position within 1e-5 of the plain maximum, which
-tolerates a near-tie in f32.
+tolerates a near-tie in f32.  The 2D kernels: forward, inverse, round trip
+and fused denoise 1e-4 absolute (the JAX package's on-chip 2D bound,
+``tools/tpu_smoke.py:293``: each band sums 2·M² products per level in
+another order); bf16 as above, and the bf16 round trip 1e-1.
 """
 import numpy as np
 import pytest
@@ -25,6 +28,7 @@ import torch
 import jwave_pro_tpu_torch as jt
 from jwave_pro_tpu_torch.kernels import denoise_cuda as kd
 from jwave_pro_tpu_torch.kernels import modwpt_cuda as kp
+from jwave_pro_tpu_torch.kernels import modwt2_cuda as k2
 from jwave_pro_tpu_torch.kernels import modwt_cuda as kc
 from jwave_pro_tpu_torch.kernels import variance_cuda as kv
 
@@ -266,3 +270,132 @@ def test_gradients_through_the_packet_pair(dev):
     cp = wts.clone().requires_grad_()
     (jt.imodwpt(cp, DB4, method="direct") * x).sum().backward()
     torch.testing.assert_close(ck.grad, cp.grad, rtol=0, atol=1e-4)
+
+
+# -- the 2D image kernels ------------------------------------------------------
+
+IMAGE_SHAPES = [
+    ((2, 128, 256), 2, "Daubechies 4"),
+    ((3, 1000, 750), 3, "Daubechies 4"),   # arbitrary size, ragged tiles
+    ((2, 40, 24), 3, "Daubechies 4"),      # halo (49) larger than the image
+    ((1, 256, 256), 2, "Symlet 8"),
+    ((2, 96, 80), 4, "Daubechies 4"),      # Db4 L4: the 32 × 32 tile
+]
+DENOISE_SHAPES = [
+    ((2, 128, 256), 2, "Daubechies 4"),
+    ((3, 200, 150), 3, "Daubechies 4"),    # ragged tiles, tile 40
+    ((2, 40, 24), 3, "Daubechies 4"),      # halo larger than the image
+    ((1, 256, 256), 2, "Symlet 8"),
+]
+
+
+def _close2(got, want, dtype):
+    if dtype == torch.bfloat16:
+        _close(got, want, dtype)
+    else:
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,level,name", IMAGE_SHAPES)
+def test_2d_forward_and_inverse_match_plain(dev, shape, level, name, dtype):
+    w = jt.wavelet(name)
+    x = _signal(dev, *shape, seed=12, dtype=dtype)
+    c = k2.modwt2_fwd_cuda(x, w, level)
+    assert c.dtype == dtype and c.shape == (3 * level + 1,) + shape
+    _close2(c, k2.modwt2_fwd_plain(x, w, level), dtype)
+    back = k2.modwt2_inv_cuda(c, w)
+    assert back.dtype == dtype and back.shape == shape
+    _close2(back, k2.modwt2_inv_plain(c, w), dtype)
+    tol = 1e-1 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(back.float(), x.float(), rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["soft", "hard"])
+@pytest.mark.parametrize("shape,level,name", DENOISE_SHAPES)
+def test_2d_denoise_matches_plain(dev, shape, level, name, mode, dtype):
+    w = jt.wavelet(name)
+    x = _signal(dev, *shape, seed=13, dtype=dtype)
+    thr = torch.linspace(0.2, 1.0, shape[0], device=dev)
+    got = k2.modwt2_denoise_cuda(x, thr, w, level, mode)
+    assert got.dtype == dtype and got.shape == shape
+    _close2(got, k2.modwt2_denoise_plain(x, thr, w, level, mode), dtype)
+    if dtype == torch.float32:
+        # against the pipeline on the forward and inverse kernels
+        pipe = jt.modwt2_denoise(x, w, level, mode, threshold=thr[:, None,
+                                                                  None])
+        torch.testing.assert_close(got, pipe, rtol=0, atol=1e-4)
+
+
+def test_2d_public_path_launches_each_kernel(dev):
+    w = DB4
+    x = _signal(dev, 2, 256, 192, seed=14)
+    counters = (k2.modwt2_fwd_cuda, k2.modwt2_inv_cuda,
+                k2.modwt2_denoise_cuda, kp.modwpt_fwd_cuda,
+                kp.modwpt_inv_cuda)
+    before = [fn.launches for fn in counters]
+    c = jt.modwt2(x, w, 3)
+    xr = jt.imodwt2(c, w)
+    den = jt.modwt2_denoise(x, w, 3, method="fused")
+    p = jt.modwpt2(x, w, 2)
+    xp = jt.imodwpt2(p, w)
+    torch.cuda.synchronize()
+    # the packet pair runs one 1D launch per axis
+    assert [fn.launches - b for fn, b in zip(counters, before)] == [1, 1, 1,
+                                                                   2, 2]
+    torch.testing.assert_close(xr, x, rtol=0, atol=1e-4)
+    torch.testing.assert_close(xp, x, rtol=0, atol=1e-4)
+    torch.testing.assert_close(
+        den, jt.modwt2_denoise(x, w, 3, method="direct"), rtol=0, atol=1e-4)
+    assert c.device == den.device == p.device == x.device
+
+
+def test_2d_pipeline_numpy_threshold_stays_on_the_kernels(dev):
+    x = _signal(dev, 3, 64, 96, seed=15)
+    before = k2.modwt2_inv_cuda.launches
+    got = jt.modwt2_denoise(x, DB4, 2, threshold=np.array([0.3, 0.6, 1.2]))
+    assert got.dtype == torch.float32
+    assert k2.modwt2_inv_cuda.launches == before + 1
+
+
+def test_2d_auto_routes_f64_grad_and_unsupported_shapes_to_plain(dev):
+    counters = (k2.modwt2_fwd_cuda, k2.modwt2_inv_cuda)
+    before = [fn.launches for fn in counters]
+    x64 = _signal(dev, 2, 64, 64, dtype=torch.float64)
+    jt.imodwt2(jt.modwt2(x64, DB4, 3), DB4)
+    jt.modwt2(_signal(dev, 2, 64, 64), DB4, 5)     # Db4 L5 does not fit
+    jt.modwt2(_signal(dev, 2, 2, 32, 32), DB4, 2)  # 4-D: leading dims
+    xg = _signal(dev, 2, 64, 64).requires_grad_()
+    (jt.modwt2(xg, DB4, 2) ** 2).sum().backward()
+    assert [fn.launches for fn in counters] == before
+    # the gradient is the plain path's
+    xp = xg.detach().clone().requires_grad_()
+    (jt.modwt2(xp, DB4, 2, method="direct") ** 2).sum().backward()
+    torch.testing.assert_close(xg.grad, xp.grad, rtol=0, atol=0)
+    for bad in (x64, xg):
+        with pytest.raises(ValueError, match="unavailable"):
+            jt.modwt2(bad, DB4, 2, method="pallas")
+    with pytest.raises(ValueError, match="no backward"):
+        k2.modwt2_fused(xg, DB4, 2)
+
+
+def test_2d_launchers_reject_what_the_kernel_does_not_take(dev):
+    x = _signal(dev, 2, 64, 64)
+    for launch in (lambda a, lv: k2.modwt2_fwd_cuda(a, DB4, lv),
+                   lambda a, lv: k2.modwt2_denoise_cuda(
+                       a, torch.ones(2, device=dev), DB4, lv)):
+        with pytest.raises(ValueError, match="contiguous"):
+            launch(x[:, :, ::2], 2)
+        with pytest.raises(ValueError, match="float32/bfloat16"):
+            launch(x.double(), 2)
+        with pytest.raises(ValueError, match="unsupported shape"):
+            launch(x, 5)                      # the windows do not fit
+    with pytest.raises(ValueError, match="unsupported shape"):
+        k2.modwt2_denoise_cuda(x, torch.ones(2, device=dev), DB4, 4)
+    with pytest.raises(ValueError, match="3·level\\+1"):
+        k2.modwt2_inv_cuda(_signal(dev, 5, 2, 64, 64), DB4)
+    with pytest.raises(ValueError, match="expected 4 dims"):
+        k2.modwt2_inv_cuda(x, DB4)
+    with pytest.raises(ValueError, match="threshold"):
+        k2.modwt2_denoise_cuda(x, torch.ones(3, device=dev), DB4, 2)
