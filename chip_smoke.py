@@ -15,11 +15,19 @@ inverse at 32 × 2^18 level 3, greedy and orthogonal matching pursuit at
 8 × 65536 level 3 with 16 atoms), and the 2D image path (forward,
 inverse, fused and pipeline denoise of sixteen 2048 × 2048 float32 frames
 at Db4 level 3, the quad-tree packets at level 2, the 2D MRA at
-2 × 512 × 512).  The kernels' launch counters, set to 0
+2 × 512 × 512), the 3D volume path (forward, inverse and denoise of four
+256³ float32 volumes at Db4 level 2, the oct-tree packets of one, the 3D
+MRA at 2 × 64³), and the CWT (the fused multiply + inverse FFT over
+64 × 16384 samples at 64 log scales, Morlet and Mexican Hat).  The
+kernels' launch counters, set to 0
 before each path and read after it, show that the path ran through them;
 CUDA events time each kernel against its plain version.  Every check
 prints a line; any failure exits non-zero.  The second-to-last line
-is a JSON object describing each kernel; the last line is
+is a JSON object describing each kernel — its launches on the main path,
+error against its plain version, time, the plain version's time, its
+bound (the larger of its bytes over 3.35 TB/s and its float32 operations
+over 67 TFLOP/s, the H100's published peaks) and, where one PyTorch call
+computes the same function, that call's time; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 package beside it, it exits non-zero and prints no result.
 """
@@ -51,6 +59,19 @@ IMAGE_BENCH = (8, 512, 512)
 PACKET2_LEVEL = 2
 MRA_SHAPE = (2, 512, 512)
 IMAGE_THR = 0.8
+# the 3D volume path: four 256³ volumes (CT and microscopy stacks) at Db4
+# L2, bench.py's own (2, 64³) and (1, 128³) (bench.py:297-318, :477-481),
+# the oct-tree packets of one volume, the MRA
+VOLUME_SHAPE, VOLUME_LEVEL = (4, 256, 256, 256), 2
+VOLUME_BENCH = ((2, 64, 64, 64), (1, 128, 128, 128))
+PACKET3_SHAPE = (1, 256, 256, 256)
+MRA3_SHAPE = (2, 64, 64, 64)
+# the CWT: 64 signals of 16384 samples at 64 log scales (1 to 256, as
+# bench.py:241), and bench.py's own 16 × 4096
+CWT_SHAPE, CWT_SCALES = (64, 16384), 64
+CWT_BENCH = (16, 4096)
+# the H100's published peaks (SXM, 700 W): HBM bytes/s, f32 FLOP/s
+HBM_RATE, F32_RATE = 3.35e12, 67e12
 
 
 class Smoke:
@@ -284,12 +305,15 @@ def run(smoke: Smoke, torch, jt) -> dict:
     for name, (arg, kern, plain) in pairs.items():
         times[name] = report_time(jt, name, arg, kern, plain, card)
 
-    for run_part in (run_slice, run_image_slice):
-        part_launches, part_errs, part_times = run_part(
+    library = {}
+    for run_part in (run_slice, run_image_slice, run_volume_cwt_slice):
+        part_launches, part_errs, part_times, *part_library = run_part(
             smoke, torch, jt, dev, signal, card)
         launches.update(part_launches)
         errs.update(part_errs)
         times.update(part_times)
+        for lib in part_library:
+            library.update(lib)
 
     src = "jwave_pro_tpu_torch/csrc/"
     tpu = "jwave_pro_tpu/kernels/"
@@ -305,13 +329,94 @@ def run(smoke: Smoke, torch, jt) -> dict:
         "modwt2_fwd": ("modwt2.cu", "modwt2_pallas.py:192"),
         "modwt2_inv": ("modwt2.cu", "modwt2_pallas.py:314"),
         "modwt2_denoise": ("modwt2.cu", "modwt2_pallas.py:460"),
+        "modwt3_fwd": ("modwt3.cu", "modwt3_pallas.py:172"),
+        "modwt3_inv": ("modwt3.cu", "modwt3_pallas.py:331"),
+        "cwt_ifft": ("cwt.cu", "cwt_pallas.py:105"),
     }
+    bounds = kernel_bounds(w)
+    for name in meta:
+        print(f"  bound {name}: {bounds[name][0]:.4f} ms by "
+              f"{bounds[name][1]}, kernel {times[name][0]:.4f} ms "
+              f"({bounds[name][0] / times[name][0]:.1%} of it) [{card}]",
+              flush=True)
     return {"kernels": [
         {"name": name, "route": "cuda", "source": src + meta[name][0],
          "replaces": tpu + meta[name][1], "launches": launches[name],
          "max_abs_err": errs[name], "ms": times[name][0],
-         "plain_ms": times[name][1]}
+         "plain_ms": times[name][1], "bound_ms": bounds[name][0],
+         "bound_by": bounds[name][1], "library_ms": library.get(name)}
         for name in meta]}
+
+
+def bound(nbytes: float, flops: float):
+    """(ms, 'bytes' or 'operations'): the least time the card could take to
+    move ``nbytes`` and do ``flops`` float32 operations."""
+    t_bytes, t_ops = nbytes / HBM_RATE * 1e3, flops / F32_RATE * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def kernel_bounds(w) -> dict:
+    """Each kernel's bound at the shape its entry in the kernels line was
+    timed at: every input read once, every output written once, and the
+    float32 operations its function needs on these inputs.  A cascade level
+    costs 2 flops (one multiply-add) per tap, per output and per input
+    sample: 4M a sample for the MODWT pair, 8M for the two quadrant pairs
+    of a 2D level and 16M for the four octant pairs of a 3D one (12M and
+    28M with the passes before them); a shrink 3 flops, a square 2, an
+    inverse FFT 5·P·log₂P a row and the complex product 6 a bin."""
+    m = w.length
+    b, n = MAIN_SHAPE
+    cells = b * n
+    pb, pn = PACKET_SHAPE
+    packet = pb * pn
+    tree = sum(4 * m << (j - 1) for j in range(1, PACKET_LEVEL + 1))
+    mb, mn = MP_SHAPE
+    img = math.prod(IMAGE_SHAPE)
+    l2, l3 = IMAGE_LEVEL, VOLUME_LEVEL
+    vol = math.prod(VOLUME_SHAPE)
+    cb, cp = CWT_SHAPE
+    rows = cb * CWT_SCALES
+    return {
+        "modwt_fwd": bound(4 * cells * (LEVEL + 2), cells * 4 * m * LEVEL),
+        "modwt_fwd_1d": bound(4 * MAIN_1D * (LEVEL + 2),
+                              MAIN_1D * 4 * m * LEVEL),
+        "modwt_inv": bound(4 * cells * (LEVEL + 2), cells * 4 * m * LEVEL),
+        "modwt_denoise": bound(4 * (2 * cells + b),
+                               cells * (8 * m + 3) * LEVEL),
+        "modwt_var": bound(4 * (cells + b * (LEVEL + 1)),
+                           cells * (4 * m + 2) * LEVEL),
+        "modwpt_fwd": bound(4 * packet * (1 + (1 << PACKET_LEVEL)),
+                            packet * tree),
+        "modwpt_select": bound(4 * mb * mn + 12 * mb * (1 << MP_LEVEL),
+                               mb * mn * (tree + 2 * (1 << MP_LEVEL))),
+        "modwpt_inv": bound(4 * packet * (1 + (1 << PACKET_LEVEL)),
+                            packet * tree),
+        "modwt2_fwd": bound(4 * img * (3 * l2 + 2), img * 12 * m * l2),
+        "modwt2_inv": bound(4 * img * (3 * l2 + 2), img * 12 * m * l2),
+        "modwt2_denoise": bound(4 * (2 * img + IMAGE_SHAPE[0]),
+                                img * (24 * m + 9) * l2),
+        "modwt3_fwd": bound(4 * vol * (7 * l3 + 2), vol * 28 * m * l3),
+        "modwt3_inv": bound(4 * vol * (7 * l3 + 2), vol * 28 * m * l3),
+        "cwt_ifft": bound(8 * (cb * cp + CWT_SCALES * cp + rows * cp),
+                          rows * (6 * cp + 5 * cp * int(math.log2(cp)))),
+    }
+
+
+def counted_run(smoke: Smoke, torch, counters: dict, what: str, calls,
+                want: dict):
+    """Run ``calls`` with every counter at 0 and require exactly the
+    launches ``want`` names (0 for the others); returns (output, counts)."""
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    out = calls()
+    torch.cuda.synchronize()
+    got = {name: fn.launches for name, fn in counters.items()}
+    want = {name: want.get(name, 0) for name in counters}
+    print(f"  launches on {what}: {got}", flush=True)
+    smoke.require(f"launches on {what} as expected", got == want,
+                  f"(want {want})")
+    return out, got
 
 
 def report_time(jt, name, arg, kern, plain, card, samples=None):
@@ -601,19 +706,7 @@ def run_image_slice(smoke: Smoke, torch, jt, dev, signal, card):
                 "modwpt_inv": kp.modwpt_inv_cuda}
 
     def counted(what, calls, want):
-        """Run ``calls`` with every counter at 0 and require exactly the
-        launches ``want`` names (0 for the others)."""
-        torch.cuda.synchronize()
-        for fn in counters.values():
-            fn.launches = 0
-        out = calls()
-        torch.cuda.synchronize()
-        got = {name: fn.launches for name, fn in counters.items()}
-        want = {name: want.get(name, 0) for name in counters}
-        print(f"  launches on {what}: {got}", flush=True)
-        smoke.require(f"launches on {what} as expected", got == want,
-                      f"(want {want})")
-        return out, got
+        return counted_run(smoke, torch, counters, what, calls, want)
 
     def estimate():
         """The fused path's default threshold: universal, one per image."""
@@ -760,6 +853,279 @@ def run_image_slice(smoke: Smoke, torch, jt, dev, signal, card):
         print(f"  wall {name} {IMAGE_SHAPE}: {ms:.3f} ms (host clock, median "
               f"of 3) [{card}]", flush=True)
     return launches, errs, times
+
+
+def run_volume_cwt_slice(smoke: Smoke, torch, jt, dev, signal, card):
+    """The 3D volume path and the CWT: phases 18-21.  Returns the new
+    kernels' launches on their full-width calls, each new kernel's
+    max-abs-err against its plain version there, (kernel ms, plain ms) per
+    new kernel, and the library call's ms where there is one.  The packet
+    kernels' launch counts and errors on this path are checked here; their
+    entries in the kernels line stay phase 12's."""
+    from jwave_pro_tpu_torch.kernels import cwt_cuda as kw
+    from jwave_pro_tpu_torch.kernels import modwpt_cuda as kp
+    from jwave_pro_tpu_torch.kernels import modwt3_cuda as k3
+    from jwave_pro_tpu_torch.ops.cwt import _full_spectrum_multipliers
+
+    w = jt.wavelet(WAVELET)
+    lvl = VOLUME_LEVEL
+
+    def scaled_err(a, b) -> float:
+        """max |a − b| over max |b|: the CWT's bound is relative to its
+        largest coefficient."""
+        return float((a - b).abs().max() / b.abs().max())
+
+    def spectra(wav, b, p, scales):
+        """(xf, M, is_real): the kernel's operands for b signals of p
+        samples, as ``cwt(method='fused')`` builds them."""
+        m, is_real = _full_spectrum_multipliers(
+            wav, tuple(float(a) for a in scales), p, 1.0)
+        xf = torch.fft.fft(signal(b, p).to(torch.complex64))
+        return xf, torch.from_numpy(m).to(dev, torch.complex64), is_real
+
+    print("== phase 18: 3D and CWT kernels vs plain (small shapes, halo > "
+          "volume, Haar L3, Symlet 8, bf16; P = 64, 1024, 16384)",
+          flush=True)
+    for shape, lv, name in (((2, 24, 40, 33), 2, WAVELET),
+                            ((1, 8, 8, 16), 2, WAVELET),
+                            ((1, 5, 7, 40), 3, "Haar"),
+                            ((2, 9, 33, 70), 1, "Symlet 8")):
+        wv = jt.wavelet(name)
+        x = signal(*shape)
+        tag = f"{shape} L{lv} {name}"
+        c = k3.modwt3_fwd_cuda(x, wv, lv)
+        smoke.check(f"3D fwd {tag} vs plain",
+                    max_err(c, k3.modwt3_fwd_plain(x, wv, lv)), 1e-5)
+        xr = k3.modwt3_inv_cuda(c, wv)
+        smoke.check(f"3D inv {tag} vs plain",
+                    max_err(xr, k3.modwt3_inv_plain(c, wv)), 1e-5)
+        smoke.check(f"3D round trip {tag}", max_err(xr, x), 1e-4)
+    x = signal(2, 24, 40, 33)
+    ref = jt.modwt3(x.double().cpu(), w, lvl, method="direct")
+    smoke.check("3D fwd (2, 24, 40, 33) L2 vs f64 host direct path",
+                max_err(k3.modwt3_fwd_cuda(x, w, lvl).cpu(), ref), 1e-5)
+    c32 = k3.modwt3_fwd_cuda(x, w, lvl)
+    c16 = k3.modwt3_fwd_cuda(x.bfloat16(), w, lvl)
+    smoke.require("bf16 3D fwd dtype", c16.dtype == torch.bfloat16)
+    smoke.check("bf16 3D fwd vs f32 fwd", max_err(c16, c32), 5e-2)
+    smoke.check("bf16 3D fwd vs bf16 plain",
+                max_err(c16, k3.modwt3_fwd_plain(x.bfloat16(), w, lvl)),
+                5e-2)
+    smoke.check("bf16 3D round trip", max_err(k3.modwt3_inv_cuda(c16, w), x),
+                1e-1)
+    for p, s_count in ((64, 7), (1024, 13), (16384, 5)):
+        for wav in (jt.MorletWavelet(), jt.MexicanHatWavelet()):
+            xf, m, is_real = spectra(wav, 3, p, jt.generate_log_scales(
+                1.0, 256.0, s_count))
+            n = p - 7
+            got = kw.cwt_ifft_cuda(xf, m, n, is_real)
+            plain = kw.cwt_ifft_plain(xf, m, n, is_real)
+            lib = torch.fft.ifft(xf[:, None, :] * m, dim=-1)[..., :n]
+            lib = lib.real if is_real else lib
+            tag = f"P={p} S={s_count} {wav.name}"
+            kind = "float32" if is_real else "complex64"
+            smoke.require(f"CWT {tag} output {kind}",
+                          got.dtype == plain.dtype
+                          and str(got.dtype).endswith(kind))
+            smoke.check(f"CWT kernel {tag} vs plain (relative)",
+                        scaled_err(got, plain), 1e-4)
+            smoke.check(f"CWT kernel {tag} vs cuFFT (relative)",
+                        scaled_err(got, lib), 1e-4)
+
+    print(f"== phase 19: 3D path {VOLUME_SHAPE} f32 {WAVELET} L{lvl}, "
+          f"oct-tree packets {PACKET3_SHAPE} L{lvl}, MRA {MRA3_SHAPE}, "
+          f"through the public API", flush=True)
+    counters = {"modwt3_fwd": k3.modwt3_fwd_cuda,
+                "modwt3_inv": k3.modwt3_inv_cuda,
+                "modwpt_fwd": kp.modwpt_fwd_cuda,
+                "modwpt_inv": kp.modwpt_inv_cuda,
+                "cwt_ifft": kw.cwt_ifft_cuda}
+
+    def counted(what, calls, want):
+        return counted_run(smoke, torch, counters, what, calls, want)
+
+    x = signal(*VOLUME_SHAPE)
+    c, got = counted("modwt3", lambda: jt.modwt3(x, w, lvl),
+                     {"modwt3_fwd": 1})
+    launches = {"modwt3_fwd": got["modwt3_fwd"]}
+    xr, got = counted("imodwt3", lambda: jt.imodwt3(c, w), {"modwt3_inv": 1})
+    launches["modwt3_inv"] = got["modwt3_inv"]
+    den_u, _ = counted("modwt3_denoise, universal threshold",
+                       lambda: jt.modwt3_denoise(x, w, lvl),
+                       {"modwt3_fwd": 1, "modwt3_inv": 1})
+    den_t, _ = counted(f"modwt3_denoise, threshold {IMAGE_THR}",
+                       lambda: jt.modwt3_denoise(x, w, lvl,
+                                                 threshold=IMAGE_THR),
+                       {"modwt3_fwd": 1, "modwt3_inv": 1})
+    vol = signal(*PACKET3_SHAPE)
+    p3, _ = counted("modwpt3", lambda: jt.modwpt3(vol, w, lvl),
+                    {"modwpt_fwd": 3})
+    vr, _ = counted("imodwpt3", lambda: jt.imodwpt3(p3, w),
+                    {"modwpt_inv": 3})
+    xm = signal(*MRA3_SHAPE)
+    mra, _ = counted("the 3D MRA", lambda: jt.modwt3_mra(xm, w, lvl),
+                     {"modwt3_fwd": 1, "modwt3_inv": 7 * lvl + 1})
+    nodes = 1 << lvl
+    for name, t, shape in (
+            ("3D coeffs", c, (7 * lvl + 1,) + VOLUME_SHAPE),
+            ("3D reconstruction", xr, VOLUME_SHAPE),
+            ("3D denoise, universal", den_u, VOLUME_SHAPE),
+            (f"3D denoise, {IMAGE_THR}", den_t, VOLUME_SHAPE),
+            ("oct-tree packets", p3, (nodes,) * 3 + PACKET3_SHAPE),
+            ("oct-tree reconstruction", vr, PACKET3_SHAPE),
+            ("3D MRA", mra, (7 * lvl + 1,) + MRA3_SHAPE)):
+        smoke.require(f"{name} shape {shape} and finite",
+                      tuple(t.shape) == shape
+                      and bool(torch.isfinite(t).all()))
+    smoke.check("3D round trip at full width", max_err(xr, x), 1e-4)
+    smoke.check("oct-tree packet round trip", max_err(vr, vol), 1e-4)
+    smoke.check("3D MRA sums to the volume", max_err(mra.sum(0), xm), 1e-4)
+    smoke.check("oct-tree node (0, 0, 0) = the 3D MODWT's LLL",
+                max_err(p3[0, 0, 0], jt.modwt3(vol, w, lvl)[-1]), 1e-5)
+    del mra, vr
+    # the denoise against the plain versions' chain on the first volume
+    # (its universal threshold is its own: one per volume)
+    c0 = k3.modwt3_fwd_plain(x[:1], w, lvl)
+    sig = jt.mad_sigma(c0[6].flatten(-3)) * math.sqrt(
+        2.0 * math.log(math.prod(VOLUME_SHAPE[1:])))
+    shr = jt.soft_threshold(c0[:7 * lvl], sig[:, None, None, None])
+    ref = k3.modwt3_inv_plain(torch.cat([shr, c0[7 * lvl:]]), w)
+    smoke.check("3D denoise (universal) vs the plain chain, volume 0",
+                max_err(den_u[:1], ref), 1e-4)
+    del c0, shr, ref, den_u, den_t
+    # each new kernel against its plain version at the path's shape (these
+    # launches are not counted above)
+    errs = {
+        "modwt3_fwd": smoke.check("3D fwd vs plain at the path's shape",
+                                  max_err(c, k3.modwt3_fwd_plain(x, w, lvl)),
+                                  1e-5),
+        "modwt3_inv": smoke.check("3D inv vs plain at the path's shape",
+                                  max_err(xr, k3.modwt3_inv_plain(c, w)),
+                                  1e-5),
+    }
+    del xr
+    # the packet kernels against their plain versions on modwpt3's own
+    # operands: forward over depth (R·C, D), rows (P·D·C, R), columns
+    # (P·P·D·R, C); inverse over the same in reverse
+    _, d, r, cols = PACKET3_SHAPE
+    xt = vol.movedim(-3, -1).reshape(-1, d).contiguous()
+    fa = kp.modwpt_fwd_cuda(xt, w, lvl)
+    smoke.check(f"packet fwd vs plain at the oct tree's {tuple(xt.shape)}",
+                max_err(fa, kp.modwpt_fwd_plain(xt, w, lvl)), 1e-5)
+    xt = (fa.reshape(nodes, 1, r, cols, d).movedim(-1, -3)
+          .swapaxes(-1, -2).reshape(-1, r).contiguous())
+    del fa
+    fb = kp.modwpt_fwd_cuda(xt, w, lvl)
+    smoke.check(f"packet fwd vs plain at the oct tree's {tuple(xt.shape)}",
+                max_err(fb, kp.modwpt_fwd_plain(xt, w, lvl)), 1e-5)
+    xt = fb.reshape(nodes, nodes, 1, d, cols, r).swapaxes(-1, -2).reshape(
+        -1, cols).contiguous()
+    del fb
+    fc = kp.modwpt_fwd_cuda(xt, w, lvl)
+    smoke.check(f"packet fwd vs plain at the oct tree's {tuple(xt.shape)}",
+                max_err(fc, kp.modwpt_fwd_plain(xt, w, lvl)), 1e-5)
+    smoke.require("modwpt3 = the packet kernel on these operands",
+                  torch.equal(fc.reshape((nodes,) * 3 + PACKET3_SHAPE)
+                              .permute(2, 1, 0, 3, 4, 5, 6), p3))
+    del xt, fc
+    ct = p3.permute(2, 1, 0, 3, 4, 5, 6).reshape(nodes, -1,
+                                                 cols).contiguous()
+    ia = kp.modwpt_inv_cuda(ct, w)
+    smoke.check(f"packet inv vs plain at the oct tree's {tuple(ct.shape)}",
+                max_err(ia, kp.modwpt_inv_plain(ct, w)), 1e-4)
+    ct = ia.reshape(nodes, nodes, 1, d, r, cols).swapaxes(-1, -2).reshape(
+        nodes, -1, r).contiguous()
+    del ia
+    ib = kp.modwpt_inv_cuda(ct, w)
+    smoke.check(f"packet inv vs plain at the oct tree's {tuple(ct.shape)}",
+                max_err(ib, kp.modwpt_inv_plain(ct, w)), 1e-4)
+    ct = ib.reshape(nodes, 1, d, cols, r).swapaxes(-1, -2).movedim(
+        -3, -1).reshape(nodes, -1, d).contiguous()
+    del ib
+    ic = kp.modwpt_inv_cuda(ct, w)
+    smoke.check(f"packet inv vs plain at the oct tree's {tuple(ct.shape)}",
+                max_err(ic, kp.modwpt_inv_plain(ct, w)), 1e-4)
+    del ct, ic, p3
+
+    print(f"== phase 20: CWT {CWT_SHAPE} f32, {CWT_SCALES} log scales, "
+          f"Morlet and Mexican Hat, through the public API", flush=True)
+    scales = jt.generate_log_scales(1.0, 256.0, CWT_SCALES)
+    xs = signal(*CWT_SHAPE)
+    cb, cp = CWT_SHAPE
+    for wav, dtype in ((jt.MorletWavelet(), torch.complex64),
+                       (jt.MexicanHatWavelet(), torch.float32)):
+        res, got = counted(f"cwt(method='fused'), {wav.name}",
+                           lambda: jt.cwt(xs, scales, wav, method="fused"),
+                           {"cwt_ifft": 1})
+        if dtype == torch.complex64:
+            launches["cwt_ifft"] = got["cwt_ifft"]
+        cf = res.coefficients
+        smoke.require(f"CWT {wav.name} coefficients {dtype}, shape and "
+                      f"finite", cf.dtype == dtype and tuple(cf.shape) == (
+                          cb, CWT_SCALES, cp) and bool(torch.isfinite(
+                              cf).all()))
+        fft = jt.cwt(xs, scales, wav, method="fft").coefficients
+        smoke.check(f"CWT {wav.name} fused vs the 'fft' path (relative)",
+                    scaled_err(cf, fft), 1e-4)
+        del res, cf, fft
+    wav = jt.MorletWavelet()
+    xf, m, is_real = spectra(wav, cb, cp, scales)
+    got = kw.cwt_ifft_cuda(xf, m, cp, is_real)
+    lib = torch.fft.ifft(xf[:, None, :] * m, dim=-1)
+    errs["cwt_ifft"] = smoke.check(
+        "CWT kernel vs plain at the path's shape (relative)",
+        scaled_err(got, kw.cwt_ifft_plain(xf, m, cp, is_real)), 1e-4)
+    smoke.check("CWT kernel vs cuFFT at the path's shape (relative)",
+                scaled_err(got, lib), 1e-4)
+    del got, lib
+
+    print(f"== phase 21: 3D and CWT times (CUDA events, median) on {card}",
+          flush=True)
+    times, library = {}, {}
+    for shape in (VOLUME_SHAPE,) + VOLUME_BENCH:
+        xv = x if shape == VOLUME_SHAPE else signal(*shape)
+        cv = c if shape == VOLUME_SHAPE else k3.modwt3_fwd_cuda(xv, w, lvl)
+        for name, arg, kern, plain in (
+                ("modwt3_fwd", xv, lambda u: k3.modwt3_fwd_cuda(u, w, lvl),
+                 lambda u: k3.modwt3_fwd_plain(u, w, lvl)),
+                ("modwt3_inv", cv, lambda u: k3.modwt3_inv_cuda(u, w),
+                 lambda u: k3.modwt3_inv_plain(u, w))):
+            t = report_time(jt, name, arg, kern, plain, card,
+                            samples=math.prod(shape))
+            if shape == VOLUME_SHAPE:
+                times[name] = t
+        del cv
+    del c
+    for shape in (CWT_SHAPE, CWT_BENCH):
+        for wav in (jt.MorletWavelet(), jt.MexicanHatWavelet()):
+            sb, sp = shape
+            xf, m, is_real = spectra(wav, sb, sp, scales)
+            name = f"cwt_ifft {wav.name}"
+            t = report_time(
+                jt, name, xf, lambda u: kw.cwt_ifft_cuda(u, m, sp, is_real),
+                lambda u: kw.cwt_ifft_plain(u, m, sp, is_real), card,
+                samples=sb * sp)
+            t_lib = jt.time_chain(lambda u: torch.fft.ifft(
+                u[:, None, :] * m, dim=-1)[..., :sp], xf) * 1e3
+            print(f"  {name} {shape} S={CWT_SCALES}: library call "
+                  f"torch.fft.ifft {t_lib:.4f} ms [{card}]", flush=True)
+            if shape == CWT_SHAPE and not is_real:
+                times["cwt_ifft"], library["cwt_ifft"] = t, t_lib
+    wav = jt.MorletWavelet()
+    walls = {
+        f"modwt3_denoise {VOLUME_SHAPE}, universal threshold": wall_ms(
+            torch, lambda: jt.modwt3_denoise(x, w, lvl)),
+        f"modwpt3 {PACKET3_SHAPE} L{lvl}": wall_ms(
+            torch, lambda: jt.modwpt3(vol, w, lvl)),
+        f"cwt(method='fused') {CWT_SHAPE} Morlet": wall_ms(
+            torch, lambda: jt.cwt(xs, scales, wav, method="fused")),
+        f"cwt(method='fft') {CWT_SHAPE} Morlet": wall_ms(
+            torch, lambda: jt.cwt(xs, scales, wav, method="fft")),
+    }
+    for name, ms in walls.items():
+        print(f"  wall {name}: {ms:.3f} ms (host clock, median of 3) "
+              f"[{card}]", flush=True)
+    return launches, errs, times, library
 
 
 def main() -> int:

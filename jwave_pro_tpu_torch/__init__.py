@@ -7,9 +7,12 @@ cross-correlation, Hurst exponent, change points), the 1D shift-invariant
 packet tree (``modwpt`` and its tree, MRA and best basis) with matching
 pursuit, the 2D undecimated image path (``modwt2``/``imodwt2``/
 ``modwt2_mra``, ``modwt2_denoise`` with its single-pass ``method='fused'``,
-the quad-tree packets ``modwpt2`` and their tree and best basis), and the
-hand-written CUDA kernels behind them (``kernels/``, built from ``csrc/``
-with ``nvcc`` on first launch).  Names and signatures match
+the quad-tree packets ``modwpt2`` and their tree and best basis), the 3D
+volume path (``modwt3``/``imodwt3``/``modwt3_mra``, ``modwt3_denoise``, the
+oct-tree packets ``modwpt3``), the continuous wavelets and the FFT CWT
+(``cwt`` with its ``method='fused'`` multiply + inverse FFT kernel), and
+the hand-written CUDA kernels behind them (``kernels/``, built from
+``csrc/`` with ``nvcc`` on first launch).  Names and signatures match
 the JAX package; tensors stay on the device they arrive on.  Importing this
 package never imports JAX or ``jwave_pro_tpu``.
 
@@ -22,18 +25,24 @@ package never imports JAX or ``jwave_pro_tpu``.
     r = jt.matching_pursuit(x, w, 3, 16)
     c2 = jt.modwt2(img, w, 3)        # (10, B, R, C)
     d2 = jt.modwt2_denoise(img, w, 3, method="fused")
+    c3 = jt.modwt3(vol, w, 2)        # (15, B, D, R, C)
+    d3 = jt.modwt3_denoise(vol, w, 2)
+    p3 = jt.modwpt3(vol, w, 2)       # (4, 4, 4, B, D, R, C)
+    s = jt.generate_log_scales(1.0, 256.0, 64)
+    r = jt.cwt(x, s, jt.MorletWavelet(), method="fused")   # (B, 64, N)
 """
 from .exceptions import JWaveException, JWaveFailure, NotKnown
 from .ops import (
-    MAX_DECOMPOSITION_LEVEL, bayes_threshold, circular_convolve,
-    circular_convolve_adjoint, hard_threshold, imodwpt, imodwpt2, imodwt,
-    imodwt2, log_energy_cost, mad_sigma, modwpt, modwpt2,
-    modwpt2_basis_reconstruct, modwpt2_best_basis, modwpt2_tree,
+    MAX_DECOMPOSITION_LEVEL, CWTResult, bayes_threshold, circular_convolve,
+    circular_convolve_adjoint, cwt, generate_linear_scales,
+    generate_log_scales, hard_threshold, imodwpt, imodwpt2, imodwpt3, imodwt,
+    imodwt2, imodwt3, log_energy_cost, mad_sigma, modwpt, modwpt2,
+    modwpt2_basis_reconstruct, modwpt2_best_basis, modwpt2_tree, modwpt3,
     modwpt_basis_reconstruct, modwpt_best_basis, modwpt_mra,
     modwpt_node_path, modwpt_tree, modwt, modwt2, modwt2_denoise, modwt2_mra,
-    modwt_base_filters, modwt_denoise, modwt_denoise_inplace, modwt_mra,
-    shannon_entropy_cost, soft_threshold, sure_threshold, threshold_cost,
-    universal_threshold,
+    modwt3, modwt3_denoise, modwt3_mra, modwt_base_filters, modwt_denoise,
+    modwt_denoise_inplace, modwt_mra, pad_signal, shannon_entropy_cost,
+    soft_threshold, sure_threshold, threshold_cost, universal_threshold,
 )
 from .ops.analysis import (
     ChangePoints, VarianceCI, modwt_changepoints, modwt_correlation,
@@ -41,11 +50,13 @@ from .ops.analysis import (
     modwt_variance_ci, scale_energies,
 )
 from .ops.mp import MPResult, matching_pursuit, mp_reconstruct
-from .utils import time_chain
+from .utils import next_power_of_two, time_chain
 from .wavelets import (
-    REGISTRY, DiscreteWavelet, biorthogonal, coiflet, daubechies,
-    from_jax_wavelet, good_wavelets, legendre, qmf_biorthogonal,
-    qmf_orthonormal, symlet, wavelet, wavelet_names,
+    REGISTRY, ContinuousWavelet, DiscreteWavelet, DOGWavelet,
+    MexicanHatWavelet, MeyerWavelet, MorletWavelet, PaulWavelet,
+    biorthogonal, coiflet, continuous_wavelet, daubechies, from_jax_wavelet,
+    good_wavelets, legendre, qmf_biorthogonal, qmf_orthonormal, symlet,
+    wavelet, wavelet_names,
 )
 
 __all__ = [
@@ -61,6 +72,12 @@ __all__ = [
     "modwt2", "imodwt2", "modwt2_mra", "modwt2_denoise",
     "modwpt2", "imodwpt2", "modwpt2_tree", "modwpt2_best_basis",
     "modwpt2_basis_reconstruct",
+    "modwt3", "imodwt3", "modwt3_mra", "modwt3_denoise", "modwpt3",
+    "imodwpt3",
+    "ContinuousWavelet", "MorletWavelet", "MexicanHatWavelet", "PaulWavelet",
+    "DOGWavelet", "MeyerWavelet", "continuous_wavelet",
+    "cwt", "CWTResult", "generate_log_scales", "generate_linear_scales",
+    "pad_signal",
     "log_energy_cost", "shannon_entropy_cost", "threshold_cost",
     "MPResult", "matching_pursuit", "mp_reconstruct",
     "modwt_variance", "modwt_variance_ci", "VarianceCI", "modwt_covariance",
@@ -69,5 +86,5 @@ __all__ = [
     "soft_threshold", "hard_threshold", "mad_sigma", "universal_threshold",
     "sure_threshold", "bayes_threshold", "modwt_denoise",
     "modwt_denoise_inplace",
-    "time_chain",
+    "time_chain", "next_power_of_two",
 ]

@@ -1,7 +1,8 @@
 """Wavelet denoising: soft/hard thresholding + the MODWT denoise pipelines.
 
-Counterpart of the 1D and 2D MODWT parts of ``jwave_pro_tpu/ops/denoise.py``
-(``modwt3_denoise`` and the packet denoisers wait for their slices).  The
+Counterpart of the 1D, 2D and 3D MODWT parts of
+``jwave_pro_tpu/ops/denoise.py`` (the packet denoisers wait for their
+slices).  The
 reference demonstrates MODWT soft-threshold denoising in
 ``jwave/examples/MODWTExample.java:125-172`` (universal threshold
 σ·√(2·ln N) with σ estimated from level-1 detail coefficients via
@@ -20,6 +21,7 @@ __all__ = [
     "soft_threshold", "hard_threshold", "universal_threshold",
     "sure_threshold", "bayes_threshold",
     "mad_sigma", "modwt_denoise", "modwt_denoise_inplace", "modwt2_denoise",
+    "modwt3_denoise",
 ]
 
 
@@ -192,18 +194,19 @@ def modwt_denoise_inplace(x: torch.Tensor, wavelet: DiscreteWavelet,
     return x.copy_(modwt_denoise(x, wavelet, level, mode=mode, method=method))
 
 
-def _per_image(threshold, x: torch.Tensor, dtype: torch.dtype):
-    """A threshold array for the 2D pipeline, in the coefficients' ``dtype``
-    (a float64 NumPy array does not promote float32 bands): a 1-D array of
-    length B with a (B, R, C) input is one threshold per image,
-    ``(B, 1, 1)``; any other array broadcasts as given against the
-    ``(3L, ..., R, C)`` detail bands.  A number stays a Python number
-    (weakly typed, as in JAX)."""
+def _per_image(threshold, x: torch.Tensor, dtype: torch.dtype,
+               nd: int = 2):
+    """A threshold array for the ``nd``-D pipeline (2 or 3), in the
+    coefficients' ``dtype`` (a float64 NumPy array does not promote float32
+    bands): a 1-D array of length B with a (B, R, C) or (B, D, R, C) input
+    is one threshold per image or volume, ``(B, 1, ...)``; any other array
+    broadcasts as given against the detail bands.  A number stays a Python
+    number (weakly typed, as in JAX)."""
     if isinstance(threshold, (int, float)):
         return threshold
     t = torch.as_tensor(threshold, dtype=dtype, device=x.device)
-    if x.ndim == 3 and t.ndim == 1 and t.shape[0] == x.shape[0]:
-        return t.reshape(-1, 1, 1)
+    if x.ndim == nd + 1 and t.ndim == 1 and t.shape[0] == x.shape[0]:
+        return t.reshape((-1,) + (1,) * nd)
     return t
 
 
@@ -277,3 +280,43 @@ def modwt2_denoise(x: torch.Tensor, wavelet: DiscreteWavelet, level: int,
     details = shrink(c[:n_bands], threshold)
     return imodwt2(torch.cat([details, c[n_bands:]], dim=0), wavelet,
                    method=method)
+
+
+def modwt3_denoise(x: torch.Tensor, wavelet: DiscreteWavelet, level: int,
+                   mode: str = "soft", threshold=None) -> torch.Tensor:
+    """Volume denoising via the 3D MODWT: shrink every detail octant (7 per
+    level), keep LLL, invert.
+
+    σ is estimated from the finest all-highpass octant HHH₁ (MAD/0.6745
+    over its D·R·C samples, per volume), and ``threshold`` defaults to the
+    universal threshold σ·√(2·ln(D·R·C)); ``'universal'``, ``'sure'`` and
+    ``'bayes'`` select the rule applied per band.  A number applies to
+    every band and volume; a 1-D array of length B with a batched
+    ``(B, D, R, C)`` input is one threshold per volume; any other array
+    broadcasts as given against the ``(7L, ..., D, R, C)`` detail bands.
+    Rides the 3D CUDA kernels both ways under the transforms' ``'auto'``
+    dispatch.
+    """
+    from .modwt2d import imodwt3, modwt3
+
+    x = torch.as_tensor(x)
+    c = modwt3(x, wavelet, level)            # (7L+1, ..., D, R, C)
+    n_bands = 7 * level
+    if threshold is None or isinstance(threshold, str):
+        kind = threshold or "universal"
+        hhh1 = c[6].flatten(-3)                # finest corner octant
+        flat = c[:n_bands].flatten(-3)
+        if kind == "universal":
+            threshold = universal_threshold(hhh1)
+        elif kind == "sure":
+            threshold = sure_threshold(flat, mad_sigma(hhh1))
+        elif kind == "bayes":
+            threshold = bayes_threshold(flat, mad_sigma(hhh1))
+        else:
+            raise ValueError(f"unknown threshold rule {threshold!r}")
+        threshold = threshold[..., None, None, None]
+    else:
+        threshold = _per_image(threshold, x, c.dtype, nd=3)
+    shrink = soft_threshold if mode == "soft" else hard_threshold
+    details = shrink(c[:n_bands], threshold)
+    return imodwt3(torch.cat([details, c[n_bands:]], dim=0), wavelet)

@@ -1,8 +1,8 @@
-"""Maximal-Overlap Discrete Wavelet Packet Transform (MODWPT), 1D and 2D, in
-PyTorch.
+"""Maximal-Overlap Discrete Wavelet Packet Transform (MODWPT), 1D, 2D and 3D,
+in PyTorch.
 
-Counterpart of the 1D and 2D parts of ``jwave_pro_tpu/ops/modwpt.py``; same
-semantics and names (``modwpt3`` waits for the 3D slice).  The shift-invariant analog of the wavelet packet
+Counterpart of ``jwave_pro_tpu/ops/modwpt.py``; same semantics and names.
+The shift-invariant analog of the wavelet packet
 transform (Percival & Walden 2000, §6.1): the MODWT's filter pipeline
 (unit-L2-normalized banks ÷ √2, ``MODWTTransform.java:452-484``), à-trous
 dilation per level and circular boundary, applied to every node of the full
@@ -21,9 +21,9 @@ rolled copy (``ops.modwt._conv_channels``); the sequency reorder is one
 index.  On a CUDA float32/bfloat16 tensor, ``method='auto'`` sends the
 shapes the kernels support to the fused CUDA kernels
 (``kernels/modwpt_cuda.py``); float64 and unsupported shapes take the plain
-path below.  The 2D quad tree runs as two big-batch 1D packet transforms
-(the orthogonal-axis samples flattened into the batch), so it reaches the
-same kernels.
+path below.  The 2D quad tree and the 3D oct tree run as two and three
+big-batch 1D packet transforms (the orthogonal-axis samples flattened into
+the batch), so they reach the same kernels.
 """
 from __future__ import annotations
 
@@ -43,7 +43,7 @@ __all__ = [
     "modwpt", "imodwpt", "modwpt_tree", "modwpt_mra",
     "modwpt_best_basis", "modwpt_basis_reconstruct", "modwpt_node_path",
     "modwpt2", "imodwpt2", "modwpt2_tree", "modwpt2_best_basis",
-    "modwpt2_basis_reconstruct",
+    "modwpt2_basis_reconstruct", "modwpt3", "imodwpt3",
 ]
 
 
@@ -490,3 +490,68 @@ def modwpt2_basis_reconstruct(tree, masks, wavelet: DiscreteWavelet,
         parents = _level_inverse2(cur, g, h, l, method)
         cur = parents + mask_mul(tree[l - 1], masks[l - 1])
     return cur[0, 0]
+
+
+# ---------------------------------------------------------------------------
+# 3D MODWPT — shift-invariant oct tree (tensor product of three 1D trees)
+# ---------------------------------------------------------------------------
+
+def modwpt3(x: torch.Tensor, wavelet: DiscreteWavelet, level: int,
+            method: str = "auto") -> torch.Tensor:
+    """3D MODWPT: ``(..., D, R, C) → (2^L, 2^L, 2^L, ..., D, R, C)``.
+
+    The undecimated oct tree: node ``(n_d, n_r, n_c)`` applies the depth
+    cascade of 1D node ``n_d``, the row cascade of ``n_r`` and the column
+    cascade of ``n_c`` — all axes sequency-ordered.  Node (0, 0, 0) equals
+    the 3D MODWT's LLL_level; every level preserves energy.  Output is 8^L
+    full-resolution volumes — keep ``level`` small (L1: 8 nodes, L2: 64).
+
+    Computed as three big-batch 1D transforms (depth, rows, columns, the
+    orthogonal axes flattened into the batch), so the fused packet kernel
+    runs every pass under ``method='auto'`` on a CUDA f32/bf16 tensor.
+    """
+    x = _as_signal(x)
+    if x.ndim < 3:
+        raise ValueError("modwpt3 needs at least 3 dims (..., D, R, C)")
+    *lead, dd, r, c = x.shape
+    for n in (dd, r, c):
+        _check_level(n, level)
+    p = 1 << level
+    # depth pass
+    t = x.movedim(-3, -1)                                  # (..., R, C, D)
+    nd = modwpt(t.reshape(-1, dd), wavelet, level, method)
+    nd = nd.reshape([p] + lead + [r, c, dd]).movedim(-1, -3)
+    # row pass
+    t = nd.swapaxes(-1, -2)                          # (P_d, ..., D, C, R)
+    nr = modwpt(t.reshape(-1, r), wavelet, level, method)
+    nr = nr.reshape([p, p] + lead + [dd, c, r]).swapaxes(-1, -2)
+    # column pass
+    nc = modwpt(nr.reshape(-1, c), wavelet, level, method)
+    nc = nc.reshape([p, p, p] + lead + [dd, r, c])         # (n_c, n_r, n_d, …)
+    return nc.permute([2, 1, 0] + list(range(3, nc.ndim)))
+
+
+def imodwpt3(coeffs: torch.Tensor, wavelet: DiscreteWavelet,
+             method: str = "auto") -> torch.Tensor:
+    """Inverse 3D MODWPT: ``(2^L, 2^L, 2^L, ..., D, R, C)`` →
+    ``(..., D, R, C)``."""
+    coeffs = torch.as_tensor(coeffs)
+    if coeffs.ndim < 6:
+        raise ValueError(
+            "imodwpt3 expects (nodes_d, nodes_r, nodes_c, ..., D, R, C)")
+    pd, pr, pc = coeffs.shape[:3]
+    if not (pd == pr == pc) or pd < 2 or pd & (pd - 1):
+        raise ValueError(
+            f"leading node axes must be equal powers of two ≥ 2, got "
+            f"({pd}, {pr}, {pc})")
+    *lead, dd, r, c = coeffs.shape[3:]
+    # undo the column pass (consume n_c), then the rows, then the depth
+    t = coeffs.permute([2, 1, 0] + list(range(3, coeffs.ndim)))
+    sig_c = imodwpt(t.reshape(pc, -1, c), wavelet, method)
+    sig_c = sig_c.reshape([pr, pd] + lead + [dd, r, c])    # (n_r, n_d, …)
+    t = sig_c.swapaxes(-1, -2)                             # (…, D, C, R)
+    sig_r = imodwpt(t.reshape(pr, -1, r), wavelet, method)
+    sig_r = sig_r.reshape([pd] + lead + [dd, c, r]).swapaxes(-1, -2)
+    t = sig_r.movedim(-3, -1)                              # (n_d, …, R, C, D)
+    sig = imodwpt(t.reshape(pd, -1, dd), wavelet, method)
+    return sig.reshape(lead + [r, c, dd]).movedim(-1, -3)

@@ -1,3 +1,4 @@
 from .profiling import time_chain
+from .validation import next_power_of_two
 
-__all__ = ["time_chain"]
+__all__ = ["time_chain", "next_power_of_two"]

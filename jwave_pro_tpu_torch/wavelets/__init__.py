@@ -1,6 +1,10 @@
 from .base import (
     DiscreteWavelet, from_jax_wavelet, qmf_biorthogonal, qmf_orthonormal,
 )
+from .continuous import (
+    ContinuousWavelet, DOGWavelet, MexicanHatWavelet, MeyerWavelet,
+    MorletWavelet, PaulWavelet, continuous_wavelet, from_jax_continuous,
+)
 from .families import (
     REGISTRY, biorthogonal, coiflet, daubechies, good_wavelets, legendre,
     symlet, wavelet, wavelet_names,
@@ -11,4 +15,7 @@ __all__ = [
     "qmf_orthonormal", "REGISTRY", "good_wavelets", "wavelet",
     "wavelet_names", "daubechies", "symlet", "coiflet", "biorthogonal",
     "legendre",
+    "ContinuousWavelet", "MorletWavelet", "MexicanHatWavelet",
+    "PaulWavelet", "DOGWavelet", "MeyerWavelet", "continuous_wavelet",
+    "from_jax_continuous",
 ]

@@ -124,13 +124,20 @@ def qmf_biorthogonal(name, dec_lo, dec_hi, *, transform_wavelength=2,
     )
 
 
-def from_jax_wavelet(w) -> DiscreteWavelet:
+def from_jax_wavelet(w):
     """This package's wavelet built from a ``jwave_pro_tpu`` wavelet.
 
-    A wavelet's parameters are its four filter banks; carrying them (and the
-    metadata) across makes both packages compute the same transform.  ``w``
-    is read by attribute only, so this module never imports JAX.
+    A discrete wavelet's parameters are its four filter banks; carrying them
+    (and the metadata) across makes both packages compute the same
+    transform.  A continuous wavelet (no filter banks) becomes this
+    package's wavelet of the same family and parameters
+    (:func:`.continuous.from_jax_continuous`).  ``w`` is read by attribute
+    only, so this module never imports JAX.
     """
+    if not hasattr(w, "dec_lo"):
+        from .continuous import from_jax_continuous
+
+        return from_jax_continuous(w)
     return DiscreteWavelet(
         name=w.name,
         **{f: np.asarray(getattr(w, f), dtype=np.float64) for f in _BANKS},

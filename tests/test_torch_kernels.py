@@ -19,16 +19,23 @@ plain |w| at the kernel's position within 1e-5 of the plain maximum, which
 tolerates a near-tie in f32.  The 2D kernels: forward, inverse, round trip
 and fused denoise 1e-4 absolute (the JAX package's on-chip 2D bound,
 ``tools/tpu_smoke.py:293``: each band sums 2·M² products per level in
-another order); bf16 as above, and the bf16 round trip 1e-1.
+another order); bf16 as above, and the bf16 round trip 1e-1.  The 3D
+kernels: forward 1e-5 and inverse and round trip 1e-4 absolute (the
+on-chip bounds above: the same f32 cascade in another order); bf16 as
+above, the bf16 round trip 1e-1.  The CWT kernel: 1e-4 × max|c| against
+its plain version and against ``torch.fft.ifft`` (an f32 FFT against an
+f32 two-stage DFT and cuFFT, errors ~log₂P ulps of the largest value).
 """
 import numpy as np
 import pytest
 import torch
 
 import jwave_pro_tpu_torch as jt
+from jwave_pro_tpu_torch.kernels import cwt_cuda as kcw
 from jwave_pro_tpu_torch.kernels import denoise_cuda as kd
 from jwave_pro_tpu_torch.kernels import modwpt_cuda as kp
 from jwave_pro_tpu_torch.kernels import modwt2_cuda as k2
+from jwave_pro_tpu_torch.kernels import modwt3_cuda as k3
 from jwave_pro_tpu_torch.kernels import modwt_cuda as kc
 from jwave_pro_tpu_torch.kernels import variance_cuda as kv
 
@@ -399,3 +406,148 @@ def test_2d_launchers_reject_what_the_kernel_does_not_take(dev):
         k2.modwt2_inv_cuda(x, DB4)
     with pytest.raises(ValueError, match="threshold"):
         k2.modwt2_denoise_cuda(x, torch.ones(3, device=dev), DB4, 2)
+
+
+# -- the 3D volume kernels ----------------------------------------------------
+
+VOLUME_SHAPES = [
+    ((2, 24, 40, 33), 2, "Daubechies 4"),   # ragged tiles on every axis
+    ((1, 8, 8, 16), 2, "Daubechies 4"),     # halo (21) larger than D, R, C
+    ((1, 5, 7, 40), 3, "Haar"),
+    ((2, 9, 33, 70), 1, "Symlet 8"),
+    ((1, 20, 24, 28), 5, "Haar"),           # five levels through the scratch
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,level,name", VOLUME_SHAPES)
+def test_3d_forward_and_inverse_match_plain(dev, shape, level, name, dtype):
+    w = jt.wavelet(name)
+    x = _signal(dev, *shape, seed=16, dtype=dtype)
+    c = k3.modwt3_fwd_cuda(x, w, level)
+    assert c.dtype == dtype and c.shape == (7 * level + 1,) + shape
+    _close(c, k3.modwt3_fwd_plain(x, w, level), dtype)
+    back = k3.modwt3_inv_cuda(c, w)
+    assert back.dtype == dtype and back.shape == shape
+    _close2(back, k3.modwt3_inv_plain(c, w), dtype)
+    tol = 1e-1 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(back.float(), x.float(), rtol=0, atol=tol)
+
+
+def test_3d_public_path_launches_each_kernel(dev):
+    w = DB4
+    x = _signal(dev, 2, 16, 24, 20, seed=17)
+    counters = (k3.modwt3_fwd_cuda, k3.modwt3_inv_cuda, kp.modwpt_fwd_cuda,
+                kp.modwpt_inv_cuda)
+    before = [fn.launches for fn in counters]
+    c = jt.modwt3(x, w, 2)
+    xr = jt.imodwt3(c, w)
+    den = jt.modwt3_denoise(x, w, 2)
+    p = jt.modwpt3(x, w, 1)
+    xp = jt.imodwpt3(p, w)
+    torch.cuda.synchronize()
+    # the denoise runs both kernels; the oct tree one 1D launch per axis
+    assert [fn.launches - b for fn, b in zip(counters, before)] == [2, 2, 3,
+                                                                   3]
+    torch.testing.assert_close(xr, x, rtol=0, atol=1e-4)
+    torch.testing.assert_close(xp, x, rtol=0, atol=1e-4)
+    want = jt.modwt3_denoise(x.double(), w, 2).float()
+    torch.testing.assert_close(den, want, rtol=0, atol=1e-4)
+    assert c.device == den.device == p.device == x.device
+
+
+def test_3d_auto_routes_f64_grad_and_unsupported_shapes_to_plain(dev):
+    counters = (k3.modwt3_fwd_cuda, k3.modwt3_inv_cuda)
+    before = [fn.launches for fn in counters]
+    x64 = _signal(dev, 2, 8, 8, 16, dtype=torch.float64)
+    jt.imodwt3(jt.modwt3(x64, DB4, 2), DB4)
+    jt.modwt3(_signal(dev, 1, 16, 16, 16), DB4, 3)   # Db4 L3 does not fit
+    jt.modwt3(_signal(dev, 2, 2, 8, 8, 16), DB4, 1)  # 5-D: leading dims
+    xg = _signal(dev, 2, 8, 8, 16).requires_grad_()
+    (jt.modwt3(xg, DB4, 1) ** 2).sum().backward()
+    assert [fn.launches for fn in counters] == before
+    xp = xg.detach().clone().requires_grad_()
+    (jt.modwt3(xp, DB4, 1, method="direct") ** 2).sum().backward()
+    torch.testing.assert_close(xg.grad, xp.grad, rtol=0, atol=0)
+    for bad, level in ((x64, 2), (xg, 1), (_signal(dev, 16, 16, 16), 3)):
+        with pytest.raises(ValueError, match="unavailable"):
+            jt.modwt3(bad, DB4, level, method="pallas")
+    with pytest.raises(ValueError, match="no backward"):
+        k3.modwt3_fused(xg, DB4, 1)
+
+
+def test_3d_launchers_reject_what_the_kernel_does_not_take(dev):
+    x = _signal(dev, 2, 8, 8, 16)
+    with pytest.raises(ValueError, match="contiguous"):
+        k3.modwt3_fwd_cuda(x[..., ::2], DB4, 1)
+    with pytest.raises(ValueError, match="float32/bfloat16"):
+        k3.modwt3_fwd_cuda(x.double(), DB4, 1)
+    with pytest.raises(ValueError, match="unsupported shape"):
+        k3.modwt3_fwd_cuda(x, DB4, 3)                 # the windows do not fit
+    with pytest.raises(ValueError, match="7·level\\+1"):
+        k3.modwt3_inv_cuda(_signal(dev, 9, 2, 8, 8, 16), DB4)
+    with pytest.raises(ValueError, match="expected 5 dims"):
+        k3.modwt3_inv_cuda(x, DB4)
+
+
+# -- the CWT kernel -----------------------------------------------------------
+
+def _cwt_operands(dev, wav, b, s, p, seed):
+    from jwave_pro_tpu_torch.ops.cwt import _full_spectrum_multipliers
+
+    scales = tuple(jt.generate_log_scales(1.0, 64.0, s))
+    m, is_real = _full_spectrum_multipliers(wav, scales, p, 1.0)
+    x = _signal(dev, b, p, seed=seed)
+    xf = torch.fft.fft(x.to(torch.complex64))
+    return xf, torch.from_numpy(m).to(dev, torch.complex64), is_real
+
+
+@pytest.mark.parametrize("wav", [jt.MorletWavelet(), jt.MexicanHatWavelet()])
+@pytest.mark.parametrize("b,s,p,n", [(3, 7, 64, 64), (2, 13, 1024, 1000),
+                                     (2, 5, 16384, 16000), (1, 3, 8192, 8192),
+                                     (4, 9, 128, 100)])
+def test_cwt_kernel_matches_plain_and_cufft(dev, wav, b, s, p, n):
+    xf, m, is_real = _cwt_operands(dev, wav, b, s, p, seed=18)
+    got = kcw.cwt_ifft_cuda(xf, m, n, is_real)
+    assert got.shape == (b, s, n)
+    assert got.dtype == (torch.float32 if is_real else torch.complex64)
+    plain = kcw.cwt_ifft_plain(xf, m, n, is_real)
+    lib = torch.fft.ifft(xf[:, None, :] * m, dim=-1)[..., :n]
+    lib = lib.real if is_real else lib
+    scale = float(plain.abs().max())
+    assert float((got - plain).abs().max()) <= 1e-4 * scale
+    assert float((got - lib).abs().max()) <= 1e-4 * scale
+
+
+def test_cwt_public_path_launches_the_kernel(dev):
+    x = _signal(dev, 4, 3000, seed=19)
+    scales = jt.generate_log_scales(1.0, 64.0, 11)
+    before = kcw.cwt_ifft_cuda.launches
+    for wav in (jt.MorletWavelet(), jt.MexicanHatWavelet()):
+        fused = jt.cwt(x, scales, wav, method="fused").coefficients
+        fft = jt.cwt(x, scales, wav, method="fft").coefficients
+        assert fused.dtype == fft.dtype and fused.device == x.device
+        scale = float(fft.abs().max())
+        assert float((fused - fft).abs().max()) <= 1e-4 * scale
+    assert kcw.cwt_ifft_cuda.launches == before + 2
+    # float64 and padded lengths outside [64, 16384] take the 'fft' path
+    jt.cwt(x.double(), scales, jt.MorletWavelet(), method="fused")
+    jt.cwt(x[:, :20], scales, jt.MorletWavelet(), method="fused")
+    jt.cwt(_signal(dev, 1, 20000), scales, jt.MorletWavelet(),
+           method="fused")
+    assert kcw.cwt_ifft_cuda.launches == before + 2
+
+
+def test_cwt_launcher_rejects_what_the_kernel_does_not_take(dev):
+    xf, m, _ = _cwt_operands(dev, jt.MorletWavelet(), 2, 3, 256, seed=20)
+    with pytest.raises(ValueError, match="complex64"):
+        kcw.cwt_ifft_cuda(xf.to(torch.complex128), m, 256, False)
+    with pytest.raises(ValueError, match="contiguous"):
+        kcw.cwt_ifft_cuda(xf[:, ::2], m[:, ::2], 128, False)
+    with pytest.raises(ValueError, match="unsupported length"):
+        kcw.cwt_ifft_cuda(xf[:, :100].contiguous(), m[:, :100].contiguous(),
+                          100, False)
+    with pytest.raises(ValueError, match="unsupported length"):
+        kcw.cwt_ifft_cuda(xf, m, 300, False)
+    with pytest.raises(ValueError, match="\\(S, P\\)"):
+        kcw.cwt_ifft_cuda(xf, m[:, :128].contiguous(), 128, False)
