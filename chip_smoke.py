@@ -5,8 +5,10 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-It builds the CUDA kernels from ``jwave_pro_tpu_torch/csrc`` with nvcc,
-checks each kernel against its plain PyTorch version, and drives two paths
+It builds the CUDA kernels from ``jwave_pro_tpu_torch/csrc`` with nvcc
+(and requires the assembler to report no stack frame and no spills for
+the register-resident CWT and 3D inverse kernels), checks each kernel
+against its plain PyTorch version, and drives two paths
 through the public API: the MODWT path (Db4 level 5 forward, inverse and
 fused denoise over 32 signals of 2^20 float32 samples, and the 1D forward
 at N = 2^24), and the statistics and packet-tree path (wavelet variance,
@@ -157,6 +159,12 @@ def run(smoke: Smoke, torch, jt) -> dict:
     print(f"  kernels built in {time.perf_counter() - t0:.1f} s "
           f"({'already built' if cached else 'nvcc'}) -> {_build.build_dir()}",
           flush=True)
+    # the register-resident kernels keep their arrays out of local memory
+    for name, (regs, stack, st, ld) in sorted(_build.ptxas_report().items()):
+        if "cwt_ifft" in name or "modwt3_inv" in name:
+            smoke.require(f"ptxas {name}: {regs} registers, {stack} bytes "
+                          f"stack, spills {st}/{ld} bytes",
+                          stack == 0 and st == 0 and ld == 0)
 
     print("== phase 3: forward kernel vs plain (f32)", flush=True)
     small = {}
@@ -884,8 +892,8 @@ def run_volume_cwt_slice(smoke: Smoke, torch, jt, dev, signal, card):
         return xf, torch.from_numpy(m).to(dev, torch.complex64), is_real
 
     print("== phase 18: 3D and CWT kernels vs plain (small shapes, halo > "
-          "volume, Haar L3, Symlet 8, bf16; P = 64, 1024, 16384)",
-          flush=True)
+          "volume, Haar L3, Symlet 8, bf16, the inverse's depth runs; every "
+          "P from 64 to 16384)", flush=True)
     for shape, lv, name in (((2, 24, 40, 33), 2, WAVELET),
                             ((1, 8, 8, 16), 2, WAVELET),
                             ((1, 5, 7, 40), 3, "Haar"),
@@ -896,6 +904,28 @@ def run_volume_cwt_slice(smoke: Smoke, torch, jt, dev, signal, card):
         c = k3.modwt3_fwd_cuda(x, wv, lv)
         smoke.check(f"3D fwd {tag} vs plain",
                     max_err(c, k3.modwt3_fwd_plain(x, wv, lv)), 1e-5)
+        xr = k3.modwt3_inv_cuda(c, wv)
+        smoke.check(f"3D inv {tag} vs plain",
+                    max_err(xr, k3.modwt3_inv_plain(c, wv)), 1e-5)
+        smoke.check(f"3D round trip {tag}", max_err(xr, x), 1e-4)
+    # the inverse's depth runs: D not a multiple of the run, D smaller than
+    # the ring of (M-1)·2^(j-1) + 1 planes, a run that crosses the
+    # volume's end, and a filter length without a specialised kernel
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for shape, lv, name in (((1, 100, 16, 32), 2, WAVELET),
+                            ((2, 45, 40, 70), 2, WAVELET),
+                            ((2, 9, 20, 50), 2, WAVELET),
+                            ((2, 12, 20, 40), 2, "Daubechies 2")):
+        wv = jt.wavelet(name)
+        b, d, r, cols = shape
+        halos = [k3.level_halo(wv.length, j) for j in range(1, lv + 1)]
+        runs = [k3.inv3_depth_run(b, d, r, cols, h, wv.length, sms)
+                for h in halos]
+        tag = f"{shape} L{lv} {name}, depth runs {runs}"
+        smoke.require(f"3D inverse {tag}: D off the runs or below the ring",
+                      any(d % dc for dc in runs) or d <= max(halos))
+        x = signal(*shape)
+        c = k3.modwt3_fwd_cuda(x, wv, lv)
         xr = k3.modwt3_inv_cuda(c, wv)
         smoke.check(f"3D inv {tag} vs plain",
                     max_err(xr, k3.modwt3_inv_plain(c, wv)), 1e-5)
@@ -929,6 +959,23 @@ def run_volume_cwt_slice(smoke: Smoke, torch, jt, dev, signal, card):
                           and str(got.dtype).endswith(kind))
             smoke.check(f"CWT kernel {tag} vs plain (relative)",
                         scaled_err(got, plain), 1e-4)
+            smoke.check(f"CWT kernel {tag} vs cuFFT (relative)",
+                        scaled_err(got, lib), 1e-4)
+    # every length the kernel takes, n < P, and 3 × 11 rows: no multiple of
+    # the 2 to 32 rows a block holds below P = 4096
+    for lg in range(6, 15):
+        p = 1 << lg
+        for wav in (jt.MorletWavelet(), jt.MexicanHatWavelet()):
+            xf, m, is_real = spectra(wav, 3, p, jt.generate_log_scales(
+                1.0, 256.0, 11))
+            n = p - 3
+            got = kw.cwt_ifft_cuda(xf, m, n, is_real)
+            lib = torch.fft.ifft(xf[:, None, :] * m, dim=-1)[..., :n]
+            lib = lib.real if is_real else lib
+            tag = f"P={p} n={n} B·S=33 {wav.name}"
+            smoke.check(f"CWT kernel {tag} vs plain (relative)",
+                        scaled_err(got, kw.cwt_ifft_plain(xf, m, n, is_real)),
+                        1e-4)
             smoke.check(f"CWT kernel {tag} vs cuFFT (relative)",
                         scaled_err(got, lib), 1e-4)
 

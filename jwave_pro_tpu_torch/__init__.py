@@ -13,8 +13,10 @@ oct-tree packets ``modwpt3``), the continuous wavelets and the FFT CWT
 (``cwt`` with its ``method='fused'`` multiply + inverse FFT kernel), and
 the hand-written CUDA kernels behind them (``kernels/``, built from
 ``csrc/`` with ``nvcc`` on first launch).  Names and signatures match
-the JAX package; tensors stay on the device they arrive on.  Importing this
-package never imports JAX or ``jwave_pro_tpu``.
+the JAX package; tensors stay on the device they arrive on, and any other
+input (a NumPy array, a list) goes to the card.  Importing this package
+never imports JAX or ``jwave_pro_tpu``, and the package reads no file of
+it.
 
     import jwave_pro_tpu_torch as jt
     w = jt.wavelet("Daubechies 4")

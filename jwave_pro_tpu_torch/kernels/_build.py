@@ -8,7 +8,10 @@ long as the largest source, not the sum.  The library lands in
 ``build/kernels/<hash>/`` at the root of the checkout, keyed on a hash of
 the sources and flags, so an edited source
 rebuilds and an unchanged one loads the existing file.  Nothing is
-downloaded; a failed build raises with nvcc's stderr.
+downloaded; a failed build raises with nvcc's stderr.  The flags include
+``-Xptxas -v``: the assembler's report (registers, stack frame and
+spills of every kernel) is kept beside the library as ``ptxas.log`` and
+read back by :func:`ptxas_report`.
 """
 from __future__ import annotations
 
@@ -16,18 +19,20 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["library", "build_dir", "NVCC_FLAGS"]
+__all__ = ["library", "build_dir", "ptxas_report", "NVCC_FLAGS"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _LIB_NAME = "libjwave_kernels.so"
+_PTXAS_LOG = "ptxas.log"
 
 
 def _sources():
@@ -54,20 +59,22 @@ def build_dir() -> Path:
     return BUILD_ROOT / digest.hexdigest()[:16]
 
 
-def _run_all(cmds) -> None:
-    """Run the commands concurrently; raise with the stderr of each that
-    failed."""
+def _run_all(cmds) -> list[str]:
+    """Run the commands concurrently; return each one's stderr, or raise
+    with the stderr of each that failed."""
     procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                     stderr=subprocess.PIPE, text=True))
              for cmd in cmds]
-    failed = []
+    failed, errs = [], []
     for cmd, proc in procs:
         _, err = proc.communicate()
+        errs.append(err)
         if proc.returncode != 0:
             failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
                           f"\n{err}")
     if failed:
         raise RuntimeError("\n".join(failed))
+    return errs
 
 
 def _compile(target: Path) -> None:
@@ -77,10 +84,11 @@ def _compile(target: Path) -> None:
     # a half-written library
     with tempfile.TemporaryDirectory(dir=target.parent) as tmp:
         objs = [str(Path(tmp) / f"{src.stem}.o") for src in _sources()]
-        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
-                  for obj, src in zip(objs, _sources())])
+        report = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                           for obj, src in zip(objs, _sources())])
         lib = str(Path(tmp) / _LIB_NAME)
         _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]])
+        (target.parent / _PTXAS_LOG).write_text("".join(report))
         os.replace(lib, target)
 
 
@@ -94,6 +102,23 @@ def library() -> ctypes.CDLL:
     lib.jw_error_string.argtypes = [ctypes.c_int]
     lib.jw_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def ptxas_report() -> dict:
+    """Per kernel of the built library (mangled name): (registers, stack
+    frame bytes, spill store bytes, spill load bytes), from ``ptxas -v``."""
+    text = (build_dir() / _PTXAS_LOG).read_text()
+    out, name = {}, None
+    for line in text.splitlines():
+        if m := re.search(r"Compiling entry function '(\w+)'", line):
+            name = m.group(1)
+        elif m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                            r"stores, (\d+) bytes spill loads", line):
+            stack = tuple(int(v) for v in m.groups())
+        elif (m := re.search(r"Used (\d+) registers", line)) and name:
+            out[name] = (int(m.group(1)),) + stack
+            name = None
+    return out
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

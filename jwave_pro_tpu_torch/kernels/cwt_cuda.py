@@ -6,17 +6,22 @@ grid, then the inverse DFT with 1/P, cropped to n — the coefficients
 ``(B, S, n)``, complex64, or float32 (the real part) when M is Hermitian in
 k (a real-even ψ̂).  The TPU kernel computed the inverse DFT as two stages of
 MXU matrix products in a 3-pass bf16 split, for want of an f32 matrix path;
-here it is a shared-memory f32 Stockham inverse FFT, one block per (b, s)
-row (or per few rows when P < 4096), the product fused into the first
-pass and the crop and the real/complex output into the last.  The signal's
+here it is an f32 Stockham inverse FFT held in registers: P/E threads a row
+(E = 8..32 complex values each), two or three passes, one per factor of P
+(16384 = 32·32·16), each an R-point DFT fully unrolled in registers, with at
+most two exchanges of the row through padded (conflict-free) shared memory.
+The product is fused into the first pass and the crop and the real/complex
+output into the last, written with streaming stores.  Blocks are
+persistent and loop over rows; the twiddles e^{2πit/P} are a table this
+module builds once per P and device (:func:`twiddles`).  The signal's
 forward FFT stays ``torch.fft.fft`` outside the kernel, as the JAX package
 leaves it to XLA.
 
 What bounds it on the H100: device memory for the output (537 MB of
-complex64 at 64 × 64 × 16384) — the FFT's 5·P·log₂P flops a row run from
-shared memory in log₄ P passes.  :func:`cwt_fused_supported` takes what the
-JAX package's gate takes: a power-of-two P in [64, 16384] (a 16384-point
-row and its twiddles fill 160 KB of the 227 KB), any B and S.
+complex64 at 64 × 64 × 16384); the FFT's 5·P·log₂P flops a row are a small
+share of the f32 rate.  :func:`cwt_fused_supported` takes what the JAX
+package's gate takes: a power-of-two P in [64, 16384] (a padded 16384-point
+row fills 135 KB of the 227 KB), any B and S.
 
 Beside the kernel: its plain PyTorch version :func:`cwt_ifft_plain` (the
 JAX kernel's two-stage DFT with the same stage constants, as complex
@@ -36,7 +41,7 @@ from .modwt_cuda import _I, _P
 
 __all__ = [
     "cwt_fused_supported", "cwt_ifft_fused", "cwt_ifft_cuda",
-    "cwt_ifft_plain",
+    "cwt_ifft_plain", "twiddles",
 ]
 
 P_MIN, P_MAX = 64, 16384
@@ -100,10 +105,18 @@ def cwt_ifft_plain(xf: torch.Tensor, mult: torch.Tensor, n: int,
     return c.real.contiguous() if is_real else c.contiguous()
 
 
+@functools.lru_cache(maxsize=None)
+def twiddles(p: int, device: torch.device) -> torch.Tensor:
+    """(P,) complex64 e^{2πit/P}, t < P, computed in float64 and rounded
+    once: the kernel's twiddle table, one per P and device."""
+    t = np.exp(2j * np.pi * np.arange(p) / p).astype(np.complex64)
+    return torch.from_numpy(t).to(device)
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.library()
-    lib.jw_cwt_ifft.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+    lib.jw_cwt_ifft.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
     lib.jw_cwt_ifft.restype = _I
     return lib
 
@@ -137,9 +150,10 @@ def cwt_ifft_cuda(xf: torch.Tensor, mult: torch.Tensor, n: int,
     out = torch.empty((b, s, n), device=xf.device,
                       dtype=torch.float32 if is_real else torch.complex64)
     lib = _lib()
+    tw = twiddles(p, xf.device)
     code = lib.jw_cwt_ifft(
-        xf.data_ptr(), mult.data_ptr(), out.data_ptr(), b, s, p, n,
-        int(is_real), xf.device.index,
+        xf.data_ptr(), mult.data_ptr(), tw.data_ptr(), out.data_ptr(), b, s,
+        p, n, int(is_real), xf.device.index,
         torch.cuda.current_stream(xf.device).cuda_stream)
     _build.check(lib, code, "CWT kernel")
     cwt_ifft_cuda.launches += 1

@@ -22,6 +22,7 @@ import typing
 import numpy as np
 import torch
 
+from ..utils.device import as_input
 from ..wavelets.base import DiscreteWavelet
 from .modwt import modwt
 
@@ -87,7 +88,7 @@ def modwt_variance(x: torch.Tensor, wavelet: DiscreteWavelet, level: int,
     if estimator not in ("biased", "unbiased"):
         raise ValueError(f"estimator must be 'biased' or 'unbiased', "
                          f"got {estimator!r}")
-    x = _extend(torch.as_tensor(x), boundary)
+    x = _extend(as_input(x), boundary)
     if estimator == "biased":
         out = _try_var_fused(x, wavelet, level, method)
         if out is not None:
@@ -145,8 +146,9 @@ def modwt_variance_ci(x: torch.Tensor, wavelet: DiscreteWavelet, level: int,
         raise ValueError(f"confidence must be in (0, 1), got {confidence}")
     from scipy.stats import chi2
 
+    x = as_input(x)
     var = modwt_variance(x, wavelet, level, method, estimator, boundary)
-    n = torch.as_tensor(x).shape[-1]
+    n = x.shape[-1]
     if estimator == "unbiased":
         m = [max(mj, 1)
              for _, mj in _boundary_counts(n, level, wavelet.length)]
@@ -215,8 +217,8 @@ def modwt_covariance(x: torch.Tensor, y: torch.Tensor,
     ``method='direct'`` — the direct mean(W^x·W^y) path has no
     cancellation.
     """
-    x = torch.as_tensor(x)
-    y = torch.as_tensor(y)
+    x = as_input(x)
+    y = as_input(y)
     if x.shape != y.shape:
         if method == "fused":
             raise ValueError(
@@ -313,7 +315,7 @@ def modwt_hurst(x: torch.Tensor, wavelet: DiscreteWavelet, level: int,
         raise ValueError("regression needs at least 2 octaves")
     if kind not in ("fgn", "fbm"):
         raise ValueError(f"kind must be 'fgn' or 'fbm', got {kind!r}")
-    x = torch.as_tensor(x)
+    x = as_input(x)
     n = x.shape[-1]
     var = modwt_variance(x, wavelet, level, method)  # (level, ...)
     v = var[min_level - 1:max_level]                 # (J, ...)
@@ -342,7 +344,7 @@ def scale_energies(coeffs: torch.Tensor) -> torch.Tensor:
     """Total energy per row of a ``(rows, ..., N)`` coefficient array
     (the per-level energy table the reference's MODWT example prints).
     Complex rows use |c|², returning a real table."""
-    coeffs = torch.as_tensor(coeffs)
+    coeffs = as_input(coeffs)
     if coeffs.is_complex():
         return torch.sum(torch.abs(coeffs) ** 2, dim=-1)
     return torch.sum(coeffs ** 2, dim=-1)
@@ -394,7 +396,7 @@ def modwt_changepoints(x: torch.Tensor, wavelet: DiscreteWavelet,
     """
     if alpha not in _KOLMOGOROV_Q:
         raise ValueError(f"alpha must be one of {sorted(_KOLMOGOROV_Q)}")
-    x = torch.as_tensor(x)
+    x = as_input(x)
     n = x.shape[-1]
     c = modwt(x, wavelet, level, method)[:level]     # (level, ..., N)
     e = c * c

@@ -32,6 +32,7 @@ import typing
 import numpy as np
 import torch
 
+from ..utils.device import as_input
 from ..utils.validation import next_power_of_two
 from ..wavelets.continuous import ContinuousWavelet, MorletWavelet
 
@@ -114,7 +115,7 @@ def pad_signal(x: torch.Tensor, target: int, mode: str = "zero"
     269-306``) including its symmetric-index convention
     ``mirror = 2·N − i − 2`` (out-of-range mirror indices stay zero).
     """
-    x = torch.as_tensor(x)
+    x = as_input(x)
     n = x.shape[-1]
     pad = target - n
     if pad <= 0:
@@ -317,7 +318,7 @@ def cwt(x: torch.Tensor, scales, wavelet: ContinuousWavelet | None = None,
         raise ValueError(f"unknown precision {precision!r}")
     if wavelet is None:
         wavelet = MorletWavelet()
-    x = torch.as_tensor(x)
+    x = as_input(x)
     if not (x.is_floating_point() or x.is_complex()):
         x = x.to(torch.float32)
     if x.dtype in (torch.bfloat16, torch.float16):

@@ -14,6 +14,7 @@ import math
 
 import torch
 
+from ..utils.device import as_input
 from ..wavelets.base import DiscreteWavelet
 from .modwt import imodwt, modwt
 
@@ -27,13 +28,13 @@ __all__ = [
 
 def soft_threshold(c: torch.Tensor, t) -> torch.Tensor:
     """sign(c)·max(|c|−t, 0)."""
-    c = torch.as_tensor(c)
+    c = as_input(c)
     return torch.sign(c) * torch.clamp_min(torch.abs(c) - t, 0.0)
 
 
 def hard_threshold(c: torch.Tensor, t) -> torch.Tensor:
     """c·1[|c|>t]."""
-    c = torch.as_tensor(c)
+    c = as_input(c)
     return torch.where(torch.abs(c) > t, c, 0.0).to(c.dtype)
 
 
@@ -49,13 +50,13 @@ def _median(a: torch.Tensor, dim: int) -> torch.Tensor:
 
 def mad_sigma(d: torch.Tensor, dim: int = -1) -> torch.Tensor:
     """Robust noise estimate σ = median(|d|)/0.6745."""
-    return _median(torch.abs(torch.as_tensor(d)), dim) / 0.6745
+    return _median(torch.abs(as_input(d)), dim) / 0.6745
 
 
 def universal_threshold(d: torch.Tensor, n: int | None = None,
                         dim: int = -1) -> torch.Tensor:
     """Donoho–Johnstone universal threshold σ·√(2·ln N)."""
-    d = torch.as_tensor(d)
+    d = as_input(d)
     if n is None:
         n = d.shape[dim]
     return mad_sigma(d, dim=dim) * math.sqrt(2.0 * math.log(n))
@@ -81,7 +82,7 @@ def sure_threshold(d: torch.Tensor, sigma=None, dim: int = -1) -> torch.Tensor:
     risk take the first index, as ``jnp.argmin`` does.  Returns the
     threshold on the original (unnormalized) coefficient scale.
     """
-    d = torch.as_tensor(d)
+    d = as_input(d)
     if sigma is None:
         sigma = mad_sigma(d, dim=dim)
     sigma = _scale_like(sigma, d)
@@ -112,7 +113,7 @@ def bayes_threshold(d: torch.Tensor, sigma, dim: int = -1) -> torch.Tensor:
     per band.  When the band is all noise (σ̂ₓ = 0) the threshold degenerates
     to max|d| (kill the band).
     """
-    d = torch.as_tensor(d)
+    d = as_input(d)
     sigma = _scale_like(sigma, d)
     var_y = torch.mean(d * d, dim=dim)
     sig_x = torch.sqrt(torch.clamp_min(var_y - sigma ** 2, 0.0))
@@ -153,7 +154,7 @@ def modwt_denoise(x: torch.Tensor, wavelet: DiscreteWavelet, level: int,
     median is a global statistic.  It takes one threshold per signal and
     raises for shapes the kernel does not support.
     """
-    x = torch.as_tensor(x)
+    x = as_input(x)
     if method == "fused":
         from ..kernels.denoise_cuda import modwt_denoise_fused
 
@@ -238,7 +239,7 @@ def modwt2_denoise(x: torch.Tensor, wavelet: DiscreteWavelet, level: int,
     """
     from .modwt2d import imodwt2, modwt2
 
-    x = torch.as_tensor(x)
+    x = as_input(x)
     if method == "fused":
         from ..kernels.modwt2_cuda import modwt2_denoise_fused
 
@@ -299,7 +300,7 @@ def modwt3_denoise(x: torch.Tensor, wavelet: DiscreteWavelet, level: int,
     """
     from .modwt2d import imodwt3, modwt3
 
-    x = torch.as_tensor(x)
+    x = as_input(x)
     c = modwt3(x, wavelet, level)            # (7L+1, ..., D, R, C)
     n_bands = 7 * level
     if threshold is None or isinstance(threshold, str):

@@ -32,6 +32,7 @@ import functools
 import numpy as np
 import torch
 
+from ..utils.device import as_input
 from ..wavelets.base import DiscreteWavelet
 from .modwt import (
     _as_signal, _check_level, _combined_adjoint, _composite_shape,
@@ -194,7 +195,7 @@ def imodwpt(coeffs: torch.Tensor, wavelet: DiscreteWavelet,
     ``:337-375``): each parent is the sum of its two children's adjoint
     convolutions, filters assigned by the same sequency rule.
     """
-    coeffs = torch.as_tensor(coeffs)
+    coeffs = as_input(coeffs)
     p = coeffs.shape[0]
     if p < 2 or p & (p - 1):
         raise ValueError(
@@ -371,7 +372,7 @@ def modwpt2(x: torch.Tensor, wavelet: DiscreteWavelet, level: int,
 def imodwpt2(coeffs: torch.Tensor, wavelet: DiscreteWavelet,
              method: str = "auto") -> torch.Tensor:
     """Inverse 2D MODWPT: ``(2^level, 2^level, ..., R, C) → (..., R, C)``."""
-    coeffs = torch.as_tensor(coeffs)
+    coeffs = as_input(coeffs)
     if coeffs.ndim < 4:
         raise ValueError("imodwpt2 expects (nodes_r, nodes_c, ..., R, C)")
     pr, pc = coeffs.shape[0], coeffs.shape[1]
@@ -535,7 +536,7 @@ def imodwpt3(coeffs: torch.Tensor, wavelet: DiscreteWavelet,
              method: str = "auto") -> torch.Tensor:
     """Inverse 3D MODWPT: ``(2^L, 2^L, 2^L, ..., D, R, C)`` →
     ``(..., D, R, C)``."""
-    coeffs = torch.as_tensor(coeffs)
+    coeffs = as_input(coeffs)
     if coeffs.ndim < 6:
         raise ValueError(
             "imodwpt3 expects (nodes_d, nodes_r, nodes_c, ..., D, R, C)")

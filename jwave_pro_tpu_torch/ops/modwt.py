@@ -29,6 +29,7 @@ import math
 import numpy as np
 import torch
 
+from ..utils.device import as_input
 from ..wavelets.base import DiscreteWavelet
 
 __all__ = [
@@ -234,7 +235,7 @@ def _try_kernel(x: torch.Tensor, wavelet: DiscreteWavelet, level: int,
 
 
 def _as_signal(x) -> torch.Tensor:
-    x = torch.as_tensor(x)
+    x = as_input(x)
     if not (x.is_floating_point() or x.is_complex()):
         x = x.to(torch.float32)
     return x
@@ -291,7 +292,7 @@ def imodwt(coeffs: torch.Tensor, wavelet: DiscreteWavelet,
     Mirrors ``MODWTTransform.inverseMODWT`` (``:337-375``): top-down
     ``V_{j-1} = adjoint(V_j, g̃_j) + adjoint(W_j, h̃_j)``.
     """
-    coeffs = torch.as_tensor(coeffs)
+    coeffs = as_input(coeffs)
     level = coeffs.shape[0] - 1
     if level < 1:
         raise ValueError("need at least level 1 (rows W_1 and V_1)")
@@ -346,13 +347,13 @@ def modwt_mra(x: torch.Tensor, wavelet: DiscreteWavelet, level: int,
 
 def circular_convolve(x, f, method: str = "direct"):
     """Public helper: ``y[n] = Σ_m x[(n-m) mod N] f[m]`` (non-dilated)."""
-    x = torch.as_tensor(x)
+    x = as_input(x)
     return _conv_channels(x, (taps_as(np.asarray(f), x.dtype),), 1,
                           adjoint=False)[..., 0, :]
 
 
 def circular_convolve_adjoint(x, f, method: str = "direct"):
     """Public helper: ``y[n] = Σ_m x[(n+m) mod N] f[m]`` (non-dilated)."""
-    x = torch.as_tensor(x)
+    x = as_input(x)
     return _conv_channels(x, (taps_as(np.asarray(f), x.dtype),), 1,
                           adjoint=True)[..., 0, :]

@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.device import as_input
 from ..wavelets.base import DiscreteWavelet
 from .modwt import (
     MAX_DECOMPOSITION_LEVEL, _as_signal, _combined_adjoint, _conv_channels,
@@ -152,7 +153,7 @@ def imodwt2(coeffs: torch.Tensor, wavelet: DiscreteWavelet,
     ``method`` as in :func:`modwt2` (the fused kernel takes
     ``(3L+1, [B,] R, C)`` f32/bf16 stacks on a CUDA device).
     """
-    coeffs = torch.as_tensor(coeffs)
+    coeffs = as_input(coeffs)
     if coeffs.shape[0] % 3 != 1:
         raise ValueError(
             f"2D MODWT coefficient stack must have 3·level+1 rows, got "
@@ -296,7 +297,7 @@ def imodwt3(coeffs: torch.Tensor, wavelet: DiscreteWavelet,
     ``method`` as in :func:`modwt3` (the fused kernel takes
     ``(7L+1, [B,] D, R, C)`` f32/bf16 stacks on a CUDA device).
     """
-    coeffs = torch.as_tensor(coeffs)
+    coeffs = as_input(coeffs)
     if coeffs.shape[0] % 7 != 1:
         raise ValueError(
             f"3D MODWT coefficient stack must have 7·level+1 rows, got "

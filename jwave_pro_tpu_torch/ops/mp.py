@@ -29,6 +29,7 @@ import typing
 import numpy as np
 import torch
 
+from ..utils.device import as_input
 from ..wavelets.base import DiscreteWavelet
 from .modwpt import _composite_packet_multipliers, modwpt
 
@@ -164,7 +165,7 @@ def matching_pursuit(x: torch.Tensor, wavelet: DiscreteWavelet, level: int,
     row per step, identity-padded on unselected rows so every solve keeps
     its (K, K) shape.
     """
-    x = torch.as_tensor(x)
+    x = as_input(x)
     if not (x.is_floating_point() or x.is_complex()):
         x = x.to(torch.float32)
     if n_atoms < 1:

@@ -6,9 +6,9 @@ Mirrors the reference's string factory ``WaveletBuilder.create(name)``
 name strings, plus short PyWavelets-style aliases ("db4", "sym8", "bior3.5",
 "coif2", "haar", ...).
 
-The tap table is ``jwave_pro_tpu/wavelets/_taps.py``: pure data (one ``TAPS``
-dict, no imports), loaded here by file path so that importing this package
-never executes ``jwave_pro_tpu/__init__.py`` (which imports JAX).
+The tap table is the port's own ``_taps.py`` beside this module: pure data
+(one ``TAPS`` dict, no imports), a copy of the JAX package's table, so the
+port reads no file of the JAX package.
 
 ``good_wavelets()`` mirrors ``WaveletBuilder.create2arr()``
 (``WaveletBuilder.java:427-504``).  The reference's builder throws for
@@ -17,27 +17,13 @@ are constructible via ``wavelet(name, unsafe=True)`` only.
 """
 from __future__ import annotations
 
-import importlib.util
-from pathlib import Path
-
 import numpy as np
 
 from ..exceptions import NotKnown
+from ._taps import TAPS
 from .base import DiscreteWavelet, qmf_biorthogonal, qmf_orthonormal
 
 __all__ = ["wavelet", "wavelet_names", "good_wavelets", "REGISTRY"]
-
-_TAPS_FILE = (Path(__file__).resolve().parents[2]
-              / "jwave_pro_tpu" / "wavelets" / "_taps.py")
-
-
-def _load_taps() -> dict:
-    spec = importlib.util.spec_from_file_location(
-        "jwave_pro_tpu_torch.wavelets._taps", _TAPS_FILE)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.TAPS
-
 
 # Java classes the reference's WaveletBuilder refuses to build (throws
 # JWaveFailure, WaveletBuilder.java:363-385).
@@ -97,7 +83,7 @@ def _build(entry) -> DiscreteWavelet:
 def _make_registry():
     reg = {}
     rejected = {}
-    for cls, entry in _load_taps().items():
+    for cls, entry in TAPS.items():
         entry = dict(entry)
         entry["java_class"] = cls
         w = _build(entry)

@@ -306,3 +306,14 @@ def test_cwt_ifft_launcher_rejects_cpu_and_bad_operands():
     assert out.shape == (2, 3, 60) and out.dtype == torch.float32
     assert kc._factor_p(4096) == (32, 128) and kc._factor_p(256) == (16, 16)
     assert math.prod(kc._factor_p(128)) == 128
+
+
+@pytest.mark.parametrize("p", [64, 1024, 16384])
+def test_cwt_kernel_twiddle_table(p):
+    """The kernel's twiddles: e^{2πit/P} in float64, rounded once to
+    complex64, one cached table per P and device."""
+    tw = kc.twiddles(p, torch.device("cpu"))
+    assert tw.dtype == torch.complex64 and tw.shape == (p,)
+    want = np.exp(2j * np.pi * np.arange(p) / p).astype(np.complex64)
+    np.testing.assert_array_equal(tw.numpy(), want)
+    assert kc.twiddles(p, torch.device("cpu")) is tw

@@ -434,6 +434,28 @@ def test_3d_forward_and_inverse_match_plain(dev, shape, level, name, dtype):
     torch.testing.assert_close(back.float(), x.float(), rtol=0, atol=tol)
 
 
+@pytest.mark.parametrize("shape,level,name", [
+    ((1, 100, 16, 32), 2, "Daubechies 4"),  # D off the depth run
+    ((2, 45, 40, 70), 2, "Daubechies 4"),
+    ((2, 9, 20, 50), 2, "Daubechies 4"),    # D below the 15-plane ring
+    ((2, 12, 20, 40), 2, "Daubechies 2"),   # no specialised filter length
+])
+def test_3d_inverse_depth_runs_match_plain(dev, shape, level, name):
+    """The inverse's runs along depth: the last run ends inside its ring
+    and wraps past the volume's end."""
+    w = jt.wavelet(name)
+    b, d, r, c = shape
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    halos = [k3.level_halo(w.length, j) for j in range(1, level + 1)]
+    runs = [k3.inv3_depth_run(b, d, r, c, h, w.length, sms) for h in halos]
+    assert any(d % dc for dc in runs) or d <= max(halos)
+    x = _signal(dev, *shape, seed=21)
+    coeffs = k3.modwt3_fwd_cuda(x, w, level)
+    back = k3.modwt3_inv_cuda(coeffs, w)
+    _close(back, k3.modwt3_inv_plain(coeffs, w), torch.float32)
+    torch.testing.assert_close(back, x, rtol=0, atol=1e-4)
+
+
 def test_3d_public_path_launches_each_kernel(dev):
     w = DB4
     x = _signal(dev, 2, 16, 24, 20, seed=17)
@@ -519,6 +541,22 @@ def test_cwt_kernel_matches_plain_and_cufft(dev, wav, b, s, p, n):
     assert float((got - lib).abs().max()) <= 1e-4 * scale
 
 
+@pytest.mark.parametrize("wav", [jt.MorletWavelet(), jt.MexicanHatWavelet()])
+@pytest.mark.parametrize("p", [1 << lg for lg in range(6, 15)])
+def test_cwt_kernel_every_length_ragged_rows(dev, wav, p):
+    """Every P the kernel takes, n < P, and 3 × 11 rows: no multiple of the
+    2 to 32 rows a block holds below P = 4096."""
+    xf, m, is_real = _cwt_operands(dev, wav, 3, 11, p, seed=22)
+    n = p - 3
+    got = kcw.cwt_ifft_cuda(xf, m, n, is_real)
+    plain = kcw.cwt_ifft_plain(xf, m, n, is_real)
+    lib = torch.fft.ifft(xf[:, None, :] * m, dim=-1)[..., :n]
+    lib = lib.real if is_real else lib
+    scale = float(plain.abs().max())
+    assert float((got - plain).abs().max()) <= 1e-4 * scale
+    assert float((got - lib).abs().max()) <= 1e-4 * scale
+
+
 def test_cwt_public_path_launches_the_kernel(dev):
     x = _signal(dev, 4, 3000, seed=19)
     scales = jt.generate_log_scales(1.0, 64.0, 11)
@@ -551,3 +589,16 @@ def test_cwt_launcher_rejects_what_the_kernel_does_not_take(dev):
         kcw.cwt_ifft_cuda(xf, m, 300, False)
     with pytest.raises(ValueError, match="\\(S, P\\)"):
         kcw.cwt_ifft_cuda(xf, m[:, :128].contiguous(), 128, False)
+
+
+# -- where a public entry point puts its input --------------------------------
+
+def test_numpy_input_runs_on_the_card(dev):
+    x = np.random.default_rng(23).standard_normal((4, 3000)).astype(
+        np.float32)
+    before = kc.modwt_fwd_cuda.launches
+    c = jt.modwt(x, DB4, 3)
+    assert c.is_cuda and c.dtype == torch.float32
+    assert kc.modwt_fwd_cuda.launches == before + 1
+    want = kc.modwt_fwd_plain(torch.from_numpy(x), DB4, 3)
+    torch.testing.assert_close(c.cpu(), want, rtol=0, atol=1e-5)

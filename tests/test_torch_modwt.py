@@ -269,3 +269,50 @@ def test_import_leaves_jax_out():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "clean"
+
+
+# -- where a public entry point puts its input --------------------------------
+
+_W = jt.wavelet("Daubechies 4")
+
+
+def _stack(arrays):
+    """Stack a band list in the arrays' own kind (tensor or NumPy)."""
+    return (torch.stack(arrays) if isinstance(arrays[0], torch.Tensor)
+            else np.stack(arrays))
+
+
+ENTRY_POINTS = {
+    "modwt": lambda a: jt.modwt(a, _W, 2),
+    "imodwt": lambda a: jt.imodwt(_stack([a, a, a]), _W),
+    "modwt_denoise": lambda a: jt.modwt_denoise(a, _W, 2),
+    "modwt_variance": lambda a: jt.modwt_variance(a, _W, 2),
+    "modwpt": lambda a: jt.modwpt(a, _W, 2),
+    "modwt2": lambda a: jt.modwt2(a.reshape(8, 16), _W, 1),
+    "imodwt3": lambda a: jt.imodwt3(_stack([a.reshape(2, 4, 16)] * 8), _W),
+    "cwt": lambda a: jt.cwt(a, [1.0, 2.0], jt.MorletWavelet()).coefficients,
+    "soft_threshold": lambda a: jt.soft_threshold(a, 0.5),
+}
+
+
+def _as_numpy_or_tensor(tensor: bool):
+    x = np.random.default_rng(31).standard_normal(128)
+    return torch.from_numpy(x) if tensor else x
+
+
+@pytest.mark.parametrize("entry", sorted(ENTRY_POINTS))
+def test_tensor_input_stays_on_its_device(entry):
+    out = ENTRY_POINTS[entry](_as_numpy_or_tensor(True))
+    assert out.device.type == "cpu"
+
+
+@pytest.mark.parametrize("entry", sorted(ENTRY_POINTS))
+def test_non_tensor_input_goes_to_the_card(entry):
+    """A NumPy input is put on the card, as the JAX package puts it on its
+    default device; without a card torch raises and nothing runs on the
+    CPU."""
+    if torch.cuda.is_available():
+        assert ENTRY_POINTS[entry](_as_numpy_or_tensor(False)).is_cuda
+    else:
+        with pytest.raises((RuntimeError, AssertionError)):
+            ENTRY_POINTS[entry](_as_numpy_or_tensor(False))

@@ -337,3 +337,39 @@ def test_modwpt3_validation_and_cpu_dispatch():
     jt.imodwpt3(jt.modwpt3(torch.ones(4, 4, 4), w, 1), w)
     assert [kp.modwpt_fwd_cuda.launches,
             kp.modwpt_inv_cuda.launches] == before
+
+
+@pytest.mark.parametrize("m", [2, 4, 8, 16, 21, 22])
+def test_inverse_gate_at_least_as_wide_as_the_forward(m):
+    """Every level the forward's windows take, the inverse's patches and
+    ring take too (halo ≤ 20), and the inverse also takes halo 21."""
+    for level in range(1, k3.MAX_LEVELS3 + 1):
+        if k3.kernel3d_supported(64, 64, 64, level, m, "fwd"):
+            assert k3.kernel3d_supported(64, 64, 64, level, m, "inv")
+    for h in range(0, 22):
+        if m - 1 <= h:
+            assert k3.inv3_fits(h, m) == (h <= 21)
+    assert not k3.inv3_fits(22, m)
+
+
+@pytest.mark.parametrize("h,m", [(1, 2), (7, 8), (14, 8), (15, 16), (20, 21),
+                                 (21, 22)])
+def test_inverse_shared_memory_fits_the_block(h, m):
+    assert k3.inv3_fits(h, m)
+    assert k3.inv3_smem_bytes(h, m) <= 232_448
+    # eight patches, four column adjoints and two rings of M planes
+    pr, pc = 16 + h, 32 + h
+    assert k3.inv3_smem_bytes(h, m) == 4 * (128 + 8 * pr * pc + 4 * pr * 32
+                                            + 2 * m * 512)
+
+
+@pytest.mark.parametrize("shape,h,m,want", [
+    ((4, 256, 256, 256), 14, 8, 86),   # 512 column tiles: three runs
+    ((4, 256, 256, 256), 7, 8, 86),
+    ((1, 128, 128, 128), 14, 8, 28),   # few tiles: runs of 2h
+    ((2, 64, 64, 64), 7, 8, 14),
+    ((1, 8, 8, 16), 14, 8, 8),         # never longer than the volume
+    ((1, 100, 16, 32), 1, 2, 8),       # never shorter than 8 planes
+])
+def test_inverse_depth_run(shape, h, m, want):
+    assert k3.inv3_depth_run(*shape, h, m, sms=132) == want

@@ -1,10 +1,15 @@
 """The port's wavelet registry against the JAX package's.
 
 A wavelet's parameters are its four filter banks, so the banks must be
-equal EXACTLY (both packages build them from the same ``_taps.py`` with
-the same float64 arithmetic): any difference would make every transform
-comparison downstream meaningless.
+equal EXACTLY (both packages build them from equal ``_taps.py`` tables, the
+port from its own copy, with the same float64 arithmetic): any difference
+would make every transform comparison downstream meaningless.
 """
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -102,10 +107,33 @@ def test_tensor_banks_cached_per_device_and_dtype():
         np.testing.assert_array_equal(t.numpy(), getattr(w, f))
 
 
-def test_taps_loaded_by_path_not_by_import():
-    import sys
+def test_port_taps_equal_jax_taps_exactly():
+    from jwave_pro_tpu.wavelets import _taps as jax_taps
+    from jwave_pro_tpu_torch.wavelets import _taps as port_taps
 
-    from jwave_pro_tpu_torch.wavelets import families
+    assert port_taps.TAPS == jax_taps.TAPS
 
-    assert families._TAPS_FILE.name == "_taps.py"
-    assert "jwave_pro_tpu_torch.wavelets._taps" not in sys.modules
+
+def test_port_runs_without_the_jax_package(tmp_path):
+    """The port copied alone runs a transform and never loads JAX or the
+    JAX package."""
+    port = Path(jt.__file__).resolve().parent
+    shutil.copytree(port, tmp_path / port.name,
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    script = (
+        "import sys, torch\n"
+        "import jwave_pro_tpu_torch as jt\n"
+        "c = jt.modwt(torch.randn(2, 100, dtype=torch.float64), "
+        "jt.wavelet('db4'), 3)\n"
+        "assert tuple(c.shape) == (4, 2, 100), c.shape\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m.split('.')[0] == 'jwave_pro_tpu']\n"
+        "assert not bad, bad\n"
+        "print('stand-alone ok')\n")
+    done = subprocess.run(
+        [sys.executable, "-I", "-c",
+         f"import sys; sys.path.insert(0, {str(tmp_path)!r}); "
+         f"exec({script!r})"],
+        cwd=tmp_path, capture_output=True, text=True, timeout=300)
+    assert done.returncode == 0, done.stderr
+    assert "stand-alone ok" in done.stdout
