@@ -7,7 +7,8 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
 It builds the CUDA kernels from ``jwave_pro_tpu_torch/csrc`` with nvcc
 (and requires the assembler to report no stack frame and no spills for
-the register-resident CWT and 3D inverse kernels), checks each kernel
+the register-resident CWT kernel and the marching 3D and 2D denoise
+kernels), checks each kernel
 against its plain PyTorch version, and drives two paths
 through the public API: the MODWT path (Db4 level 5 forward, inverse and
 fused denoise over 32 signals of 2^20 float32 samples, and the 1D forward
@@ -159,9 +160,11 @@ def run(smoke: Smoke, torch, jt) -> dict:
     print(f"  kernels built in {time.perf_counter() - t0:.1f} s "
           f"({'already built' if cached else 'nvcc'}) -> {_build.build_dir()}",
           flush=True)
-    # the register-resident kernels keep their arrays out of local memory
+    # the register-resident and marching kernels keep their arrays and
+    # accumulators out of local memory
+    marching = ("cwt_ifft", "modwt3_inv", "modwt3_fwd", "modwt2_denoise")
     for name, (regs, stack, st, ld) in sorted(_build.ptxas_report().items()):
-        if "cwt_ifft" in name or "modwt3_inv" in name:
+        if any(k in name for k in marching):
             smoke.require(f"ptxas {name}: {regs} registers, {stack} bytes "
                           f"stack, spills {st}/{ld} bytes",
                           stack == 0 and st == 0 and ld == 0)
@@ -656,11 +659,24 @@ def run_image_slice(smoke: Smoke, torch, jt, dev, signal, card):
     lvl = IMAGE_LEVEL
 
     print("== phase 15: 2D kernels vs plain (small shapes, halo > image, "
-          "Symlet 8, bf16)", flush=True)
+          "Symlet 8, Haar L6, bf16; the denoise's strips and row runs "
+          "across the image's end)", flush=True)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     small = (((2, 128, 256), 2, WAVELET, ("soft", "hard")),
              ((3, 1000, 750), 3, WAVELET, ("soft",)),
              ((2, 40, 24), 3, WAVELET, ("soft", "hard")),
-             ((1, 256, 256), 2, "Symlet 8", ("soft", "hard")))
+             ((1, 256, 256), 2, "Symlet 8", ("soft", "hard")),
+             ((1, 100, 70), 6, "Haar", ("soft", "hard")),
+             ((1, 1000, 200), 3, WAVELET, ("soft", "hard")),
+             ((2, 70, 90), 2, "Daubechies 2", ("soft",)))
+    for shape, lv, name, _ in small:
+        m = jt.wavelet(name).length
+        wd, grp, tc = k2.denoise2_plan(lv, m)
+        print(f"  2D denoise plan {shape} L{lv} {name}: window {wd}, strip "
+              f"{tc}, {grp} rows a step, runs of "
+              f"{k2.denoise2_run(*shape, lv, m, sms)} rows (at one block "
+              f"an SM); {-(-shape[2] // tc)} strips, the last ending "
+              f"{-shape[2] % tc} columns past the image", flush=True)
     for shape, lv, name, modes in small:
         wv = jt.wavelet(name)
         x = signal(*shape)
@@ -701,6 +717,13 @@ def run_image_slice(smoke: Smoke, torch, jt, dev, signal, card):
     smoke.check("bf16 2D denoise vs f32 2D denoise", max_err(
         k2.modwt2_denoise_cuda(x.bfloat16(), thr, w, 3),
         k2.modwt2_denoise_cuda(x, thr, w, 3)), 1e-1)
+    # hard mode is discontinuous at the threshold, so bf16 input is held
+    # against the plain version on the same bf16 input, not against f32
+    d16 = k2.modwt2_denoise_cuda(x.bfloat16(), thr, w, 3, "hard")
+    smoke.require("bf16 2D denoise dtype", d16.dtype == torch.bfloat16)
+    smoke.check("bf16 2D denoise (hard) vs bf16 plain", max_err(
+        d16, k2.modwt2_denoise_plain(x.bfloat16(), thr, w, 3, "hard")),
+        5e-2)
 
     print(f"== phase 16: 2D path {IMAGE_SHAPE} f32 {WAVELET} L{lvl}, packets "
           f"L{PACKET2_LEVEL}, MRA {MRA_SHAPE}, through the public API",
@@ -892,11 +915,12 @@ def run_volume_cwt_slice(smoke: Smoke, torch, jt, dev, signal, card):
         return xf, torch.from_numpy(m).to(dev, torch.complex64), is_real
 
     print("== phase 18: 3D and CWT kernels vs plain (small shapes, halo > "
-          "volume, Haar L3, Symlet 8, bf16, the inverse's depth runs; every "
-          "P from 64 to 16384)", flush=True)
+          "volume, Haar L3 and L5, Symlet 8, bf16, both directions' depth "
+          "runs; every P from 64 to 16384)", flush=True)
     for shape, lv, name in (((2, 24, 40, 33), 2, WAVELET),
                             ((1, 8, 8, 16), 2, WAVELET),
                             ((1, 5, 7, 40), 3, "Haar"),
+                            ((1, 20, 24, 28), 5, "Haar"),
                             ((2, 9, 33, 70), 1, "Symlet 8")):
         wv = jt.wavelet(name)
         x = signal(*shape)
@@ -908,8 +932,8 @@ def run_volume_cwt_slice(smoke: Smoke, torch, jt, dev, signal, card):
         smoke.check(f"3D inv {tag} vs plain",
                     max_err(xr, k3.modwt3_inv_plain(c, wv)), 1e-5)
         smoke.check(f"3D round trip {tag}", max_err(xr, x), 1e-4)
-    # the inverse's depth runs: D not a multiple of the run, D smaller than
-    # the ring of (M-1)·2^(j-1) + 1 planes, a run that crosses the
+    # both directions' depth runs: D not a multiple of the run, D smaller
+    # than the ring of (M-1)·2^(j-1) + 1 planes, a run that crosses the
     # volume's end, and a filter length without a specialised kernel
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for shape, lv, name in (((1, 100, 16, 32), 2, WAVELET),
@@ -921,11 +945,18 @@ def run_volume_cwt_slice(smoke: Smoke, torch, jt, dev, signal, card):
         halos = [k3.level_halo(wv.length, j) for j in range(1, lv + 1)]
         runs = [k3.inv3_depth_run(b, d, r, cols, h, wv.length, sms)
                 for h in halos]
-        tag = f"{shape} L{lv} {name}, depth runs {runs}"
-        smoke.require(f"3D inverse {tag}: D off the runs or below the ring",
-                      any(d % dc for dc in runs) or d <= max(halos))
+        fwd_runs = [k3.fwd3_depth_run(b, d, r, cols, h, wv.length, sms)
+                    for h in halos]
+        tag = (f"{shape} L{lv} {name}, depth runs {fwd_runs} forward, "
+               f"{runs} inverse")
+        smoke.require(f"3D {tag}: D off the runs or below the ring",
+                      (any(d % dc for dc in runs) or d <= max(halos))
+                      and (any(d % dc for dc in fwd_runs)
+                           or d <= max(halos)))
         x = signal(*shape)
         c = k3.modwt3_fwd_cuda(x, wv, lv)
+        smoke.check(f"3D fwd {tag} vs plain",
+                    max_err(c, k3.modwt3_fwd_plain(x, wv, lv)), 1e-5)
         xr = k3.modwt3_inv_cuda(c, wv)
         smoke.check(f"3D inv {tag} vs plain",
                     max_err(xr, k3.modwt3_inv_plain(c, wv)), 1e-5)
@@ -943,6 +974,14 @@ def run_volume_cwt_slice(smoke: Smoke, torch, jt, dev, signal, card):
                 5e-2)
     smoke.check("bf16 3D round trip", max_err(k3.modwt3_inv_cuda(c16, w), x),
                 1e-1)
+    for shape, lv, name in (((1, 100, 16, 32), 2, WAVELET),
+                            ((1, 20, 24, 28), 5, "Haar"),
+                            ((2, 9, 33, 70), 1, "Symlet 8")):
+        wv = jt.wavelet(name)
+        x16 = signal(*shape).bfloat16()
+        smoke.check(f"bf16 3D fwd {shape} L{lv} {name} vs bf16 plain",
+                    max_err(k3.modwt3_fwd_cuda(x16, wv, lv),
+                            k3.modwt3_fwd_plain(x16, wv, lv)), 5e-2)
     for p, s_count in ((64, 7), (1024, 13), (16384, 5)):
         for wav in (jt.MorletWavelet(), jt.MexicanHatWavelet()):
             xf, m, is_real = spectra(wav, 3, p, jt.generate_log_scales(

@@ -9,24 +9,29 @@ Replaces ``jwave_pro_tpu/kernels/modwt2_pallas.py``:
   forward → shrink every detail band by one threshold per image → inverse,
   LL kept, in one launch.
 
-Each block owns a T × T output tile and a square window around it: T + H
-on a side for the transforms, reaching up/left (forward) or down/right
-(inverse), T + 2H for the denoise, with H = (M−1)(2^L − 1).  It reads its
-circular context ``x[b, p mod R, q mod C]`` directly — no padded copy, no
-tile plan over (R, C) — so any image size runs, halo larger than the image
-included.  Three f32 windows live in shared memory (the running LL and the
-column pass's two outputs), which is the whole limit:
-:func:`kernel2d_supported` derives the tile from the 227 KB budget and
-refuses what does not fit (Db4 to L4 forward and inverse, L3 denoise).
+The transforms: each block owns a T × T output tile and a square window of
+side T + H around it, reaching up/left (forward) or down/right (inverse),
+H = (M−1)(2^L − 1).  It reads its circular context ``x[b, p mod R,
+q mod C]`` directly — no padded copy, no tile plan over (R, C) — so any
+image size runs, halo larger than the image included.  Three f32 windows
+live in shared memory (the running LL and the column pass's two outputs),
+which is the whole limit: :func:`kernel2d_supported` derives the tile from
+the 227 KB budget and refuses what does not fit (Db4 to L4).  Bound by the
+cascade's shared-memory traffic (3M loads and 6M fused multiply-adds per
+window pixel and level), inflated by the window's recompute ratio
+((T+H)²/T², 3.1 at Db4 L3).
 
-What bounds them on the H100: shared-memory traffic of the cascade (3M
-loads and 6M fused multiply-adds per window pixel and level), inflated by
-the window's recompute ratio ((T+H)²/T², 3.1 at Db4 L3), and one block per
-SM at the deeper levels.  The denoise cannot keep its 3L shrunk detail
-bands in shared memory as the TPU kept them in VMEM: each block writes
-them to a block-private scratch area in device memory (only the region the
-adjoint reads back) and walks the tiles in a loop, with a grid sized to the
-resident blocks, so the scratch stays bounded.
+The denoise: each block owns a strip of Tc output columns of one image,
+a window of W = Tc + 2H columns (read mod C), and marches down the rows (read
+mod R), G rows a step, keeping for every level the rings of rows its taps
+reach in shared memory (the analysis's cl, ch and shrunk details, the
+synthesis's running LL) and, by linearity, each level's detail
+contribution to the reconstruction as one array that waits in a
+block-private delay ring in device memory (L2-resident) until the
+synthesis reaches it.  Rows are never recomputed; columns by W / Tc.
+:func:`denoise2_plan` derives (W, G, Tc) from the 227 KB budget; the gate
+admits any R and C, halo ≤ 63 (every (M, L) with H ≤ 65 at M ≤ 64): Db4 to
+L3, Symlet 8 to L2, Haar to L6.
 
 Beside each kernel: its plain PyTorch version (``modwt2_fwd_plain``,
 ``modwt2_inv_plain``, ``modwt2_denoise_plain``) and a launch counter
@@ -59,27 +64,88 @@ __all__ = [
 ]
 
 TILE2D_MAX = 64     # largest tile side; larger tiles leave one block per SM
+TILE2D_MIN = 8      # smallest output tile side (transforms) or strip (denoise)
+WARPS = 16          # JW_THREADS / 32
+DENOISE2_GROUPS = (1, 2, 4, 8)   # rows a denoise step: G × 16/G warps
+MAX_RUNS2 = 256     # most row runs the denoise splits one strip into
 
 
-def window2d(tile: int, level: int, m: int, kind: str) -> int:
-    """Side of a block's square window: T + H ('fwd', 'inv') or T + 2H
-    ('denoise', whose analysis reaches up/left and synthesis down/right)."""
-    return tile + (2 if kind == "denoise" else 1) * halo(m, level)
+def window2d(tile: int, level: int, m: int) -> int:
+    """Side of a transform block's square window: T + H."""
+    return tile + halo(m, level)
 
 
-def smem2d_bytes(tile: int, level: int, m: int, kind: str) -> int:
-    """Dynamic shared memory of one block: the taps and three f32 windows
-    (LL, and the column pass's two outputs)."""
-    return 4 * (2 * MAX_TAPS + 3 * window2d(tile, level, m, kind) ** 2)
+def smem2d_bytes(tile: int, level: int, m: int) -> int:
+    """Dynamic shared memory of one transform block: the taps and three f32
+    windows (LL, and the column pass's two outputs)."""
+    return 4 * (2 * MAX_TAPS + 3 * window2d(tile, level, m) ** 2)
 
 
-def tile2d(level: int, m: int, kind: str) -> int:
-    """The largest tile side (a multiple of 8, at most ``TILE2D_MAX``) whose
-    windows fit a block's shared memory; 0 if none does."""
-    for t in range(TILE2D_MAX, 7, -8):
-        if smem2d_bytes(t, level, m, kind) <= SMEM_LIMIT:
+def tile2d(level: int, m: int) -> int:
+    """The largest transform tile side (a multiple of 8, at most
+    ``TILE2D_MAX``) whose windows fit a block's shared memory; 0 if none
+    does."""
+    for t in range(TILE2D_MAX, TILE2D_MIN - 1, -8):
+        if smem2d_bytes(t, level, m) <= SMEM_LIMIT:
             return t
     return 0
+
+
+def denoise2_smem_bytes(w: int, grp: int, level: int, m: int) -> int:
+    """Dynamic shared memory of one denoise block with a window of ``w``
+    columns and ``grp`` rows a step (``jw2d_smem_floats``): the taps, five
+    buffers of G rows, and four rings of (M−1)·2^(j−1) + G rows a level."""
+    return 4 * (2 * MAX_TAPS + w * (5 * grp + 4 * (halo(m, level)
+                                                   + level * grp)))
+
+
+def denoise2_delay_rows(grp: int, level: int, m: int) -> int:
+    """Rows of one denoise block's delay rings in device memory
+    (``jw2d_delay_rows``): S_{j+1} + G for each level j < L, S_{j+1} the
+    halo of the levels above j."""
+    return sum(halo(m, level) - halo(m, j) + grp for j in range(1, level))
+
+
+@functools.lru_cache(maxsize=None)
+def denoise2_plan(level: int, m: int):
+    """(W, G, Tc) of the denoise.  The 16 warps of a block take G rows of a
+    step and 32 window columns each, so W ≤ 32·16/G; for each G, W is the
+    widest window within that and within 227 KB, and Tc = W − 2H.  Every
+    step costs the same 512 lanes, so the plan takes the G with the most
+    output pixels a step, G·Tc.  None if no strip of ``TILE2D_MIN`` columns
+    fits."""
+    if level < 1 or not 1 <= m <= MAX_TAPS:
+        return None
+    hal = halo(m, level)
+    best = None
+    for g in DENOISE2_GROUPS:
+        fit = ((SMEM_LIMIT // 4 - 2 * MAX_TAPS)
+               // (5 * g + 4 * (hal + level * g)))
+        w = min(32 * (WARPS // g), fit)
+        tc = w - 2 * hal
+        if tc >= TILE2D_MIN and (best is None or g * tc > best[0]):
+            best = (g * tc, w, g, tc)
+    return None if best is None else best[1:]
+
+
+def denoise2_run(b: int, r: int, c: int, level: int, m: int,
+                 blocks: int) -> int:
+    """Rows one denoise work item marches.  A run of n rows takes n + 2H
+    steps' rows (the warm-up and the synthesis's reach), and the ``blocks``
+    the card holds take the B·⌈C/Tc⌉·⌈R/n⌉ items in waves: the run length
+    whose waves × (n + 2H) is least (all R where the strips fill the card
+    evenly; shorter runs for a few images, or to even out the last
+    wave)."""
+    tc = denoise2_plan(level, m)[2]
+    strips = b * -(-c // tc)
+    hal = halo(m, level)
+    best = None
+    for runs in range(1, min(r, MAX_RUNS2) + 1):
+        n = -(-r // runs)
+        cost = -(-strips * -(-r // n) // blocks) * (n + 2 * hal)
+        if best is None or cost < best[0]:
+            best = (cost, n)
+    return best[1]
 
 
 def kernel2d_supported(r: int, c: int, level: int, m: int, kind: str) -> bool:
@@ -89,11 +155,16 @@ def kernel2d_supported(r: int, c: int, level: int, m: int, kind: str) -> bool:
     The counterpart of the JAX package's ``pallas2d_supported`` /
     ``denoise2_fused_supported``, re-derived from the 227 KB shared-memory
     budget: any R and C (halo larger than the image included), as long as
-    an 8 × 8 tile's windows fit.  Db4 runs to L4 forward and inverse and to
-    L3 denoise; Symlet 8 to L3 and L2; Haar to L7 and L6.
+    an 8 × 8 tile's windows fit (transforms) or a strip of 8 columns
+    (denoise, :func:`denoise2_plan`).  Db4 runs to L4 forward and inverse
+    and to L3 denoise; Symlet 8 to L3 and L2; Haar to L7 and L6.
     """
-    return (1 <= r < 2 ** 31 and 1 <= c < 2 ** 31 and level >= 1
-            and 1 <= m <= MAX_TAPS and tile2d(level, m, kind) > 0)
+    if not (1 <= r < 2 ** 31 and 1 <= c < 2 ** 31 and level >= 1
+            and 1 <= m <= MAX_TAPS):
+        return False
+    if kind == "denoise":
+        return denoise2_plan(level, m) is not None
+    return tile2d(level, m) > 0
 
 
 # ---------------------------------------------------------------------------
@@ -144,26 +215,26 @@ def _lib() -> ctypes.CDLL:
                        _P]
         fn.restype = _I
     lib.jw_modwt2_denoise.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
-                                      _P, _I, _I, _I, _I, _I, _I, _I, _P]
+                                      _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]
     lib.jw_modwt2_denoise.restype = _I
-    lib.jw_modwt2_denoise_blocks.argtypes = [_I, _I, _I, _P]
+    lib.jw_modwt2_denoise_blocks.argtypes = [_I, _I, _I, _I, _P]
     lib.jw_modwt2_denoise_blocks.restype = _I
     return lib
 
 
 def _plan(shape, level: int, wavelet: DiscreteWavelet, kind: str,
           what: str):
-    """(tile, halo, shared-memory bytes) for an (B, R, C) launch; raises for
-    what the kernel does not take."""
+    """(tile, halo, shared-memory bytes) for an (B, R, C) transform launch;
+    raises for what the kernel does not take."""
     b, r, c = shape
     m = wavelet.length
     if not kernel2d_supported(r, c, level, m, kind):
         raise ValueError(f"unsupported shape {tuple(shape)} level {level} "
                          f"for the {what} kernel")
-    t = tile2d(level, m, kind)
+    t = tile2d(level, m)
     if b * -(-r // t) * -(-c // t) >= 2 ** 31:
         raise ValueError(f"{tuple(shape)} exceeds the {what} kernel grid")
-    return t, halo(m, level), smem2d_bytes(t, level, m, kind)
+    return t, halo(m, level), smem2d_bytes(t, level, m)
 
 
 def modwt2_fwd_cuda(x: torch.Tensor, wavelet: DiscreteWavelet,
@@ -213,11 +284,11 @@ modwt2_inv_cuda.launches = 0
 
 
 @functools.cache
-def _resident_blocks(smem: int, dtype: int, device: int) -> int:
+def _resident_blocks(smem: int, m: int, dtype: int, device: int) -> int:
     """Blocks of the denoise kernel the card holds at once."""
     lib = _lib()
     blocks = ctypes.c_int(0)
-    code = lib.jw_modwt2_denoise_blocks(smem, dtype, device,
+    code = lib.jw_modwt2_denoise_blocks(smem, m, dtype, device,
                                         ctypes.addressof(blocks))
     _build.check(lib, code, "2D denoise occupancy query")
     if blocks.value < 1:
@@ -230,30 +301,35 @@ def modwt2_denoise_cuda(x: torch.Tensor, threshold: torch.Tensor,
                         wavelet: DiscreteWavelet, level: int,
                         mode: str = "soft") -> torch.Tensor:
     """Launch the denoise kernel: x (B, R, C), threshold (B,) float32 →
-    (B, R, C).  Allocates the blocks' detail-band scratch."""
+    (B, R, C).  Allocates the blocks' delay rings."""
     check_operand(x, "x", 3)
     b, r, c = x.shape
+    m = wavelet.length
     if (threshold.dtype != torch.float32 or threshold.shape != (b,)
             or threshold.device != x.device
             or not threshold.is_contiguous()):
         raise ValueError("threshold: kernel needs a contiguous (B,) float32 "
                          "tensor on x's device")
-    tile, hal, smem = _plan(x.shape, level, wavelet, "denoise", "2D denoise")
+    if not kernel2d_supported(r, c, level, m, "denoise"):
+        raise ValueError(f"unsupported shape {tuple(x.shape)} level {level} "
+                         f"for the 2D denoise kernel")
+    w, grp, tc = denoise2_plan(level, m)
     dtype = DTYPE_CODES[x.dtype]
-    tiles = b * -(-r // tile) * -(-c // tile)
-    grid = min(tiles, _resident_blocks(smem, dtype, x.device.index))
-    win = window2d(tile, level, wavelet.length, "denoise")
-    scratch = torch.empty((grid, 3 * level, win, win), dtype=torch.float32,
-                          device=x.device)
+    blocks = _resident_blocks(denoise2_smem_bytes(w, grp, level, m), m, dtype,
+                              x.device.index)
+    run = denoise2_run(b, r, c, level, m, blocks)
+    grid = min(b * -(-r // run) * -(-c // tc), blocks)
+    scratch = torch.empty(
+        (grid, max(1, denoise2_delay_rows(grp, level, m)), w),
+        dtype=torch.float32, device=x.device)
     out = torch.empty_like(x)
     g, h = kernel_taps(wavelet)
     lib = _lib()
     code = lib.jw_modwt2_denoise(
         x.data_ptr(), threshold.data_ptr(), out.data_ptr(),
         scratch.data_ptr(), grid, b, r, c, level, g.ctypes.data,
-        h.ctypes.data, wavelet.length, tile, hal, smem, int(mode != "soft"),
-        dtype, x.device.index,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        h.ctypes.data, m, w, grp, tc, run, int(mode != "soft"), dtype,
+        x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, code, "2D denoise kernel")
     modwt2_denoise_cuda.launches += 1
     return out

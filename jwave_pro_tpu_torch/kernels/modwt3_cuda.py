@@ -2,7 +2,7 @@
 
 Replaces ``jwave_pro_tpu/kernels/modwt3_pallas.py``:
 
-* ``jw_modwt3_fwd_kernel`` ← ``_fwd3_kernel`` (``:172``): (B, D, R, C) →
+* ``jw_modwt3_fwd_level`` ← ``_fwd3_kernel`` (``:172``): (B, D, R, C) →
   ``(7L+1, B, D, R, C)``, per level the detail octants (LLH, LHL, LHH, HLL,
   HLH, HHL, HHH), LLL_L last.
 * ``jw_modwt3_inv_level`` ← ``_inv3_kernel`` (``:331``): the adjoint.
@@ -11,35 +11,33 @@ The TPU's merged ``(D, R·C)`` lane layout, its two-roll column select, the
 VMEM plans and the depth/row padding stay behind.  A 3D window pays its
 halo on all three axes, so a block reaching back the whole cascade
 (H = (M−1)(2^L − 1), 21 at Db4 L2) would leave almost no tile in 227 KB:
-both directions run the levels in turn, LLL_j between levels in an f32
-scratch volume the wrapper allocates, and read the volume as
-``x[b, p mod D, q mod R, s mod C]`` — no padded copy, any volume, halo
-larger than an axis included.
+both directions run the levels in turn, one launch a level in stream order,
+LLL_j between levels in an f32 scratch volume the wrapper allocates, and
+read the volume as ``x[b, p mod D, q mod R, s mod C]`` — no padded copy,
+any volume, halo larger than an axis included.  Both march a block along
+a run of depth planes over a Tr × 32 column of the volume (runs from
+:func:`depth_run`, enough blocks to fill the card), keep a ring of M planes
+in shared memory, and compute every plane once; depth is recomputed only
+where a run or a residue mod 2^(j−1) starts.
 
-The forward is one cooperative launch with a grid-wide barrier between
-levels: at level j a block owns a Td × Tr × Tc tile and a (Td + h) ×
-(Tr + h) × 32 window, h = (M−1)·2^(j−1), Tc = 32 − h; three f32 windows fill
-its shared memory.  Bound by the cascade's shared-memory traffic (9M loads
-and 14M multiply-adds per window voxel and level), inflated by the window's
-recompute ratio (2.5 at Db4 level 1, 9.7 at level 2).
+The forward (level j, halo h = (M−1)·2^(j−1)) stages a (Tr + h) × (32 + h)
+patch of LLL_{j−1} a plane, runs the column and row passes into four
+quadrant rings, and writes each output plane's seven octants and LLL_j from
+the rings; Tr from :func:`fwd3_rows` (16 at Db4, two blocks an SM).  Bound
+by device memory (one read and eight writes a voxel and level) and about
+7M shared loads an output voxel and level.
 
-The inverse is one launch per level, in stream order.  The per-axis
-adjoints commute, so a level is the depth adjoint of two in-plane adjoints
-Q_L, Q_H (each of the four bands with that depth letter).  A block owns a
-16 × 32 column of the volume and a run of ``dc`` depth planes
-(:func:`inv3_depth_run`) and marches along depth: each Q plane is computed
-once from eight staged (16 + h) × (32 + h) band patches and kept in a ring
-of M planes in shared memory, each output plane read from the ring.  Every
-band voxel leaves device memory once, plus its in-plane halo; depth is
-recomputed only where a run starts (h extra planes).  Bound by the
-in-plane adjoints' shared-memory loads, 2M((16 + h)/4 + 3) per output voxel
-and level.
+The inverse is the depth adjoint of two in-plane adjoints Q_L, Q_H (each of
+the four bands with that depth letter): each Q plane is computed once from
+eight staged (16 + h) × (32 + h) band patches and kept in a ring, each
+output plane read from the ring.  Bound by the in-plane adjoints' shared
+loads, 2M((16 + h)/4 + 3) per output voxel and level.
 
-:func:`kernel3d_supported` admits a level of the forward when its tile is at
-least ``TILE3_MIN`` on every axis (h ≤ 20: Db4 to L2, Haar to L5, Symlet 8
-at L1), and a level of the inverse when its patches and ring fit
-(:func:`inv3_fits`: h ≤ 21).  Deeper levels and longer filters take the
-plain path under ``method='auto'`` and raise under ``'pallas'``.
+:func:`kernel3d_supported` admits every level whose halo is at most
+``MAX_HALO3`` = 21 (the inverse's patch plan, :func:`inv3_fits`; the
+forward takes the same range so every forward it runs has its inverse):
+Db4 to L2, Haar to L5, Symlet 8 at L1.  Deeper levels and longer filters
+take the plain path under ``method='auto'`` and raise under ``'pallas'``.
 
 Beside each kernel: its plain PyTorch version (``modwt3_fwd_plain``,
 ``modwt3_inv_plain``) and a launch counter (``<launcher>.launches``, one a
@@ -66,20 +64,21 @@ from .modwt_cuda import (
 )
 
 __all__ = [
-    "modwt3_fused", "imodwt3_fused", "kernel3d_supported", "tile3d",
-    "inv3_fits", "inv3_depth_run", "modwt3_fwd_cuda", "modwt3_inv_cuda",
+    "modwt3_fused", "imodwt3_fused", "kernel3d_supported", "fwd3_rows",
+    "fwd3_smem_bytes", "inv3_fits", "depth_run", "fwd3_depth_run",
+    "inv3_depth_run", "modwt3_fwd_cuda", "modwt3_inv_cuda",
     "modwt3_fwd_plain", "modwt3_inv_plain",
 ]
 
-TILE3_WC = 32        # window extent along C (JW3_WC): one warp's lanes
-TILE3_MIN = 4        # smallest tile side a level may take
-MAX_LEVELS3 = 8      # JW3_MAX_LEVELS
-# window depth × rows that three f32 windows of 32 columns may take
-WIN3_AREA = (SMEM_LIMIT - 4 * 2 * MAX_TAPS) // (4 * 3 * TILE3_WC)
-# the inverse's block column (JW3I_TR × JW3I_TC) and the patch voxels one
-# band may have (JW3I_NL × JW_THREADS)
-INV3_TR, INV3_TC = 16, 32
+MAX_LEVELS3 = 8
+# a block's columns (JW3F_TC, JW3I_TC): one warp's lanes; the inverse's
+# block rows (JW3I_TR) and the patch voxels one band may have (JW3I_NL ×
+# JW_THREADS)
+TILE3_TC = 32
+INV3_TR = 16
 INV3_PATCH = 4 * 512
+MAX_HALO3 = 21       # the largest level halo both directions take
+FWD3_ROWS = (64, 48, 32, 16)   # the forward's block rows, largest first
 SM_SMEM = 233_472    # shared memory of one H100 SM (228 KB)
 
 
@@ -88,60 +87,72 @@ def level_halo(m: int, j: int) -> int:
     return (m - 1) << (j - 1)
 
 
+def _per_sm(smem: int) -> int:
+    """Blocks of ``smem`` bytes one SM holds (1 KB reserved each), at most
+    the two that ``__launch_bounds__(512, 2)`` plans registers for."""
+    return max(0, min(2, SM_SMEM // (smem + 1024)))
+
+
+def fwd3_smem_bytes(h: int, m: int, tr: int) -> int:
+    """Dynamic shared memory of one forward block at halo ``h`` with ``tr``
+    rows: the taps, the (tr + h) × (32 + h) patch, cl and ch on
+    (tr + h) × 32, and four quadrant rings of M tr × 32 planes."""
+    pr = tr + h
+    return 4 * (2 * MAX_TAPS + pr * (TILE3_TC + h) + 2 * pr * TILE3_TC
+                + 4 * m * tr * TILE3_TC)
+
+
 @functools.lru_cache(maxsize=None)
-def tile3d(h: int):
-    """(Td, Tr, Tc) of a level with halo ``h``: Tc = 32 − h, and the
-    (Td, Tr) with the largest product whose (Td + h)(Tr + h) window rows
-    fit ``WIN3_AREA``; None if a side would fall below ``TILE3_MIN``."""
-    tc = TILE3_WC - h
-    best = None
-    for wd in range(h + TILE3_MIN, WIN3_AREA + 1):
-        wr = WIN3_AREA // wd
-        if wr < wd:
-            break
-        td, tr = wd - h, wr - h
-        if best is None or td * tr > best[0] * best[1]:
-            best = (td, tr)
-    if best is None or tc < TILE3_MIN:
+def fwd3_rows(h: int, m: int):
+    """The forward block's rows at halo ``h``: the most (of ``FWD3_ROWS``)
+    with which two blocks fit an SM, else 16 if one block fits 227 KB;
+    None if the level is out of the kernel's range."""
+    if not (0 <= h <= MAX_HALO3 and 1 <= m <= MAX_TAPS):
         return None
-    return best[0], best[1], tc
-
-
-def smem3d_bytes(level: int, m: int) -> int:
-    """Dynamic shared memory of one block: the taps and three f32 windows
-    of the level with the largest window."""
-    rows = max((t[0] + h) * (t[1] + h) for h, t in (
-        (level_halo(m, j), tile3d(level_halo(m, j)))
-        for j in range(1, level + 1)))
-    return 4 * (2 * MAX_TAPS + 3 * rows * TILE3_WC)
+    for tr in FWD3_ROWS:
+        if _per_sm(fwd3_smem_bytes(h, m, tr)) >= 2:
+            return tr
+    return 16 if fwd3_smem_bytes(h, m, 16) <= SMEM_LIMIT else None
 
 
 def inv3_smem_bytes(h: int, m: int) -> int:
     """Dynamic shared memory of one inverse block at halo ``h``: the taps,
     eight (16 + h) × (32 + h) band patches, four column adjoints of
     (16 + h) × 32 and the two rings of M 16 × 32 planes."""
-    pr, pc = INV3_TR + h, INV3_TC + h
-    return 4 * (2 * MAX_TAPS + 8 * pr * pc + 4 * pr * INV3_TC
-                + 2 * m * INV3_TR * INV3_TC)
+    pr, pc = INV3_TR + h, TILE3_TC + h
+    return 4 * (2 * MAX_TAPS + 8 * pr * pc + 4 * pr * TILE3_TC
+                + 2 * m * INV3_TR * TILE3_TC)
 
 
 def inv3_fits(h: int, m: int) -> bool:
     """Whether a level of the inverse at halo ``h`` fits: its patches
     within the block's staging plan and its shared memory within 227 KB."""
-    return ((INV3_TR + h) * (INV3_TC + h) <= INV3_PATCH and m <= MAX_TAPS
+    return ((INV3_TR + h) * (TILE3_TC + h) <= INV3_PATCH and m <= MAX_TAPS
             and inv3_smem_bytes(h, m) <= SMEM_LIMIT)
+
+
+def depth_run(tiles: int, d: int, h: int, per_sm: int, sms: int) -> int:
+    """Depth planes one marching block walks: enough runs that the grid of
+    ``tiles`` in-plane columns holds about four times the resident blocks
+    (``per_sm`` a SM on ``sms`` SMs), but no run shorter than max(2h, 8)
+    planes (a run recomputes h planes) unless the volume is."""
+    runs = max(1, -(-4 * sms * max(1, per_sm) // tiles))
+    return min(d, max(-(-d // runs), 2 * h, 8))
+
+
+def fwd3_depth_run(b: int, d: int, r: int, c: int, h: int, m: int,
+                   sms: int) -> int:
+    """:func:`depth_run` of a forward level at halo ``h``."""
+    tr = fwd3_rows(h, m)
+    return depth_run(b * -(-r // tr) * -(-c // TILE3_TC), d, h,
+                     _per_sm(fwd3_smem_bytes(h, m, tr)), sms)
 
 
 def inv3_depth_run(b: int, d: int, r: int, c: int, h: int, m: int,
                    sms: int) -> int:
-    """Depth planes one inverse block walks at halo ``h`` on a card of
-    ``sms`` SMs: enough runs that the grid holds about four times the
-    resident blocks, but no run shorter than max(2h, 8) planes (a run
-    recomputes h planes) unless the volume is."""
-    per_sm = max(1, min(2, SM_SMEM // (inv3_smem_bytes(h, m) + 1024)))
-    tiles = b * -(-r // INV3_TR) * -(-c // INV3_TC)
-    runs = max(1, -(-4 * sms * per_sm // tiles))
-    return min(d, max(-(-d // runs), 2 * h, 8))
+    """:func:`depth_run` of an inverse level at halo ``h``."""
+    return depth_run(b * -(-r // INV3_TR) * -(-c // TILE3_TC), d, h,
+                     _per_sm(inv3_smem_bytes(h, m)), sms)
 
 
 def kernel3d_supported(d: int, r: int, c: int, level: int, m: int,
@@ -151,14 +162,14 @@ def kernel3d_supported(d: int, r: int, c: int, level: int, m: int,
 
     The counterpart of the JAX package's ``pallas3d_supported``, re-derived
     from the 227 KB shared-memory budget: any D, R and C (halo larger than
-    an axis included), as long as every level fits — for the forward a
-    tile of at least ``TILE3_MIN`` on each side, level halo (M−1)·2^(j−1)
-    ≤ 20: Db4 to L2, Haar to L5, Symlet 8 at L1; for the inverse its
-    patches and ring (:func:`inv3_fits`), halo ≤ 21.
+    an axis included), as long as every level fits — level halo
+    (M−1)·2^(j−1) ≤ 21 with its patch and rings in shared memory
+    (:func:`fwd3_rows`, :func:`inv3_fits`): Db4 to L2, Haar to L5,
+    Symlet 8 at L1.
     """
     if kind not in ("fwd", "inv"):
         raise ValueError(f"unknown 3D kernel kind {kind!r}")
-    fits = ((lambda h: tile3d(h) is not None) if kind == "fwd"
+    fits = ((lambda h: fwd3_rows(h, m) is not None) if kind == "fwd"
             else (lambda h: inv3_fits(h, m)))
     return (all(1 <= n < 2 ** 31 for n in (d, r, c))
             and 1 <= level <= MAX_LEVELS3 and 1 <= m <= MAX_TAPS
@@ -195,7 +206,7 @@ def modwt3_inv_plain(c: torch.Tensor, wavelet: DiscreteWavelet
 def _lib() -> ctypes.CDLL:
     lib = _build.library()
     lib.jw_modwt3_fwd.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _I,
-                                  _P, _P, ctypes.c_longlong, _I, _I, _I, _P]
+                                  _P, _P, _I, _I, _P]
     lib.jw_modwt3_inv.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _I,
                                   _P, _I, _I, _P]
     lib.jw_modwt3_fwd.restype = lib.jw_modwt3_inv.restype = _I
@@ -210,7 +221,8 @@ def _scratch(src: torch.Tensor, shape, level: int) -> torch.Tensor:
 
 def modwt3_fwd_cuda(x: torch.Tensor, wavelet: DiscreteWavelet,
                     level: int) -> torch.Tensor:
-    """Launch the forward kernel: x (B, D, R, C) → (7·level+1, B, D, R, C)."""
+    """Launch the forward kernel, one launch per level in stream order
+    (counted once a call): x (B, D, R, C) → (7·level+1, B, D, R, C)."""
     check_operand(x, "x", 4)
     b, d, r, c = x.shape
     m = wavelet.length
@@ -219,19 +231,19 @@ def modwt3_fwd_cuda(x: torch.Tensor, wavelet: DiscreteWavelet,
                          f"for the 3D forward kernel")
     out = torch.empty((7 * level + 1,) + tuple(x.shape), dtype=x.dtype,
                       device=x.device)
-    tiles = [tile3d(level_halo(m, j)) for j in range(1, level + 1)]
-    td = np.array([t[0] for t in tiles], dtype=np.int32)
-    tr = np.array([t[1] for t in tiles], dtype=np.int32)
-    most = max(b * -(-d // t[0]) * -(-r // t[1]) * -(-c // t[2])
-               for t in tiles)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    halos = [level_halo(m, j) for j in range(1, level + 1)]
+    tr = np.array([fwd3_rows(h, m) for h in halos], dtype=np.int32)
+    dc = np.array([fwd3_depth_run(b, d, r, c, h, m, sms) for h in halos],
+                  dtype=np.int32)
     scratch = _scratch(x, x.shape, level)
     g, h = kernel_taps(wavelet)
     lib = _lib()
     code = lib.jw_modwt3_fwd(
         x.data_ptr(), out.data_ptr(), scratch.data_ptr(), b, d, r, c,
-        level, g.ctypes.data, h.ctypes.data, m, td.ctypes.data,
-        tr.ctypes.data, most, smem3d_bytes(level, m), DTYPE_CODES[x.dtype],
-        x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
+        level, g.ctypes.data, h.ctypes.data, m, tr.ctypes.data,
+        dc.ctypes.data, DTYPE_CODES[x.dtype], x.device.index,
+        torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, code, "3D forward kernel")
     modwt3_fwd_cuda.launches += 1
     return out

@@ -26,40 +26,59 @@ __all__ = [
 ]
 
 
+def _threshold_like(t, c: torch.Tensor):
+    """``t`` against the coefficients ``c``: a Python number stays a number
+    (weakly typed, as in JAX), a tensor moves to ``c``'s device, anything
+    else (a NumPy array, a list) becomes a tensor on ``c``'s device in
+    ``c``'s dtype."""
+    if isinstance(t, (int, float)):
+        return t
+    if isinstance(t, torch.Tensor):
+        return t.to(c.device)
+    return torch.as_tensor(t, dtype=c.dtype, device=c.device)
+
+
 def soft_threshold(c: torch.Tensor, t) -> torch.Tensor:
     """sign(c)·max(|c|−t, 0)."""
     c = as_input(c)
+    t = _threshold_like(t, c)
     return torch.sign(c) * torch.clamp_min(torch.abs(c) - t, 0.0)
 
 
 def hard_threshold(c: torch.Tensor, t) -> torch.Tensor:
     """c·1[|c|>t]."""
     c = as_input(c)
+    t = _threshold_like(t, c)
     return torch.where(torch.abs(c) > t, c, 0.0).to(c.dtype)
 
 
-def _median(a: torch.Tensor, dim: int) -> torch.Tensor:
+def _median(a: torch.Tensor, axis: int | None) -> torch.Tensor:
     """Median with the midpoint rule for an even count, as ``jnp.median``
-    (``torch.median`` returns the lower middle value instead)."""
-    n = a.shape[dim]
-    s = torch.sort(a, dim=dim).values
-    lo = s.narrow(dim, (n - 1) // 2, 1).squeeze(dim)
-    hi = s.narrow(dim, n // 2, 1).squeeze(dim)
-    return (lo + hi) * 0.5
+    (``torch.median`` returns the lower middle value instead): NaN wherever
+    the reduced axis holds a NaN (``torch.sort`` puts NaN last), over every
+    element for ``axis=None``."""
+    if axis is None:
+        a, axis = a.reshape(-1), 0
+    n = a.shape[axis]
+    s = torch.sort(a, dim=axis).values
+    lo = s.narrow(axis, (n - 1) // 2, 1).squeeze(axis)
+    hi = s.narrow(axis, n // 2, 1).squeeze(axis)
+    mid = (lo + hi) * 0.5
+    return torch.where(torch.isnan(a).any(axis), torch.nan, mid)
 
 
-def mad_sigma(d: torch.Tensor, dim: int = -1) -> torch.Tensor:
+def mad_sigma(d: torch.Tensor, axis: int | None = -1) -> torch.Tensor:
     """Robust noise estimate σ = median(|d|)/0.6745."""
-    return _median(torch.abs(as_input(d)), dim) / 0.6745
+    return _median(torch.abs(as_input(d)), axis) / 0.6745
 
 
 def universal_threshold(d: torch.Tensor, n: int | None = None,
-                        dim: int = -1) -> torch.Tensor:
+                        axis: int = -1) -> torch.Tensor:
     """Donoho–Johnstone universal threshold σ·√(2·ln N)."""
     d = as_input(d)
     if n is None:
-        n = d.shape[dim]
-    return mad_sigma(d, dim=dim) * math.sqrt(2.0 * math.log(n))
+        n = d.shape[axis]
+    return mad_sigma(d, axis=axis) * math.sqrt(2.0 * math.log(n))
 
 
 def _scale_like(sigma, d: torch.Tensor) -> torch.Tensor:
@@ -70,7 +89,8 @@ def _scale_like(sigma, d: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(sigma, dtype=d.dtype, device=d.device)
 
 
-def sure_threshold(d: torch.Tensor, sigma=None, dim: int = -1) -> torch.Tensor:
+def sure_threshold(d: torch.Tensor, sigma=None, axis: int = -1
+                   ) -> torch.Tensor:
     """SURE-optimal soft threshold (SureShrink, Donoho–Johnstone 1995).
 
     Minimizes Stein's unbiased risk estimate
@@ -84,10 +104,10 @@ def sure_threshold(d: torch.Tensor, sigma=None, dim: int = -1) -> torch.Tensor:
     """
     d = as_input(d)
     if sigma is None:
-        sigma = mad_sigma(d, dim=dim)
+        sigma = mad_sigma(d, axis=axis)
     sigma = _scale_like(sigma, d)
-    n = d.shape[dim]
-    y = torch.movedim(d, dim, -1) / sigma.unsqueeze(-1)
+    n = d.shape[axis]
+    y = torch.movedim(d, axis, -1) / sigma.unsqueeze(-1)
     a = torch.sort(torch.abs(y), dim=-1).values      # candidates t = a[k]
     a2 = a * a
     csum = torch.cumsum(a2, dim=-1)
@@ -105,7 +125,7 @@ def sure_threshold(d: torch.Tensor, sigma=None, dim: int = -1) -> torch.Tensor:
     return t * sigma
 
 
-def bayes_threshold(d: torch.Tensor, sigma, dim: int = -1) -> torch.Tensor:
+def bayes_threshold(d: torch.Tensor, sigma, axis: int = -1) -> torch.Tensor:
     """BayesShrink threshold σ²/σ̂ₓ (Chang–Yu–Vetterli 2000).
 
     ``σ`` is the noise scale (estimate it from the finest detail level via
@@ -115,9 +135,9 @@ def bayes_threshold(d: torch.Tensor, sigma, dim: int = -1) -> torch.Tensor:
     """
     d = as_input(d)
     sigma = _scale_like(sigma, d)
-    var_y = torch.mean(d * d, dim=dim)
+    var_y = torch.mean(d * d, dim=axis)
     sig_x = torch.sqrt(torch.clamp_min(var_y - sigma ** 2, 0.0))
-    dmax = torch.amax(torch.abs(d), dim=dim)
+    dmax = torch.amax(torch.abs(d), dim=axis)
     return torch.where(sig_x > 0.0,
                        sigma ** 2 / torch.where(sig_x > 0, sig_x, 1.0), dmax)
 

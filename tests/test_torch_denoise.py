@@ -100,6 +100,92 @@ def test_bayes_threshold_matches_jax(signal_scale):
                                rtol=0, atol=1e-12)
 
 
+@pytest.mark.parametrize("axis", [0, -1, None])
+def test_mad_sigma_axis_matches_jax(axis):
+    """``axis`` as the reference names it; None reduces every element."""
+    d = np.random.default_rng(20).standard_normal((6, 40))
+    got = jt.mad_sigma(_t(d), axis=axis)
+    want = np.asarray(jw.mad_sigma(d, axis=axis))
+    assert tuple(got.shape) == want.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-15)
+
+
+@pytest.mark.parametrize("axis", [0, -1])
+@pytest.mark.parametrize("rule", ["universal", "sure", "bayes"])
+def test_threshold_estimators_take_axis_like_jax(rule, axis):
+    d = np.random.default_rng(21).standard_normal((64, 48)) * 1.5
+    if rule == "universal":
+        got = jt.universal_threshold(_t(d), axis=axis)
+        want = jw.universal_threshold(d, axis=axis)
+    elif rule == "sure":
+        got = jt.sure_threshold(_t(d), axis=axis)
+        want = jw.sure_threshold(d, axis=axis)
+    else:
+        got = jt.bayes_threshold(_t(d), 1.3, axis=axis)
+        want = jw.bayes_threshold(d, 1.3, axis=axis)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-12)
+
+
+@pytest.mark.parametrize("axis", [-1, 0, None])
+def test_mad_sigma_propagates_nan_like_jax(axis):
+    """A NaN in the reduced axis gives NaN (``torch.sort`` puts it last, and
+    the median of the rest would be finite)."""
+    d = np.random.default_rng(22).standard_normal((4, 128))
+    d[1, 17] = np.nan
+    got = jt.mad_sigma(_t(d), axis=axis).numpy()
+    want = np.asarray(jw.mad_sigma(d, axis=axis))
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    assert np.isnan(got).any()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-15)
+
+
+@pytest.mark.parametrize("mode", ["soft", "hard"])
+def test_modwt_denoise_nan_outputs_match_jax(mode):
+    """One NaN in a (2, 128) Db4 L3 f64 signal: as many NaN outputs as JAX
+    (its row's default threshold is NaN)."""
+    x = np.random.default_rng(23).standard_normal((2, 128))
+    x[0, 40] = np.nan
+    got, want = _denoise_both(x, 3, mode, "auto", None)
+    assert int(torch.isnan(got).sum()) == int(np.isnan(want).sum()) > 0
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-12)
+
+
+def test_modwt2_denoise_nan_outputs_match_jax():
+    x = np.random.default_rng(24).standard_normal((2, 24, 40))
+    x[1, 5, 7] = np.nan
+    w = jw.wavelet(DB4)
+    want = np.asarray(jax.jit(lambda a: jw.modwt2_denoise(a, w, 2))(x))
+    got = jt.modwt2_denoise(_t(x), jt.wavelet(DB4), 2)
+    assert int(torch.isnan(got).sum()) == int(np.isnan(want).sum()) > 0
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("mode", ["soft", "hard"])
+def test_ndarray_threshold_matches_jax(mode):
+    """A NumPy threshold becomes a tensor in the coefficients' dtype and on
+    their device, in both shrink functions and the 1D pipeline."""
+    rng = np.random.default_rng(25)
+    c = rng.standard_normal((3, 50))
+    t = np.array([[0.2], [0.5], [1.0]])
+    jt_fn, jw_fn = ((jt.soft_threshold, jw.soft_threshold) if mode == "soft"
+                    else (jt.hard_threshold, jw.hard_threshold))
+    np.testing.assert_array_equal(jt_fn(_t(c), t).numpy(),
+                                  np.asarray(jw_fn(c, t)))
+    np.testing.assert_array_equal(jt_fn(_t(c), [[0.5]]).numpy(),
+                                  np.asarray(jw_fn(c, 0.5)))
+    x = rng.standard_normal((2, 512))
+    thr = np.array([[0.6], [0.9]])
+    w = jw.wavelet(DB4)
+    want = np.asarray(jax.jit(lambda a, t: jw.modwt_denoise(
+        a, w, 3, mode, "auto", t))(x, thr))
+    got = jt.modwt_denoise(_t(x), jt.wavelet(DB4), 3, mode=mode,
+                           threshold=thr)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-12)
+    c32 = _t(c.astype(np.float32))
+    assert jt_fn(c32, t).dtype == torch.float32
+
+
 @pytest.mark.parametrize("mode", ["soft", "hard"])
 @pytest.mark.parametrize("rule", [None, "universal", "sure", "bayes", 0.7])
 def test_modwt_denoise_auto_matches_jax_f64(rule, mode):

@@ -290,9 +290,12 @@ IMAGE_SHAPES = [
 ]
 DENOISE_SHAPES = [
     ((2, 128, 256), 2, "Daubechies 4"),
-    ((3, 200, 150), 3, "Daubechies 4"),    # ragged tiles, tile 40
+    ((3, 200, 150), 3, "Daubechies 4"),    # the last strip crosses C's end
     ((2, 40, 24), 3, "Daubechies 4"),      # halo larger than the image
     ((1, 256, 256), 2, "Symlet 8"),
+    ((1, 100, 70), 6, "Haar"),             # six levels, R and C below W
+    ((1, 1000, 200), 3, "Daubechies 4"),   # row runs: one image, few strips
+    ((2, 70, 90), 2, "Daubechies 2"),      # no specialised filter length
 ]
 
 
@@ -333,6 +336,42 @@ def test_2d_denoise_matches_plain(dev, shape, level, name, mode, dtype):
         pipe = jt.modwt2_denoise(x, w, level, mode, threshold=thr[:, None,
                                                                   None])
         torch.testing.assert_close(got, pipe, rtol=0, atol=1e-4)
+
+
+def test_2d_denoise_row_runs_cross_into_the_next(dev):
+    """One image splits into row runs (each marches 2H rows of warm-up and
+    reads across its neighbour's rows); the runs tile the rows exactly."""
+    b, r, c = 1, 1000, 200
+    run = k2.denoise2_run(b, r, c, 3, 8, 132)
+    assert run < r and r % run
+    x = _signal(dev, b, r, c, seed=30)
+    thr = torch.full((b,), 0.7, device=dev)
+    for mode in ("soft", "hard"):
+        got = k2.modwt2_denoise_cuda(x, thr, DB4, 3, mode)
+        torch.testing.assert_close(
+            got, k2.modwt2_denoise_plain(x, thr, DB4, 3, mode), rtol=0,
+            atol=1e-4)
+
+
+def test_numpy_threshold_on_the_card(dev):
+    """An ndarray threshold moves to the coefficients' device and dtype in
+    both shrink functions and in the 1D pipeline, in both modes."""
+    c = _signal(dev, 3, 50, seed=31)
+    t = np.array([[0.2], [0.5], [1.0]])
+    for shrink in (jt.soft_threshold, jt.hard_threshold):
+        got = shrink(c, t)
+        assert got.device == c.device and got.dtype == torch.float32
+        torch.testing.assert_close(got.cpu(), shrink(c.cpu(), t), rtol=0,
+                                   atol=0)
+    x = _signal(dev, 2, 4096, seed=32)
+    thr = np.array([[0.6], [0.9]])
+    for mode in ("soft", "hard"):
+        got = jt.modwt_denoise(x, DB4, 3, mode=mode, threshold=thr)
+        want = jt.modwt_denoise(x.double().cpu(), DB4, 3, mode=mode,
+                                threshold=thr)
+        assert got.device == x.device
+        torch.testing.assert_close(got.double().cpu(), want, rtol=0,
+                                   atol=1e-4)
 
 
 def test_2d_public_path_launches_each_kernel(dev):
@@ -454,6 +493,32 @@ def test_3d_inverse_depth_runs_match_plain(dev, shape, level, name):
     back = k3.modwt3_inv_cuda(coeffs, w)
     _close(back, k3.modwt3_inv_plain(coeffs, w), torch.float32)
     torch.testing.assert_close(back, x, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,level,name", [
+    ((1, 100, 16, 32), 2, "Daubechies 4"),  # D off the depth run
+    ((2, 45, 40, 70), 2, "Daubechies 4"),
+    ((2, 9, 20, 50), 2, "Daubechies 4"),    # D below the ring
+    ((2, 12, 20, 40), 2, "Daubechies 2"),   # no specialised filter length
+    ((1, 20, 24, 28), 5, "Haar"),
+    ((2, 9, 33, 70), 1, "Symlet 8"),
+])
+def test_3d_forward_depth_runs_match_plain(dev, shape, level, name, dtype):
+    """The forward's runs along depth: the last run ends inside its ring
+    and reads across the volume's end."""
+    w = jt.wavelet(name)
+    b, d, r, c = shape
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    halos = [k3.level_halo(w.length, j) for j in range(1, level + 1)]
+    runs = [k3.fwd3_depth_run(b, d, r, c, h, w.length, sms) for h in halos]
+    assert any(d % dc for dc in runs) or d <= max(halos) or level != 2
+    x = _signal(dev, *shape, seed=22, dtype=dtype)
+    coeffs = k3.modwt3_fwd_cuda(x, w, level)
+    _close(coeffs, k3.modwt3_fwd_plain(x, w, level), dtype)
+    back = k3.modwt3_inv_cuda(coeffs, w)
+    tol = 1e-1 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(back.float(), x.float(), rtol=0, atol=tol)
 
 
 def test_3d_public_path_launches_each_kernel(dev):

@@ -215,19 +215,64 @@ def test_2d_plain_bf16_rounds_once():
 def test_kernel2d_supported_budget():
     db4, sym8, haar = 8, 16, 2
     # Db4: forward and inverse to L4 (tile 64 to L3, 32 at L4), denoise L3
-    assert k2.tile2d(3, db4, "fwd") == k2.tile2d(3, db4, "inv") == 64
-    assert k2.tile2d(4, db4, "fwd") == 32
+    assert k2.tile2d(3, db4) == 64
+    assert k2.tile2d(4, db4) == 32
     assert not k2.kernel2d_supported(4096, 4096, 5, db4, "fwd")
-    assert k2.tile2d(3, db4, "denoise") == 40
+    # the denoise strip at Db4 L3: W = Tc + 2·49 columns, G rows a step
+    w, grp, tc = k2.denoise2_plan(3, db4)
+    assert w == tc + 2 * 49 and tc >= 40 and 1 <= grp <= 8
     assert not k2.kernel2d_supported(512, 512, 4, db4, "denoise")
     assert k2.kernel2d_supported(2, 40, 3, db4, "fwd")     # halo > image
     assert k2.kernel2d_supported(3, 2, 3, sym8, "inv")
     assert not k2.kernel2d_supported(512, 512, 4, sym8, "fwd")
     assert k2.kernel2d_supported(512, 512, 7, haar, "fwd")
-    for kind in ("fwd", "inv", "denoise"):
-        t = k2.tile2d(3, db4, kind)
-        assert k2.smem2d_bytes(t, 3, db4, kind) <= 232_448
-        assert k2.smem2d_bytes(t + 8, 3, db4, kind) > 232_448 or t == 64
+    t = k2.tile2d(3, db4)
+    assert k2.smem2d_bytes(t, 3, db4) <= 232_448
+    assert k2.smem2d_bytes(t + 8, 3, db4) > 232_448 or t == 64
+    # the denoise's rings fit 227 KB, and one more window column does not
+    # (or would leave the block's 16 warps of 32 columns a row)
+    for level, m in ((3, db4), (2, sym8), (6, haar), (1, 64)):
+        w, grp, tc = k2.denoise2_plan(level, m)
+        assert k2.denoise2_smem_bytes(w, grp, level, m) <= 232_448
+        assert (k2.denoise2_smem_bytes(w + 1, grp, level, m) > 232_448
+                or w == 32 * (16 // grp))
+        assert tc == w - 2 * k2.halo(m, level) >= 8
+
+
+@pytest.mark.parametrize("level,m", [(3, 8), (2, 16), (6, 2), (1, 64),
+                                     (2, 22), (5, 3)])
+def test_denoise2_gate_admits_every_halo_to_65(level, m):
+    """The fused denoise takes every (M, L) whose halo is at most 65;
+    Db4 L4, Symlet 8 L3 and Haar L7 stay out."""
+    assert k2.halo(m, level) <= 65
+    assert k2.kernel2d_supported(2048, 2048, level, m, "denoise")
+    assert k2.kernel2d_supported(3, 5, level, m, "denoise")  # halo > image
+    assert not k2.kernel2d_supported(64, 64, level + 1, m, "denoise")
+
+
+def test_denoise2_rows_split_only_to_fill_the_card():
+    """The run length is the one whose waves of work items, each n + 2H
+    rows long, finish first on the card's blocks."""
+    tc = k2.denoise2_plan(3, 8)[2]
+
+    def cost(b, r, c, n, blocks=132):
+        items = b * -(-c // tc) * -(-r // n)
+        return -(-items // blocks) * (n + 2 * 49)
+
+    for b, r, c in ((16, 2048, 2048), (1, 1024, 256), (1, 256, 256),
+                    (4, 512, 512)):
+        run = k2.denoise2_run(b, r, c, 3, 8, 132)
+        assert 1 <= run <= r
+        assert all(cost(b, r, c, run) <= cost(b, r, c, -(-r // n))
+                   for n in range(1, min(r, 256) + 1))
+    # as many strips as blocks: one run of all rows
+    assert k2.denoise2_run(132, 64, tc, 3, 8, 132) == 64
+    # one small image on a whole card: short runs
+    assert k2.denoise2_run(1, 1024, 256, 3, 8, 132) < 1024
+    # the delay rings: S_2 + G and S_3 + G rows at Db4 L3
+    grp = k2.denoise2_plan(3, 8)[1]
+    assert k2.denoise2_delay_rows(grp, 3, 8) == 42 + 28 + 2 * grp
+    assert k2.denoise2_delay_rows(grp, 1, 8) == 0
 
 
 def test_fused_wrappers_raise_on_unsupported_input():

@@ -198,8 +198,10 @@ def test_3d_plain_bf16_rounds_once():
 
 def test_kernel3d_supported_budget():
     db4, sym8, haar = 8, 16, 2
-    # Db4 L1-L2, Haar L1-L5, Symlet 8 at L1; one tile per level
-    assert k3.tile3d(7) == (17, 18, 25) and k3.tile3d(14) == (10, 11, 18)
+    # Db4 L1-L2, Haar L1-L5, Symlet 8 at L1; the forward's block rows per
+    # level: 16 at Db4 (two blocks an SM), more where the rings are small
+    assert k3.fwd3_rows(7, db4) == k3.fwd3_rows(14, db4) == 16
+    assert k3.fwd3_rows(1, haar) == 64 and k3.fwd3_rows(15, sym8) == 16
     assert k3.kernel3d_supported(256, 256, 256, 2, db4, "fwd")
     assert k3.kernel3d_supported(256, 256, 256, 2, db4, "inv")
     assert not k3.kernel3d_supported(256, 256, 256, 3, db4, "fwd")
@@ -208,9 +210,23 @@ def test_kernel3d_supported_budget():
     assert not k3.kernel3d_supported(64, 64, 64, 6, haar, "inv")
     assert k3.kernel3d_supported(9, 9, 9, 1, sym8, "fwd")
     assert not k3.kernel3d_supported(9, 9, 9, 2, sym8, "fwd")
-    assert k3.tile3d(20) is not None and k3.tile3d(21) is None
+    # the forward takes the inverse's range, h <= 21
+    assert k3.fwd3_rows(20, db4) is not None
+    assert k3.fwd3_rows(21, 22) is not None and k3.inv3_fits(21, 22)
+    assert k3.fwd3_rows(22, 23) is None and not k3.inv3_fits(22, 23)
     for level, m in ((2, db4), (5, haar), (1, sym8)):
-        assert k3.smem3d_bytes(level, m) <= 232_448
+        for j in range(1, level + 1):
+            h = k3.level_halo(m, j)
+            tr = k3.fwd3_rows(h, m)
+            # the rings fit 227 KB (two blocks an SM where tr > 16), and
+            # the next larger block of rows would not keep two an SM
+            assert k3.fwd3_smem_bytes(h, m, tr) <= 232_448
+            if tr < 64:
+                assert k3.fwd3_smem_bytes(h, m, tr + 16) + 1024 > 233_472 // 2
+    # the depth runs fill the card: (4, 256³) Db4 L2 on 132 SMs
+    assert [k3.fwd3_depth_run(4, 256, 256, 256, h, db4, 132)
+            for h in (7, 14)] == [86, 86]
+    assert k3.fwd3_depth_run(1, 5, 8, 8, 14, db4, 132) == 5
     with pytest.raises(ValueError, match="kind"):
         k3.kernel3d_supported(8, 8, 8, 1, db4, "denoise")
 
