@@ -7,8 +7,8 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
 It builds the CUDA kernels from ``jwave_pro_tpu_torch/csrc`` with nvcc
 (and requires the assembler to report no stack frame and no spills for
-the register-resident CWT kernel and the marching 3D and 2D denoise
-kernels), checks each kernel
+the register-resident CWT kernel and the marching 3D and 2D kernels),
+checks each kernel
 against its plain PyTorch version, and drives two paths
 through the public API: the MODWT path (Db4 level 5 forward, inverse and
 fused denoise over 32 signals of 2^20 float32 samples, and the 1D forward
@@ -162,7 +162,8 @@ def run(smoke: Smoke, torch, jt) -> dict:
           flush=True)
     # the register-resident and marching kernels keep their arrays and
     # accumulators out of local memory
-    marching = ("cwt_ifft", "modwt3_inv", "modwt3_fwd", "modwt2_denoise")
+    marching = ("cwt_ifft", "modwt3_inv", "modwt3_fwd", "modwt2_denoise",
+                "modwt2_fwd", "modwt2_inv")
     for name, (regs, stack, st, ld) in sorted(_build.ptxas_report().items()):
         if any(k in name for k in marching):
             smoke.require(f"ptxas {name}: {regs} registers, {stack} bytes "
@@ -659,8 +660,8 @@ def run_image_slice(smoke: Smoke, torch, jt, dev, signal, card):
     lvl = IMAGE_LEVEL
 
     print("== phase 15: 2D kernels vs plain (small shapes, halo > image, "
-          "Symlet 8, Haar L6, bf16; the denoise's strips and row runs "
-          "across the image's end)", flush=True)
+          "Symlet 8, Haar L6 and L7, bf16; strips and row runs across the "
+          "image's end)", flush=True)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     small = (((2, 128, 256), 2, WAVELET, ("soft", "hard")),
              ((3, 1000, 750), 3, WAVELET, ("soft",)),
@@ -669,15 +670,29 @@ def run_image_slice(smoke: Smoke, torch, jt, dev, signal, card):
              ((1, 100, 70), 6, "Haar", ("soft", "hard")),
              ((1, 1000, 200), 3, WAVELET, ("soft", "hard")),
              ((2, 70, 90), 2, "Daubechies 2", ("soft",)))
-    for shape, lv, name, _ in small:
+    # the transforms' gate edge (no denoise there), and a last strip
+    # crossing C's end
+    edges = (((1, 130, 300), 7, "Haar", ()),
+             ((1, 200, 180), 3, "Symlet 8", ()),
+             ((2, 64, 1001), 3, WAVELET, ()))
+    for shape, lv, name, modes in small + edges:
         m = jt.wavelet(name).length
+        for kind in ("fwd", "inv"):
+            wd, grp, tc, run, grid = k2.transform2_launch_plan(
+                shape, lv, m, kind, torch.float32, dev)
+            print(f"  2D {kind} plan {shape} L{lv} {name}: window {wd}, "
+                  f"strip {tc}, {grp} rows a step, runs of {run} rows, grid "
+                  f"{grid}; {-(-shape[2] // tc)} strips, the last ending "
+                  f"{-shape[2] % tc} columns past the image", flush=True)
+        if not modes:
+            continue
         wd, grp, tc = k2.denoise2_plan(lv, m)
         print(f"  2D denoise plan {shape} L{lv} {name}: window {wd}, strip "
               f"{tc}, {grp} rows a step, runs of "
               f"{k2.denoise2_run(*shape, lv, m, sms)} rows (at one block "
               f"an SM); {-(-shape[2] // tc)} strips, the last ending "
               f"{-shape[2] % tc} columns past the image", flush=True)
-    for shape, lv, name, modes in small:
+    for shape, lv, name, modes in small + edges:
         wv = jt.wavelet(name)
         x = signal(*shape)
         tag = f"{shape} L{lv} {name}"
@@ -869,20 +884,23 @@ def run_image_slice(smoke: Smoke, torch, jt, dev, signal, card):
     del c
 
     walls = {
-        "modwt2_denoise(method='fused'), universal threshold": wall_ms(
-            torch, lambda: jt.modwt2_denoise(x, w, lvl, method="fused")),
+        f"modwt2_denoise(method='fused'), universal threshold {IMAGE_SHAPE}":
+            wall_ms(torch, lambda: jt.modwt2_denoise(x, w, lvl,
+                                                     method="fused")),
         "  of which the threshold estimate": wall_ms(torch, estimate),
         "  of which the kernel": wall_ms(
             torch, lambda: k2.modwt2_denoise_cuda(x, thr_u, w, lvl)),
-        f"modwt2_denoise pipeline, threshold {IMAGE_THR}": wall_ms(
-            torch, lambda: jt.modwt2_denoise(x, w, lvl,
-                                             threshold=IMAGE_THR)),
-        f"modwpt2 L{PACKET2_LEVEL}": wall_ms(
+        f"modwt2_denoise pipeline, threshold {IMAGE_THR} {IMAGE_SHAPE}":
+            wall_ms(torch, lambda: jt.modwt2_denoise(x, w, lvl,
+                                                     threshold=IMAGE_THR)),
+        f"modwt2_mra {MRA_SHAPE}": wall_ms(
+            torch, lambda: jt.modwt2_mra(xm, w, lvl)),
+        f"modwpt2 L{PACKET2_LEVEL} {IMAGE_SHAPE}": wall_ms(
             torch, lambda: jt.modwpt2(x, w, PACKET2_LEVEL)),
     }
     for name, ms in walls.items():
-        print(f"  wall {name} {IMAGE_SHAPE}: {ms:.3f} ms (host clock, median "
-              f"of 3) [{card}]", flush=True)
+        print(f"  wall {name}: {ms:.3f} ms (host clock, median of 3) "
+              f"[{card}]", flush=True)
     return launches, errs, times
 
 

@@ -1,256 +1,333 @@
 // Fused 2D MODWT kernels for Hopper (sm_90a): forward, inverse, and the
-// single-pass forward -> shrink -> inverse denoise.
+// single-pass forward -> shrink -> inverse denoise.  Every block marches a
+// strip of columns of one image down the rows.
 //
-// Replace jwave_pro_tpu/kernels/modwt2_pallas.py _fwd2_kernel, _inv2_kernel
-// and _denoise2_kernel.
+// Replace jwave_pro_tpu/kernels/modwt2_pallas.py _fwd2_kernel (:192),
+// _inv2_kernel (:314) and _denoise2_kernel (:460).
 //
-// The transforms.  What bounds them on the H100: the cascade's shared-memory
-// traffic — per window pixel and level, the column pass makes M loads and
-// 2M fused multiply-adds, the row pass 2M loads and 4M — inflated by the
-// recompute of the overlapping windows, (T+H)^2 / T^2 (3.1 at Db4 L3,
-// T = 64), and by one resident block per SM when the three windows take
-// most of the 227 KB.  Device memory sees one read of the input and one
-// write per band (forward), or the mirror image (inverse).
+// Band letters (row, col), as ops/modwt2d.py: LH = g@rows h@cols, HL =
+// h@rows g@cols, HH = h@rows h@cols, LL = g@rows g@cols; bands (LH, HL, HH)
+// per level, LL_L last.  H = (M-1)(2^L - 1); level j (d = 2^(j-1)) reaches
+// p_j = (M-1) d rows or columns; S_j = sum_{i>=j} p_i (S_1 = H).
 //
-// Layout: a block owns a T x T output tile and a square window of side
-// T + H, H = (M-1)(2^L - 1), read as x[b, p mod R, q mod C] — no padded
-// copy, any R and C, halo larger than the image included (the denoise's
-// strips, below, read the image the same way).  The 32 lanes of a warp
-// walk 32 consecutive columns of one window row, the warps walk rows: shared-memory loads are conflict-free in
-// both passes (the row pass reads a row stride apart across taps, never
-// across lanes), device-memory loads and stores coalesce along the last axis.
-// Three f32 windows live in shared memory: the running LL (overwritten in
-// place by the next level's, which only reads the column pass) and the
-// column pass's cl (g along columns) and ch (h along columns).
+// The strip layout, shared by the three kernels: a block owns a strip of Tc
+// output columns of one image and a run of rows [ra, rb).  Its window is W
+// columns read mod C (Tc + H for the transforms, Tc + 2H for the denoise),
+// and it marches down the rows (read mod R), G rows a step.  Each warp owns
+// one row of the step and 32 window columns, the same in every stage
+// (G x 16/G warps, W <= 512/G columns), so no stage divides to find its
+// work.  Every stage keeps only the rows its taps reach, in rings in shared
+// memory: rows are never recomputed, except the warm-up where a strip is
+// split into row runs to fill the card, and columns by W / Tc.  Device
+// loads and stores coalesce along C; any R and C run, a halo larger than
+// the image included.
 //
-// Band letters (row, col), as ops/modwt2d.py: LH = g@rows of ch, HL =
-// h@rows of cl, HH = h@rows of ch, LL = g@rows of cl; bands (LH, HL, HH) per
-// level, LL_L last.
+// The transforms.  What bounds them on the H100: shared-memory traffic --
+// per output pixel and level, 3M floats (forward) or 6M (inverse), times
+// the column recompute W / Tc (1.1 at Db4 L3), at 128 bytes a clock an SM
+// -- and device memory: one read of the input and one write of each band
+// (forward), or the mirror image (inverse), 0.88 ms at (16, 2048^2) Db4
+// L3.  The design loads each device row once, coalesced; packs the values
+// one tap reads into one vector load (float2, float4); takes the taps from
+// the parameter bank when M is a template constant; and wraps ring slots
+// by a conditional add, with one modulo a level and step.
 
 #include "common.cuh"
 
 #define JW_WARPS (JW_THREADS / 32)
 
-// Block -> (image, tile row, tile column); blocks < 2^31 by the wrapper.
-struct JwTile2 {
-  int b;
-  long long r, c;  // top-left output pixel of the tile
+// tap k of g and h: a parameter-bank constant when M is a template constant
+#define JW2D_G(k) (MT > 0 ? taps.g[k] : sg[k])
+#define JW2D_H(k) (MT > 0 ? taps.h[k] : sh[k])
+
+// the kernel instantiated for filter length m: M = 8, 2, 16 as template
+// constants, any other M at run time
+#define JW2D_PICK(kernel, T, m)                              \
+  ((m) == 8 ? kernel<T, 8>                                   \
+            : (m) == 2 ? kernel<T, 2>                        \
+                       : (m) == 16 ? kernel<T, 16> : kernel<T, 0>)
+
+// A strip kernel's work item: image b, rows [ra, rb), strip `strip`.  Items:
+// B x ceil(R / run) runs x nstrips strips, strips fastest.
+struct JwStrip {
+  int b, ra, rb, strip;
 };
 
-__device__ __forceinline__ JwTile2 jw_tile2(long long t, int ntr, int ntc,
-                                            int tile) {
-  const long long per_image = (long long)ntr * ntc;
-  JwTile2 tl;
-  tl.b = (int)(t / per_image);
-  const long long rem = t - (long long)tl.b * per_image;
-  tl.r = (rem / ntc) * tile;
-  tl.c = (rem % ntc) * tile;
-  return tl;
+__device__ __forceinline__ JwStrip jw_strip(long long it, int nstrips,
+                                            int nruns, int run, int rows) {
+  JwStrip s;
+  s.strip = (int)(it % nstrips);
+  const long long rest = it / nstrips;
+  s.ra = (int)(rest % nruns) * run;
+  s.b = (int)(rest / nruns);
+  s.rb = min(s.ra + run, rows);
+  return s;
 }
 
-// win[i][q] = src[(r0 + i) mod rows][(c0 + q) mod cols], i, q in [0, w).
+// (z, LH, HL, HH) at one pixel, p pointing at LH: a level's bands are a
+// plane apart.
 template <typename T>
-__device__ __forceinline__ void jw_load_window(const T* src, float* win,
-                                               int w, long long r0,
-                                               long long c0, int rows,
-                                               int cols) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int i = warp; i < w; i += JW_WARPS) {
-    const T* row = src + (size_t)jw_index(r0 + i, rows) * cols;
-    for (int q = lane; q < w; q += 32)
-      win[i * w + q] = jw_load(row + jw_index(c0 + q, cols));
-  }
+__device__ __forceinline__ float4 jw_bands(const T* p, size_t plane,
+                                           float z) {
+  return make_float4(z, jw_load(p), jw_load(p + plane),
+                     jw_load(p + 2 * plane));
 }
 
-// Column pass of level d: cl, ch on rows [rlo, w), columns [lo, w), from
-// ll valid on columns [lo - (M-1)d, w).  Forward convolution: reads left.
-__device__ __forceinline__ void jw_col_pass(const float* ll, float* cl,
-                                            float* ch, const float* sg,
-                                            const float* sh, int m, int d,
-                                            int w, int rlo, int lo) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int i = rlo + warp; i < w; i += JW_WARPS) {
-    const float* src = ll + i * w;
-    for (int q = lo + lane; q < w; q += 32) {
-      float a = 0.f, e = 0.f;
-      for (int k = 0; k < m; ++k) {
-        const float u = src[q - k * d];
-        a = fmaf(sg[k], u, a);
-        e = fmaf(sh[k], u, e);
-      }
-      cl[i * w + q] = a;
-      ch[i * w + q] = e;
-    }
-  }
+// Shared floats of one transform block at window width w and G rows a step:
+// the taps, then the forward's G rows of (g, h) row-pass pairs and a ring of
+// p_j + G rows of LL_{j-1} a level, or the inverse's G rows of (Z, LH, HL,
+// HH) quadruples and a ring of p_j + G rows of (U_j, V_j) pairs a level.
+static inline int jw2t_smem_floats(int inverse, int w, int grp, int level,
+                                   int m) {
+  const int rings = (m - 1) * ((1 << level) - 1) + level * grp;
+  return 2 * JW_MAX_TAPS +
+         w * (inverse ? 4 * grp + 2 * rings : 2 * grp + rings);
 }
 
-// Row pass of one window pixel: (LL, HL, LH, HH) from cl, ch above it.
-struct JwQuad {
-  float ll, hl, lh, hh;
-};
-
-__device__ __forceinline__ JwQuad jw_row_taps(const float* cl, const float* ch,
-                                              const float* sg,
-                                              const float* sh, int m, int d,
-                                              int w, int i, int q) {
-  JwQuad o = {0.f, 0.f, 0.f, 0.f};
-  for (int k = 0; k < m; ++k) {
-    const int at = (i - k * d) * w + q;
-    const float a = cl[at], e = ch[at];
-    o.ll = fmaf(sg[k], a, o.ll);
-    o.hl = fmaf(sh[k], a, o.hl);
-    o.lh = fmaf(sg[k], e, o.lh);
-    o.hh = fmaf(sh[k], e, o.hh);
-  }
-  return o;
-}
-
-// Column adjoint of level d: ll[i][q] = sum_k g cl[i][q+kd] + h ch[i][q+kd]
-// on rows [rlo, rhi), columns [clo, chi).  Reads right.
-__device__ __forceinline__ void jw_col_adjoint(float* ll, const float* cl,
-                                               const float* ch,
-                                               const float* sg,
-                                               const float* sh, int m, int d,
-                                               int w, int rlo, int rhi,
-                                               int clo, int chi) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int i = rlo + warp; i < rhi; i += JW_WARPS) {
-    const float* a = cl + i * w;
-    const float* e = ch + i * w;
-    for (int q = clo + lane; q < chi; q += 32) {
-      float acc = 0.f;
-      for (int k = 0; k < m; ++k)
-        acc += fmaf(sh[k], e[q + k * d], sg[k] * a[q + k * d]);
-      ll[i * w + q] = acc;
-    }
-  }
-}
-
-// Forward.  Block window: rows/columns [tile origin - H, + T), LL valid on
-// [lo, w)^2 after each level, lo growing by (M-1)d; window index H is the
-// tile's first output pixel.
-template <typename T>
-__global__ void __launch_bounds__(JW_THREADS)
+// Forward.  The window is W = Tc + H columns from H before the strip's
+// first output column; the analysis reads left and up.  At step t every
+// level computes rows y = t + g (g < G) -- there is no lag between levels:
+//
+// * the row pass: (g, h) down the rows of LL_{j-1}, from its ring A_j of
+//   p_j + G rows (A_1 holds the input), into a G-row buffer of pairs;
+// * the column pass of those pairs (reading left): LL_j, into A_{j+1} or
+//   the output's last band, and LH_j, HL_j, HH_j, stored at once.
+//
+// The march starts H rows above the run (the warm-up); LL_j is valid on
+// window columns [(M-1)(2^j - 1), W), the stored ones [H, W).  The next
+// step's input row is loaded into a register while the step runs.  Two
+// blocks an SM at Db4 L3 (111 KB each), hence at most 64 registers.
+template <typename T, int MT>
+__global__ void __launch_bounds__(JW_THREADS, 2)
 jw_modwt2_fwd_kernel(const T* __restrict__ x, T* __restrict__ out, int batch,
-                     int rows, int cols, int level, int m, int tile, int halo,
-                     int ntr, int ntc, JwTaps taps) {
+                     int rows, int cols, int level, int m_run, int w, int grp,
+                     int tc, int run, JwTaps taps) {
   extern __shared__ float smem[];
+  const int m = MT > 0 ? MT : m_run;
+  const int halo = (m - 1) * ((1 << level) - 1);
   float* sg = smem;
   float* sh = smem + JW_MAX_TAPS;
-  const int w = tile + halo;
-  float* ll = smem + 2 * JW_MAX_TAPS;
-  float* cl = ll + w * w;
-  float* ch = cl + w * w;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float2* rp = reinterpret_cast<float2*>(smem + 2 * JW_MAX_TAPS);
+  float* rings = smem + 2 * JW_MAX_TAPS + 2 * grp * w;  // A_1, A_2, ...
+  jw_stage_taps(taps, sg, sh, m);
 
-  const JwTile2 tl = jw_tile2(blockIdx.x, ntr, ntc, tile);
-  const long long r0 = tl.r - halo, c0 = tl.c - halo;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int ncw = JW_WARPS / grp;
+  const int g = warp / ncw;                    // this warp's row of a step
+  const int q = (warp - g * ncw) * 32 + lane;  // and this lane's column
+  const bool on = q < w;
+  const int gq = g * w + q;
+
+  const int nstrips = (cols + tc - 1) / tc;
+  const int nruns = (rows + run - 1) / run;
+  const long long items = (long long)batch * nruns * nstrips;
   const size_t img = (size_t)rows * cols;
   const size_t plane = (size_t)batch * img;
+  const int dep1 = m - 1 + grp;  // A_1's rows
 
-  jw_stage_taps(taps, sg, sh, m);
-  jw_load_window(x + (size_t)tl.b * img, ll, w, r0, c0, rows, cols);
-  __syncthreads();
+  for (long long it = blockIdx.x; it < items; it += gridDim.x) {
+    const JwStrip s = jw_strip(it, nstrips, nruns, run, rows);
+    const long long c0 = (long long)s.strip * tc - halo;  // window column 0
+    const T* xb = x + (size_t)s.b * img;
+    const int base = s.ra - halo;  // ring slot of row y: (y - base) % depth
+    const size_t xcol = on ? (size_t)jw_index(c0 + q, cols) : 0;
+    const bool out_col = on && q >= halo && c0 + q < cols;
+    // this lane's output column of the image's first band
+    T* ob = out + (size_t)s.b * img + (out_col ? c0 + q : 0);
 
-  int lo = 0;
-  for (int j = 1; j <= level; ++j) {
-    const int d = 1 << (j - 1);
-    const int rlo = lo;
-    lo += (m - 1) * d;
-    jw_col_pass(ll, cl, ch, sg, sh, m, d, w, rlo, lo);
+    // the first step's input rows into A_1 (the previous item's last
+    // reader of the rings is behind its last barrier)
+    if (on)
+      rings[g * w + q] =
+          jw_load(xb + (size_t)jw_index(base + g, rows) * cols + xcol);
     __syncthreads();
-    T* lh = out + (size_t)(3 * (j - 1)) * plane + (size_t)tl.b * img;
-    for (int i = lo + warp; i < w; i += JW_WARPS) {
-      const long long p = r0 + i;
-      const bool store_row = i >= halo && p < rows;
-      for (int q = lo + lane; q < w; q += 32) {
-        const JwQuad o = jw_row_taps(cl, ch, sg, sh, m, d, w, i, q);
-        ll[i * w + q] = o.ll;
-        const long long s = c0 + q;
-        if (store_row && q >= halo && s < cols) {
-          const size_t off = (size_t)p * cols + s;
-          jw_store(lh + off, o.lh);
-          jw_store(lh + plane + off, o.hl);
-          jw_store(lh + 2 * plane + off, o.hh);
+
+    for (int t = base; t < s.rb; t += grp) {
+      const int y = t + g;
+      const bool store = out_col && y >= s.ra && y < s.rb;
+      // the next step's input row, stored once level 1's row pass has read
+      // the slot it takes
+      const float nxt =
+          on ? jw_load(xb + (size_t)jw_index(y + grp, rows) * cols + xcol)
+             : 0.f;
+      float* A = rings;
+      int sa = (y - base) % dep1;  // slot of row y in A_j
+      for (int j = 1; j <= level; ++j) {
+        const int d = 1 << (j - 1), dep = (m - 1) * d + grp;
+        const int lo = (m - 1) * (d - 1);  // LL_{j-1} valid on [lo, w)
+        float* an = A + dep * w;           // A_{j+1}, 2 dep - G rows
+        // row pass: (g, h) of LL_{j-1} rows y - k d
+        if (on && q >= lo) {
+          const int dw = d * w, span = dep * w;
+          int o = sa * w;
+          float a = 0.f, e = 0.f;
+#pragma unroll
+          for (int k = 0; k < m; ++k) {
+            const float v = A[o + q];
+            a = fmaf(JW2D_G(k), v, a);
+            e = fmaf(JW2D_H(k), v, e);
+            o -= dw;
+            o += o < 0 ? span : 0;
+          }
+          rp[gq] = make_float2(a, e);
         }
+        const int sn = j < level ? (y - base) % (2 * dep - grp) : 0;
+        __syncthreads();
+        // column pass from columns q - k d: LL_j and the three details
+        if (on && q >= lo + (m - 1) * d) {
+          float ll = 0.f, lh = 0.f, hl = 0.f, hh = 0.f;
+#pragma unroll
+          for (int k = 0; k < m; ++k) {
+            const float2 u = rp[gq - k * d];
+            ll = fmaf(JW2D_G(k), u.x, ll);
+            lh = fmaf(JW2D_H(k), u.x, lh);
+            hl = fmaf(JW2D_G(k), u.y, hl);
+            hh = fmaf(JW2D_H(k), u.y, hh);
+          }
+          if (j < level) an[sn * w + q] = ll;
+          if (store) {
+            T* o = ob + (size_t)(3 * (j - 1)) * plane + (size_t)y * cols;
+            jw_store(o, lh);
+            jw_store(o + plane, hl);
+            jw_store(o + 2 * plane, hh);
+            if (j == level) jw_store(o + 3 * plane, ll);
+          }
+        }
+        if (j == 1 && on) {
+          int sx = sa + grp;
+          sx -= sx >= dep1 ? dep1 : 0;
+          rings[sx * w + q] = nxt;
+        }
+        __syncthreads();
+        A = an;
+        sa = sn;
       }
-    }
-    __syncthreads();
-  }
-  T* dst = out + (size_t)(3 * level) * plane + (size_t)tl.b * img;
-  for (int i = halo + warp; i < w; i += JW_WARPS) {
-    const long long p = r0 + i;
-    if (p >= rows) break;
-    for (int q = halo + lane; q < w; q += 32) {
-      const long long s = c0 + q;
-      if (s < cols) jw_store(dst + (size_t)p * cols + s, ll[i * w + q]);
     }
   }
 }
 
-// Inverse.  Block window: rows/columns [tile origin, + T + H); LL valid on
-// [0, len)^2, len shrinking by (M-1)d a level.  The three detail bands of
-// the current level are read from device memory (through L1) in the row
-// adjoint; LL, cl and ch stay in shared memory.
-template <typename T>
-__global__ void __launch_bounds__(JW_THREADS)
+// Inverse.  The window is W = Tc + H columns from the strip's first output
+// column; the synthesis reads right and down.  The JAX inverse runs cl =
+// g'_r LL + h'_r HL, ch = g'_r LH + h'_r HH, LL_{j-1} = g'_c cl + h'_c ch
+// (' the adjoint, _r down the rows, _c along the columns); the row and
+// column filters commute, so level j keeps two rings, not four:
+//
+// * stage A: U_j = g'_c Z_j + h'_c LH_j and V_j = g'_c HL_j + h'_c HH_j
+//   along the columns of one row (Z_L = LL_L), into a ring of p_j + G rows
+//   of (U_j, V_j) pairs;
+// * stage B: Z_{j-1} = g'_r U_j + h'_r V_j down the rows, p_j rows ahead.
+//
+// At step t, Z_j comes out at row t - S_{j+1}, so level j's three detail
+// rows are read from device memory at that row, each once, with Z_j's row
+// beside them in a G-row buffer of (Z, LH, HL, HH) quadruples: there is no
+// delay ring.  Each thread loads the bands it stores with its Z_{j-1} one
+// stage early (at level 1, the next step's level L and LL_L).  The output
+// Z_0 is row t - H; columns shrink by p_j a level, from the right.  One
+// block an SM at Db4 L3 (the rings take 221 KB), so up to 128 registers:
+// held to 64 for two blocks of half the width, it ran slower.
+template <typename T, int MT>
+__global__ void __launch_bounds__(JW_THREADS, 1)
 jw_modwt2_inv_kernel(const T* __restrict__ c, T* __restrict__ out, int batch,
-                     int rows, int cols, int level, int m, int tile, int halo,
-                     int ntr, int ntc, JwTaps taps) {
+                     int rows, int cols, int level, int m_run, int w, int grp,
+                     int tc, int run, JwTaps taps) {
   extern __shared__ float smem[];
+  const int m = MT > 0 ? MT : m_run;
+  const int halo = (m - 1) * ((1 << level) - 1);
   float* sg = smem;
   float* sh = smem + JW_MAX_TAPS;
-  const int w = tile + halo;
-  float* ll = smem + 2 * JW_MAX_TAPS;
-  float* cl = ll + w * w;
-  float* ch = cl + w * w;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float4* zb = reinterpret_cast<float4*>(smem + 2 * JW_MAX_TAPS);
+  float2* rings =
+      reinterpret_cast<float2*>(smem + 2 * JW_MAX_TAPS + 4 * grp * w);
+  jw_stage_taps(taps, sg, sh, m);
 
-  const JwTile2 tl = jw_tile2(blockIdx.x, ntr, ntc, tile);
-  const long long r0 = tl.r, c0 = tl.c;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int ncw = JW_WARPS / grp;
+  const int g = warp / ncw;                    // this warp's row of a step
+  const int q = (warp - g * ncw) * 32 + lane;  // and this lane's column
+  const bool on = q < w;
+  const int gq = g * w + q;
+
+  const int nstrips = (cols + tc - 1) / tc;
+  const int nruns = (rows + run - 1) / run;
+  const long long items = (long long)batch * nruns * nstrips;
   const size_t img = (size_t)rows * cols;
   const size_t plane = (size_t)batch * img;
 
-  jw_stage_taps(taps, sg, sh, m);
-  jw_load_window(c + (size_t)(3 * level) * plane + (size_t)tl.b * img, ll, w,
-                 r0, c0, rows, cols);
-  __syncthreads();
+  for (long long it = blockIdx.x; it < items; it += gridDim.x) {
+    const JwStrip s = jw_strip(it, nstrips, nruns, run, rows);
+    const long long c0 = (long long)s.strip * tc;  // window column 0
+    const size_t col = on ? (size_t)jw_index(c0 + q, cols) : 0;
+    // this column of the image's first band, and of level L's LH
+    const T* cb = c + (size_t)s.b * img + col;
+    const T* top = cb + (size_t)(3 * (level - 1)) * plane;
+    T* ob = out + (size_t)s.b * img + (c0 + q);
+    const int base = s.ra - halo;  // ring slot of row y: (y - base) % depth
+    const bool out_col = on && q < tc && c0 + q < cols;
 
-  int len = w;
-  for (int j = level; j >= 1; --j) {
-    const int d = 1 << (j - 1);
-    const int nlen = len - (m - 1) * d;
-    const T* lh = c + (size_t)(3 * (j - 1)) * plane + (size_t)tl.b * img;
-    const T* hl = lh + plane;
-    const T* hh = lh + 2 * plane;
-    // undo the row pass: cl from (LL, HL), ch from (LH, HH)
-    for (int i = warp; i < nlen; i += JW_WARPS) {
-      for (int q = lane; q < len; q += 32) {
-        const size_t col = (size_t)jw_index(c0 + q, cols);
-        float a = 0.f, e = 0.f;
-        for (int k = 0; k < m; ++k) {
-          const int ii = i + k * d;
-          const size_t off = (size_t)jw_index(r0 + ii, rows) * cols + col;
-          a += fmaf(sh[k], jw_load(hl + off), sg[k] * ll[ii * w + q]);
-          e += fmaf(sh[k], jw_load(hh + off), sg[k] * jw_load(lh + off));
-        }
-        cl[i * w + q] = a;
-        ch[i * w + q] = e;
-      }
+    // level L's bands and LL_L at the first step's rows (the previous
+    // item's last reader of the buffer is behind its last barrier)
+    if (on) {
+      const T* pt = top + (size_t)jw_index(s.ra + g, rows) * cols;
+      zb[gq] = jw_bands(pt, plane, jw_load(pt + 3 * plane));
     }
     __syncthreads();
-    // undo the column pass
-    jw_col_adjoint(ll, cl, ch, sg, sh, m, d, w, 0, nlen, 0, nlen);
-    __syncthreads();
-    len = nlen;
-  }
-  T* dst = out + (size_t)tl.b * img;
-  for (int i = warp; i < tile; i += JW_WARPS) {
-    const long long p = r0 + i;
-    if (p >= rows) break;
-    for (int q = lane; q < tile; q += 32) {
-      const long long s = c0 + q;
-      if (s < cols) jw_store(dst + (size_t)p * cols + s, ll[i * w + q]);
+
+    for (int t = s.ra; t < s.rb + halo; t += grp) {
+      for (int j = level; j >= 1; --j) {
+        const int d = 1 << (j - 1), p = (m - 1) * d, dep = p + grp;
+        const int sj1 = (m - 1) * ((1 << level) - 2 * d);  // S_{j+1}
+        const int sj = sj1 + p;                             // S_j
+        float2* uv = rings + (size_t)w * ((m - 1) * (d - 1) + (j - 1) * grp);
+        const bool live = on && q < w - sj;  // U_j, V_j and Z_{j-1} valid
+        // the bands stored beside Z_{j-1}: level j-1's at row t - S_j + g,
+        // or at level 1 the next step's level L and LL_L
+        float4 nb = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (j > 1 && live) {
+          nb = jw_bands(cb + (size_t)(3 * (j - 2)) * plane +
+                            (size_t)jw_index(t - sj + g, rows) * cols,
+                        plane, 0.f);
+        } else if (j == 1 && on) {
+          const T* pt = top + (size_t)jw_index(t + grp + g, rows) * cols;
+          nb = jw_bands(pt, plane, jw_load(pt + 3 * plane));
+        }
+        const int sw = (t - sj1 + g - base) % dep;  // row t - S_{j+1} + g
+        // stage A: U_j, V_j along the columns, from columns q + k d
+        if (live) {
+          float u = 0.f, v = 0.f;
+#pragma unroll
+          for (int k = 0; k < m; ++k) {
+            const float4 a = zb[gq + k * d];
+            u = fmaf(JW2D_G(k), a.x, fmaf(JW2D_H(k), a.y, u));
+            v = fmaf(JW2D_G(k), a.z, fmaf(JW2D_H(k), a.w, v));
+          }
+          uv[sw * w + q] = make_float2(u, v);
+        }
+        __syncthreads();
+        // stage B: Z_{j-1} of row t - S_j + g, from rows + k d
+        if (live) {
+          const int dw = d * w, span = dep * w;
+          int o = (sw - p) * w;
+          o += o < 0 ? span : 0;
+          float z = 0.f;
+#pragma unroll
+          for (int k = 0; k < m; ++k) {
+            const float2 a = uv[o + q];
+            z = fmaf(JW2D_G(k), a.x, fmaf(JW2D_H(k), a.y, z));
+            o += dw;
+            o -= o >= span ? span : 0;
+          }
+          if (j > 1) {
+            nb.x = z;
+            zb[gq] = nb;
+          } else {
+            const int y = t - halo + g;
+            if (out_col && y >= s.ra && y < s.rb)
+              jw_store(ob + (size_t)y * cols, z);
+          }
+        }
+        if (j == 1 && on) zb[gq] = nb;
+        __syncthreads();
+      }
     }
   }
 }
@@ -305,10 +382,6 @@ __host__ __device__ inline int jw2d_delay_rows(int grp, int level, int m) {
   return (level - 1) * (((m - 1) << level) + grp) -
          (m - 1) * ((1 << level) - 2);
 }
-
-// tap k of g and h: a parameter-bank constant when M is a template constant
-#define JW2D_G(k) (MT > 0 ? taps.g[k] : sg[k])
-#define JW2D_H(k) (MT > 0 ? taps.h[k] : sh[k])
 
 // x (B, R, C), thr (B,) -> out (B, R, C).  Work items: B x ceil(R / run)
 // runs x ceil(C / tc) strips, strips fastest; blocks loop over them (grid =
@@ -517,78 +590,97 @@ jw_modwt2_denoise_kernel(const T* __restrict__ x, const float* __restrict__ thr,
   }
 }
 
-template <typename T>
-static void (*jw2d_pick(int m))(const T*, const float*, T*, float*, int, int,
-                                 int, int, int, int, int, int, int, int,
-                                 JwTaps) {
-  return m == 8    ? jw_modwt2_denoise_kernel<T, 8>
-         : m == 2  ? jw_modwt2_denoise_kernel<T, 2>
-         : m == 16 ? jw_modwt2_denoise_kernel<T, 16>
-                   : jw_modwt2_denoise_kernel<T, 0>;
+// Whether a strip launch's shape arguments fit the kernels' warp layout:
+// G a divisor of 16, W <= 32 x 16 / G, W = tc + reach (H for the
+// transforms, 2H for the denoise).
+static inline bool jw2d_strip_ok(int grid, int w, int grp, int tc, int run,
+                                 int reach) {
+  return grid >= 1 && grp >= 1 && JW_WARPS % grp == 0 &&
+         w <= 32 * (JW_WARPS / grp) && tc >= 1 && run >= 1 &&
+         w == tc + reach;
+}
+
+template <typename Kernel>
+static cudaError_t jw2d_per_sm(Kernel kernel, int smem, int* per_sm) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel,
+                                                      JW_THREADS, smem);
+  return e;
 }
 
 extern "C" {
 
-// x (B, R, C) -> out (3L+1, B, R, C), both of `dtype`, contiguous.
-int jw_modwt2_fwd(const void* x, void* out, int batch, int rows, int cols,
-                  int level, const float* g, const float* h, int m, int tile,
-                  int halo, int smem, int dtype, int device, void* stream) {
+// x (B, R, C) -> out (3L+1, B, R, C), both of `dtype`, contiguous.  w:
+// window columns (tc + halo), grp: rows a step, run: rows a work item,
+// grid: blocks (each loops over the work items).
+int jw_modwt2_fwd(const void* x, void* out, int grid, int batch, int rows,
+                  int cols, int level, const float* g, const float* h, int m,
+                  int w, int grp, int tc, int run, int dtype, int device,
+                  void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
+  if (!jw2d_strip_ok(grid, w, grp, tc, run, (m - 1) * ((1 << level) - 1)))
+    return (int)cudaErrorInvalidValue;
   const JwTaps taps = jw_make_taps(g, h, m);
-  const int ntr = (rows + tile - 1) / tile, ntc = (cols + tile - 1) / tile;
-  const long long blocks = (long long)batch * ntr * ntc;
+  const int smem = (int)sizeof(float) * jw2t_smem_floats(0, w, grp, level, m);
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == JW_BF16)
-    return jw_launch(jw_modwt2_fwd_kernel<__nv_bfloat16>, blocks, smem, st,
-                     (const __nv_bfloat16*)x, (__nv_bfloat16*)out, batch,
-                     rows, cols, level, m, tile, halo, ntr, ntc, taps);
-  return jw_launch(jw_modwt2_fwd_kernel<float>, blocks, smem, st,
+    return jw_launch(JW2D_PICK(jw_modwt2_fwd_kernel, __nv_bfloat16, m), grid,
+                     smem, st, (const __nv_bfloat16*)x, (__nv_bfloat16*)out,
+                     batch, rows, cols, level, m, w, grp, tc, run, taps);
+  return jw_launch(JW2D_PICK(jw_modwt2_fwd_kernel, float, m), grid, smem, st,
                    (const float*)x, (float*)out, batch, rows, cols, level, m,
-                   tile, halo, ntr, ntc, taps);
+                   w, grp, tc, run, taps);
 }
 
-// c (3L+1, B, R, C) -> out (B, R, C), both of `dtype`, contiguous.
-int jw_modwt2_inv(const void* c, void* out, int batch, int rows, int cols,
-                  int level, const float* g, const float* h, int m, int tile,
-                  int halo, int smem, int dtype, int device, void* stream) {
+// c (3L+1, B, R, C) -> out (B, R, C), both of `dtype`, contiguous;
+// arguments as jw_modwt2_fwd.
+int jw_modwt2_inv(const void* c, void* out, int grid, int batch, int rows,
+                  int cols, int level, const float* g, const float* h, int m,
+                  int w, int grp, int tc, int run, int dtype, int device,
+                  void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
+  if (!jw2d_strip_ok(grid, w, grp, tc, run, (m - 1) * ((1 << level) - 1)))
+    return (int)cudaErrorInvalidValue;
   const JwTaps taps = jw_make_taps(g, h, m);
-  const int ntr = (rows + tile - 1) / tile, ntc = (cols + tile - 1) / tile;
-  const long long blocks = (long long)batch * ntr * ntc;
+  const int smem = (int)sizeof(float) * jw2t_smem_floats(1, w, grp, level, m);
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == JW_BF16)
-    return jw_launch(jw_modwt2_inv_kernel<__nv_bfloat16>, blocks, smem, st,
-                     (const __nv_bfloat16*)c, (__nv_bfloat16*)out, batch,
-                     rows, cols, level, m, tile, halo, ntr, ntc, taps);
-  return jw_launch(jw_modwt2_inv_kernel<float>, blocks, smem, st,
+    return jw_launch(JW2D_PICK(jw_modwt2_inv_kernel, __nv_bfloat16, m), grid,
+                     smem, st, (const __nv_bfloat16*)c, (__nv_bfloat16*)out,
+                     batch, rows, cols, level, m, w, grp, tc, run, taps);
+  return jw_launch(JW2D_PICK(jw_modwt2_inv_kernel, float, m), grid, smem, st,
                    (const float*)c, (float*)out, batch, rows, cols, level, m,
-                   tile, halo, ntr, ntc, taps);
+                   w, grp, tc, run, taps);
 }
 
-// Blocks of the denoise kernel for filter length m resident on the whole
-// card at `smem` bytes.
-int jw_modwt2_denoise_blocks(int smem, int m, int dtype, int device,
-                             int* blocks) {
+// Blocks of 2D kernel `kind` (0 forward, 1 inverse, 2 denoise) for filter
+// length m resident on the whole card at `smem` bytes.
+int jw_modwt2_blocks(int kind, int smem, int m, int dtype, int device,
+                     int* blocks) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   int per_sm = 0, sms = 0;
-  if (dtype == JW_BF16) {
-    auto kernel = jw2d_pick<__nv_bfloat16>(m);
-    e = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        JW_THREADS, smem);
-  } else {
-    auto kernel = jw2d_pick<float>(m);
-    e = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        JW_THREADS, smem);
-  }
+  const bool bf = dtype == JW_BF16;
+  if (kind == 0)
+    e = bf ? jw2d_per_sm(JW2D_PICK(jw_modwt2_fwd_kernel, __nv_bfloat16, m),
+                         smem, &per_sm)
+           : jw2d_per_sm(JW2D_PICK(jw_modwt2_fwd_kernel, float, m), smem,
+                         &per_sm);
+  else if (kind == 1)
+    e = bf ? jw2d_per_sm(JW2D_PICK(jw_modwt2_inv_kernel, __nv_bfloat16, m),
+                         smem, &per_sm)
+           : jw2d_per_sm(JW2D_PICK(jw_modwt2_inv_kernel, float, m), smem,
+                         &per_sm);
+  else
+    e = bf ? jw2d_per_sm(
+                 JW2D_PICK(jw_modwt2_denoise_kernel, __nv_bfloat16, m), smem,
+                 &per_sm)
+           : jw2d_per_sm(JW2D_PICK(jw_modwt2_denoise_kernel, float, m), smem,
+                         &per_sm);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   *blocks = per_sm * sms;
@@ -607,20 +699,19 @@ int jw_modwt2_denoise(const void* x, const float* thr, void* out,
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   const int halo = (m - 1) * ((1 << level) - 1);
-  if (grp < 1 || JW_WARPS % grp || w > 32 * (JW_WARPS / grp) || tc < 1 ||
-      run < 1 || w != tc + 2 * halo)
+  if (!jw2d_strip_ok(grid, w, grp, tc, run, 2 * halo))
     return (int)cudaErrorInvalidValue;
   const JwTaps taps = jw_make_taps(g, h, m);
   const int smem = (int)sizeof(float) * jw2d_smem_floats(w, grp, level, m);
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == JW_BF16)
-    return jw_launch(jw2d_pick<__nv_bfloat16>(m), grid, smem, st,
-                     (const __nv_bfloat16*)x, thr, (__nv_bfloat16*)out,
-                     scratch, batch, rows, cols, level, m, w, grp, tc, run,
-                     hard, taps);
-  return jw_launch(jw2d_pick<float>(m), grid, smem, st, (const float*)x, thr,
-                   (float*)out, scratch, batch, rows, cols, level, m, w, grp,
-                   tc, run, hard, taps);
+    return jw_launch(JW2D_PICK(jw_modwt2_denoise_kernel, __nv_bfloat16, m),
+                     grid, smem, st, (const __nv_bfloat16*)x, thr,
+                     (__nv_bfloat16*)out, scratch, batch, rows, cols, level,
+                     m, w, grp, tc, run, hard, taps);
+  return jw_launch(JW2D_PICK(jw_modwt2_denoise_kernel, float, m), grid, smem,
+                   st, (const float*)x, thr, (float*)out, scratch, batch,
+                   rows, cols, level, m, w, grp, tc, run, hard, taps);
 }
 
 }  // extern "C"

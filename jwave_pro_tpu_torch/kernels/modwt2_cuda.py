@@ -9,29 +9,30 @@ Replaces ``jwave_pro_tpu/kernels/modwt2_pallas.py``:
   forward → shrink every detail band by one threshold per image → inverse,
   LL kept, in one launch.
 
-The transforms: each block owns a T × T output tile and a square window of
-side T + H around it, reaching up/left (forward) or down/right (inverse),
-H = (M−1)(2^L − 1).  It reads its circular context ``x[b, p mod R,
-q mod C]`` directly — no padded copy, no tile plan over (R, C) — so any
-image size runs, halo larger than the image included.  Three f32 windows
-live in shared memory (the running LL and the column pass's two outputs),
-which is the whole limit: :func:`kernel2d_supported` derives the tile from
-the 227 KB budget and refuses what does not fit (Db4 to L4).  Bound by the
-cascade's shared-memory traffic (3M loads and 6M fused multiply-adds per
-window pixel and level), inflated by the window's recompute ratio
-((T+H)²/T², 3.1 at Db4 L3).
+All three march: each block owns a strip of Tc output columns of one
+image and a window of W columns read ``x[b, p mod R, q mod C]`` (no padded
+copy, so any image size runs, halo H = (M−1)(2^L − 1) larger than the
+image included), and marches down a run of rows, G rows a step, keeping in
+shared memory only the rows each stage's taps reach.  Rows are never
+recomputed but for a run's warm-up; columns by W / Tc.
 
-The denoise: each block owns a strip of Tc output columns of one image,
-a window of W = Tc + 2H columns (read mod C), and marches down the rows (read
-mod R), G rows a step, keeping for every level the rings of rows its taps
-reach in shared memory (the analysis's cl, ch and shrunk details, the
-synthesis's running LL) and, by linearity, each level's detail
-contribution to the reconstruction as one array that waits in a
-block-private delay ring in device memory (L2-resident) until the
-synthesis reaches it.  Rows are never recomputed; columns by W / Tc.
-:func:`denoise2_plan` derives (W, G, Tc) from the 227 KB budget; the gate
-admits any R and C, halo ≤ 63 (every (M, L) with H ≤ 65 at M ≤ 64): Db4 to
-L3, Symlet 8 to L2, Haar to L6.
+* The forward: W = Tc + H, reaching left; one ring of (M−1)·2^(j−1) + G
+  rows of LL_{j−1} a level; at each step every level's row pass, column
+  pass and band stores.
+* The inverse: W = Tc + H, reaching right; two rings a level (the column
+  adjoints U_j = g′Z_j + h′LH_j and V_j = g′HL_j + h′HH_j, whose row
+  adjoints sum to Z_{j−1}); each detail row is read from device memory
+  once, at the row its level's synthesis reaches, so nothing waits.
+* The denoise: W = Tc + 2H, four rings a level (the analysis's LL_{j−1},
+  the shrunk details' column adjoints, the reconstruction's LL_j), and
+  each level's detail contribution waiting in a block-private delay ring
+  in device memory (L2-resident) until the synthesis reaches it.
+
+:func:`transform2_plan` and :func:`denoise2_plan` derive (W, G, Tc) from the
+227 KB budget, :func:`transform2_run` and :func:`denoise2_run` the run
+length.  The gate admits any R and C; the transforms a halo ≤ 131 (Db4 to
+L4, Symlet 8 to L3, Haar to L7), the denoise every (M, L) whose strip has
+8 columns, halo ≤ 65 (Db4 to L3, Symlet 8 to L2, Haar to L6).
 
 Beside each kernel: its plain PyTorch version (``modwt2_fwd_plain``,
 ``modwt2_inv_plain``, ``modwt2_denoise_plain``) and a launch counter
@@ -63,32 +64,87 @@ __all__ = [
     "modwt2_denoise_plain",
 ]
 
-TILE2D_MAX = 64     # largest tile side; larger tiles leave one block per SM
-TILE2D_MIN = 8      # smallest output tile side (transforms) or strip (denoise)
+TILE2D_MIN = 8      # narrowest strip of output columns
+HALO2D_MAX = 131    # the transforms' gate: halo (M−1)(2^L − 1) ≤ 131
 WARPS = 16          # JW_THREADS / 32
-DENOISE2_GROUPS = (1, 2, 4, 8)   # rows a denoise step: G × 16/G warps
-MAX_RUNS2 = 256     # most row runs the denoise splits one strip into
+STEP2_GROUPS = (1, 2, 4, 8)   # rows a step: G × 16/G warps
+MAX_RUNS2 = 256     # most row runs a strip is split into
+KINDS2 = {"fwd": 0, "inv": 1, "denoise": 2}   # jw_modwt2_blocks' kinds
 
 
-def window2d(tile: int, level: int, m: int) -> int:
-    """Side of a transform block's square window: T + H."""
-    return tile + halo(m, level)
+def _strip_plan(reach: int, rows_of):
+    """(W, G, Tc) of a strip kernel whose block keeps ``rows_of(G)`` rows of
+    W floats beside the taps and whose window reaches ``reach`` columns past
+    the strip.  The 16 warps of a block take G rows of a step and 32 window
+    columns each, so W ≤ 32·16/G; for each G, W is the widest window within
+    that and within 227 KB, and Tc = W − reach.  Every step costs the same
+    512 lanes, so the plan takes the G with the most output pixels a step,
+    G·Tc.  None if no strip of ``TILE2D_MIN`` columns fits."""
+    best = None
+    for g in STEP2_GROUPS:
+        w = min(32 * (WARPS // g), (SMEM_LIMIT // 4 - 2 * MAX_TAPS)
+                // rows_of(g))
+        tc = w - reach
+        if tc >= TILE2D_MIN and (best is None or g * tc > best[0]):
+            best = (g * tc, w, g, tc)
+    return None if best is None else best[1:]
 
 
-def smem2d_bytes(tile: int, level: int, m: int) -> int:
-    """Dynamic shared memory of one transform block: the taps and three f32
-    windows (LL, and the column pass's two outputs)."""
-    return 4 * (2 * MAX_TAPS + 3 * window2d(tile, level, m) ** 2)
+def _strip_run(strips: int, r: int, warm: int, blocks: int) -> int:
+    """Rows one work item of a strip kernel marches.  A run of n rows takes
+    n + ``warm`` steps' rows, and the ``blocks`` the card holds take the
+    strips·⌈R/n⌉ items in waves: the run length whose waves × (n + warm) is
+    least (all R where the strips fill the card evenly; shorter runs for a
+    few images, or to even out the last wave)."""
+    best = None
+    for runs in range(1, min(r, MAX_RUNS2) + 1):
+        n = -(-r // runs)
+        cost = -(-strips * -(-r // n) // blocks) * (n + warm)
+        if best is None or cost < best[0]:
+            best = (cost, n)
+    return best[1]
 
 
-def tile2d(level: int, m: int) -> int:
-    """The largest transform tile side (a multiple of 8, at most
-    ``TILE2D_MAX``) whose windows fit a block's shared memory; 0 if none
-    does."""
-    for t in range(TILE2D_MAX, TILE2D_MIN - 1, -8):
-        if smem2d_bytes(t, level, m) <= SMEM_LIMIT:
-            return t
-    return 0
+def transform2_smem_bytes(w: int, grp: int, level: int, m: int,
+                          kind: str) -> int:
+    """Dynamic shared memory of one transform block with a window of ``w``
+    columns and ``grp`` rows a step (``jw2t_smem_floats``): the taps, then
+    for 'fwd' G rows of row-pass pairs and one ring of (M−1)·2^(j−1) + G
+    rows a level, for 'inv' G rows of (Z, LH, HL, HH) quadruples and two
+    such rings a level."""
+    return 4 * (2 * MAX_TAPS + w * _transform2_rows(grp, level, m, kind))
+
+
+def _transform2_rows(grp: int, level: int, m: int, kind: str) -> int:
+    rings = halo(m, level) + level * grp
+    return 2 * grp + rings if kind == "fwd" else 4 * grp + 2 * rings
+
+
+@functools.lru_cache(maxsize=None)
+def transform2_plan(level: int, m: int, kind: str):
+    """(W, G, Tc) of the forward ('fwd') or inverse ('inv') kernel, W = Tc + H
+    (:func:`_strip_plan`).  Db4 L3: (512, 1, 463) both ways, the forward in
+    111 KB (two blocks an SM), the inverse in 222 KB."""
+    if level < 1 or not 1 <= m <= MAX_TAPS:
+        return None
+    return _strip_plan(halo(m, level),
+                       lambda g: _transform2_rows(g, level, m, kind))
+
+
+def transform2_strip(c: int, level: int, m: int, kind: str) -> int:
+    """Output columns of each transform strip over an image of C columns:
+    the plan's Tc evened out over its ⌈C/Tc⌉ strips, so the last strip is
+    not mostly empty."""
+    tc = transform2_plan(level, m, kind)[2]
+    return -(-c // -(-c // tc))
+
+
+def transform2_run(b: int, r: int, c: int, level: int, m: int, blocks: int,
+                   kind: str) -> int:
+    """Rows one transform work item marches: :func:`_strip_run` with a
+    warm-up of H rows (the forward's reach up, the inverse's down)."""
+    strips = b * -(-c // transform2_strip(c, level, m, kind))
+    return _strip_run(strips, r, halo(m, level), blocks)
 
 
 def denoise2_smem_bytes(w: int, grp: int, level: int, m: int) -> int:
@@ -108,44 +164,19 @@ def denoise2_delay_rows(grp: int, level: int, m: int) -> int:
 
 @functools.lru_cache(maxsize=None)
 def denoise2_plan(level: int, m: int):
-    """(W, G, Tc) of the denoise.  The 16 warps of a block take G rows of a
-    step and 32 window columns each, so W ≤ 32·16/G; for each G, W is the
-    widest window within that and within 227 KB, and Tc = W − 2H.  Every
-    step costs the same 512 lanes, so the plan takes the G with the most
-    output pixels a step, G·Tc.  None if no strip of ``TILE2D_MIN`` columns
-    fits."""
+    """(W, G, Tc) of the denoise, W = Tc + 2H (:func:`_strip_plan`)."""
     if level < 1 or not 1 <= m <= MAX_TAPS:
         return None
     hal = halo(m, level)
-    best = None
-    for g in DENOISE2_GROUPS:
-        fit = ((SMEM_LIMIT // 4 - 2 * MAX_TAPS)
-               // (5 * g + 4 * (hal + level * g)))
-        w = min(32 * (WARPS // g), fit)
-        tc = w - 2 * hal
-        if tc >= TILE2D_MIN and (best is None or g * tc > best[0]):
-            best = (g * tc, w, g, tc)
-    return None if best is None else best[1:]
+    return _strip_plan(2 * hal, lambda g: 5 * g + 4 * (hal + level * g))
 
 
 def denoise2_run(b: int, r: int, c: int, level: int, m: int,
                  blocks: int) -> int:
-    """Rows one denoise work item marches.  A run of n rows takes n + 2H
-    steps' rows (the warm-up and the synthesis's reach), and the ``blocks``
-    the card holds take the B·⌈C/Tc⌉·⌈R/n⌉ items in waves: the run length
-    whose waves × (n + 2H) is least (all R where the strips fill the card
-    evenly; shorter runs for a few images, or to even out the last
-    wave)."""
-    tc = denoise2_plan(level, m)[2]
-    strips = b * -(-c // tc)
-    hal = halo(m, level)
-    best = None
-    for runs in range(1, min(r, MAX_RUNS2) + 1):
-        n = -(-r // runs)
-        cost = -(-strips * -(-r // n) // blocks) * (n + 2 * hal)
-        if best is None or cost < best[0]:
-            best = (cost, n)
-    return best[1]
+    """Rows one denoise work item marches: :func:`_strip_run` with a
+    warm-up of 2H rows (the analysis's reach and the synthesis's)."""
+    strips = b * -(-c // denoise2_plan(level, m)[2])
+    return _strip_run(strips, r, 2 * halo(m, level), blocks)
 
 
 def kernel2d_supported(r: int, c: int, level: int, m: int, kind: str) -> bool:
@@ -153,18 +184,20 @@ def kernel2d_supported(r: int, c: int, level: int, m: int, kind: str) -> bool:
     image at this level and filter length.
 
     The counterpart of the JAX package's ``pallas2d_supported`` /
-    ``denoise2_fused_supported``, re-derived from the 227 KB shared-memory
-    budget: any R and C (halo larger than the image included), as long as
-    an 8 × 8 tile's windows fit (transforms) or a strip of 8 columns
-    (denoise, :func:`denoise2_plan`).  Db4 runs to L4 forward and inverse
-    and to L3 denoise; Symlet 8 to L3 and L2; Haar to L7 and L6.
+    ``denoise2_fused_supported``: any R and C (halo larger than the image
+    included); the transforms a halo (M−1)(2^L − 1) ≤ ``HALO2D_MAX`` (every
+    such (M, L) has a plan, :func:`transform2_plan`), the denoise every
+    (M, L) whose plan has a strip of 8 columns (:func:`denoise2_plan`).
+    Db4 runs to L4 forward and inverse and to L3 denoise; Symlet 8 to L3
+    and L2; Haar to L7 and L6.
     """
     if not (1 <= r < 2 ** 31 and 1 <= c < 2 ** 31 and level >= 1
             and 1 <= m <= MAX_TAPS):
         return False
     if kind == "denoise":
         return denoise2_plan(level, m) is not None
-    return tile2d(level, m) > 0
+    return (halo(m, level) <= HALO2D_MAX
+            and transform2_plan(level, m, kind) is not None)
 
 
 # ---------------------------------------------------------------------------
@@ -211,47 +244,78 @@ def modwt2_denoise_plain(x: torch.Tensor, threshold: torch.Tensor,
 def _lib() -> ctypes.CDLL:
     lib = _build.library()
     for fn in (lib.jw_modwt2_fwd, lib.jw_modwt2_inv):
-        fn.argtypes = [_P, _P, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I,
-                       _P]
+        fn.argtypes = [_P, _P, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I,
+                       _I, _I, _P]
         fn.restype = _I
     lib.jw_modwt2_denoise.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
                                       _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]
     lib.jw_modwt2_denoise.restype = _I
-    lib.jw_modwt2_denoise_blocks.argtypes = [_I, _I, _I, _I, _P]
-    lib.jw_modwt2_denoise_blocks.restype = _I
+    lib.jw_modwt2_blocks.argtypes = [_I, _I, _I, _I, _I, _P]
+    lib.jw_modwt2_blocks.restype = _I
     return lib
 
 
-def _plan(shape, level: int, wavelet: DiscreteWavelet, kind: str,
-          what: str):
-    """(tile, halo, shared-memory bytes) for an (B, R, C) transform launch;
-    raises for what the kernel does not take."""
+@functools.cache
+def _resident_blocks(kind: str, smem: int, m: int, dtype: int,
+                     device: int) -> int:
+    """Blocks of 2D kernel ``kind`` the card holds at once."""
+    lib = _lib()
+    blocks = ctypes.c_int(0)
+    code = lib.jw_modwt2_blocks(KINDS2[kind], smem, m, dtype, device,
+                                ctypes.addressof(blocks))
+    _build.check(lib, code, f"2D {kind} occupancy query")
+    if blocks.value < 1:
+        raise RuntimeError(f"the 2D {kind} kernel fits no block in "
+                           f"{smem} bytes of shared memory")
+    return blocks.value
+
+
+def transform2_launch_plan(shape, level: int, m: int, kind: str,
+                           dtype: torch.dtype, device: torch.device):
+    """(W, G, Tc, run, grid) of a forward or inverse launch over (B, R, C)
+    images on a CUDA ``device``: the plan's G, the even strip, the run
+    length for the blocks the card holds, and a grid of at most those
+    blocks (each loops over the work items)."""
     b, r, c = shape
+    grp = transform2_plan(level, m, kind)[1]
+    tc = transform2_strip(c, level, m, kind)
+    w = tc + halo(m, level)
+    blocks = _resident_blocks(
+        kind, transform2_smem_bytes(w, grp, level, m, kind), m,
+        DTYPE_CODES[dtype], device.index)
+    run = transform2_run(b, r, c, level, m, blocks, kind)
+    return w, grp, tc, run, min(b * -(-r // run) * -(-c // tc), blocks)
+
+
+def _launch_transform(kind: str, a: torch.Tensor, shape: tuple, level: int,
+                      wavelet: DiscreteWavelet) -> torch.Tensor:
+    """Launch the forward or inverse kernel on ``a`` over (B, R, C) images
+    of ``shape``; returns its new output."""
     m = wavelet.length
-    if not kernel2d_supported(r, c, level, m, kind):
-        raise ValueError(f"unsupported shape {tuple(shape)} level {level} "
-                         f"for the {what} kernel")
-    t = tile2d(level, m)
-    if b * -(-r // t) * -(-c // t) >= 2 ** 31:
-        raise ValueError(f"{tuple(shape)} exceeds the {what} kernel grid")
-    return t, halo(m, level), smem2d_bytes(t, level, m)
+    what = "2D forward" if kind == "fwd" else "2D inverse"
+    if not kernel2d_supported(shape[1], shape[2], level, m, kind):
+        raise ValueError(f"unsupported shape {shape} level {level} for the "
+                         f"{what} kernel")
+    w, grp, tc, run, grid = transform2_launch_plan(shape, level, m, kind,
+                                                   a.dtype, a.device)
+    out = torch.empty((3 * level + 1,) + shape if kind == "fwd" else shape,
+                      dtype=a.dtype, device=a.device)
+    g, h = kernel_taps(wavelet)
+    lib = _lib()
+    launch = lib.jw_modwt2_fwd if kind == "fwd" else lib.jw_modwt2_inv
+    code = launch(a.data_ptr(), out.data_ptr(), grid, *shape, level,
+                  g.ctypes.data, h.ctypes.data, m, w, grp, tc, run,
+                  DTYPE_CODES[a.dtype], a.device.index,
+                  torch.cuda.current_stream(a.device).cuda_stream)
+    _build.check(lib, code, f"{what} kernel")
+    return out
 
 
 def modwt2_fwd_cuda(x: torch.Tensor, wavelet: DiscreteWavelet,
                     level: int) -> torch.Tensor:
     """Launch the forward kernel: x (B, R, C) → (3·level+1, B, R, C)."""
     check_operand(x, "x", 3)
-    b, r, c = x.shape
-    tile, hal, smem = _plan(x.shape, level, wavelet, "fwd", "2D forward")
-    out = torch.empty((3 * level + 1, b, r, c), dtype=x.dtype,
-                      device=x.device)
-    g, h = kernel_taps(wavelet)
-    lib = _lib()
-    code = lib.jw_modwt2_fwd(
-        x.data_ptr(), out.data_ptr(), b, r, c, level, g.ctypes.data,
-        h.ctypes.data, wavelet.length, tile, hal, smem, DTYPE_CODES[x.dtype],
-        x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(lib, code, "2D forward kernel")
+    out = _launch_transform("fwd", x, tuple(x.shape), level, wavelet)
     modwt2_fwd_cuda.launches += 1
     return out
 
@@ -266,35 +330,12 @@ def modwt2_inv_cuda(c: torch.Tensor, wavelet: DiscreteWavelet
     rows, b, r, cols = c.shape
     if rows % 3 != 1:
         raise ValueError(f"coeffs: need 3·level+1 bands, got {rows}")
-    level = (rows - 1) // 3
-    tile, hal, smem = _plan(c.shape[1:], level, wavelet, "inv", "2D inverse")
-    out = torch.empty((b, r, cols), dtype=c.dtype, device=c.device)
-    g, h = kernel_taps(wavelet)
-    lib = _lib()
-    code = lib.jw_modwt2_inv(
-        c.data_ptr(), out.data_ptr(), b, r, cols, level, g.ctypes.data,
-        h.ctypes.data, wavelet.length, tile, hal, smem, DTYPE_CODES[c.dtype],
-        c.device.index, torch.cuda.current_stream(c.device).cuda_stream)
-    _build.check(lib, code, "2D inverse kernel")
+    out = _launch_transform("inv", c, (b, r, cols), (rows - 1) // 3, wavelet)
     modwt2_inv_cuda.launches += 1
     return out
 
 
 modwt2_inv_cuda.launches = 0
-
-
-@functools.cache
-def _resident_blocks(smem: int, m: int, dtype: int, device: int) -> int:
-    """Blocks of the denoise kernel the card holds at once."""
-    lib = _lib()
-    blocks = ctypes.c_int(0)
-    code = lib.jw_modwt2_denoise_blocks(smem, m, dtype, device,
-                                        ctypes.addressof(blocks))
-    _build.check(lib, code, "2D denoise occupancy query")
-    if blocks.value < 1:
-        raise RuntimeError(f"the 2D denoise kernel fits no block in "
-                           f"{smem} bytes of shared memory")
-    return blocks.value
 
 
 def modwt2_denoise_cuda(x: torch.Tensor, threshold: torch.Tensor,
@@ -315,8 +356,8 @@ def modwt2_denoise_cuda(x: torch.Tensor, threshold: torch.Tensor,
                          f"for the 2D denoise kernel")
     w, grp, tc = denoise2_plan(level, m)
     dtype = DTYPE_CODES[x.dtype]
-    blocks = _resident_blocks(denoise2_smem_bytes(w, grp, level, m), m, dtype,
-                              x.device.index)
+    blocks = _resident_blocks("denoise", denoise2_smem_bytes(w, grp, level, m),
+                              m, dtype, x.device.index)
     run = denoise2_run(b, r, c, level, m, blocks)
     grid = min(b * -(-r // run) * -(-c // tc), blocks)
     scratch = torch.empty(

@@ -286,7 +286,12 @@ IMAGE_SHAPES = [
     ((3, 1000, 750), 3, "Daubechies 4"),   # arbitrary size, ragged tiles
     ((2, 40, 24), 3, "Daubechies 4"),      # halo (49) larger than the image
     ((1, 256, 256), 2, "Symlet 8"),
-    ((2, 96, 80), 4, "Daubechies 4"),      # Db4 L4: the 32 × 32 tile
+    ((2, 96, 80), 4, "Daubechies 4"),      # Db4 L4: the inverse's G = 2
+    ((1, 130, 300), 7, "Haar"),            # the gate's edge: halo 127
+    ((1, 200, 180), 3, "Symlet 8"),        # the gate's edge: halo 105
+    ((2, 70, 90), 2, "Daubechies 2"),      # no specialised filter length
+    ((1, 1000, 200), 3, "Daubechies 4"),   # row runs: one image, one strip
+    ((2, 64, 1001), 3, "Daubechies 4"),    # the last strip crosses C's end
 ]
 DENOISE_SHAPES = [
     ((2, 128, 256), 2, "Daubechies 4"),
@@ -336,6 +341,24 @@ def test_2d_denoise_matches_plain(dev, shape, level, name, mode, dtype):
         pipe = jt.modwt2_denoise(x, w, level, mode, threshold=thr[:, None,
                                                                   None])
         torch.testing.assert_close(got, pipe, rtol=0, atol=1e-4)
+
+
+def test_2d_transforms_row_runs_cross_into_the_next(dev):
+    """One image splits into row runs (each marches H rows of warm-up: the
+    forward reads up into its neighbour's rows, the inverse down); the
+    runs tile the rows exactly, the last one short."""
+    b, r, c = 1, 997, 200
+    for kind in ("fwd", "inv"):
+        run = k2.transform2_run(b, r, c, 3, 8, 132, kind)
+        assert run < r and r % run
+    x = _signal(dev, b, r, c, seed=33)
+    co = k2.modwt2_fwd_cuda(x, DB4, 3)
+    torch.testing.assert_close(co, k2.modwt2_fwd_plain(x, DB4, 3), rtol=0,
+                               atol=1e-4)
+    back = k2.modwt2_inv_cuda(co, DB4)
+    torch.testing.assert_close(back, k2.modwt2_inv_plain(co, DB4), rtol=0,
+                               atol=1e-4)
+    torch.testing.assert_close(back, x, rtol=0, atol=1e-4)
 
 
 def test_2d_denoise_row_runs_cross_into_the_next(dev):

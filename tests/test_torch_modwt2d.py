@@ -214,9 +214,11 @@ def test_2d_plain_bf16_rounds_once():
 
 def test_kernel2d_supported_budget():
     db4, sym8, haar = 8, 16, 2
-    # Db4: forward and inverse to L4 (tile 64 to L3, 32 at L4), denoise L3
-    assert k2.tile2d(3, db4) == 64
-    assert k2.tile2d(4, db4) == 32
+    # Db4: forward and inverse to L4 (a strip of W = Tc + 49 columns at L3,
+    # the whole 512-lane row of warps, one row a step), denoise L3
+    assert k2.transform2_plan(3, db4, "fwd") == (512, 1, 512 - 49)
+    assert k2.transform2_plan(3, db4, "inv") == (512, 1, 512 - 49)
+    assert k2.transform2_plan(4, db4, "inv")[2] >= 8
     assert not k2.kernel2d_supported(4096, 4096, 5, db4, "fwd")
     # the denoise strip at Db4 L3: W = Tc + 2·49 columns, G rows a step
     w, grp, tc = k2.denoise2_plan(3, db4)
@@ -226,9 +228,20 @@ def test_kernel2d_supported_budget():
     assert k2.kernel2d_supported(3, 2, 3, sym8, "inv")
     assert not k2.kernel2d_supported(512, 512, 4, sym8, "fwd")
     assert k2.kernel2d_supported(512, 512, 7, haar, "fwd")
-    t = k2.tile2d(3, db4)
-    assert k2.smem2d_bytes(t, 3, db4) <= 232_448
-    assert k2.smem2d_bytes(t + 8, 3, db4) > 232_448 or t == 64
+    # both transforms' rings fit 227 KB, and one more window column does
+    # not (or would leave the block's 16 warps of 32 columns a row); the
+    # forward's Db4 L3 strip fits two blocks an SM
+    assert 2 * (k2.transform2_smem_bytes(512, 1, 3, db4, "fwd") + 1024) \
+        <= 233_472
+    for level, m in ((3, db4), (4, db4), (3, sym8), (7, haar), (2, 44),
+                     (1, 64)):
+        for kind in ("fwd", "inv"):
+            w, grp, tc = k2.transform2_plan(level, m, kind)
+            assert k2.transform2_smem_bytes(w, grp, level, m, kind) \
+                <= 232_448
+            assert (k2.transform2_smem_bytes(w + 1, grp, level, m, kind)
+                    > 232_448 or w == 32 * (16 // grp))
+            assert tc == w - k2.halo(m, level) >= 8
     # the denoise's rings fit 227 KB, and one more window column does not
     # (or would leave the block's 16 warps of 32 columns a row)
     for level, m in ((3, db4), (2, sym8), (6, haar), (1, 64)):
@@ -248,6 +261,54 @@ def test_denoise2_gate_admits_every_halo_to_65(level, m):
     assert k2.kernel2d_supported(2048, 2048, level, m, "denoise")
     assert k2.kernel2d_supported(3, 5, level, m, "denoise")  # halo > image
     assert not k2.kernel2d_supported(64, 64, level + 1, m, "denoise")
+
+
+@pytest.mark.parametrize("level,m", [(4, 8), (3, 16), (7, 2), (2, 44),
+                                     (6, 3), (1, 64), (3, 19), (5, 5)])
+def test_transform2_gate_admits_every_halo_to_131(level, m):
+    """The forward and inverse take every (M, L) whose halo is at most 131,
+    as they always have (Db4 L4, Symlet 8 L3, Haar L7, M = 44 at L2), any
+    R and C; the next level is refused."""
+    assert k2.halo(m, level) <= 131
+    for kind in ("fwd", "inv"):
+        assert k2.kernel2d_supported(2048, 2048, level, m, kind)
+        assert k2.kernel2d_supported(3, 5, level, m, kind)  # halo > image
+        assert k2.transform2_plan(level, m, kind)[2] >= 8
+        assert not k2.kernel2d_supported(64, 64, level + 1, m, kind)
+
+
+def test_transform2_gate_is_the_halo_bound():
+    """Over every filter length and level, the transforms' gate admits
+    exactly the halos up to 131."""
+    for m in range(1, 65):
+        for level in range(1, 10):
+            want = k2.halo(m, level) <= 131
+            assert k2.kernel2d_supported(100, 100, level, m, "fwd") == want
+            assert k2.kernel2d_supported(100, 100, level, m, "inv") == want
+
+
+def test_transform2_rows_split_only_to_fill_the_card():
+    """A transform work item warms up over H rows (the forward reads H rows
+    up, the inverse H rows down), and the strips even out over C."""
+    db4 = 8
+    for kind in ("fwd", "inv"):
+        tc = k2.transform2_strip(2048, 3, db4, kind)
+        assert tc == 410 and 5 * tc >= 2048 > 4 * tc   # not 463, 463, ..., 196
+        assert k2.transform2_strip(24, 3, db4, kind) == 24
+
+        def cost(b, r, c, n, blocks=132):
+            items = b * -(-c // tc) * -(-r // n)
+            return -(-items // blocks) * (n + 49)
+
+        for b, r in ((16, 2048), (1, 1024), (4, 512)):
+            run = k2.transform2_run(b, r, 2048, 3, db4, 132, kind)
+            assert 1 <= run <= r
+            assert all(cost(b, r, 2048, run) <= cost(b, r, 2048, -(-r // n))
+                       for n in range(1, min(r, 256) + 1))
+        # as many strips as blocks: one run of all rows
+        assert k2.transform2_run(132, 64, tc, 3, db4, 132, kind) == 64
+        # one image on a whole card: short runs
+        assert k2.transform2_run(1, 1000, 200, 3, db4, 132, kind) < 1000
 
 
 def test_denoise2_rows_split_only_to_fill_the_card():
