@@ -123,6 +123,41 @@ def wall_ms(torch, fn, repeats: int = 3) -> float:
     return sorted(times)[len(times) // 2]
 
 
+GRAPH_CALLS = 20
+
+
+def graph_ms(torch, fn, repeats: int = 5) -> float:
+    """Device ms per call of ``fn()``: GRAPH_CALLS calls captured in one
+    CUDA graph and replayed between CUDA events (median of ``repeats``), so
+    the host's enqueue rate stays out of the time.  Warmed up on the
+    capture stream first, so the capture allocates nothing new but the
+    calls' outputs."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(GRAPH_CALLS):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / GRAPH_CALLS)
+    del graph
+    return sorted(times)[len(times) // 2]
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -163,7 +198,7 @@ def run(smoke: Smoke, torch, jt) -> dict:
     # the register-resident and marching kernels keep their arrays and
     # accumulators out of local memory
     marching = ("cwt_ifft", "modwt3_inv", "modwt3_fwd", "modwt2_denoise",
-                "modwt2_fwd", "modwt2_inv")
+                "modwt2_fwd", "modwt2_inv", "modwt_var", "modwpt_select")
     for name, (regs, stack, st, ld) in sorted(_build.ptxas_report().items()):
         if any(k in name for k in marching):
             smoke.require(f"ptxas {name}: {regs} registers, {stack} bytes "
@@ -486,6 +521,35 @@ def run_slice(smoke: Smoke, torch, jt, dev, signal, card):
         smoke.check(f"select ({b}, {n}) plain |w| there vs plain max",
                     max_err(at_t.abs(), kp.modwpt_select_plain(
                         x, w, lv_pkt)[0]), 1e-5)
+    # edge shapes: each specialised filter length and the runtime-M one
+    # (Db2), N off the tile, the gate edges (Db4 L11 variance, L8 select),
+    # and rows whose last block is not the grid's last (B = 300, 2 tiles)
+    edges = ((2, 3000, 5, 5, "Haar"), (2, 5000, 4, 3, "Symlet 8"),
+             (3, 100003, 3, 3, "Daubechies 2"), (2, 100003, 11, 8, WAVELET),
+             (300, 5000, 3, 3, WAVELET))
+    for b, n, lv_var, lv_sel, name in edges:
+        wv = jt.wavelet(name)
+        x = signal(b, n)
+        var_plan = kv.var_plan(b, n, lv_var, wv.length)
+        sel_plan = kp.select_plan(b, n, lv_sel, wv.length)
+        print(f"  plans ({b}, {n}) {name}: var L{lv_var} {var_plan}, select "
+              f"L{lv_sel} {sel_plan}", flush=True)
+        smoke.check(f"var ({b}, {n}) L{lv_var} {name} vs plain (relative)",
+                    rel_err(kv.modwt_var_cuda(x, wv, lv_var),
+                            kv.modwt_var_plain(x, wv, lv_var)), 1e-4)
+        a, t, v = kp.modwpt_select_cuda(x, wv, lv_sel)
+        c = kp.modwpt_fwd_cuda(x, wv, lv_sel)
+        want_t = torch.argmax(c.abs(), dim=-1)
+        smoke.require(f"select ({b}, {n}) L{lv_sel} {name} = arg-max over "
+                      f"the forward kernel's output (positions, values exact)",
+                      torch.equal(t.long(), want_t) and torch.equal(
+                          v, torch.gather(c, -1, want_t[..., None])[..., 0])
+                      and torch.equal(a, v.abs()))
+        at_t = torch.gather(kp.modwpt_fwd_plain(x, wv, lv_sel), -1,
+                            t.long()[..., None])[..., 0]
+        smoke.check(f"select ({b}, {n}) {name} value vs plain at its "
+                    f"position", max_err(v, at_t), 1e-5)
+        del c
     x = signal(16, 8192)
     x16 = x.bfloat16()
     smoke.check("bf16 var vs bf16 plain (relative)",
@@ -501,6 +565,16 @@ def run_slice(smoke: Smoke, torch, jt, dev, signal, card):
     c16f = kp.modwpt_fwd_cuda(x16.float(), w, 3)
     smoke.require("bf16 select = arg-max over the forward of its f32 values",
                   torch.equal(t16.long(), torch.argmax(c16f.abs(), dim=-1)))
+    x16 = signal(4, 100003, dtype=torch.bfloat16)
+    smoke.check("bf16 var (4, 100003) L5 vs bf16 plain (relative)",
+                rel_err(kv.modwt_var_cuda(x16, w, 5),
+                        kv.modwt_var_plain(x16, w, 5)), 1e-4)
+    c16f = kp.modwpt_fwd_cuda(x16.float(), w, 3)
+    smoke.require("bf16 select (4, 100003) L3 = arg-max over the forward of "
+                  "its f32 values", torch.equal(
+                      kp.modwpt_select_cuda(x16, w, 3)[1].long(),
+                      torch.argmax(c16f.abs(), dim=-1)))
+    del c16f
 
     print("== phase 11: gradients through the packet autograd pair",
           flush=True)
@@ -531,18 +605,34 @@ def run_slice(smoke: Smoke, torch, jt, dev, signal, card):
                 "modwpt_fwd": kp.modwpt_fwd_cuda,
                 "modwpt_inv": kp.modwpt_inv_cuda,
                 "modwpt_select": kp.modwpt_select_cuda}
-    torch.cuda.synchronize()
-    for fn in counters.values():
-        fn.launches = 0
-    var = jt.modwt_variance(x, w, LEVEL)
-    hurst = jt.modwt_hurst(x, w, LEVEL)
-    rho = jt.modwt_correlation(x, y, w, LEVEL)
-    cp = jt.modwpt(xp, w, PACKET_LEVEL)
-    xpr = jt.imodwpt(cp, w)
-    mp = jt.matching_pursuit(xm, w, MP_LEVEL, MP_ATOMS)
-    omp = jt.matching_pursuit(xm, w, MP_LEVEL, MP_ATOMS, orthogonalize=True)
-    torch.cuda.synchronize()
-    launches = {name: fn.launches for name, fn in counters.items()}
+    # each call in a counted window of its own, with its exact launches:
+    # one variance kernel a statistic (four for the correlation: x + y,
+    # x − y, x, y), one select a pursuit's pick
+    launches = dict.fromkeys(counters, 0)
+
+    def counted(what, calls, want):
+        out, got = counted_run(smoke, torch, counters, what, calls, want)
+        for name, count in got.items():
+            launches[name] += count
+        return out
+
+    var = counted("modwt_variance", lambda: jt.modwt_variance(x, w, LEVEL),
+                  {"modwt_var": 1})
+    hurst = counted("modwt_hurst", lambda: jt.modwt_hurst(x, w, LEVEL),
+                    {"modwt_var": 1})
+    rho = counted("modwt_correlation",
+                  lambda: jt.modwt_correlation(x, y, w, LEVEL),
+                  {"modwt_var": 4})
+    cp = counted("modwpt", lambda: jt.modwpt(xp, w, PACKET_LEVEL),
+                 {"modwpt_fwd": 1})
+    xpr = counted("imodwpt", lambda: jt.imodwpt(cp, w), {"modwpt_inv": 1})
+    mp = counted(f"greedy matching pursuit, K = {MP_ATOMS}",
+                 lambda: jt.matching_pursuit(xm, w, MP_LEVEL, MP_ATOMS),
+                 {"modwpt_select": MP_ATOMS})
+    omp = counted(f"orthogonal matching pursuit, K = {MP_ATOMS}",
+                  lambda: jt.matching_pursuit(xm, w, MP_LEVEL, MP_ATOMS,
+                                              orthogonalize=True),
+                  {"modwpt_select": MP_ATOMS})
     print(f"  launches on the statistics and packet-tree path: {launches}",
           flush=True)
     for name, count in launches.items():
@@ -591,14 +681,22 @@ def run_slice(smoke: Smoke, torch, jt, dev, signal, card):
 
     # each kernel against its plain version at the path's shapes (these
     # launches are not counted above)
+    # the in-launch finish adds in a fixed order: two calls are bitwise equal
     a, t, v = kp.modwpt_select_cuda(xm, w, MP_LEVEL)
+    smoke.require("select kernel: two calls bitwise equal", all(
+        torch.equal(p, q) for p, q in zip(
+            (a, t, v), kp.modwpt_select_cuda(xm, w, MP_LEVEL))))
+    vk = kv.modwt_var_cuda(x, w, LEVEL)
+    smoke.require("variance kernel: two calls bitwise equal",
+                  torch.equal(vk, kv.modwt_var_cuda(x, w, LEVEL)))
+    vp = kv.modwt_var_plain(x, w, LEVEL)
+    smoke.check("var vs plain at the path's shape (relative)",
+                rel_err(vk, vp), 1e-4)
     cm = kp.modwpt_fwd_plain(xm, w, MP_LEVEL)
     at_t = torch.gather(cm, -1, t.long()[..., None])[..., 0]
     errs = {
         "modwt_var": smoke.check(
-            "var vs plain at the path's shape", max_err(
-                kv.modwt_var_cuda(x, w, LEVEL),
-                kv.modwt_var_plain(x, w, LEVEL)), 1e-4),
+            "var vs plain at the path's shape", max_err(vk, vp), 1e-4),
         "modwpt_fwd": smoke.check(
             "packet fwd vs plain at the path's shape",
             max_err(cp, kp.modwpt_fwd_plain(xp, w, PACKET_LEVEL)), 1e-5),
@@ -626,6 +724,17 @@ def run_slice(smoke: Smoke, torch, jt, dev, signal, card):
     times = {}
     for name, (arg, kern, plain) in pairs.items():
         times[name] = report_time(jt, name, arg, kern, plain, card)
+    # both finish their reduction in one launch: their device time from a
+    # CUDA graph of the wrapper's calls (the kernels line's ms), beside the
+    # wrapper's time per call as a caller sees it (the line above)
+    for name in ("modwt_var", "modwpt_select"):
+        arg, kern, _ = pairs[name]
+        dev_ms = graph_ms(torch, lambda: kern(arg))
+        print(f"  {name} {tuple(arg.shape)}: device {dev_ms:.4f} ms a call "
+              f"(CUDA graph of {GRAPH_CALLS} calls), wrapper "
+              f"{times[name][0]:.4f} ms a call (CUDA events) [{card}]",
+              flush=True)
+        times[name] = (dev_ms, times[name][1])
 
     print(f"== phase 14: matching pursuit wall time {MP_SHAPE} K={MP_ATOMS} "
           f"(host clock, median of 3) on {card}", flush=True)

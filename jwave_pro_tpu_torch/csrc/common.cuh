@@ -13,7 +13,8 @@ enum JwDtype { JW_F32 = 0, JW_BF16 = 1 };
 
 // Filter taps passed by value as a kernel argument (512 bytes of the 4 KB
 // parameter space), so concurrent launches with different wavelets never
-// share state.  Each block copies them into shared memory once.
+// share state.  A kernel templated on M reads them from the parameter bank
+// as FFMA operands; the others copy them into shared memory once.
 struct JwTaps {
   float g[JW_MAX_TAPS];
   float h[JW_MAX_TAPS];
@@ -62,21 +63,148 @@ __device__ __forceinline__ void jw_stage_taps(const JwTaps& taps, float* sg,
   }
 }
 
-// Sum of one float per thread over the block, in a fixed order (warp
-// shuffles, then the warps' sums in warp order), so a result never depends
-// on scheduling.  The sum is valid in thread 0.  `scratch` holds
-// JW_THREADS / 32 floats.  Every thread must call it: it synchronises the
-// block, which also makes every shared-memory write before it visible.
-__device__ __forceinline__ float jw_block_sum(float v, float* scratch) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  if ((threadIdx.x & 31) == 0) scratch[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float s = 0.f;
-  if (threadIdx.x == 0)
-    for (int w = 0; w < (int)(blockDim.x >> 5); ++w) s += scratch[w];
-  __syncthreads();
-  return s;
+// dst[i] = x[(base + i) mod n] for i in [0, count): each thread issues
+// JW_LOAD_BATCH device loads before it stores any, so a block waits for
+// device memory once a batch, not once an element (a loop that stores
+// each load before the next waits for every one of them in turn).
+#define JW_LOAD_BATCH 8
+template <typename T>
+__device__ __forceinline__ void jw_load_window(const T* __restrict__ x,
+                                               long long base, int n,
+                                               float* dst, int count) {
+  for (int i0 = threadIdx.x; i0 < count; i0 += JW_LOAD_BATCH * blockDim.x) {
+    float t[JW_LOAD_BATCH];
+#pragma unroll
+    for (int u = 0; u < JW_LOAD_BATCH; ++u) {
+      const int i = i0 + u * (int)blockDim.x;
+      t[u] = i < count ? jw_load(x + jw_index(base + i, n)) : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < JW_LOAD_BATCH; ++u) {
+      const int i = i0 + u * (int)blockDim.x;
+      if (i < count) dst[i] = t[u];
+    }
+  }
 }
+
+// Sum over the warp in a fixed shuffle tree; valid in lane 0.
+__device__ __forceinline__ float jw_warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// One register chain of an à-trous pair level: outputs i0 + r d, r < R,
+// each v = sum_k g[k] par[i - k d] and w likewise with h, handed to
+// emit(i, v, w).  The R outputs share M - 1 of their M window reads, so
+// R + M - 1 shared loads serve them.  Each output is one fmaf chain over k
+// ascending from 0.f, the order of the unblocked loops, so every value is
+// bitwise the same as theirs.  D: the dilation when it is a compile-time
+// constant (each load then takes an immediate offset), 0 for d at run
+// time.  Only chains whose R outputs all lie below the level's end come
+// here, so no load or output needs a guard.
+template <int MT, int R, int D, typename Emit>
+__device__ __forceinline__ void jw_chain(const float* par, int i0, int d_run,
+                                         const JwTaps& taps, Emit& emit) {
+  const int d = D > 0 ? D : d_run;
+  const float* p = par + i0;
+  float v[R], w[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) v[r] = w[r] = 0.f;
+  // window reads from the top down: output r meets tap k = r - u in
+  // ascending order
+#pragma unroll
+  for (int u = R - 1; u > -MT; --u) {
+    const float t = p[u * d];
+#pragma unroll
+    for (int k = 0; k < MT; ++k) {
+      if (u + k >= 0 && u + k < R) {
+        v[u + k] = fmaf(taps.g[k], t, v[u + k]);
+        w[u + k] = fmaf(taps.h[k], t, w[u + k]);
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) emit(i0 + r * d, v[r], w[r]);
+}
+
+// The chains of one level at dilation d = 2^s (D as in jw_chain): chain c
+// starts at lo + (c >> s) R d + (c & (d - 1)), so with R odd the 32 lanes of
+// a warp (consecutive c) read 32 distinct banks at every dilation.  A
+// chain that crosses `end` (at most d a level) computes its outputs below
+// it one at a time, in the same fmaf order.
+template <int MT, int R, int D, typename Emit>
+__device__ __forceinline__ void jw_level_chains(const float* par, int lo,
+                                                int end, int s,
+                                                const JwTaps& taps,
+                                                Emit& emit) {
+  const int d = 1 << s;
+  const int chains = ((end - lo + R * d - 1) / (R * d)) << s;
+  for (int c = threadIdx.x; c < chains; c += blockDim.x) {
+    const int i0 = lo + (c >> s) * R * d + (c & (d - 1));
+    if (i0 + (R - 1) * d < end) {
+      jw_chain<MT, R, D>(par, i0, d, taps, emit);
+      continue;
+    }
+    for (int i = i0; i < end; i += d) {
+      float v = 0.f, w = 0.f;
+#pragma unroll
+      for (int k = 0; k < MT; ++k) {
+        const float t = par[i - k * d];
+        v = fmaf(taps.g[k], t, v);
+        w = fmaf(taps.h[k], t, w);
+      }
+      emit(i, v, w);
+    }
+  }
+}
+
+// One level of an à-trous pair cascade: every output window index i in
+// [lo, end) gets v = sum_k g[k] par[i - k d] and w = sum_k h[k] par[i - k d]
+// at d = 2^s, handed to emit(i, v, w).  MT: the filter length when it is a
+// compile-time constant (taps then come from the parameter bank, the loops
+// unroll and each thread computes register chains of R outputs, with the
+// dilation a compile-time constant for s <= 4); 0 for any other M (taps
+// from shared memory, one output at a time, in the same fmaf order).
+template <int MT, int R, typename Emit>
+__device__ __forceinline__ void jw_level_pair(const float* par, int lo,
+                                              int end, int s, int m,
+                                              const JwTaps& taps,
+                                              const float* sg,
+                                              const float* sh, Emit&& emit) {
+  if (end <= lo) return;
+  if constexpr (MT > 0) {
+    switch (s) {
+      case 0: return jw_level_chains<MT, R, 1>(par, lo, end, s, taps, emit);
+      case 1: return jw_level_chains<MT, R, 2>(par, lo, end, s, taps, emit);
+      case 2: return jw_level_chains<MT, R, 4>(par, lo, end, s, taps, emit);
+      case 3: return jw_level_chains<MT, R, 8>(par, lo, end, s, taps, emit);
+      case 4: return jw_level_chains<MT, R, 16>(par, lo, end, s, taps, emit);
+      default: return jw_level_chains<MT, R, 0>(par, lo, end, s, taps, emit);
+    }
+  } else {
+    const int d = 1 << s;
+    const int chains = ((end - lo + R * d - 1) / (R * d)) << s;
+    for (int c = threadIdx.x; c < chains; c += blockDim.x) {
+      const int i0 = lo + (c >> s) * R * d + (c & (d - 1));
+      for (int i = i0; i < i0 + R * d && i < end; i += d) {
+        float v = 0.f, w = 0.f;
+        for (int k = 0; k < m; ++k) {
+          const float t = par[i - k * d];
+          v = fmaf(sg[k], t, v);
+          w = fmaf(sh[k], t, w);
+        }
+        emit(i, v, w);
+      }
+    }
+  }
+}
+
+// The kernel instantiated for filter length m: M = 8, 2, 16 as template
+// constants, any other M at run time.
+#define JW_PICK_M(kernel, T, m)                              \
+  ((m) == 8 ? kernel<T, 8>                                   \
+            : (m) == 2 ? kernel<T, 2>                        \
+                       : (m) == 16 ? kernel<T, 16> : kernel<T, 0>)
 
 // Lift the 48 KB default cap on dynamic shared memory, launch, and report
 // a refused launch (too much shared memory, bad grid), which would

@@ -8,11 +8,12 @@
 //
 // What bounds them on the H100: the forward writes 2^L rows per sample it
 // reads (device-memory traffic, as the MODWT forward); the inverse mirrors
-// it; the select writes nothing per sample and is bound by the cascade's
-// shared-memory loads (2·M per node and sample).  Shared memory is the
-// design constraint: done breadth-first, as on the TPU, a block would keep
-// 3·2^(L-1) node rows, and Db4 L4 would no longer fit a block at any
-// useful tile.  So each block walks its tile's tree depth-first and keeps
+// it; the select writes nothing per sample, so the cascade and its
+// shared-memory accesses bound it, and at matching pursuit's sizes the
+// walk's latency (its design is described at the kernel).  Shared memory
+// is the design constraint: done breadth-first, as on the TPU, a block
+// would keep 3·2^(L-1) node rows, and Db4 L4 would no longer fit a block
+// at any useful tile.  So each block walks its tile's tree depth-first and keeps
 // only the rows of the current root-to-leaf path, the two children of each
 // level: 2L - 1 rows forward, 2L inverse.  Leaves go straight to device
 // memory (forward) or come straight from it (inverse), at their sequency
@@ -27,9 +28,10 @@
 // valid region of a level-j node starts at (M-1)(2^j - 1); the inverse one
 // ends (M-1)(2^L - 2^j) before the window's end.
 
-#include <climits>
-
 #include "common.cuh"
+
+#define JW_SELECT_R 5  // outputs in a register chain (odd: distinct banks)
+#define JW_WARPS (JW_THREADS / 32)
 
 // Both children of `par` at dilation d, over window indices [lo, width):
 // cg[i] = sum_k g[k] par[i - k d], ch likewise with h.
@@ -126,95 +128,28 @@ struct JwLeafStore {
   __device__ void end() {}
 };
 
-// Keep (a, v, p) or take (a2, v2, p2): the larger |w| wins, a tie goes to
-// the smaller position, so any reduction order picks the same element.
-__device__ __forceinline__ void jw_best_merge(float& a, float& v, int& p,
-                                              float a2, float v2, int p2) {
-  if (a2 > a || (a2 == a && p2 < p)) {
-    a = a2;
-    v = v2;
-    p = p2;
-  }
+// One candidate of the select's arg-max as a 64-bit key: the bits of |w|
+// (a non-negative float orders as its bits), then 0x7fffffff - position
+// (on equal |w| the smaller position wins), then the sign bit of w.  The
+// largest key is the first maximum of |w| whatever order the keys meet in,
+// and w comes back exactly.  0 is below every candidate.
+__device__ __forceinline__ unsigned long long jw_key(float w, int pos) {
+  return ((unsigned long long)__float_as_uint(fabsf(w)) << 32) |
+         ((unsigned)(0x7fffffff - pos) << 1) | (__float_as_uint(w) >> 31);
 }
 
-__device__ __forceinline__ void jw_warp_best(float& a, float& v, int& p) {
-  for (int o = 16; o > 0; o >>= 1) {
-    const float a2 = __shfl_down_sync(0xffffffffu, a, o);
-    const float v2 = __shfl_down_sync(0xffffffffu, v, o);
-    const int p2 = __shfl_down_sync(0xffffffffu, p, o);
-    jw_best_merge(a, v, p, a2, v2, p2);
-  }
+__device__ __forceinline__ unsigned long long jw_key_max(
+    unsigned long long a, unsigned long long b) {
+  return a > b ? a : b;
 }
 
-// Leaf sink of the select kernel: each thread keeps the best |w| of both
-// leaves over its positions (visited in increasing order, so a strict > keeps
-// the first of equal values); end() reduces them over the block and thread 0
-// writes the tile's (|w|, w, position) per leaf.
-struct JwLeafSelect {
-  float* absmax;
-  float* value;
-  int* pos;
-  size_t plane, off;  // B·tiles, row·tiles + tile
-  long long base;
-  int n;
-  float* scratch;  // 6 · JW_THREADS / 32 words
-  int seq[2];
-  float a[2], v[2];
-  int p[2];
-  __device__ void begin(int seq_g, int seq_h) {
-    seq[0] = seq_g;
-    seq[1] = seq_h;
-    for (int c = 0; c < 2; ++c) {
-      a[c] = -1.f;
-      v[c] = 0.f;
-      p[c] = INT_MAX;
-    }
-  }
-  __device__ void leaf(int i, float wg, float wh) {
-    const long long q = base + i;
-    if (q >= n) return;
-    const float ag = fabsf(wg), ah = fabsf(wh);
-    if (ag > a[0]) {
-      a[0] = ag;
-      v[0] = wg;
-      p[0] = (int)q;
-    }
-    if (ah > a[1]) {
-      a[1] = ah;
-      v[1] = wh;
-      p[1] = (int)q;
-    }
-  }
-  __device__ void end() {
-    constexpr int nw = JW_THREADS / 32;
-    float* sa = scratch;
-    float* sv = scratch + 2 * nw;
-    int* sp = (int*)(scratch + 4 * nw);
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    for (int c = 0; c < 2; ++c) {
-      jw_warp_best(a[c], v[c], p[c]);
-      if (lane == 0) {
-        sa[c * nw + warp] = a[c];
-        sv[c * nw + warp] = v[c];
-        sp[c * nw + warp] = p[c];
-      }
-    }
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      for (int c = 0; c < 2; ++c) {
-        float ba = sa[c * nw], bv = sv[c * nw];
-        int bp = sp[c * nw];
-        for (int w = 1; w < nw; ++w)
-          jw_best_merge(ba, bv, bp, sa[c * nw + w], sv[c * nw + w],
-                        sp[c * nw + w]);
-        const size_t o = (size_t)seq[c] * plane + off;
-        absmax[o] = ba;
-        value[o] = bv;
-        pos[o] = bp;
-      }
-    }
-  }
-};
+// The largest key over the warp, valid in lane 0.
+__device__ __forceinline__ unsigned long long jw_warp_max(
+    unsigned long long k) {
+  for (int o = 16; o > 0; o >>= 1)
+    k = jw_key_max(k, __shfl_down_sync(0xffffffffu, k, o));
+  return k;
+}
 
 // Block (row, tile): window x[row, (s - H + i) mod N], i in [0, T + H).
 template <typename T>
@@ -245,40 +180,142 @@ jw_modwpt_fwd_kernel(const T* __restrict__ x, T* __restrict__ out, int batch,
   jw_packet_forward(rows, width, level, m, halo, sg, sh, sink);
 }
 
-// Block (row, tile): the forward kernel's cascade; per leaf, the tile's best
-// (|w|, w, position) goes to [seq][row][tile] of the three partial arrays.
-template <typename T>
-__global__ void __launch_bounds__(JW_THREADS)
-jw_modwpt_select_kernel(const T* __restrict__ x, float* __restrict__ absmax,
-                        float* __restrict__ value, int* __restrict__ pos,
-                        int batch, int n, int level, int m, int tile,
-                        int halo, int ntiles, JwTaps taps) {
+// Select.  The forward kernel's depth-first walk, with each level's pair
+// of rows computed by jw_level_pair: register chains of JW_SELECT_R
+// outputs a thread, taps from the parameter bank where M is a template
+// constant.  Every node is the forward's fmaf chain (k ascending from 0.f,
+// v and w apart), so positions and values equal the arg-max over
+// jw_modwpt_fwd_kernel's output bit for bit.  Rows are computed only up to
+// the tile's last valid window index, `end`.
+//
+// Per leaf pair, each thread keeps the largest key (jw_key) of each leaf;
+// a shuffle stage reduces each warp, a second one (warps 0 and 1, one leaf
+// each) the 16 warps' slots, which alternate between two sets by q's
+// parity so the next path need not wait for them.  The tile's best key per
+// leaf goes to partial[seq][row][tile], and the row's last block to finish
+// (an atomic ticket after __threadfence, reset to 0 by that block) takes
+// the largest over the row's tiles and writes out[k][seq][row] (k: |w|,
+// position bits, w): one launch, as the TPU kernel's running max across
+// its sequential tile axis.
+//
+// Tile and threads: 512 threads and a 4096 tile, so (8, 65536) at Db4 L3
+// is 16 tiles, 128 blocks, one an SM, each level at most two chains a
+// thread.  The walk is latency-bound at that size: a tile of one chain a
+// thread (R·512 − H = 2511: 216 blocks, two on most SMs) fills more of
+// the card but ran slower on the H100, and a smaller tile also pays the
+// halo (49 at Db4 L3) more often.  The wrapper's plan (select_plan) cuts T
+// where the 2L - 1 rows would not fit.
+template <typename T, int MT>
+__global__ void __launch_bounds__(JW_THREADS, 2)
+jw_modwpt_select_kernel(const T* __restrict__ x,
+                        unsigned long long* __restrict__ partial,
+                        unsigned* __restrict__ ticket,
+                        float* __restrict__ out, int batch, int n, int level,
+                        int m_run, int tile, int ntiles, JwTaps taps) {
   extern __shared__ float smem[];
+  const int m = MT > 0 ? MT : m_run;
+  const int halo = (m - 1) * ((1 << level) - 1);
+  const int width = tile + halo;
   float* sg = smem;
   float* sh = smem + JW_MAX_TAPS;
-  float* scratch = smem + 2 * JW_MAX_TAPS;
-  float* rows = scratch + 6 * (JW_THREADS / 32);
-  const int width = tile + halo;
+  // key slots [set][leaf][warp]
+  unsigned long long* slots =
+      reinterpret_cast<unsigned long long*>(smem + 2 * JW_MAX_TAPS);
+  float* rows = smem + 2 * JW_MAX_TAPS + 8 * JW_WARPS;
+  auto row_of = [&](int j, int b) {
+    return j == 0 ? rows : rows + (size_t)(2 * j - 1 + b) * width;
+  };
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nodes = 1 << level;
+
   const int row = blockIdx.x / ntiles;
   const int tix = blockIdx.x - row * ntiles;
-  const long long base = (long long)tix * tile - halo;
+  const long long s = (long long)tix * tile;
+  const long long base = s - halo;
+  const long long rest = (long long)n - s;  // >= 1
+  const int end = halo + (rest < tile ? (int)rest : tile);
   const T* xr = x + (size_t)row * n;
+  const size_t plane = (size_t)batch * ntiles;  // partial (2^L, B, tiles)
 
-  jw_stage_taps(taps, sg, sh, m);
-  for (int i = threadIdx.x; i < width; i += blockDim.x)
-    rows[i] = jw_load(xr + jw_index(base + i, n));
+  if (MT == 0) jw_stage_taps(taps, sg, sh, m);
+  jw_load_window(xr, base, n, rows, end);
   __syncthreads();
 
-  JwLeafSelect sink;
-  sink.absmax = absmax;
-  sink.value = value;
-  sink.pos = pos;
-  sink.plane = (size_t)batch * ntiles;
-  sink.off = (size_t)row * ntiles + tix;
-  sink.base = base;
-  sink.n = n;
-  sink.scratch = scratch;
-  jw_packet_forward(rows, width, level, m, halo, sg, sh, sink);
+  for (int q = 0; q < (1 << (level - 1)); ++q) {
+    // the levels below the branch that changed from q - 1
+    const int j0 = q == 0 ? 0 : level - __ffs(q);
+    int lo = (m - 1) * ((1 << j0) - 1);
+    for (int j = j0 + 1; j < level; ++j) {
+      lo += (m - 1) << (j - 1);
+      const int bp = j == 1 ? 0 : (q >> (level - j)) & 1;
+      float* cg = row_of(j, 0);
+      float* ch = row_of(j, 1);
+      jw_level_pair<MT, JW_SELECT_R>(row_of(j - 1, bp), lo, end, j - 1, m,
+                                     taps, sg, sh,
+                                     [&](int i, float v, float w) {
+                                       cg[i] = v;
+                                       ch[i] = w;
+                                     });
+      __syncthreads();
+    }
+    // the leaf pair: each thread's largest key of both leaves
+    unsigned long long kg = 0, kh = 0;
+    jw_level_pair<MT, JW_SELECT_R>(
+        row_of(level - 1, level == 1 ? 0 : q & 1), halo, end, level - 1, m,
+        taps, sg, sh, [&](int i, float wg, float wh) {
+          const int pos = (int)(base + i);
+          kg = jw_key_max(kg, jw_key(wg, pos));
+          kh = jw_key_max(kh, jw_key(wh, pos));
+        });
+    kg = jw_warp_max(kg);
+    kh = jw_warp_max(kh);
+    unsigned long long* set = slots + (q & 1) * 2 * JW_WARPS;
+    if (lane == 0) {
+      set[warp] = kg;
+      set[JW_WARPS + warp] = kh;
+    }
+    // also: every read of this path's rows is done
+    __syncthreads();
+    if (warp < 2) {  // warp c merges leaf c's 16 slots
+      unsigned long long k =
+          jw_warp_max(lane < JW_WARPS ? set[warp * JW_WARPS + lane] : 0ull);
+      if (lane == 0) {
+        const int ps = jw_path_seq(q, level);
+        const int seq = warp == 0 ? 2 * ps + (ps & 1) : 2 * ps + 1 - (ps & 1);
+        partial[(size_t)seq * plane + (size_t)row * ntiles + tix] = k;
+      }
+    }
+  }
+  // the tile's keys visible to the row's last block before the ticket
+  if (warp < 2 && lane == 0) __threadfence();
+  __syncthreads();
+  // the slots are free now and hold the flag (no static shared memory, so
+  // the plan may give the rows all of the 227 KB)
+  int* last_block = reinterpret_cast<int*>(slots);
+  if (threadIdx.x == 0)
+    *last_block = atomicAdd(ticket + row, 1u) == (unsigned)(ntiles - 1);
+  __syncthreads();
+  if (!*last_block) return;
+
+  // the row's last block: each warp takes one leaf's largest key
+  __threadfence();
+  const size_t oplane = (size_t)batch * nodes;  // out (3, 2^L, B)
+  for (int leaf = warp; leaf < nodes; leaf += JW_WARPS) {
+    const unsigned long long* p =
+        partial + (size_t)leaf * plane + (size_t)row * ntiles;
+    unsigned long long k = 0;
+    for (int t = lane; t < ntiles; t += 32) k = jw_key_max(k, __ldcg(p + t));
+    k = jw_warp_max(k);
+    if (lane == 0) {
+      const size_t o = (size_t)leaf * batch + row;
+      const float a = __uint_as_float((unsigned)(k >> 32));
+      out[o] = a;
+      reinterpret_cast<int*>(out)[oplane + o] =
+          0x7fffffff - (int)((unsigned)k >> 1);
+      out[2 * oplane + o] = (k & 1) ? -a : a;
+    }
+  }
+  if (threadIdx.x == 0) ticket[row] = 0u;
 }
 
 // One adjoint level: parent[i] = sum_k g[k] cg[i + k d] + h[k] ch[i + k d].
@@ -375,26 +412,34 @@ int jw_modwpt_fwd(const void* x, void* out, int batch, int n, int level,
                    halo, ntiles, taps);
 }
 
-// x (B, N) of `dtype` -> absmax, value (float32) and pos (int32), each
-// (2^L, B, ceil(N / tile)): per leaf and tile, the best |w| and its w and
-// signal position.
-int jw_modwpt_select(const void* x, float* absmax, float* value, int* pos,
-                     int batch, int n, int level, const float* g,
-                     const float* h, int m, int tile, int halo, int smem,
-                     int dtype, int device, void* stream) {
+// x (B, N) of `dtype` -> out (3, 2^L, B) float32: per leaf (sequency
+// order) and row the largest |w|, its first position (int32 bits) and w.
+// partial: (2^L, B, ceil(N / tile)) 64-bit scratch; ticket: B unsigned
+// ints, all zero (and zero again when the launch ends).  smem: the bytes of
+// the wrapper's plan (select_plan).
+int jw_modwpt_select(const void* x, unsigned long long* partial,
+                     unsigned* ticket,
+                     float* out, int batch, int n, int level, const float* g,
+                     const float* h, int m, int tile, int smem, int dtype,
+                     int device, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
+  const int halo = (m - 1) * ((1 << level) - 1);
+  if (tile < 1 || level < 1 ||
+      smem != (int)sizeof(float) * (2 * JW_MAX_TAPS + 8 * JW_WARPS +
+                                    (2 * level - 1) * (tile + halo)))
+    return (int)cudaErrorInvalidValue;
   const JwTaps taps = jw_make_taps(g, h, m);
   const int ntiles = (n + tile - 1) / tile;
   const long long blocks = (long long)ntiles * batch;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == JW_BF16)
-    return jw_launch(jw_modwpt_select_kernel<__nv_bfloat16>, blocks, smem, st,
-                     (const __nv_bfloat16*)x, absmax, value, pos, batch, n,
-                     level, m, tile, halo, ntiles, taps);
-  return jw_launch(jw_modwpt_select_kernel<float>, blocks, smem, st,
-                   (const float*)x, absmax, value, pos, batch, n, level, m,
-                   tile, halo, ntiles, taps);
+    return jw_launch(JW_PICK_M(jw_modwpt_select_kernel, __nv_bfloat16, m),
+                     blocks, smem, st, (const __nv_bfloat16*)x, partial,
+                     ticket, out, batch, n, level, m, tile, ntiles, taps);
+  return jw_launch(JW_PICK_M(jw_modwpt_select_kernel, float, m), blocks, smem,
+                   st, (const float*)x, partial, ticket, out, batch, n, level,
+                   m, tile, ntiles, taps);
 }
 
 // c (2^L, B, N) -> out (B, N), both of `dtype`, contiguous, on `device`.

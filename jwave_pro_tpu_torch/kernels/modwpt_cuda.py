@@ -7,10 +7,15 @@ Replaces ``jwave_pro_tpu/kernels/modwpt_pallas.py``:
 * ``jw_modwpt_select_kernel`` ← ``_select_kernel`` (``:264``): the same
   cascade with a per-node arg-max of |w| in place of the stores —
   ``(absmax, shift, value)``, each ``(2^L, B)``; the ``(2^L, B, N)`` block is
-  never written.  Each block writes its tile's best per node; the wrapper
-  takes the first maximum over the tiles, and a block keeps the smallest
-  position among equal values, so together they give the arg-max over the
-  whole coefficient row (its first maximum).
+  never written.  Each block writes its tile's best per node, and the
+  row's last block to finish (an atomic ticket, :func:`tickets`) merges the
+  tiles inside the same launch, as the TPU kernel kept a running max across
+  its sequential tile axis.  Every merge takes the larger |w|, then the
+  smaller position, so the result is the arg-max over the whole
+  coefficient row (its first maximum) whatever order the blocks ran in.
+  It computes each node with the forward kernel's arithmetic, in register
+  chains of ``modwt_cuda.CHAIN['select']`` outputs a thread
+  (:func:`select_plan`).
 * ``jw_modwpt_inv_kernel`` ← ``_inverse_kernel`` (``:468``): the adjoint.
 
 Each block walks its tile's tree depth-first, so its shared memory grows
@@ -38,15 +43,16 @@ from ..ops.modwt import _check_level, modwt_base_filters
 from ..wavelets.base import DiscreteWavelet
 from . import _build
 from .modwt_cuda import (
-    _I, _P, DTYPE_CODES, TILES, _compute_dtype, check_grid, check_operand,
-    halo, kernel_supported, kernel_taps, smem_bytes,
+    _I, _P, DTYPE_CODES, TILES, TilePlan, _compute_dtype, check_grid,
+    check_operand, halo, kernel_supported, kernel_taps, smem_bytes, tickets,
+    tile_plan,
 )
 
 __all__ = [
     "modwpt_fused", "imodwpt_fused", "modwpt_select_fused",
     "select_fused_supported", "modwpt_fwd_cuda", "modwpt_inv_cuda",
     "modwpt_select_cuda", "modwpt_fwd_plain", "modwpt_inv_plain",
-    "modwpt_select_plain",
+    "modwpt_select_plain", "select_plan",
 ]
 
 
@@ -100,7 +106,7 @@ def _lib():
         fn.argtypes = [_P, _P, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P]
         fn.restype = _I
     lib.jw_modwpt_select.argtypes = [_P, _P, _P, _P, _I, _I, _I, _P, _P, _I,
-                                     _I, _I, _I, _I, _I, _P]
+                                     _I, _I, _I, _I, _P]
     lib.jw_modwpt_select.restype = _I
     return lib
 
@@ -163,32 +169,37 @@ def modwpt_inv_cuda(c: torch.Tensor, wavelet: DiscreteWavelet
 modwpt_inv_cuda.launches = 0
 
 
+def select_plan(batch: int, n: int, level: int, m: int) -> TilePlan:
+    """The select kernel's launch (:func:`kernels.modwt_cuda.tile_plan`)."""
+    return tile_plan("select", batch, n, level, m)
+
+
 def modwpt_select_cuda(x: torch.Tensor, wavelet: DiscreteWavelet,
                        level: int):
     """Launch the select kernel: x (B, N) → ``(absmax, shift, value)``,
-    each (2^level, B): float32, int32, float32."""
+    each (2^level, B): float32, int32, float32.  One launch and nothing
+    else on the stream."""
     check_operand(x, "x", 2)
     b, n = x.shape
     m = wavelet.length
-    _require(n, level, wavelet, "select", x.shape, "MODWPT select")
-    check_grid(b, n, "select")
-    shape = (1 << level, b, -(-n // TILES["select"]))
-    absmax = torch.empty(shape, dtype=torch.float32, device=x.device)
-    value = torch.empty_like(absmax)
-    pos = torch.empty(shape, dtype=torch.int32, device=x.device)
+    plan = select_plan(b, n, level, m)
+    nodes = 1 << level
+    # each tile's best per leaf as a 64-bit key; the rows' (|w|, position
+    # bits, w)
+    partial = torch.empty((nodes, b, plan.ntiles), dtype=torch.int64,
+                          device=x.device)
+    out = torch.empty((3, nodes, b), dtype=torch.float32, device=x.device)
     g, h = kernel_taps(wavelet)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
     lib = _lib()
     code = lib.jw_modwpt_select(
-        x.data_ptr(), absmax.data_ptr(), value.data_ptr(), pos.data_ptr(), b,
-        n, level, g.ctypes.data, h.ctypes.data, m, TILES["select"],
-        halo(m, level), smem_bytes(level, m, "select"), DTYPE_CODES[x.dtype],
-        x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
+        x.data_ptr(), partial.data_ptr(), tickets(x.device, stream, b),
+        out.data_ptr(), b, n, level, g.ctypes.data, h.ctypes.data, m,
+        plan.tile, plan.smem, DTYPE_CODES[x.dtype], x.device.index, stream)
     _build.check(lib, code, "MODWPT select kernel")
     modwpt_select_cuda.launches += 1
-    # first maximum over the tiles, which lie in position order
-    best = torch.argmax(absmax, dim=-1, keepdim=True)
-    return tuple(torch.gather(t, -1, best)[..., 0]
-                 for t in (absmax, pos, value))
+    absmax, shift, value = out.unbind(0)
+    return absmax, shift.view(torch.int32), value
 
 
 modwpt_select_cuda.launches = 0

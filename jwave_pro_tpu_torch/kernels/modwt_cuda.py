@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -48,9 +49,13 @@ MAX_TAPS = 64                 # JW_MAX_TAPS in csrc/common.cuh
 WARPS = 512 // 32             # JW_THREADS / 32 in csrc/common.cuh
 SMEM_LIMIT = 232_448          # shared memory one H100 block may use (227 KB)
 # outputs per block; the packet kernels ('pfwd', 'select', 'pinv') keep
-# 2L - 1 or 2L window rows, hence the smaller tile
+# 2L - 1 or 2L window rows, hence the smaller tile of two (the select's is
+# cut where its rows do not fit: :func:`tile_of`)
 TILES = {"fwd": 4096, "inv": 4096, "denoise": 2048, "var": 4096,
-         "pfwd": 2048, "select": 2048, "pinv": 2048}
+         "pfwd": 2048, "select": 4096, "pinv": 2048}
+# outputs in one thread's register chain: JW_VAR_R (csrc/variance.cu) and
+# JW_SELECT_R (csrc/modwpt.cu); odd, so a warp's loads hit 32 banks
+CHAIN = {"var": 9, "select": 5}
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}   # JwDtype
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -61,19 +66,30 @@ def halo(m: int, level: int) -> int:
     return (m - 1) * ((1 << level) - 1)
 
 
+def tile_of(kind: str, level: int, m: int) -> int:
+    """Outputs per block of kernel ``kind``: ``TILES[kind]``, the select's
+    cut to what its 2L − 1 rows leave of the shared-memory budget (below 1
+    where even the halo does not fit)."""
+    if kind != "select":
+        return TILES[kind]
+    fit = ((SMEM_LIMIT // 4 - 2 * MAX_TAPS - 8 * WARPS) // (2 * level - 1)
+           - halo(m, level))
+    return min(TILES[kind], fit)
+
+
 def smem_bytes(level: int, m: int, kind: str) -> int:
     """Dynamic shared memory of one block: the taps plus the window rows
-    (two V buffers for 'fwd' and 'var', which adds its warp sums; two V and
-    one W for 'inv'; two V and L W rows over a two-sided window for
-    'denoise'; the depth-first packet path's 2L − 1 rows for 'pfwd' and
-    'select', which adds (|w|, w, position) of two leaves per warp; 2L rows
-    for 'pinv')."""
-    h, t = halo(m, level), TILES[kind]
+    (two V buffers for 'fwd'; for 'var' the same, with one warp sum a warp
+    and level; two V and one W for 'inv'; two V and L W rows over a
+    two-sided window for 'denoise'; the depth-first packet path's 2L − 1
+    rows for 'pfwd' and 'select', which adds two sets of two leaves' 64-bit
+    arg-max keys per warp; 2L rows for 'pinv')."""
+    h, t = halo(m, level), tile_of(kind, level, m)
     rows = {"fwd": 2 * (t + h), "inv": 3 * (t + h),
             "denoise": (level + 2) * (t + 2 * h),
-            "var": 2 * (t + h) + WARPS,
+            "var": 2 * (t + h) + WARPS * (level + 1),
             "pfwd": (2 * level - 1) * (t + h),
-            "select": (2 * level - 1) * (t + h) + 6 * WARPS,
+            "select": (2 * level - 1) * (t + h) + 8 * WARPS,
             "pinv": 2 * level * (t + h)}[kind]
     return 4 * (2 * MAX_TAPS + rows)
 
@@ -89,6 +105,7 @@ def kernel_supported(n: int, level: int, m: int, kind: str) -> bool:
     halo does not fit).
     """
     return (1 <= n < 2 ** 31 and level >= 1 and 1 <= m <= MAX_TAPS
+            and tile_of(kind, level, m) >= 1
             and smem_bytes(level, m, kind) <= SMEM_LIMIT)
 
 
@@ -161,9 +178,57 @@ def check_operand(t: torch.Tensor, name: str, ndim: int) -> None:
         raise ValueError(f"{name}: kernel needs a contiguous tensor")
 
 
-def check_grid(batch: int, n: int, kind: str) -> None:
-    if -(-n // TILES[kind]) * batch >= 2 ** 31:
+def check_grid(batch: int, n: int, kind: str, tile: int | None = None
+               ) -> None:
+    if -(-n // (tile or TILES[kind])) * batch >= 2 ** 31:
         raise ValueError(f"{batch}×{n} exceeds the kernel grid")
+
+
+class TilePlan(NamedTuple):
+    """Launch geometry of a kernel that finishes its reduction over a row's
+    tiles inside the launch ('var', 'select'): ``tile`` outputs a block,
+    ``ntiles`` tiles a row, ``grid`` blocks (B × ntiles), ``smem`` bytes of
+    shared memory a block, ``chain`` outputs in a thread's register chain."""
+    tile: int
+    ntiles: int
+    grid: int
+    smem: int
+    chain: int
+
+
+@functools.lru_cache(maxsize=256)
+def tile_plan(kind: str, batch: int, n: int, level: int, m: int
+              ) -> TilePlan:
+    """Kernel ``kind``'s launch for (B, N) at this level and filter length
+    (:func:`tile_of`); raises where :func:`kernel_supported` rejects the
+    shape."""
+    if not kernel_supported(n, level, m, kind):
+        raise ValueError(f"unsupported shape ({batch}, {n}) level {level} "
+                         f"for the '{kind}' kernel")
+    tile = tile_of(kind, level, m)
+    check_grid(batch, n, kind, tile)
+    ntiles = -(-n // tile)
+    return TilePlan(tile, ntiles, batch * ntiles, smem_bytes(level, m, kind),
+                    CHAIN[kind])
+
+
+_TICKETS: dict = {}
+
+
+def tickets(device: torch.device, stream: int, rows: int) -> int:
+    """Address of the per-row ticket counters of the kernels that finish
+    their cross-tile reduction inside the launch ('var', 'select'): int32
+    zeros, one buffer per (device, stream), at least ``rows`` long.  The
+    row's last block resets its ticket, so the buffer is zero between
+    launches; launches on one stream run in order, and two streams never
+    share a buffer.  ``stream``: the CUDA stream handle the kernel runs on
+    (the current stream's ``cuda_stream``)."""
+    key = (device.index, stream)
+    buf = _TICKETS.get(key)
+    if buf is None or buf.numel() < rows:
+        buf = torch.zeros(max(rows, 256), dtype=torch.int32, device=device)
+        _TICKETS[key] = buf
+    return buf.data_ptr()
 
 
 def modwt_fwd_cuda(x: torch.Tensor, wavelet: DiscreteWavelet,

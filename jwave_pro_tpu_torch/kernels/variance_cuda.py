@@ -2,15 +2,19 @@
 
 Replaces ``jwave_pro_tpu/kernels/variance_pallas.py`` ``_var_kernel``
 (``:80``): the forward cascade with each level's Σw² in place of the
-stores, so the coefficients never reach device memory.  Each block writes
-its tile's sums to a small ``(level+1, B, tiles)`` buffer; the wrapper adds
-the tiles up with torch (no atomics, so the statistic does not depend on
-the order the blocks ran in), as the JAX code finishes its 128-lane
-partials outside the kernel.
+stores, so the coefficients never reach device memory.  The sum over a
+row's tiles is finished inside the one launch, as the TPU kernel
+accumulated across its sequential grid axis: the row's last block to
+finish (an atomic ticket) adds the tiles' sums in tile order and writes
+the ``(level+1, B)`` means, so the result does not depend on the order the
+blocks ran in.  The tickets live in one small buffer per (device, stream)
+(:func:`kernels.modwt_cuda.tickets`), zero between launches.
 
 What bounds it on the H100: one read per sample and no stores, so the
-cascade's shared-memory loads (2·M per sample and level) rather than
-device memory.  Any N runs: positions past N never count.
+cascade (2M FMAs per sample and level) and the shared-memory accesses that
+feed it: the kernel takes the taps from the parameter bank and computes
+register chains of ``modwt_cuda.CHAIN['var']`` outputs a thread
+(:func:`var_plan`).  Any N runs: positions past N never count.
 
 Beside the kernel: its plain PyTorch version (:func:`modwt_var_plain`) and
 its launch counter (``modwt_var_cuda.launches``).  The result is float32
@@ -26,11 +30,12 @@ from ..ops.modwt import _check_level
 from ..wavelets.base import DiscreteWavelet
 from . import _build
 from .modwt_cuda import (
-    _I, _P, DTYPE_CODES, TILES, _compute_dtype, check_grid, check_operand,
-    halo, kernel_supported, kernel_taps, modwt_fwd_plain, smem_bytes,
+    _I, _P, DTYPE_CODES, TilePlan, _compute_dtype, check_operand,
+    kernel_supported, kernel_taps, modwt_fwd_plain, tickets, tile_plan,
 )
 
-__all__ = ["modwt_var_fused", "modwt_var_cuda", "modwt_var_plain"]
+__all__ = ["modwt_var_fused", "modwt_var_cuda", "modwt_var_plain",
+           "var_plan"]
 
 
 def modwt_var_plain(x: torch.Tensor, wavelet: DiscreteWavelet,
@@ -42,38 +47,41 @@ def modwt_var_plain(x: torch.Tensor, wavelet: DiscreteWavelet,
     return torch.mean(c * c, dim=-1)
 
 
+def var_plan(batch: int, n: int, level: int, m: int) -> TilePlan:
+    """The variance kernel's launch (:func:`kernels.modwt_cuda.tile_plan`)."""
+    return tile_plan("var", batch, n, level, m)
+
+
 @functools.cache
 def _lib():
     lib = _build.library()
-    lib.jw_modwt_var.argtypes = [_P, _P, _I, _I, _I, _P, _P, _I, _I, _I, _I,
-                                 _I, _I, _P]
+    lib.jw_modwt_var.argtypes = [_P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _I,
+                                 _I, _I, _I, _P]
     lib.jw_modwt_var.restype = _I
     return lib
 
 
 def modwt_var_cuda(x: torch.Tensor, wavelet: DiscreteWavelet,
                    level: int) -> torch.Tensor:
-    """Launch the variance kernel: x (B, N) → (level+1, B) float32."""
+    """Launch the variance kernel: x (B, N) → (level+1, B) float32.  One
+    launch and nothing else on the stream."""
     check_operand(x, "x", 2)
     b, n = x.shape
     m = wavelet.length
-    if not kernel_supported(n, level, m, "var"):
-        raise ValueError(f"unsupported shape {tuple(x.shape)} level {level} "
-                         f"for the fused variance kernel")
-    check_grid(b, n, "var")
-    tile = TILES["var"]
-    partial = torch.empty((level + 1, b, -(-n // tile)), dtype=torch.float32,
+    plan = var_plan(b, n, level, m)
+    partial = torch.empty((level + 1, b, plan.ntiles), dtype=torch.float32,
                           device=x.device)
+    out = torch.empty((level + 1, b), dtype=torch.float32, device=x.device)
     g, h = kernel_taps(wavelet)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
     lib = _lib()
     code = lib.jw_modwt_var(
-        x.data_ptr(), partial.data_ptr(), b, n, level, g.ctypes.data,
-        h.ctypes.data, m, tile, halo(m, level), smem_bytes(level, m, "var"),
-        DTYPE_CODES[x.dtype], x.device.index,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        x.data_ptr(), partial.data_ptr(), tickets(x.device, stream, b),
+        out.data_ptr(), b, n, level, g.ctypes.data, h.ctypes.data, m,
+        plan.tile, plan.smem, DTYPE_CODES[x.dtype], x.device.index, stream)
     _build.check(lib, code, "fused variance kernel")
     modwt_var_cuda.launches += 1
-    return partial.sum(dim=-1) / n
+    return out
 
 
 modwt_var_cuda.launches = 0

@@ -242,3 +242,43 @@ def test_validation_matches_jax():
             case(jt, wt, _t(x))
         assert str(port_err.value).split()[:3] == \
             str(jax_err.value).split()[:3]
+
+
+# -- the variance kernel's launch plan (the CUDA kernel runs on the card
+# only; its geometry is plain Python, pinned here) ---------------------------
+
+@pytest.mark.parametrize("name", ["Haar", "Daubechies 4", "Symlet 8"])
+def test_var_plan_fits_every_admitted_level(name):
+    from jwave_pro_tpu_torch.kernels import modwt_cuda as kc
+    m = jt.wavelet(name).length
+    levels = [lv for lv in range(1, 20)
+              if kc.kernel_supported(1 << 20, lv, m, "var")]
+    assert levels == list(range(1, levels[-1] + 1))
+    for lv in levels:
+        h = kc.halo(m, lv)
+        for n in (1, 16, 4095, 4096, 4097, 100003, 1 << 20):
+            plan = kv.var_plan(2, n, lv, m)
+            assert plan.smem <= kc.SMEM_LIMIT
+            # the C entry point's shared-memory layout
+            assert plan.smem == 4 * (128 + 16 * (lv + 1)
+                                     + 2 * (plan.tile + h))
+            assert plan.ntiles * plan.tile >= n > (plan.ntiles - 1) * plan.tile
+            assert plan.grid == 2 * plan.ntiles and plan.chain == 9
+    with pytest.raises(ValueError, match="unsupported shape"):
+        kv.var_plan(1, 1 << 20, levels[-1] + 1, m)
+
+
+def test_var_plan_edges_and_main_shape():
+    from jwave_pro_tpu_torch.kernels import modwt_cuda as kc
+    # Db4 L11 the last level that fits (the gate must not narrow)
+    assert kc.kernel_supported(1 << 20, 11, 8, "var")
+    assert not kc.kernel_supported(1 << 20, 12, 8, "var")
+    # (32, 2^20) Db4 L5: 256 tiles a row, 8192 blocks; each level takes
+    # fewer than 512 chains of 9 outputs (one pass of the block's threads)
+    plan = kv.var_plan(32, 1 << 20, 5, 8)
+    assert plan == (4096, 256, 8192, 35400, 9)
+    lo = 0
+    for j in range(1, 6):
+        lo += 7 << (j - 1)
+        d = 1 << (j - 1)
+        assert -(-(4096 + 217 - lo) // (9 * d)) * d <= 512

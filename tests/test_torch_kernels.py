@@ -205,6 +205,69 @@ def test_select_matches_argmax_and_plain(dev, batch, n, level, name, dtype):
     torch.testing.assert_close(at_t.abs(), pa, rtol=0, atol=1e-5)
 
 
+# each specialised filter length and the runtime-M one (Db2), N off the
+# tile, the gate edges, and rows whose last block is not the grid's last
+EDGE_SHAPES = [
+    (2, 3000, 5, "Haar"),
+    (2, 5000, 3, "Symlet 8"),
+    (3, 100003, 3, "Daubechies 2"),
+    (300, 5000, 3, "Daubechies 4"),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch,n,level,name", EDGE_SHAPES + [
+    (2, 100003, 11, "Daubechies 4")])
+def test_variance_edges_bitwise_repeatable(dev, batch, n, level, name,
+                                           dtype):
+    w = jt.wavelet(name)
+    x = _signal(dev, batch, n, seed=12, dtype=dtype)
+    got = kv.modwt_var_cuda(x, w, level)
+    torch.testing.assert_close(got, kv.modwt_var_plain(x, w, level),
+                               rtol=1e-4, atol=0)
+    # the tiles are added in tile order inside the launch, whatever order
+    # the blocks ran in
+    assert torch.equal(got, kv.modwt_var_cuda(x, w, level))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch,n,level,name", EDGE_SHAPES + [
+    (2, 100003, 8, "Daubechies 4")])
+def test_select_edges_bitwise_repeatable(dev, batch, n, level, name, dtype):
+    w = jt.wavelet(name)
+    x = _signal(dev, batch, n, seed=13, dtype=dtype)
+    a, t, v = kp.modwpt_select_cuda(x, w, level)
+    c = kp.modwpt_fwd_cuda(x.float(), w, level)
+    want_t = torch.argmax(c.abs(), dim=-1)
+    assert torch.equal(t.long(), want_t)
+    assert torch.equal(v, torch.gather(c, -1, want_t[..., None])[..., 0])
+    assert torch.equal(a, v.abs())
+    for got, again in zip((a, t, v), kp.modwpt_select_cuda(x, w, level)):
+        assert torch.equal(got, again)
+
+
+def test_in_launch_finish_on_two_streams(dev):
+    """Each stream has its own ticket counters: launches on two streams at
+    once give what each gives alone."""
+    w = DB4
+    xs = [_signal(dev, 16, 70001, seed=14 + i) for i in range(2)]
+    want = [(kv.modwt_var_cuda(x, w, 5), kp.modwpt_select_cuda(x, w, 3))
+            for x in xs]
+    streams = [torch.cuda.Stream() for _ in xs]
+    got = []
+    torch.cuda.synchronize()
+    for _ in range(4):
+        for x, st in zip(xs, streams):
+            with torch.cuda.stream(st):
+                got.append((kv.modwt_var_cuda(x, w, 5),
+                            kp.modwpt_select_cuda(x, w, 3)))
+    torch.cuda.synchronize()
+    for i, (var, sel) in enumerate(got):
+        wv, ws = want[i % 2]
+        assert torch.equal(var, wv)
+        assert all(torch.equal(p, q) for p, q in zip(sel, ws))
+
+
 def test_slice_public_path_launches_each_kernel(dev):
     w = DB4
     x = _signal(dev, 4, 8192, seed=8)

@@ -282,3 +282,95 @@ def test_gradcheck_autograd_pair_f64(shape):
     c = torch.randn((4,) + shape, dtype=torch.float64, generator=gen,
                     requires_grad=True)
     assert torch.autograd.gradcheck(lambda v: kp.imodwpt_fused(v, w), (c,))
+
+
+# -- the select kernel's launch plan and register chains (the CUDA kernel
+# runs on the card only; its geometry is plain Python, pinned here) --------
+
+CHAIN_WAVELETS = ["Haar", "Daubechies 4", "Symlet 8"]
+
+
+def _chain_starts(lo, end, s, r):
+    """Window index of every output of one level, as ``jw_level_pair``
+    (csrc/common.cuh) maps chains c to outputs: [chain][r] (-1 past end)."""
+    d = 1 << s
+    chains = -(-(end - lo) // (r * d)) * d
+    c = np.arange(chains)[:, None]
+    i = lo + (c >> s) * r * d + (c & (d - 1)) + np.arange(r)[None] * d
+    return np.where(i < end, i, -1)
+
+
+@pytest.mark.parametrize("kind", ["var", "select"])
+@pytest.mark.parametrize("s", range(0, 8))
+def test_register_chains_cover_each_output_once_on_distinct_banks(kind, s):
+    r = kc.CHAIN[kind]
+    assert r % 2 == 1
+    for lo, end in ((7, 2560), (0, 1), (217, 4313), (49, 100)):
+        idx = _chain_starts(lo, end, s, r)
+        got = np.sort(idx[idx >= 0])
+        np.testing.assert_array_equal(got, np.arange(lo, end))
+        # every warp's 32 lanes read 32 distinct banks at every load step
+        full = -(-idx.shape[0] // 32) * 32
+        first = lo + (np.arange(full)[:, None] >> s) * r * (1 << s) \
+            + (np.arange(full)[:, None] & ((1 << s) - 1))
+        for u in range(-7, r):
+            banks = (first[:, 0] + u * (1 << s)) % 32
+            assert all(len(set(banks[w:w + 32])) == 32
+                       for w in range(0, full, 32))
+
+
+@pytest.mark.parametrize("name", CHAIN_WAVELETS)
+def test_select_plan_fits_every_admitted_level(name):
+    m = jt.wavelet(name).length
+    levels = [lv for lv in range(1, 16)
+              if kp.select_fused_supported(1, 1 << 16, lv, m)]
+    assert levels == list(range(1, levels[-1] + 1))
+    for lv in levels:
+        h = kc.halo(m, lv)
+        for n in (1, 16, 2072, 2073, 4096, 4097, 65536, 100003):
+            plan = kp.select_plan(3, n, lv, m)
+            assert plan.smem <= kc.SMEM_LIMIT
+            # the C entry point's shared-memory layout
+            assert plan.smem == 4 * (128 + 8 * 16
+                                     + (2 * lv - 1) * (plan.tile + h))
+            # the tiles cover N exactly once
+            assert plan.ntiles * plan.tile >= n > (plan.ntiles - 1) * plan.tile
+            assert plan.grid == 3 * plan.ntiles and plan.chain == 5
+    with pytest.raises(ValueError, match="unsupported shape"):
+        kp.select_plan(1, 1 << 16, levels[-1] + 1, m)
+
+
+def test_select_plan_edges_and_main_shape():
+    # Db4: L8 the last level that fits (the gate must not narrow)
+    assert kp.select_fused_supported(8, 65536, 8, 8)
+    assert not kp.select_fused_supported(8, 65536, 9, 8)
+    # a 4096 tile: (8, 65536) Db4 L3 is 16 tiles, 128 blocks, one an SM;
+    # each level takes at most two chains a thread
+    plan = kp.select_plan(8, 65536, 3, 8)
+    assert plan == (4096, 16, 128, 83924, 5)
+    lo = 0
+    for j in range(1, 4):
+        lo += 7 << (j - 1)
+        assert _chain_starts(lo, 4096 + 49, j - 1, 5).shape[0] <= 2 * 512
+    # cut where the 2L − 1 rows would not fit (Db4 L8: 15 rows)
+    assert kc.tile_of("select", 8, 8) == 2072
+    assert kp.select_plan(1, 1 << 16, 8, 8).smem <= kc.SMEM_LIMIT \
+        < 4 * (128 + 128 + 15 * (2073 + 1785))
+    # the tile cut to fit reaches further than a fixed 2048 tile would
+    assert kp.select_fused_supported(1, 1 << 16, 11, 2)
+    assert kp.select_fused_supported(1, 1 << 16, 8, 16)
+
+
+def test_var_and_select_kernels_declare_no_static_shared_memory():
+    """The plans may give a block's dynamic shared memory nearly all of
+    ``SMEM_LIMIT`` (Db4 L8's select plan takes 232,444 of 232,448 bytes);
+    the card refuses that launch if the kernel also declares static shared
+    memory, so both kernels keep every shared word in the dynamic array."""
+    from pathlib import Path
+    csrc = Path(kc.__file__).resolve().parent.parent / "csrc"
+    assert kp.select_plan(1, 1 << 16, 8, 8).smem > kc.SMEM_LIMIT - 16
+    for name in ("variance.cu", "modwpt.cu"):
+        lines = [ln.strip() for ln in (csrc / name).read_text().splitlines()
+                 if "__shared__" in ln and not ln.lstrip().startswith("//")]
+        assert lines and all(ln == "extern __shared__ float smem[];"
+                             for ln in lines), (name, lines)
