@@ -7,18 +7,18 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
 It builds the CUDA kernels from ``jwave_pro_tpu_torch/csrc`` with nvcc
 (and requires the assembler to report no stack frame and no spills for
-the register-resident CWT kernel and the marching 3D and 2D kernels),
-checks each kernel
-against its plain PyTorch version, and drives two paths
-through the public API: the MODWT path (Db4 level 5 forward, inverse and
-fused denoise over 32 signals of 2^20 float32 samples, and the 1D forward
-at N = 2^24), and the statistics and packet-tree path (wavelet variance,
-Hurst exponent and correlation at 32 × 2^20, the packet tree and its
-inverse at 32 × 2^18 level 3, greedy and orthogonal matching pursuit at
-8 × 65536 level 3 with 16 atoms), and the 2D image path (forward,
-inverse, fused and pipeline denoise of sixteen 2048 × 2048 float32 frames
-at Db4 level 3, the quad-tree packets at level 2, the 2D MRA at
-2 × 512 × 512), the 3D volume path (forward, inverse and denoise of four
+the register-resident CWT kernel, the marching 3D and 2D kernels and the
+1D register-chain kernels: variance, select, inverse, denoise), checks
+each kernel against its plain PyTorch version, and drives two paths
+through the public API: the MODWT path (Db4 level 5 forward, inverse,
+fused denoise and MRA over 32 signals of 2^20 float32 samples, and the
+1D forward at N = 2^24), and the statistics and packet-tree path
+(wavelet variance, Hurst exponent and correlation at 32 × 2^20, the
+packet tree and its inverse at 32 × 2^18 level 3, greedy and orthogonal
+matching pursuit at 8 × 65536 level 3 with 16 atoms), and the 2D image
+path (forward, inverse, fused and pipeline denoise of sixteen 2048 × 2048
+float32 frames at Db4 level 3, the quad-tree packets at level 2, the 2D
+MRA at 2 × 512 × 512), the 3D volume path (forward, inverse and denoise of four
 256³ float32 volumes at Db4 level 2, the oct-tree packets of one, the 3D
 MRA at 2 × 64³), and the CWT (the fused multiply + inverse FFT over
 64 × 16384 samples at 64 log scales, Morlet and Mexican Hat).  The
@@ -73,6 +73,15 @@ MRA3_SHAPE = (2, 64, 64, 64)
 # bench.py:241), and bench.py's own 16 × 4096
 CWT_SHAPE, CWT_SCALES = (64, 16384), 64
 CWT_BENCH = (16, 4096)
+# the inverse's and the fused denoise's edge shapes (B, N, level, wavelet):
+# halo longer than N, N off the tile, each kernel's gate edges at N = 2^20,
+# the runtime-M kernel (Coiflet 1, M = 6)
+INV_EDGES = ((3, 37, 3, "Daubechies 4"), (2, 100003, 5, "Daubechies 4"),
+             (1, 4096, 9, "Symlet 8"), (1, 1 << 13, 13, "Haar"),
+             (2, 3000, 3, "Coiflet 1"))
+DENOISE_EDGES = ((3, 37, 3, "Daubechies 4"), (2, 100003, 5, "Daubechies 4"),
+                 (1, 2048, 10, "Haar"), (1, 1024, 7, "Symlet 8"),
+                 (2, 3000, 3, "Coiflet 1"))
 # the H100's published peaks (SXM, 700 W): HBM bytes/s, f32 FLOP/s
 HBM_RATE, F32_RATE = 3.35e12, 67e12
 
@@ -198,12 +207,20 @@ def run(smoke: Smoke, torch, jt) -> dict:
     # the register-resident and marching kernels keep their arrays and
     # accumulators out of local memory
     marching = ("cwt_ifft", "modwt3_inv", "modwt3_fwd", "modwt2_denoise",
-                "modwt2_fwd", "modwt2_inv", "modwt_var", "modwpt_select")
-    for name, (regs, stack, st, ld) in sorted(_build.ptxas_report().items()):
+                "modwt2_fwd", "modwt2_inv", "modwt_var", "modwpt_select",
+                "jw_modwt_inv_kernel", "jw_denoise_kernel")
+    report = _build.ptxas_report()
+    for name, (regs, stack, st, ld) in sorted(report.items()):
         if any(k in name for k in marching):
             smoke.require(f"ptxas {name}: {regs} registers, {stack} bytes "
                           f"stack, spills {st}/{ld} bytes",
                           stack == 0 and st == 0 and ld == 0)
+    # the 1D inverse's and denoise's every instantiation: f32/bf16 x
+    # M = 2, 8, 16, any M
+    for kernel in ("jw_modwt_inv_kernel", "jw_denoise_kernel"):
+        count = sum(kernel in name for name in report)
+        smoke.require(f"ptxas reports {kernel} for all 8 instantiations",
+                      count == 8, f"({count})")
 
     print("== phase 3: forward kernel vs plain (f32)", flush=True)
     small = {}
@@ -226,6 +243,22 @@ def run(smoke: Smoke, torch, jt) -> dict:
                     1e-4)
         smoke.check(f"round trip {shape}",
                     max_err(kc.modwt_inv_cuda(c, w), x), 1e-4)
+    # the inverse's edges: halo longer than N, the gate edges at N = 2^20
+    # (Symlet 8 L9, Haar L13), the runtime-M kernel (Coiflet 1, M = 6), each
+    # f32 and bf16, and two calls bitwise equal; every width here leaves a
+    # register chain crossing some level's end
+    for b, n, lvl, name in INV_EDGES:
+        wv = jt.wavelet(name)
+        c = kc.modwt_fwd_plain(signal(b, n), wv, lvl)
+        for dt in (torch.float32, torch.bfloat16):
+            cd = c.to(dt)
+            got = kc.modwt_inv_cuda(cd, wv)
+            smoke.check(f"inv ({b}, {n}) L{lvl} {name} {dt} vs plain",
+                        max_err(got, kc.modwt_inv_plain(cd, wv)),
+                        1e-4 if dt == torch.float32 else 5e-2)
+            smoke.require(f"inv ({b}, {n}) L{lvl} {name} {dt}: two calls "
+                          f"bitwise equal",
+                          torch.equal(got, kc.modwt_inv_cuda(cd, wv)))
     x1 = signal(1_000_000)
     c1 = kc.modwt_fused(x1, w, LEVEL)
     smoke.require("1D contract shape", tuple(c1.shape) == (LEVEL + 1,
@@ -268,6 +301,25 @@ def run(smoke: Smoke, torch, jt) -> dict:
     smoke.check("bf16 denoise vs f32 denoise",
                 max_err(kd.modwt_denoise_cuda(x.bfloat16(), thr, w, 4),
                         kd.modwt_denoise_cuda(x, thr, w, 4)), 1e-1)
+    # the denoise's edges: halo longer than N, the gate edges at N = 2^20
+    # (Haar L10, Symlet 8 L7), the runtime-M kernel (Coiflet 1), soft and
+    # hard, f32 and bf16, and two calls bitwise equal
+    for b, n, lvl, name in DENOISE_EDGES:
+        wv = jt.wavelet(name)
+        xe = signal(b, n)
+        thr = torch.linspace(0.2, 1.0, b, device=dev)
+        for dt in (torch.float32, torch.bfloat16):
+            for mode in ("soft", "hard"):
+                xd = xe.to(dt)
+                got = kd.modwt_denoise_cuda(xd, thr, wv, lvl, mode)
+                smoke.check(f"denoise ({b}, {n}) L{lvl} {name} {mode} {dt} "
+                            f"vs plain", max_err(got, kd.modwt_denoise_plain(
+                                xd, thr, wv, lvl, mode)),
+                            1e-5 if dt == torch.float32 else 5e-2)
+                smoke.require(
+                    f"denoise ({b}, {n}) L{lvl} {name} {mode} {dt}: two "
+                    f"calls bitwise equal", torch.equal(
+                        got, kd.modwt_denoise_cuda(xd, thr, wv, lvl, mode)))
 
     print("== phase 7: gradients through the autograd pair", flush=True)
     x = signal(8, 4096)
@@ -316,6 +368,31 @@ def run(smoke: Smoke, torch, jt) -> dict:
                       tuple(t.shape) == shape
                       and bool(torch.isfinite(t).all()))
     smoke.check("main-path round trip", max_err(xr, x), 1e-4)
+    # the 1D MRA: one forward, then one inverse a component
+    mra_counters = {"modwt_fwd": kc.modwt_fwd_cuda,
+                    "modwt_inv": kc.modwt_inv_cuda,
+                    "modwt_denoise": kd.modwt_denoise_cuda}
+    mra, _ = counted_run(smoke, torch, mra_counters,
+                         f"modwt_mra {MAIN_SHAPE} L{LEVEL}",
+                         lambda: jt.modwt_mra(x, w, LEVEL),
+                         {"modwt_fwd": 1, "modwt_inv": LEVEL + 1})
+    smoke.require(f"MRA shape {(LEVEL + 1,) + MAIN_SHAPE} and finite",
+                  tuple(mra.shape) == (LEVEL + 1,) + MAIN_SHAPE
+                  and bool(torch.isfinite(mra).all()))
+    smoke.check("MRA components sum to the signal", max_err(mra.sum(0), x),
+                1e-4)
+    del mra
+    # the path's calls as a caller sees them (the fused denoise with its
+    # default, universal threshold)
+    for what, call in (
+            ("modwt", lambda: jt.modwt(x, w, LEVEL)),
+            ("imodwt", lambda: jt.imodwt(c, w)),
+            ("modwt_denoise(method='fused')",
+             lambda: jt.modwt_denoise(x, w, LEVEL, method="fused")),
+            ("modwt_mra", lambda: jt.modwt_mra(x, w, LEVEL))):
+        print(f"  wall {what} {MAIN_SHAPE} L{LEVEL}: "
+              f"{wall_ms(torch, call):.3f} ms (host clock, median of 3) "
+              f"[{card}]", flush=True)
 
     # each kernel against its plain version at the main path's shapes
     # (these launches are not counted above)

@@ -199,6 +199,118 @@ __device__ __forceinline__ void jw_level_pair(const float* par, int lo,
   }
 }
 
+// One register chain of an adjoint (synthesis) level, the transpose of
+// jw_chain: outputs i0 + r d, r < R, each
+//   y = sum_k g[k] v[i + k d] + h[k] w[i + k d],
+// handed to emit(i, y).  The R outputs share R + M - 1 reads of each row.
+// fmaf order of every output, fixed: k ascending from 0.f, the V term
+// before the W term of each k -- y = fmaf(h[k], w, fmaf(g[k], v, y)).  The
+// rows are read at i0 + u d for u = 0, 1, ..., R + M - 2, so output r
+// meets tap k = u - r in ascending order.  D as in jw_chain.  Only chains
+// whose R outputs all lie below the level's end come here; their reads
+// reach at most (R + M - 2) d past i0, inside the rows' valid part, so
+// nothing needs a guard.
+template <int MT, int R, int D, typename Emit>
+__device__ __forceinline__ void jw_adjoint_chain(const float* v,
+                                                 const float* w, int i0,
+                                                 int d_run,
+                                                 const JwTaps& taps,
+                                                 Emit& emit) {
+  const int d = D > 0 ? D : d_run;
+  const float* pv = v + i0;
+  const float* pw = w + i0;
+  float y[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) y[r] = 0.f;
+#pragma unroll
+  for (int u = 0; u < R + MT - 1; ++u) {
+    const float a = pv[u * d], b = pw[u * d];
+#pragma unroll
+    for (int k = 0; k < MT; ++k) {
+      if (u - k >= 0 && u - k < R) {
+        y[u - k] = fmaf(taps.g[k], a, y[u - k]);
+        y[u - k] = fmaf(taps.h[k], b, y[u - k]);
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) emit(i0 + r * d, y[r]);
+}
+
+// The adjoint chains of one level, on jw_level_chains' map (chain c starts
+// at lo + (c >> s) R d + (c & (d - 1)); R odd, so a warp's loads hit 32
+// banks).  A chain that crosses `end` computes its outputs below it one
+// at a time, in the same fmaf order.
+template <int MT, int R, int D, typename Emit>
+__device__ __forceinline__ void jw_adjoint_chains(const float* v,
+                                                  const float* w, int lo,
+                                                  int end, int s,
+                                                  const JwTaps& taps,
+                                                  Emit& emit) {
+  const int d = 1 << s;
+  const int chains = ((end - lo + R * d - 1) / (R * d)) << s;
+  for (int c = threadIdx.x; c < chains; c += blockDim.x) {
+    const int i0 = lo + (c >> s) * R * d + (c & (d - 1));
+    if (i0 + (R - 1) * d < end) {
+      jw_adjoint_chain<MT, R, D>(v, w, i0, d, taps, emit);
+      continue;
+    }
+    for (int i = i0; i < end; i += d) {
+      float y = 0.f;
+#pragma unroll
+      for (int k = 0; k < MT; ++k) {
+        y = fmaf(taps.g[k], v[i + k * d], y);
+        y = fmaf(taps.h[k], w[i + k * d], y);
+      }
+      emit(i, y);
+    }
+  }
+}
+
+// One level of an adjoint (synthesis) cascade: every output window index i
+// in [lo, end) gets y = sum_k g[k] v[i + k d] + h[k] w[i + k d] at d = 2^s,
+// handed to emit(i, y); v and w must be valid on [lo, end + (M - 1) d).
+// MT as in jw_level_pair: a compile-time M takes the taps from the
+// parameter bank in register chains of R outputs (the dilation a
+// compile-time constant for s <= 4); MT = 0 takes any M from shared
+// memory, one output at a time on the same map, in the same fmaf order.
+template <int MT, int R, typename Emit>
+__device__ __forceinline__ void jw_level_adjoint(const float* v,
+                                                 const float* w, int lo,
+                                                 int end, int s, int m,
+                                                 const JwTaps& taps,
+                                                 const float* sg,
+                                                 const float* sh,
+                                                 Emit&& emit) {
+  if (end <= lo) return;
+  if constexpr (MT > 0) {
+    switch (s) {
+      case 0: return jw_adjoint_chains<MT, R, 1>(v, w, lo, end, s, taps, emit);
+      case 1: return jw_adjoint_chains<MT, R, 2>(v, w, lo, end, s, taps, emit);
+      case 2: return jw_adjoint_chains<MT, R, 4>(v, w, lo, end, s, taps, emit);
+      case 3: return jw_adjoint_chains<MT, R, 8>(v, w, lo, end, s, taps, emit);
+      case 4:
+        return jw_adjoint_chains<MT, R, 16>(v, w, lo, end, s, taps, emit);
+      default:
+        return jw_adjoint_chains<MT, R, 0>(v, w, lo, end, s, taps, emit);
+    }
+  } else {
+    const int d = 1 << s;
+    const int chains = ((end - lo + R * d - 1) / (R * d)) << s;
+    for (int c = threadIdx.x; c < chains; c += blockDim.x) {
+      const int i0 = lo + (c >> s) * R * d + (c & (d - 1));
+      for (int i = i0; i < i0 + R * d && i < end; i += d) {
+        float y = 0.f;
+        for (int k = 0; k < m; ++k) {
+          y = fmaf(sg[k], v[i + k * d], y);
+          y = fmaf(sh[k], w[i + k * d], y);
+        }
+        emit(i, y);
+      }
+    }
+  }
+}
+
 // The kernel instantiated for filter length m: M = 8, 2, 16 as template
 // constants, any other M at run time.
 #define JW_PICK_M(kernel, T, m)                              \
@@ -206,15 +318,23 @@ __device__ __forceinline__ void jw_level_pair(const float* par, int lo,
             : (m) == 2 ? kernel<T, 2>                        \
                        : (m) == 16 ? kernel<T, 16> : kernel<T, 0>)
 
-// Lift the 48 KB default cap on dynamic shared memory, launch, and report
-// a refused launch (too much shared memory, bad grid), which would
-// otherwise never run and never show up in torch.cuda.synchronize().
+// Lift the 48 KB default cap on dynamic shared memory, launch `threads` a
+// block, and report a refused launch (too much shared memory, bad grid),
+// which would otherwise never run and never show up in
+// torch.cuda.synchronize().
 template <typename Kernel, typename... Args>
-static int jw_launch(Kernel kernel, long long blocks, int smem,
-                     cudaStream_t stream, Args... args) {
+static int jw_launch_threads(Kernel kernel, long long blocks, int threads,
+                             int smem, cudaStream_t stream, Args... args) {
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  kernel<<<(unsigned)blocks, JW_THREADS, smem, stream>>>(args...);
+  kernel<<<(unsigned)blocks, threads, smem, stream>>>(args...);
   return (int)cudaGetLastError();
+}
+
+// The same, JW_THREADS a block.
+template <typename Kernel, typename... Args>
+static int jw_launch(Kernel kernel, long long blocks, int smem,
+                     cudaStream_t stream, Args... args) {
+  return jw_launch_threads(kernel, blocks, JW_THREADS, smem, stream, args...);
 }

@@ -15,8 +15,26 @@
 // Level j reads the previous level at shifts k*2^(j-1); its valid region
 // shrinks by (M-1)*2^(j-1) on the side the shifts read from (the left for
 // the forward convolution, the right for the adjoint).
+//
+// The inverse reads L + 1 rows per output against 2M FMAs per output and
+// level.  Reading both taps and both rows from shared memory for every FMA
+// pair (4M + 1 accesses an output and level) made it bound by shared-memory
+// instructions, and loading each level's W row only after the level before
+// had finished made every block wait on device memory once a level.  So it
+// is templated on M = 2, 8, 16 (taps from the parameter bank, with a
+// runtime-M instantiation for the others), computes each level in
+// jw_level_adjoint's register chains (R + M - 1 reads of each row serve R
+// outputs), and has the next level's W row in flight while a level runs.
 
 #include "common.cuh"
+
+#define JW_INV_R 7  // outputs in a register chain (odd: distinct banks)
+#define JW_INV_THREADS 256  // a block; four an SM at 4096-sample tiles
+// next W row elements a thread holds in flight: 17 a thread of 256 cover
+// 4352 samples (Db4 L5's rows at 4096-sample tiles); 9 at M = 16, whose
+// chains leave fewer of the 64 registers
+#define JW_INV_PREFETCH 17
+#define JW_INV_PREFETCH_M16 9
 
 // Block (row, tile): window x[row, (s - H + i) mod N], i in [0, T + H).
 // Two ping-pong buffers hold V_{j-1} and V_j; W_j goes straight to memory.
@@ -71,56 +89,76 @@ jw_modwt_fwd_kernel(const T* __restrict__ x, T* __restrict__ out, int batch,
   }
 }
 
-// Block (row, tile): window [s, s + T + H) mod N.  Only the running V (two
-// ping-pong buffers) and the current level's W row live in shared memory;
-// W rows stream in level by level.  The two adjoint branches are combined
-// per tap: V_{j-1}[i] = sum_k g[k] V_j[i + k d] + h[k] W_j[i + k d].
-template <typename T>
-__global__ void __launch_bounds__(JW_THREADS)
+// Block (row, tile): window [s, s + end) mod N, end = min(T, N - s) + H.
+// Shared memory: the taps, two V rows (ping-pong) and one W row, each of
+// T + H floats.  Level j turns V_j, W_j (valid on [0, len)) into V_{j-1}
+// on [0, len - (M-1) 2^(j-1)) through jw_level_adjoint's register chains.
+// While it computes, each thread has its share of the next level's W row
+// in flight to registers (P loads a thread; the rest of a longer row --
+// past 4352 samples, or 2304 at M = 16 -- loads after the level, batched),
+// stored to the W row once the level's last read of it is done: at Db4 L5
+// no block waits on device memory between levels, only at the start.
+template <typename T, int MT>
+__global__ void __launch_bounds__(JW_INV_THREADS, 4)
 jw_modwt_inv_kernel(const T* __restrict__ c, T* __restrict__ out, int batch,
-                    int n, int level, int m, int tile, int halo, int ntiles,
-                    JwTaps taps) {
+                    int n, int level, int m_run, int tile, int halo,
+                    int ntiles, JwTaps taps) {
   extern __shared__ float smem[];
+  const int m = MT > 0 ? MT : m_run;
   float* sg = smem;
   float* sh = smem + JW_MAX_TAPS;
-  const int width = tile + halo;
   float* v = smem + 2 * JW_MAX_TAPS;
-  float* vn = v + width;
-  float* w = vn + width;
+  float* vn = v + tile + halo;
+  float* w = vn + tile + halo;
 
   const int row = blockIdx.x / ntiles;
   const long long s = (long long)(blockIdx.x - row * ntiles) * tile;
+  const long long rest = (long long)n - s;  // >= 1
+  const int count = rest < tile ? (int)rest : tile;
   const size_t plane = (size_t)batch * n;
+  const T* crow = c + (size_t)row * n;
 
-  jw_stage_taps(taps, sg, sh, m);
-  const T* vsrc = c + (size_t)level * plane + (size_t)row * n;
-  for (int i = threadIdx.x; i < width; i += blockDim.x)
-    v[i] = jw_load(vsrc + jw_index(s + i, n));
+  if (MT == 0) jw_stage_taps(taps, sg, sh, m);
+  int len = count + halo;  // V_j and W_j valid on [0, len)
+  jw_load_window(crow + (size_t)level * plane, s, n, v, len);
+  jw_load_window(crow + (size_t)(level - 1) * plane, s, n, w, len);
+  __syncthreads();
 
-  int len = width;  // V is valid on [0, len)
+  constexpr int P = MT == 16 ? JW_INV_PREFETCH_M16 : JW_INV_PREFETCH;
   for (int j = level; j >= 1; --j) {
-    const int d = 1 << (j - 1);
-    const T* wsrc = c + (size_t)(j - 1) * plane + (size_t)row * n;
-    for (int i = threadIdx.x; i < len; i += blockDim.x)
-      w[i] = jw_load(wsrc + jw_index(s + i, n));
-    __syncthreads();
-    len -= (m - 1) * d;
-    for (int i = threadIdx.x; i < len; i += blockDim.x) {
-      float acc = 0.f;
-      for (int k = 0; k < m; ++k)
-        acc += sg[k] * v[i + k * d] + sh[k] * w[i + k * d];
-      vn[i] = acc;
+    const int next = len - ((m - 1) << (j - 1));  // V_{j-1} on [0, next)
+    // W_{j-1}'s row, needed on [0, next), in flight while the level runs
+    const T* wsrc = crow + (size_t)(j > 1 ? j - 2 : 0) * plane;
+    float pre[P];
+    if (j > 1) {
+#pragma unroll
+      for (int u = 0; u < P; ++u) {
+        const int i = threadIdx.x + u * (int)blockDim.x;
+        pre[u] = i < next ? jw_load(wsrc + jw_index(s + i, n)) : 0.f;
+      }
     }
-    __syncthreads();
+    jw_level_adjoint<MT, JW_INV_R>(v, w, 0, next, j - 1, m, taps, sg, sh,
+                                   [&](int i, float y) { vn[i] = y; });
+    __syncthreads();  // V_{j-1} complete; the level's reads of W_j done
+    if (j > 1) {
+#pragma unroll
+      for (int u = 0; u < P; ++u) {
+        const int i = threadIdx.x + u * (int)blockDim.x;
+        if (i < next) w[i] = pre[u];
+      }
+      const int held = P * (int)blockDim.x;
+      if (next > held)
+        jw_load_window(wsrc, s + held, n, w + held, next - held);
+      __syncthreads();
+    }
     float* t = v;
     v = vn;
     vn = t;
+    len = next;
   }
-  T* dst = out + (size_t)row * n;
-  for (int i = threadIdx.x; i < tile; i += blockDim.x) {
-    const long long p = s + i;
-    if (p < n) jw_store(dst + p, v[i]);
-  }
+  T* dst = out + (size_t)row * n + s;
+  for (int i = threadIdx.x; i < count; i += blockDim.x)
+    jw_store(dst + i, v[i]);
 }
 
 extern "C" {
@@ -149,22 +187,30 @@ int jw_modwt_fwd(const void* x, void* out, int batch, int n, int level,
 }
 
 // c (L+1, B, N) -> out (B, N), both of `dtype`, contiguous, on `device`.
+// halo: (m - 1)(2^level - 1); smem: the bytes of the wrapper's plan
+// (smem_bytes(level, m, 'inv')): the taps and three rows of tile + halo.
 int jw_modwt_inv(const void* c, void* out, int batch, int n, int level,
                  const float* g, const float* h, int m, int tile, int halo,
                  int smem, int dtype, int device, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
+  if (tile < 1 || level < 1 || m < 1 || m > JW_MAX_TAPS ||
+      halo != (m - 1) * ((1 << level) - 1) ||
+      smem != (int)sizeof(float) * (2 * JW_MAX_TAPS + 3 * (tile + halo)))
+    return (int)cudaErrorInvalidValue;
   const JwTaps taps = jw_make_taps(g, h, m);
   const int ntiles = (n + tile - 1) / tile;
   const long long blocks = (long long)ntiles * batch;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == JW_BF16)
-    return jw_launch(jw_modwt_inv_kernel<__nv_bfloat16>, blocks, smem, st,
-                     (const __nv_bfloat16*)c, (__nv_bfloat16*)out, batch, n,
-                     level, m, tile, halo, ntiles, taps);
-  return jw_launch(jw_modwt_inv_kernel<float>, blocks, smem, st,
-                   (const float*)c, (float*)out, batch, n, level, m, tile,
-                   halo, ntiles, taps);
+    return jw_launch_threads(
+        JW_PICK_M(jw_modwt_inv_kernel, __nv_bfloat16, m), blocks,
+        JW_INV_THREADS, smem, st, (const __nv_bfloat16*)c,
+        (__nv_bfloat16*)out, batch, n, level, m, tile, halo, ntiles, taps);
+  return jw_launch_threads(JW_PICK_M(jw_modwt_inv_kernel, float, m), blocks,
+                           JW_INV_THREADS, smem, st, (const float*)c,
+                           (float*)out, batch, n, level, m, tile, halo,
+                           ntiles, taps);
 }
 
 }  // extern "C"

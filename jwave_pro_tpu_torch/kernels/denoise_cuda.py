@@ -5,11 +5,17 @@ Replaces ``jwave_pro_tpu/kernels/denoise_pallas.py`` ``_denoise_kernel``
 V_L kept → inverse, in one pass with a two-sided halo and no coefficient
 output.
 
-What bounds it on the H100 is device-memory traffic, 1 read + 1 write per
-sample against 2(L+2) passes for the two-kernel round trip; the price is
-(L+2) window rows of shared memory per block (about 70 KB at Db4 L5), which
-:func:`kernel_supported` ('denoise') budgets.  Any N runs, since each block
-reads its circular context directly.
+It moves 1 read + 1 write per sample against 2(L+2) passes for the
+two-kernel round trip, so what bounds it on the H100 is the cascade: 2M
+FMAs an output and level, in the analysis and the synthesis alike.  The
+kernel is templated on the filter length (taps as parameter-bank
+operands) and computes both in register chains of ``CHAIN['denoise']``
+outputs a thread; the analysis values are bitwise those of one fmaf chain
+over the taps, so no hard-threshold decision depends on the chains.  The
+price of the fusion is (L+2) window rows of shared memory per block
+(about 70 KB at Db4 L5), which :func:`kernel_supported` ('denoise')
+budgets.  Any N runs, since each block reads its circular context
+directly.
 
 Beside the kernel: its plain PyTorch version (:func:`modwt_denoise_plain`)
 and its launch counter (``modwt_denoise_cuda.launches``).  Not

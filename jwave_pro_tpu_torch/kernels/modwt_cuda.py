@@ -13,7 +13,10 @@ What bounds them on the H100 is device-memory traffic: the forward moves
 mirror image.  Each block keeps one tile's whole level chain in shared
 memory and reads its circular context ``x[(p) mod N]`` directly, so any N
 runs without padding, folding or a tile plan; the only limit is the
-shared-memory budget (:func:`kernel_supported`).
+shared-memory budget (:func:`kernel_supported`).  The inverse is
+templated on the filter length (taps as parameter-bank operands),
+computes each level in register chains of ``CHAIN['inv']`` outputs a
+thread, and has the next level's W row in flight while a level runs.
 
 Beside each kernel: its plain PyTorch version (``modwt_fwd_plain``,
 ``modwt_inv_plain``), which the CPU path runs and the chip smoke compares
@@ -53,9 +56,11 @@ SMEM_LIMIT = 232_448          # shared memory one H100 block may use (227 KB)
 # cut where its rows do not fit: :func:`tile_of`)
 TILES = {"fwd": 4096, "inv": 4096, "denoise": 2048, "var": 4096,
          "pfwd": 2048, "select": 4096, "pinv": 2048}
-# outputs in one thread's register chain: JW_VAR_R (csrc/variance.cu) and
-# JW_SELECT_R (csrc/modwpt.cu); odd, so a warp's loads hit 32 banks
-CHAIN = {"var": 9, "select": 5}
+# outputs in one thread's register chain: JW_VAR_R (csrc/variance.cu),
+# JW_SELECT_R (csrc/modwpt.cu), JW_INV_R (csrc/modwt.cu) and JW_DENOISE_R
+# (csrc/denoise.cu, both its analysis and its synthesis chains); odd, so a
+# warp's loads hit 32 banks
+CHAIN = {"var": 9, "select": 5, "inv": 7, "denoise": 5}
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}   # JwDtype
 
 _P, _I = ctypes.c_void_p, ctypes.c_int

@@ -93,6 +93,70 @@ def test_denoise_matches_plain(dev, batch, n, level, mode, dtype):
     _close(got, kd.modwt_denoise_plain(x, thr, DB4, level, mode), dtype)
 
 
+# the inverse's and the fused denoise's edges: halo longer than N, N off
+# the tile, each kernel's gate edges at N = 2^20 (inverse: Symlet 8 L9,
+# Haar L13; denoise: Haar L10, Symlet 8 L7), the runtime-M kernel
+# (Coiflet 1, M = 6); every width here leaves a register chain crossing
+# some level's end
+INV_EDGES = [(3, 37, 3, "Daubechies 4"), (2, 100003, 5, "Daubechies 4"),
+             (1, 4096, 9, "Symlet 8"), (1, 1 << 13, 13, "Haar"),
+             (2, 3000, 3, "Coiflet 1")]
+DENOISE_EDGES = [(3, 37, 3, "Daubechies 4"), (2, 100003, 5, "Daubechies 4"),
+                 (1, 2048, 10, "Haar"), (1, 1024, 7, "Symlet 8"),
+                 (2, 3000, 3, "Coiflet 1")]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch,n,level,name", INV_EDGES)
+def test_inverse_edges_bitwise_repeatable(dev, batch, n, level, name, dtype):
+    w = jt.wavelet(name)
+    x = _signal(dev, batch, n, seed=14)
+    c = kc.modwt_fwd_plain(x, w, level).to(dtype)
+    got = kc.modwt_inv_cuda(c, w)
+    assert got.dtype == dtype and got.shape == (batch, n)
+    _close(got, kc.modwt_inv_plain(c, w), dtype)
+    assert torch.equal(got, kc.modwt_inv_cuda(c, w))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["soft", "hard"])
+@pytest.mark.parametrize("batch,n,level,name", DENOISE_EDGES)
+def test_denoise_edges_bitwise_repeatable(dev, batch, n, level, name, mode,
+                                          dtype):
+    w = jt.wavelet(name)
+    x = _signal(dev, batch, n, seed=15, dtype=dtype)
+    thr = torch.linspace(0.2, 1.0, batch, device=dev)
+    got = kd.modwt_denoise_cuda(x, thr, w, level, mode)
+    assert got.dtype == dtype and got.shape == (batch, n)
+    _close(got, kd.modwt_denoise_plain(x, thr, w, level, mode), dtype)
+    assert torch.equal(got, kd.modwt_denoise_cuda(x, thr, w, level, mode))
+
+
+def test_entry_points_reject_shared_memory_off_their_layout(dev):
+    """The inverse's and the denoise's C entry points launch only with the
+    plan's shared-memory size (smem_bytes), and return
+    cudaErrorInvalidValue (1) for any other."""
+    x = _signal(dev, 2, 4096, seed=16)
+    c = kc.modwt_fwd_cuda(x, DB4, 3)
+    thr = torch.ones(2, device=dev)
+    out = torch.empty_like(x)
+    g, h = kc.kernel_taps(DB4)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    hal = kc.halo(8, 3)
+    for delta, want in ((4, 1), (-4, 1), (0, 0)):
+        smem = kc.smem_bytes(3, 8, "inv") + delta
+        assert kc._lib().jw_modwt_inv(
+            c.data_ptr(), out.data_ptr(), 2, 4096, 3, g.ctypes.data,
+            h.ctypes.data, 8, kc.TILES["inv"], hal, smem, 0, 0,
+            stream) == want
+        smem = kc.smem_bytes(3, 8, "denoise") + delta
+        assert kd._lib().jw_modwt_denoise(
+            x.data_ptr(), thr.data_ptr(), out.data_ptr(), 2, 4096, 3,
+            g.ctypes.data, h.ctypes.data, 8, kc.TILES["denoise"], hal, smem,
+            0, 0, 0, stream) == want
+    torch.cuda.synchronize()
+
+
 def test_public_path_launches_each_kernel(dev):
     x = _signal(dev, 4, 8192, seed=2)
     counters = (kc.modwt_fwd_cuda, kc.modwt_inv_cuda, kd.modwt_denoise_cuda)

@@ -316,3 +316,86 @@ def test_non_tensor_input_goes_to_the_card(entry):
     else:
         with pytest.raises((RuntimeError, AssertionError)):
             ENTRY_POINTS[entry](_as_numpy_or_tensor(False))
+
+
+# -- the inverse and denoise kernels' register chains and plans (the CUDA
+# kernels run on the card only; their geometry is plain Python, pinned
+# here) ------------------------------------------------------------------
+
+def _adjoint_outputs(lo, end, s, r):
+    """Window index of every output of one synthesis level, as
+    ``jw_level_adjoint`` (csrc/common.cuh) maps chains c to outputs:
+    [chain][r] (-1 past end)."""
+    d = 1 << s
+    chains = -(-(end - lo) // (r * d)) * d
+    c = np.arange(chains)[:, None]
+    i = lo + (c >> s) * r * d + (c & (d - 1)) + np.arange(r)[None] * d
+    return np.where(i < end, i, -1)
+
+
+@pytest.mark.parametrize("kind", ["inv", "denoise"])
+@pytest.mark.parametrize("s", range(0, 7))
+def test_adjoint_chains_cover_each_output_once_on_distinct_banks(kind, s):
+    r = kc.CHAIN[kind]
+    assert r % 2 == 1
+    d = 1 << s
+    # (lo, end): the inverse's levels start at 0, the denoise's at its halo
+    for lo, end in ((0, 4201), (0, 1), (217, 4313), (0, 100), (49, 86)):
+        idx = _adjoint_outputs(lo, end, s, r)
+        got = np.sort(idx[idx >= 0])
+        np.testing.assert_array_equal(got, np.arange(lo, end))
+        c = np.arange(idx.shape[0])
+        first = lo + (c >> s) * r * d + (c & (d - 1))
+        full = first + (r - 1) * d < end
+        for m in (2, 8, 16):
+            # a full chain reads i0 + u d, u < R + M - 1: inside the rows'
+            # valid part [lo, end + (M - 1) d), so it needs no guard
+            last = first[full] + (r + m - 2) * d
+            assert (last < end + (m - 1) * d).all()
+            # every warp's 32 lanes read 32 distinct banks at every step
+            warps = -(-len(c) // 32) * 32
+            lanes = np.arange(warps)
+            start = lo + (lanes >> s) * r * d + (lanes & (d - 1))
+            for u in range(r + m - 1):
+                banks = (start + u * d) % 32
+                assert all(len(set(banks[w:w + 32])) == 32
+                           for w in range(0, warps, 32))
+
+
+@pytest.mark.parametrize("kind,m,top", [
+    ("inv", 2, 13), ("inv", 8, 11), ("inv", 16, 9),
+    ("denoise", 2, 10), ("denoise", 8, 8), ("denoise", 16, 7)])
+def test_inverse_and_denoise_gates_keep_their_levels(kind, m, top):
+    """At N = 2^20 each kernel admits every level up to ``top`` (Haar,
+    Db4, Symlet 8) and none above."""
+    admitted = [lv for lv in range(1, 21)
+                if kc.kernel_supported(1 << 20, lv, m, kind)]
+    assert admitted == list(range(1, top + 1))
+
+
+_ENTRY_POINTS = {"var": ("variance.cu", "jw_modwt_var"),
+                 "select": ("modwpt.cu", "jw_modwpt_select"),
+                 "inv": ("modwt.cu", "jw_modwt_inv"),
+                 "denoise": ("denoise.cu", "jw_modwt_denoise")}
+
+
+@pytest.mark.parametrize("kind", sorted(_ENTRY_POINTS))
+def test_smem_bytes_is_the_layout_the_entry_point_accepts(kind):
+    """The C entry point rejects any shared-memory size but its layout's;
+    its check, read from the source and evaluated here, equals
+    :func:`smem_bytes` for every level the gate admits."""
+    import re
+    fname, fn = _ENTRY_POINTS[kind]
+    src = (REPO / "jwave_pro_tpu_torch" / "csrc" / fname).read_text()
+    body = src[src.index(f"int {fn}("):]
+    expr = re.search(r"smem != \(int\)sizeof\(float\) \*\s*(\(.*?\))\)\s*"
+                     r"return \(int\)cudaErrorInvalidValue", body,
+                     re.S).group(1)
+    for m in (2, 6, 8, 16):
+        for lv in range(1, 14):
+            if not kc.kernel_supported(1 << 20, lv, m, kind):
+                continue
+            names = {"JW_MAX_TAPS": kc.MAX_TAPS, "JW_WARPS": kc.WARPS,
+                     "level": lv, "tile": kc.tile_of(kind, lv, m),
+                     "halo": kc.halo(m, lv)}
+            assert 4 * eval(expr, {}, names) == kc.smem_bytes(lv, m, kind)
