@@ -8,8 +8,8 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 It builds the CUDA kernels from ``jwave_pro_tpu_torch/csrc`` with nvcc
 (and requires the assembler to report no stack frame and no spills for
 the register-resident CWT kernel, the marching 3D and 2D kernels and the
-1D register-chain kernels: variance, select, inverse, denoise), checks
-each kernel against its plain PyTorch version, and drives two paths
+1D register-chain kernels: variance, select, forward, inverse, denoise),
+checks each kernel against its plain PyTorch version, and drives two paths
 through the public API: the MODWT path (Db4 level 5 forward, inverse,
 fused denoise and MRA over 32 signals of 2^20 float32 samples, and the
 1D forward at N = 2^24), and the statistics and packet-tree path
@@ -73,9 +73,15 @@ MRA3_SHAPE = (2, 64, 64, 64)
 # bench.py:241), and bench.py's own 16 × 4096
 CWT_SHAPE, CWT_SCALES = (64, 16384), 64
 CWT_BENCH = (16, 4096)
-# the inverse's and the fused denoise's edge shapes (B, N, level, wavelet):
-# halo longer than N, N off the tile, each kernel's gate edges at N = 2^20,
-# the runtime-M kernel (Coiflet 1, M = 6)
+# the forward's, the inverse's and the fused denoise's edge shapes (B, N,
+# level, wavelet): halo longer than N, N off the tile, each kernel's gate
+# edges (the forward's: Haar L13 at the public maximum, Symlet 8 L10 at its
+# own gate, Daubechies 2 L13 at the tile its W slices leave), the runtime-M
+# kernel (Coiflet 1, M = 6); every width here leaves a register chain
+# crossing some level's end
+FWD_EDGES = ((3, 37, 3, "Daubechies 4"), (2, 100003, 5, "Daubechies 4"),
+             (1, 1 << 13, 13, "Haar"), (1, 1 << 10, 10, "Symlet 8"),
+             (2, 3000, 3, "Coiflet 1"), (1, 1 << 15, 13, "Daubechies 2"))
 INV_EDGES = ((3, 37, 3, "Daubechies 4"), (2, 100003, 5, "Daubechies 4"),
              (1, 4096, 9, "Symlet 8"), (1, 1 << 13, 13, "Haar"),
              (2, 3000, 3, "Coiflet 1"))
@@ -208,16 +214,18 @@ def run(smoke: Smoke, torch, jt) -> dict:
     # accumulators out of local memory
     marching = ("cwt_ifft", "modwt3_inv", "modwt3_fwd", "modwt2_denoise",
                 "modwt2_fwd", "modwt2_inv", "modwt_var", "modwpt_select",
-                "jw_modwt_inv_kernel", "jw_denoise_kernel")
+                "jw_modwt_fwd_kernel", "jw_modwt_inv_kernel",
+                "jw_denoise_kernel")
     report = _build.ptxas_report()
     for name, (regs, stack, st, ld) in sorted(report.items()):
         if any(k in name for k in marching):
             smoke.require(f"ptxas {name}: {regs} registers, {stack} bytes "
                           f"stack, spills {st}/{ld} bytes",
                           stack == 0 and st == 0 and ld == 0)
-    # the 1D inverse's and denoise's every instantiation: f32/bf16 x
-    # M = 2, 8, 16, any M
-    for kernel in ("jw_modwt_inv_kernel", "jw_denoise_kernel"):
+    # the 1D forward's, inverse's and denoise's every instantiation:
+    # f32/bf16 x M = 2, 8, 16, any M
+    for kernel in ("jw_modwt_fwd_kernel", "jw_modwt_inv_kernel",
+                   "jw_denoise_kernel"):
         count = sum(kernel in name for name in report)
         smoke.require(f"ptxas reports {kernel} for all 8 instantiations",
                       count == 8, f"({count})")
@@ -235,6 +243,31 @@ def run(smoke: Smoke, torch, jt) -> dict:
     ref = jt.modwt(xs.double().cpu(), w, 3, method="direct")
     smoke.check("fwd (4, 1000) L3 vs f64 host direct path",
                 max_err(kc.modwt_fwd_cuda(xs, w, 3).cpu(), ref), 1e-5)
+    # the forward's edges: halo longer than N, a ragged last tile, the gate
+    # edges (Haar L13 at N = 2^13, Symlet 8 L10 at N = 2^10, Daubechies 2
+    # L13 at its cut tile of 3267), the runtime-M kernel (Coiflet 1, M = 6),
+    # each f32 and bf16, and two calls bitwise equal; every width here
+    # leaves a register chain crossing some level's end
+    for b, n, lvl, name in FWD_EDGES:
+        wv = jt.wavelet(name)
+        xe = signal(b, n)
+        for dt in (torch.float32, torch.bfloat16):
+            xd = xe.to(dt)
+            got = kc.modwt_fwd_cuda(xd, wv, lvl)
+            smoke.check(f"fwd ({b}, {n}) L{lvl} {name} {dt} vs plain",
+                        max_err(got, kc.modwt_fwd_plain(xd, wv, lvl)),
+                        1e-5 if dt == torch.float32 else 5e-2)
+            smoke.require(f"fwd ({b}, {n}) L{lvl} {name} {dt}: two calls "
+                          f"bitwise equal",
+                          torch.equal(got, kc.modwt_fwd_cuda(xd, wv, lvl)))
+    # the (N,) contract at its main size (B = 1 of the same kernel)
+    xf = signal(MAIN_1D)
+    cf = kc.modwt_fused(xf, w, LEVEL)
+    smoke.require(f"1D contract shape at N={MAIN_1D}",
+                  tuple(cf.shape) == (LEVEL + 1, MAIN_1D))
+    smoke.check(f"1D fwd N={MAIN_1D} vs plain",
+                max_err(cf, kc.modwt_fwd_plain(xf, w, LEVEL)), 1e-5)
+    del xf, cf
 
     print("== phase 4: inverse kernel and round trip (f32)", flush=True)
     for shape, (x, c) in small.items():
@@ -368,10 +401,26 @@ def run(smoke: Smoke, torch, jt) -> dict:
                       tuple(t.shape) == shape
                       and bool(torch.isfinite(t).all()))
     smoke.check("main-path round trip", max_err(xr, x), 1e-4)
-    # the 1D MRA: one forward, then one inverse a component
     mra_counters = {"modwt_fwd": kc.modwt_fwd_cuda,
                     "modwt_inv": kc.modwt_inv_cuda,
                     "modwt_denoise": kd.modwt_denoise_cuda}
+    # modwt alone: one forward launch
+    counted_run(smoke, torch, mra_counters, f"modwt {MAIN_SHAPE} L{LEVEL}",
+                lambda: jt.modwt(x, w, LEVEL), {"modwt_fwd": 1})
+
+    # the imodwt backward: the inverse forward, the forward kernel backward
+    def imodwt_backward():
+        cg = c.detach().requires_grad_()
+        jt.imodwt(cg, w).backward(x)
+        return cg.grad
+
+    grad, _ = counted_run(smoke, torch, mra_counters,
+                          f"imodwt forward and backward {MAIN_SHAPE}",
+                          imodwt_backward, {"modwt_inv": 1, "modwt_fwd": 1})
+    smoke.check("imodwt backward = modwt of the cotangent", max_err(
+        grad, kc.modwt_fwd_plain(x, w, LEVEL)), 1e-5)
+    del grad
+    # the 1D MRA: one forward, then one inverse a component
     mra, _ = counted_run(smoke, torch, mra_counters,
                          f"modwt_mra {MAIN_SHAPE} L{LEVEL}",
                          lambda: jt.modwt_mra(x, w, LEVEL),
@@ -387,6 +436,7 @@ def run(smoke: Smoke, torch, jt) -> dict:
     for what, call in (
             ("modwt", lambda: jt.modwt(x, w, LEVEL)),
             ("imodwt", lambda: jt.imodwt(c, w)),
+            ("imodwt forward and backward", imodwt_backward),
             ("modwt_denoise(method='fused')",
              lambda: jt.modwt_denoise(x, w, LEVEL, method="fused")),
             ("modwt_mra", lambda: jt.modwt_mra(x, w, LEVEL))):

@@ -6,6 +6,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 #define JW_MAX_TAPS 64
 #define JW_THREADS 512
 
@@ -127,34 +129,55 @@ __device__ __forceinline__ void jw_chain(const float* par, int i0, int d_run,
   for (int r = 0; r < R; ++r) emit(i0 + r * d, v[r], w[r]);
 }
 
+// No per-warp step: the chains of a level run as one block-strided loop.
+struct JwNoStep {
+  __device__ __forceinline__ void operator()() const {}
+};
+
+// Whether a Step runs a level's chains warp by warp (any but JwNoStep).
+template <typename Step>
+constexpr bool jw_stepped =
+    !std::is_same<std::remove_reference_t<Step>, JwNoStep>::value;
+
 // The chains of one level at dilation d = 2^s (D as in jw_chain): chain c
 // starts at lo + (c >> s) R d + (c & (d - 1)), so with R odd the 32 lanes of
 // a warp (consecutive c) read 32 distinct banks at every dilation.  A
 // chain that crosses `end` (at most d a level) computes its outputs below
-// it one at a time, in the same fmaf order.
-template <int MT, int R, int D, typename Emit>
+// it one at a time, in the same fmaf order.  With a stepped Step the loop
+// runs warp by warp: every lane of a warp takes the same number of turns
+// (a lane past the last chain computes nothing) and calls step() after
+// each, when the warp's 32 chains of the turn are emitted.  jw_level_pair's
+// runtime-M branch writes the same turn loop out again: one helper taking
+// the chain's body as a lambda compiled the variance, select and denoise
+// kernels, which pass no step, to other SASS than this loop's.
+template <int MT, int R, int D, typename Emit, typename Step>
 __device__ __forceinline__ void jw_level_chains(const float* par, int lo,
                                                 int end, int s,
                                                 const JwTaps& taps,
-                                                Emit& emit) {
+                                                Emit& emit, Step& step) {
+  constexpr bool stepped = jw_stepped<Step>;
   const int d = 1 << s;
   const int chains = ((end - lo + R * d - 1) / (R * d)) << s;
-  for (int c = threadIdx.x; c < chains; c += blockDim.x) {
-    const int i0 = lo + (c >> s) * R * d + (c & (d - 1));
-    if (i0 + (R - 1) * d < end) {
-      jw_chain<MT, R, D>(par, i0, d, taps, emit);
-      continue;
-    }
-    for (int i = i0; i < end; i += d) {
-      float v = 0.f, w = 0.f;
+  const int lane = stepped ? threadIdx.x & 31 : 0;
+  for (int c = threadIdx.x; c - lane < chains; c += blockDim.x) {
+    if (!stepped || c < chains) {
+      const int i0 = lo + (c >> s) * R * d + (c & (d - 1));
+      if (i0 + (R - 1) * d < end) {
+        jw_chain<MT, R, D>(par, i0, d, taps, emit);
+      } else {
+        for (int i = i0; i < end; i += d) {
+          float v = 0.f, w = 0.f;
 #pragma unroll
-      for (int k = 0; k < MT; ++k) {
-        const float t = par[i - k * d];
-        v = fmaf(taps.g[k], t, v);
-        w = fmaf(taps.h[k], t, w);
+          for (int k = 0; k < MT; ++k) {
+            const float t = par[i - k * d];
+            v = fmaf(taps.g[k], t, v);
+            w = fmaf(taps.h[k], t, w);
+          }
+          emit(i, v, w);
+        }
       }
-      emit(i, v, w);
     }
+    if constexpr (stepped) step();
   }
 }
 
@@ -164,37 +187,51 @@ __device__ __forceinline__ void jw_level_chains(const float* par, int lo,
 // compile-time constant (taps then come from the parameter bank, the loops
 // unroll and each thread computes register chains of R outputs, with the
 // dilation a compile-time constant for s <= 4); 0 for any other M (taps
-// from shared memory, one output at a time, in the same fmaf order).
-template <int MT, int R, typename Emit>
+// from shared memory, one output at a time on the same map and turns, in
+// the same fmaf order).  step: as in jw_level_chains (a kernel that stages
+// a warp's outputs passes one; the others leave it out).
+template <int MT, int R, typename Emit, typename Step = JwNoStep>
 __device__ __forceinline__ void jw_level_pair(const float* par, int lo,
                                               int end, int s, int m,
                                               const JwTaps& taps,
                                               const float* sg,
-                                              const float* sh, Emit&& emit) {
+                                              const float* sh, Emit&& emit,
+                                              Step&& step = Step()) {
   if (end <= lo) return;
   if constexpr (MT > 0) {
     switch (s) {
-      case 0: return jw_level_chains<MT, R, 1>(par, lo, end, s, taps, emit);
-      case 1: return jw_level_chains<MT, R, 2>(par, lo, end, s, taps, emit);
-      case 2: return jw_level_chains<MT, R, 4>(par, lo, end, s, taps, emit);
-      case 3: return jw_level_chains<MT, R, 8>(par, lo, end, s, taps, emit);
-      case 4: return jw_level_chains<MT, R, 16>(par, lo, end, s, taps, emit);
-      default: return jw_level_chains<MT, R, 0>(par, lo, end, s, taps, emit);
+      case 0: return
+          jw_level_chains<MT, R, 1>(par, lo, end, s, taps, emit, step);
+      case 1: return
+          jw_level_chains<MT, R, 2>(par, lo, end, s, taps, emit, step);
+      case 2: return
+          jw_level_chains<MT, R, 4>(par, lo, end, s, taps, emit, step);
+      case 3: return
+          jw_level_chains<MT, R, 8>(par, lo, end, s, taps, emit, step);
+      case 4: return
+          jw_level_chains<MT, R, 16>(par, lo, end, s, taps, emit, step);
+      default: return
+          jw_level_chains<MT, R, 0>(par, lo, end, s, taps, emit, step);
     }
   } else {
+    constexpr bool stepped = jw_stepped<Step>;
     const int d = 1 << s;
     const int chains = ((end - lo + R * d - 1) / (R * d)) << s;
-    for (int c = threadIdx.x; c < chains; c += blockDim.x) {
-      const int i0 = lo + (c >> s) * R * d + (c & (d - 1));
-      for (int i = i0; i < i0 + R * d && i < end; i += d) {
-        float v = 0.f, w = 0.f;
-        for (int k = 0; k < m; ++k) {
-          const float t = par[i - k * d];
-          v = fmaf(sg[k], t, v);
-          w = fmaf(sh[k], t, w);
+    const int lane = stepped ? threadIdx.x & 31 : 0;
+    for (int c = threadIdx.x; c - lane < chains; c += blockDim.x) {
+      if (!stepped || c < chains) {
+        const int i0 = lo + (c >> s) * R * d + (c & (d - 1));
+        for (int i = i0; i < i0 + R * d && i < end; i += d) {
+          float v = 0.f, w = 0.f;
+          for (int k = 0; k < m; ++k) {
+            const float t = par[i - k * d];
+            v = fmaf(sg[k], t, v);
+            w = fmaf(sh[k], t, w);
+          }
+          emit(i, v, w);
         }
-        emit(i, v, w);
       }
+      if constexpr (stepped) step();
     }
   }
 }

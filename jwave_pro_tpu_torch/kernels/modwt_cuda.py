@@ -13,10 +13,12 @@ What bounds them on the H100 is device-memory traffic: the forward moves
 mirror image.  Each block keeps one tile's whole level chain in shared
 memory and reads its circular context ``x[(p) mod N]`` directly, so any N
 runs without padding, folding or a tile plan; the only limit is the
-shared-memory budget (:func:`kernel_supported`).  The inverse is
-templated on the filter length (taps as parameter-bank operands),
-computes each level in register chains of ``CHAIN['inv']`` outputs a
-thread, and has the next level's W row in flight while a level runs.
+shared-memory budget (:func:`kernel_supported`).  Both are templated on
+the filter length (taps as parameter-bank operands) and compute each
+level in register chains of ``CHAIN[kind]`` outputs a thread.  The
+forward stages each warp's W outputs in shared memory so that its stores,
+L + 1 rows for each row read, stay coalesced; the inverse has the next
+level's W row in flight while a level runs.
 
 Beside each kernel: its plain PyTorch version (``modwt_fwd_plain``,
 ``modwt_inv_plain``), which the CPU path runs and the chip smoke compares
@@ -52,15 +54,24 @@ MAX_TAPS = 64                 # JW_MAX_TAPS in csrc/common.cuh
 WARPS = 512 // 32             # JW_THREADS / 32 in csrc/common.cuh
 SMEM_LIMIT = 232_448          # shared memory one H100 block may use (227 KB)
 # outputs per block; the packet kernels ('pfwd', 'select', 'pinv') keep
-# 2L - 1 or 2L window rows, hence the smaller tile of two (the select's is
-# cut where its rows do not fit: :func:`tile_of`)
+# 2L - 1 or 2L window rows, hence the smaller tile of two (the select's and
+# the forward's are cut where their rows do not fit: :func:`tile_of`)
 TILES = {"fwd": 4096, "inv": 4096, "denoise": 2048, "var": 4096,
          "pfwd": 2048, "select": 4096, "pinv": 2048}
 # outputs in one thread's register chain: JW_VAR_R (csrc/variance.cu),
-# JW_SELECT_R (csrc/modwpt.cu), JW_INV_R (csrc/modwt.cu) and JW_DENOISE_R
-# (csrc/denoise.cu, both its analysis and its synthesis chains); odd, so a
-# warp's loads hit 32 banks
-CHAIN = {"var": 9, "select": 5, "inv": 7, "denoise": 5}
+# JW_SELECT_R (csrc/modwpt.cu), JW_FWD_R and JW_INV_R (csrc/modwt.cu) and
+# JW_DENOISE_R (csrc/denoise.cu, both its analysis and its synthesis
+# chains); odd, so a warp's loads hit 32 banks
+CHAIN = {"var": 9, "select": 5, "fwd": 9, "inv": 7, "denoise": 5}
+FWD_THREADS = 256             # JW_FWD_THREADS in csrc/modwt.cu
+# the forward's W staging, floats a block: a slice of 32 chains' outputs a
+# warp (JW_FWD_SLICE)
+FWD_SLICE = FWD_THREADS * CHAIN["fwd"]
+# the slice is paid for out of the forward's tile, not its halo: the tile is
+# cut to what the slice leaves of the budget (:func:`tile_of`), and a shape
+# runs only where that leaves this much, i.e. where its halo fits beside a
+# full tile in two rows without the slice
+FWD_MIN_TILE = TILES["fwd"] - FWD_SLICE // 2
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}   # JwDtype
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -73,24 +84,33 @@ def halo(m: int, level: int) -> int:
 
 def tile_of(kind: str, level: int, m: int) -> int:
     """Outputs per block of kernel ``kind``: ``TILES[kind]``, the select's
-    cut to what its 2L − 1 rows leave of the shared-memory budget (below 1
-    where even the halo does not fit)."""
-    if kind != "select":
+    and the forward's cut to what their rows (2L − 1 for the select, two
+    beside the W slices for the forward) leave of the shared-memory budget
+    (below 1 where even the halo does not fit)."""
+    if kind == "select":
+        fit = ((SMEM_LIMIT // 4 - 2 * MAX_TAPS - 8 * WARPS)
+               // (2 * level - 1) - halo(m, level))
+    elif kind == "fwd":
+        fit = ((SMEM_LIMIT // 4 - 2 * MAX_TAPS - FWD_SLICE) // 2
+               - halo(m, level))
+    else:
         return TILES[kind]
-    fit = ((SMEM_LIMIT // 4 - 2 * MAX_TAPS - 8 * WARPS) // (2 * level - 1)
-           - halo(m, level))
     return min(TILES[kind], fit)
 
 
-def smem_bytes(level: int, m: int, kind: str) -> int:
+def smem_bytes(level: int, m: int, kind: str, tile: int | None = None,
+               fwd_slice: int = FWD_SLICE) -> int:
     """Dynamic shared memory of one block: the taps plus the window rows
-    (two V buffers for 'fwd'; for 'var' the same, with one warp sum a warp
+    (two V buffers for 'fwd', with one W staging slice a warp; for 'var'
+    two V buffers, with one warp sum a warp
     and level; two V and one W for 'inv'; two V and L W rows over a
     two-sided window for 'denoise'; the depth-first packet path's 2L − 1
     rows for 'pfwd' and 'select', which adds two sets of two leaves' 64-bit
-    arg-max keys per warp; 2L rows for 'pinv')."""
-    h, t = halo(m, level), tile_of(kind, level, m)
-    rows = {"fwd": 2 * (t + h), "inv": 3 * (t + h),
+    arg-max keys per warp; 2L rows for 'pinv').  ``tile`` (default
+    :func:`tile_of`) and ``fwd_slice`` (floats of the forward's W slices)
+    lay out another plan, as a probe's variant of a kernel runs it."""
+    h, t = halo(m, level), tile or tile_of(kind, level, m)
+    rows = {"fwd": fwd_slice + 2 * (t + h), "inv": 3 * (t + h),
             "denoise": (level + 2) * (t + 2 * h),
             "var": 2 * (t + h) + WARPS * (level + 1),
             "pfwd": (2 * level - 1) * (t + h),
@@ -110,7 +130,8 @@ def kernel_supported(n: int, level: int, m: int, kind: str) -> bool:
     halo does not fit).
     """
     return (1 <= n < 2 ** 31 and level >= 1 and 1 <= m <= MAX_TAPS
-            and tile_of(kind, level, m) >= 1
+            and tile_of(kind, level, m) >= (FWD_MIN_TILE if kind == "fwd"
+                                            else 1)
             and smem_bytes(level, m, kind) <= SMEM_LIMIT)
 
 
@@ -245,13 +266,14 @@ def modwt_fwd_cuda(x: torch.Tensor, wavelet: DiscreteWavelet,
     if not kernel_supported(n, level, m, "fwd"):
         raise ValueError(f"unsupported shape {tuple(x.shape)} level {level} "
                          f"for the MODWT forward kernel")
-    check_grid(b, n, "fwd")
+    tile = tile_of("fwd", level, m)
+    check_grid(b, n, "fwd", tile)
     out = torch.empty((level + 1, b, n), dtype=x.dtype, device=x.device)
     g, h = kernel_taps(wavelet)
     lib = _lib()
     code = lib.jw_modwt_fwd(
         x.data_ptr(), out.data_ptr(), b, n, level, g.ctypes.data,
-        h.ctypes.data, m, TILES["fwd"], halo(m, level),
+        h.ctypes.data, m, tile, halo(m, level),
         smem_bytes(level, m, "fwd"), DTYPE_CODES[x.dtype], x.device.index,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, code, "modwt forward kernel")

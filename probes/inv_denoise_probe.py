@@ -43,34 +43,22 @@ import argparse
 import ctypes
 import json
 import re
-import statistics
-import subprocess
 import sys
-import time
 from pathlib import Path
 
 import torch
 
-ROOT = Path(__file__).resolve().parent.parent
-sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 import jwave_pro_tpu_torch as jt  # noqa: E402
-from jwave_pro_tpu_torch.kernels import _build  # noqa: E402
 from jwave_pro_tpu_torch.kernels import denoise_cuda as kd  # noqa: E402
 from jwave_pro_tpu_torch.kernels import modwt_cuda as kc  # noqa: E402
+from probes import harness as hz  # noqa: E402
+from probes.harness import sub as _sub  # noqa: E402
 
-CSRC = ROOT / "jwave_pro_tpu_torch" / "csrc"
-OUT = ROOT / "build" / "probes"
-GRAPH_CALLS = 20
+CSRC = hz.CSRC
+OUT = hz.ROOT / "build" / "probes"
 LEVEL = 5
-
-
-def _sub(old: str, new: str):
-    def apply(src: str) -> str:
-        if old not in src:
-            raise SystemExit(f"substitution target not found: {old!r}")
-        return src.replace(old, new)
-    return apply
 
 
 def _r(name: str, r: int):
@@ -130,51 +118,17 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 def build(parent: Path | None):
-    nvcc = _build._nvcc()
     jobs = dict(VARIANTS)
     if parent is not None:
         jobs["parent"] = (("modwt.cu", "denoise.cu"), {}, (4096,), (2048,))
-    procs = []
-    for name, (files, subs, *_) in jobs.items():
-        src_dir = parent if name == "parent" else CSRC
-        d = OUT / name
-        d.mkdir(parents=True, exist_ok=True)
-        for f in ("common.cuh",) + files:
-            src = (src_dir / f).read_text()
-            (d / f).write_text(subs[f](src) if f in subs else src)
-        for f in files:
-            cmd = [nvcc, *_build.NVCC_FLAGS, "-c", "-o", str(d / (f + ".o")),
-                   str(d / f)]
-            procs.append((name, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                text=True)))
-    t0 = time.time()
-    logs = {}
-    for name, p in procs:
-        _, err = p.communicate()
-        if p.returncode:
-            raise SystemExit(f"{name}: build failed\n{err[-3000:]}")
-        logs[name] = logs.get(name, "") + err
-    print(f"built {len(jobs)} variants in {time.time() - t0:.1f} s",
-          flush=True)
+    built, logs = hz.build(
+        {name: (parent if name == "parent" else CSRC, files, subs)
+         for name, (files, subs, *_) in jobs.items()}, OUT)
     libs = {}
     for name, (files, _, tiles_inv, tiles_den) in jobs.items():
-        d = OUT / name
-        subprocess.run([nvcc, *_build.NVCC_FLAGS, "-shared", "-o",
-                        str(d / "lib.so")] + [str(d / (f + ".o"))
-                                              for f in files], check=True)
-        regs = []
-        for m in re.finditer(r"Compiling entry function '(\w+)'(.*?)Used "
-                             r"(\d+) registers", logs[name], re.S):
-            fn = m.group(1)
-            if "inv_kernel" in fn or "denoise_kernel" in fn:
-                sp = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
-                               r"stores", m.group(2))
-                inst = re.search(r"kernelI(\w+?)(Li\d+E)?E", fn)
-                regs.append(f"{inst.group(1)[:2]}{inst.group(2) or ''}:"
-                            f"{m.group(3)}r/{sp.group(1)}s/{sp.group(2)}sp")
+        regs = hz.ptxas(logs[name], "inv_kernel", "denoise_kernel")
         print(f"  ptxas {name}: {' '.join(regs)}", flush=True)
-        lib = ctypes.CDLL(str(d / "lib.so"))
+        lib = built[name]
         if "modwt.cu" in files:
             lib.jw_modwt_inv.argtypes = [_P, _P] + [_I] * 3 + [_P, _P] \
                 + [_I] * 6 + [_P]
@@ -182,56 +136,17 @@ def build(parent: Path | None):
             lib.jw_modwt_denoise.argtypes = [_P, _P, _P] + [_I] * 3 \
                 + [_P, _P] + [_I] * 7 + [_P]
         libs[name] = (files, lib, tiles_inv, tiles_den)
-    cuobjdump = Path(nvcc).parent / "cuobjdump"
     for name in ("new", "parent"):
         if name not in libs:
             continue
-        sass = subprocess.run([str(cuobjdump), "-sass",
-                               str(OUT / name / "lib.so")],
-                              capture_output=True, text=True).stdout
-        for fn in re.findall(r"Function : (\S+)", sass):
+        for fn, body in hz.sass(OUT / name / "lib.so").items():
             if not (("inv_kernel" in fn or "denoise_kernel" in fn)
                     and ("IfLi8E" in fn or "IfE" in fn)):
                 continue
-            i = sass.index("Function : " + fn)
-            j = sass.find("Function : ", i + 10)
-            body = sass[i:j if j > 0 else None]
-            ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
-                             r"([A-Z][A-Z0-9_]*)", body)
-            hist = {}
-            for o in ops:
-                hist[o] = hist.get(o, 0) + 1
-            top = sorted(hist.items(), key=lambda kv: -kv[1])[:12]
-            print(f"  {name} {fn[:30]} SASS {len(ops)} instructions: {top}",
+            count, top = hz.sass_mix(body)
+            print(f"  {name} {fn[:30]} SASS {count} instructions: {top}",
                   flush=True)
     return libs
-
-
-def graph_ms(fn, rep=5) -> float:
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(2):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, stream=side):
-        for _ in range(GRAPH_CALLS):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(rep):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        graph.replay()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / GRAPH_CALLS)
-    del graph
-    return statistics.median(times)
 
 
 def main() -> int:
@@ -242,9 +157,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 1
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True).stdout.strip()
+    card = hz.card()
     print(card, flush=True)
     libs = build(args.parent)
     dev = torch.device("cuda", 0)
@@ -265,7 +178,7 @@ def main() -> int:
         return torch.cuda.current_stream().cuda_stream
 
     def inv_call(lib, tile):
-        smem = 4 * (2 * kc.MAX_TAPS + 3 * (tile + hal))
+        smem = kc.smem_bytes(LEVEL, m, "inv", tile=tile)
         code = lib.jw_modwt_inv(c.data_ptr(), out.data_ptr(), b, n, LEVEL,
                                 g.ctypes.data, h.ctypes.data, m, tile, hal,
                                 smem, 0, 0, stream())
@@ -273,7 +186,7 @@ def main() -> int:
         return out
 
     def den_call(lib, tile):
-        smem = 4 * (2 * kc.MAX_TAPS + (LEVEL + 2) * (tile + 2 * hal))
+        smem = kc.smem_bytes(LEVEL, m, "denoise", tile=tile)
         code = lib.jw_modwt_denoise(x.data_ptr(), thr.data_ptr(),
                                     out.data_ptr(), b, n, LEVEL,
                                     g.ctypes.data, h.ctypes.data, m, tile,
@@ -291,7 +204,7 @@ def main() -> int:
             call, want = ((inv_call, want_inv) if kind == "inv"
                           else (den_call, want_den))
             err = float((call(lib, tile) - want).abs().max())
-            ms = graph_ms(lambda: call(lib, tile))
+            ms = hz.graph_ms(lambda: call(lib, tile))
             key = f"{kind} {name} tile {tile}"
             res.setdefault(key, []).append(ms)
             print(f"round {rnd} {key}: {ms:.4f} ms, max-abs-err vs plain "

@@ -29,27 +29,22 @@ object of every time.
 """
 import ctypes
 import json
-import re
-import statistics
-import subprocess
 import sys
 import time
 from pathlib import Path
 
 import torch
 
-ROOT = Path(__file__).resolve().parent.parent
-sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 import jwave_pro_tpu_torch as jt  # noqa: E402
-from jwave_pro_tpu_torch.kernels import _build  # noqa: E402
 from jwave_pro_tpu_torch.kernels import modwpt_cuda as kp  # noqa: E402
 from jwave_pro_tpu_torch.kernels import modwt_cuda as kc  # noqa: E402
 from jwave_pro_tpu_torch.kernels import variance_cuda as kv  # noqa: E402
+from probes import harness as hz  # noqa: E402
+from probes.harness import sub as _sub  # noqa: E402
 
-CSRC = ROOT / "jwave_pro_tpu_torch" / "csrc"
-OUT = ROOT / "build" / "probes"
-GRAPH_CALLS = 20
+OUT = hz.ROOT / "build" / "probes"
 
 OLD_LEVEL_PAIR = r'''template <int MT, int R, typename Emit>
 __device__ __forceinline__ void jw_level_pair(const float* par, int lo,
@@ -107,14 +102,6 @@ def _old_common(src: str) -> str:
     return src[:start] + OLD_LEVEL_PAIR + src[stop:]
 
 
-def _sub(old: str, new: str):
-    def apply(src: str) -> str:
-        if old not in src:
-            raise SystemExit(f"substitution target not found: {old!r}")
-        return src.replace(old, new)
-    return apply
-
-
 # variant -> {file: substitution}
 VARIANTS = {
     "new": {},
@@ -132,95 +119,25 @@ VARIANTS = {
 
 
 def build():
-    nvcc = _build._nvcc()
-    procs = []
-    for name, subs in VARIANTS.items():
-        d = OUT / name
-        d.mkdir(parents=True, exist_ok=True)
-        for f in ("common.cuh", "variance.cu", "modwpt.cu"):
-            src = (CSRC / f).read_text()
-            (d / f).write_text(subs[f](src) if f in subs else src)
-        for f in ("variance.cu", "modwpt.cu"):
-            cmd = [nvcc, *_build.NVCC_FLAGS, "-c", "-o", str(d / (f + ".o")),
-                   str(d / f)]
-            procs.append((name, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                text=True)))
-    t0 = time.time()
-    logs = {}
-    for name, p in procs:
-        _, err = p.communicate()
-        if p.returncode:
-            raise SystemExit(f"{name}: build failed\n{err[-3000:]}")
-        logs[name] = logs.get(name, "") + err
-    print(f"built {len(VARIANTS)} variants in {time.time() - t0:.1f} s",
-          flush=True)
-    libs = {}
-    for name in VARIANTS:
-        d = OUT / name
-        subprocess.run([nvcc, *_build.NVCC_FLAGS, "-shared", "-o",
-                        str(d / "lib.so"), str(d / "variance.cu.o"),
-                        str(d / "modwpt.cu.o")], check=True)
-        for m in re.finditer(r"Compiling entry function '(\w+)'(.*?)Used "
-                             r"(\d+) registers", logs[name], re.S):
-            if "IfLi8E" in m.group(1) and ("var_kernel" in m.group(1)
-                                           or "select_kernel" in m.group(1)):
-                sp = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
-                               r"stores, (\d+) bytes spill loads", m.group(2))
-                print(f"  {name} {m.group(1)[:34]}: {m.group(3)} registers, "
-                      f"stack/spill stores/loads "
-                      f"{sp.groups() if sp else None}", flush=True)
-        lib = ctypes.CDLL(str(d / "lib.so"))
-        args = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 \
-            + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    libs, logs = hz.build({name: (hz.CSRC, ("variance.cu", "modwpt.cu"), subs)
+                           for name, subs in VARIANTS.items()}, OUT)
+    args = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 \
+        + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    for name, lib in libs.items():
+        regs = [f"{k} {' '.join(hz.ptxas(logs[name], k + '_kernelIfLi8E'))}"
+                for k in ("var", "select")]
+        print(f"  ptxas {name} (f32, M = 8): {', '.join(regs)}", flush=True)
         lib.jw_modwt_var.argtypes = args
         lib.jw_modwpt_select.argtypes = args
-        libs[name] = lib
-    cuobjdump = Path(nvcc).parent / "cuobjdump"
     for name in ("old", "new"):
-        sass = subprocess.run([str(cuobjdump), "-sass",
-                               str(OUT / name / "lib.so")],
-                              capture_output=True, text=True).stdout
+        sass = hz.sass(OUT / name / "lib.so")
         for fn in ("_Z19jw_modwt_var_kernelIfLi8E",
                    "_Z23jw_modwpt_select_kernelIfLi8E"):
-            i = sass.index("Function : " + fn)
-            j = sass.find("Function : ", i + 10)
-            body = sass[i:j if j > 0 else None]
-            ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
-                             r"([A-Z][A-Z0-9_]*)", body)
-            hist = {}
-            for o in ops:
-                hist[o] = hist.get(o, 0) + 1
-            top = sorted(hist.items(), key=lambda kv: -kv[1])[:10]
-            print(f"  {name} {fn[4:24]} SASS {len(ops)} instructions: {top}",
+            body = next(b for f, b in sass.items() if f.startswith(fn))
+            count, top = hz.sass_mix(body, 10)
+            print(f"  {name} {fn[4:24]} SASS {count} instructions: {top}",
                   flush=True)
     return libs
-
-
-def graph_ms(fn, rep=5) -> float:
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(2):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, stream=side):
-        for _ in range(GRAPH_CALLS):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(rep):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        graph.replay()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / GRAPH_CALLS)
-    return statistics.median(times)
 
 
 def host_us(fn, k=2000) -> float:
@@ -239,9 +156,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 1
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True).stdout.strip()
+    card = hz.card()
     print(card, flush=True)
     libs = build()
     dev = torch.device("cuda", 0)
@@ -264,8 +179,7 @@ def main() -> int:
         nt = -(-n // tile)
         partial = torch.empty((level + 1, b, nt), device=dev)
         out = torch.empty((level + 1, b), device=dev)
-        smem = 4 * (2 * kc.MAX_TAPS + kc.WARPS * (level + 1)
-                    + 2 * (tile + kc.halo(m, level)))
+        smem = kc.smem_bytes(level, m, "var", tile=tile)
         code = lib.jw_modwt_var(x.data_ptr(), partial.data_ptr(),
                                 ticket.data_ptr(), out.data_ptr(), b, n,
                                 level, g.ctypes.data, h.ctypes.data, m, tile,
@@ -280,8 +194,7 @@ def main() -> int:
         partial = torch.empty((1 << level, b, nt), dtype=torch.int64,
                               device=dev)
         out = torch.empty((3, 1 << level, b), device=dev)
-        smem = 4 * (2 * kc.MAX_TAPS + 8 * kc.WARPS
-                    + (2 * level - 1) * (tile + kc.halo(8, level)))
+        smem = kc.smem_bytes(level, 8, "select", tile=tile)
         code = lib.jw_modwpt_select(xm.data_ptr(), partial.data_ptr(),
                                     ticket.data_ptr(), out.data_ptr(), b, n,
                                     level, g.ctypes.data, h.ctypes.data, 8,
@@ -305,7 +218,7 @@ def main() -> int:
                 err = float(((got.double() - want[wname, level].double())
                              .abs() / want[wname, level].double().abs())
                             .max())
-                ms = graph_ms(lambda: var_call(lib, wname, level))
+                ms = hz.graph_ms(lambda: var_call(lib, wname, level))
                 res.setdefault(f"var {name} {wname} L{level}", []).append(ms)
                 print(f"round {rnd} var {name} {wname} L{level}: {ms:.4f} ms"
                       f", rel err vs plain {err:.1e} [{card}]", flush=True)
@@ -314,7 +227,7 @@ def main() -> int:
             for tile in (2511, 4096):
                 out = sel_call(lib, tile)
                 exact = torch.equal(out[1].view(torch.int32).long(), want_t)
-                ms = graph_ms(lambda: sel_call(lib, tile))
+                ms = hz.graph_ms(lambda: sel_call(lib, tile))
                 res.setdefault(f"select {name} tile {tile}", []).append(ms)
                 print(f"round {rnd} select {name} tile {tile}: "
                       f"{ms * 1e3:.2f} us, positions exact {exact} [{card}]",

@@ -93,17 +93,33 @@ def test_denoise_matches_plain(dev, batch, n, level, mode, dtype):
     _close(got, kd.modwt_denoise_plain(x, thr, DB4, level, mode), dtype)
 
 
-# the inverse's and the fused denoise's edges: halo longer than N, N off
-# the tile, each kernel's gate edges at N = 2^20 (inverse: Symlet 8 L9,
+# the forward's, the inverse's and the fused denoise's edges: halo longer
+# than N, N off the tile, each kernel's gate edges (forward: Haar L13 at
+# the public maximum, Symlet 8 L10 at its own gate, Daubechies 2 L13 at
+# the tile its W slices leave; inverse: Symlet 8 L9,
 # Haar L13; denoise: Haar L10, Symlet 8 L7), the runtime-M kernel
 # (Coiflet 1, M = 6); every width here leaves a register chain crossing
 # some level's end
+FWD_EDGES = [(3, 37, 3, "Daubechies 4"), (2, 100003, 5, "Daubechies 4"),
+             (1, 1 << 13, 13, "Haar"), (1, 1 << 10, 10, "Symlet 8"),
+             (2, 3000, 3, "Coiflet 1"), (1, 1 << 15, 13, "Daubechies 2")]
 INV_EDGES = [(3, 37, 3, "Daubechies 4"), (2, 100003, 5, "Daubechies 4"),
              (1, 4096, 9, "Symlet 8"), (1, 1 << 13, 13, "Haar"),
              (2, 3000, 3, "Coiflet 1")]
 DENOISE_EDGES = [(3, 37, 3, "Daubechies 4"), (2, 100003, 5, "Daubechies 4"),
                  (1, 2048, 10, "Haar"), (1, 1024, 7, "Symlet 8"),
                  (2, 3000, 3, "Coiflet 1")]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch,n,level,name", FWD_EDGES)
+def test_forward_edges_bitwise_repeatable(dev, batch, n, level, name, dtype):
+    w = jt.wavelet(name)
+    x = _signal(dev, batch, n, seed=13, dtype=dtype)
+    got = kc.modwt_fwd_cuda(x, w, level)
+    assert got.dtype == dtype and got.shape == (level + 1, batch, n)
+    _close(got, kc.modwt_fwd_plain(x, w, level), dtype)
+    assert torch.equal(got, kc.modwt_fwd_cuda(x, w, level))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -133,9 +149,9 @@ def test_denoise_edges_bitwise_repeatable(dev, batch, n, level, name, mode,
 
 
 def test_entry_points_reject_shared_memory_off_their_layout(dev):
-    """The inverse's and the denoise's C entry points launch only with the
-    plan's shared-memory size (smem_bytes), and return
-    cudaErrorInvalidValue (1) for any other."""
+    """The forward's, the inverse's and the denoise's C entry points launch
+    only with the plan's shared-memory size (smem_bytes) and halo, and
+    return cudaErrorInvalidValue (1) for any other."""
     x = _signal(dev, 2, 4096, seed=16)
     c = kc.modwt_fwd_cuda(x, DB4, 3)
     thr = torch.ones(2, device=dev)
@@ -143,7 +159,18 @@ def test_entry_points_reject_shared_memory_off_their_layout(dev):
     g, h = kc.kernel_taps(DB4)
     stream = torch.cuda.current_stream(dev).cuda_stream
     hal = kc.halo(8, 3)
+    coeffs = torch.empty_like(c)
+    for dh, want in ((1, 1), (-1, 1), (0, 0)):
+        assert kc._lib().jw_modwt_fwd(
+            x.data_ptr(), coeffs.data_ptr(), 2, 4096, 3, g.ctypes.data,
+            h.ctypes.data, 8, kc.TILES["fwd"], hal + dh,
+            kc.smem_bytes(3, 8, "fwd"), 0, 0, stream) == want
     for delta, want in ((4, 1), (-4, 1), (0, 0)):
+        smem = kc.smem_bytes(3, 8, "fwd") + delta
+        assert kc._lib().jw_modwt_fwd(
+            x.data_ptr(), coeffs.data_ptr(), 2, 4096, 3, g.ctypes.data,
+            h.ctypes.data, 8, kc.TILES["fwd"], hal, smem, 0, 0,
+            stream) == want
         smem = kc.smem_bytes(3, 8, "inv") + delta
         assert kc._lib().jw_modwt_inv(
             c.data_ptr(), out.data_ptr(), 2, 4096, 3, g.ctypes.data,

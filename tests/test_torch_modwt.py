@@ -362,9 +362,85 @@ def test_adjoint_chains_cover_each_output_once_on_distinct_banks(kind, s):
                            for w in range(0, warps, 32))
 
 
+def _forward_turns(lo, end, s):
+    """The forward's level as ``jw_modwt_fwd_kernel`` (csrc/modwt.cu) runs
+    it: ``jw_level_pair``'s chains, warp by warp.  Yields, for each warp's
+    turn, the window index of its first output (lo + c0 R) and each lane's
+    outputs [lane][r] (-1 for none: past the last chain or past end)."""
+    r, threads, d = kc.CHAIN["fwd"], kc.FWD_THREADS, 1 << s
+    chains = -(-(end - lo) // (r * d)) << s
+    for warp in range(threads // 32):
+        for c0 in range(warp * 32, chains, threads):
+            c = c0 + np.arange(32)[:, None]
+            i = lo + (c >> s) * r * d + (c & (d - 1)) + np.arange(r) * d
+            yield lo + c0 * r, np.where((c < chains) & (i < end), i, -1)
+
+
+def _forward_levels(n, level, m):
+    """(lo, end, s) of every level of the tiles of an (n,) row: the first
+    tile and, if it differs, the ragged last one."""
+    h, tile = kc.halo(m, level), kc.tile_of("fwd", level, m)
+    ends = {h + min(tile, n), h + n - (n - 1) // tile * tile}
+    return [((m - 1) * ((2 << s) - 1), end, s) for end in sorted(ends)
+            for s in range(level)]
+
+
+# the smoke's and the card test's forward edge shapes, and the main path
+FWD_MAP_CASES = [(37, 3, 8), (100003, 5, 8), (1 << 13, 13, 2),
+                 (1 << 10, 10, 16), (3000, 3, 6), (1 << 15, 13, 4),
+                 (1 << 20, 5, 8)]
+
+
+@pytest.mark.parametrize("n,level,m", FWD_MAP_CASES)
+def test_forward_stores_each_output_once_and_coalesced(n, level, m):
+    """Every W_j (and at the last level V_L) output of a tile in [H, end)
+    is stored exactly once.  At d < 32 a warp's turn emits exactly the
+    window indices [first, first + 32 R) below end, each lane's R outputs
+    on distinct slice banks, and the warp stores its slice as consecutive
+    addresses; at d >= 32 the lanes' outputs of one chain step are 32
+    consecutive indices, stored straight."""
+    r, h = kc.CHAIN["fwd"], kc.halo(m, level)
+    for lo, end, s in _forward_levels(n, level, m):
+        stored = []
+        for first, idx in _forward_turns(lo, end, s):
+            got = idx[idx >= 0]
+            if s < 5:
+                want = np.arange(first, min(first + 32 * r, end))
+                np.testing.assert_array_equal(np.sort(got), want)
+                for step in idx.T:   # slice writes of one chain step
+                    live = step[step >= 0] - first
+                    assert len(set(live % 32)) == len(live)
+                k_lane = first + np.arange(r)[:, None] * 32 + np.arange(32)
+                stored += [k_lane[(k_lane >= h) & (k_lane < end)]]
+            else:
+                for step in idx.T:
+                    live = step[step >= 0]
+                    np.testing.assert_array_equal(
+                        live, live[:1] + np.arange(len(live)))
+                stored += [got[got >= h]]
+        stored = np.sort(np.concatenate(stored))
+        np.testing.assert_array_equal(stored, np.arange(h, end))
+
+
+@pytest.mark.parametrize("n,level,m", FWD_MAP_CASES[:6])
+def test_forward_edge_shapes_cross_a_level_end(n, level, m):
+    """Each forward edge shape leaves a register chain that crosses some
+    level's end (its outputs below end computed one at a time)."""
+    r = kc.CHAIN["fwd"]
+    crossing = False
+    for lo, end, s in _forward_levels(n, level, m):
+        d = 1 << s
+        chains = -(-(end - lo) // (r * d)) << s
+        c = np.arange(chains)
+        i0 = lo + (c >> s) * r * d + (c & (d - 1))
+        crossing |= bool(((i0 < end) & (i0 + (r - 1) * d >= end)).any())
+    assert crossing
+
+
 @pytest.mark.parametrize("kind,m,top", [
     ("inv", 2, 13), ("inv", 8, 11), ("inv", 16, 9),
-    ("denoise", 2, 10), ("denoise", 8, 8), ("denoise", 16, 7)])
+    ("denoise", 2, 10), ("denoise", 8, 8), ("denoise", 16, 7),
+    ("fwd", 2, 14), ("fwd", 8, 11), ("fwd", 16, 10), ("fwd", 6, 12)])
 def test_inverse_and_denoise_gates_keep_their_levels(kind, m, top):
     """At N = 2^20 each kernel admits every level up to ``top`` (Haar,
     Db4, Symlet 8) and none above."""
@@ -373,7 +449,29 @@ def test_inverse_and_denoise_gates_keep_their_levels(kind, m, top):
     assert admitted == list(range(1, top + 1))
 
 
-_ENTRY_POINTS = {"var": ("variance.cu", "jw_modwt_var"),
+@pytest.mark.parametrize("m", sorted({
+    jt.wavelet(name).length for name in jt.wavelet_names()}))
+def test_forward_gate_admits_what_it_admitted_before_the_w_slices(m):
+    """The forward's W slices are paid for out of its tile, never its halo:
+    for every filter length of the catalog and every level up to the
+    public maximum, the forward admits exactly the shapes whose halo fits
+    beside a full tile in two rows without the slices, the layout before
+    them, and runs each within the budget."""
+    for level in range(1, jt.MAX_DECOMPOSITION_LEVEL + 1):
+        h = kc.halo(m, level)
+        before = 4 * (2 * kc.MAX_TAPS + 2 * (kc.TILES["fwd"] + h)) \
+            <= kc.SMEM_LIMIT
+        assert kc.kernel_supported(1 << 20, level, m, "fwd") == before
+        if before:
+            assert kc.smem_bytes(level, m, "fwd") <= kc.SMEM_LIMIT
+    # Daubechies 2 at L13, the gate's edge: the tile is cut to what the
+    # slices leave
+    assert kc.tile_of("fwd", 13, 4) == 3267
+    assert kc.smem_bytes(13, 4, "fwd") == kc.SMEM_LIMIT
+
+
+_ENTRY_POINTS = {"fwd": ("modwt.cu", "jw_modwt_fwd"),
+                 "var": ("variance.cu", "jw_modwt_var"),
                  "select": ("modwpt.cu", "jw_modwpt_select"),
                  "inv": ("modwt.cu", "jw_modwt_inv"),
                  "denoise": ("denoise.cu", "jw_modwt_denoise")}
@@ -396,6 +494,7 @@ def test_smem_bytes_is_the_layout_the_entry_point_accepts(kind):
             if not kc.kernel_supported(1 << 20, lv, m, kind):
                 continue
             names = {"JW_MAX_TAPS": kc.MAX_TAPS, "JW_WARPS": kc.WARPS,
+                     "JW_FWD_SLICE": kc.FWD_SLICE,
                      "level": lv, "tile": kc.tile_of(kind, lv, m),
                      "halo": kc.halo(m, lv)}
             assert 4 * eval(expr, {}, names) == kc.smem_bytes(lv, m, kind)
