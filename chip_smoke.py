@@ -88,6 +88,18 @@ INV_EDGES = ((3, 37, 3, "Daubechies 4"), (2, 100003, 5, "Daubechies 4"),
 DENOISE_EDGES = ((3, 37, 3, "Daubechies 4"), (2, 100003, 5, "Daubechies 4"),
                  (1, 2048, 10, "Haar"), (1, 1024, 7, "Symlet 8"),
                  (2, 3000, 3, "Coiflet 1"))
+# the packet forward's and inverse's edge shapes (B, N, level, wavelet):
+# halo longer than N, N off the tile, each specialised filter length and
+# the runtime-M kernel (Daubechies 2, M = 4), leaves at d >= 32 (Haar L6,
+# stored straight from the chains), L = 1 (the inverse's third row), B = 300
+# rows, and the gate edges at N = 2^20: Db4 L8 for the forward (and the
+# select), Db4 L7 for the inverse
+PACKET_EDGES = ((3, 17, 3, "Daubechies 4"), (2, 100003, 3, "Haar"),
+                (2, 5000, 2, "Symlet 8"), (3, 100003, 3, "Daubechies 2"),
+                (2, 3000, 6, "Haar"), (2, 2000, 1, "Symlet 8"),
+                (300, 5000, 3, "Daubechies 4"),
+                (2, 1 << 20, 8, "Daubechies 4"),
+                (2, 1 << 20, 7, "Daubechies 4"))
 # the H100's published peaks (SXM, 700 W): HBM bytes/s, f32 FLOP/s
 HBM_RATE, F32_RATE = 3.35e12, 67e12
 
@@ -215,17 +227,19 @@ def run(smoke: Smoke, torch, jt) -> dict:
     marching = ("cwt_ifft", "modwt3_inv", "modwt3_fwd", "modwt2_denoise",
                 "modwt2_fwd", "modwt2_inv", "modwt_var", "modwpt_select",
                 "jw_modwt_fwd_kernel", "jw_modwt_inv_kernel",
-                "jw_denoise_kernel")
+                "jw_denoise_kernel", "jw_modwpt_fwd_kernel",
+                "jw_modwpt_inv_kernel")
     report = _build.ptxas_report()
     for name, (regs, stack, st, ld) in sorted(report.items()):
         if any(k in name for k in marching):
             smoke.require(f"ptxas {name}: {regs} registers, {stack} bytes "
                           f"stack, spills {st}/{ld} bytes",
                           stack == 0 and st == 0 and ld == 0)
-    # the 1D forward's, inverse's and denoise's every instantiation:
-    # f32/bf16 x M = 2, 8, 16, any M
+    # the 1D forward's, inverse's and denoise's and the packet forward's and
+    # inverse's every instantiation: f32/bf16 x M = 2, 8, 16, any M
     for kernel in ("jw_modwt_fwd_kernel", "jw_modwt_inv_kernel",
-                   "jw_denoise_kernel"):
+                   "jw_denoise_kernel", "jw_modwpt_fwd_kernel",
+                   "jw_modwpt_inv_kernel"):
         count = sum(kernel in name for name in report)
         smoke.require(f"ptxas reports {kernel} for all 8 instantiations",
                       count == 8, f"({count})")
@@ -605,6 +619,49 @@ def report_time(jt, name, arg, kern, plain, card, samples=None):
     return tk, tp
 
 
+def packet_edges(smoke: Smoke, torch, jt, kp, signal):
+    """The packet forward and inverse against their plain versions at
+    PACKET_EDGES, f32 and bf16 (the inverse where its gate admits the
+    shape); on every shape two forward calls bitwise equal and the select
+    equal to the arg-max over the forward's output."""
+    from jwave_pro_tpu_torch.kernels.modwt_cuda import kernel_supported
+
+    for b, n, level, name in PACKET_EDGES:
+        wv = jt.wavelet(name)
+        x = signal(b, n)
+        tag = f"({b}, {n}) L{level} {name}"
+        for dt, tol_f, tol_i, tol_rt in ((torch.float32, 1e-5, 1e-4, 1e-4),
+                                         (torch.bfloat16, 5e-2, 5e-2, 1e-1)):
+            xd = x.to(dt)
+            c = kp.modwpt_fwd_cuda(xd, wv, level)
+            smoke.check(f"packet fwd {tag} {dt} vs plain",
+                        max_err(c, kp.modwpt_fwd_plain(xd, wv, level)), tol_f)
+            smoke.require(f"packet fwd {tag} {dt}: two calls bitwise equal",
+                          torch.equal(c, kp.modwpt_fwd_cuda(xd, wv, level)))
+            # bf16 input: the select computes in f32 from the bf16 values,
+            # as the forward of those values as f32 does
+            cs = c if dt == torch.float32 else kp.modwpt_fwd_cuda(
+                xd.float(), wv, level)
+            a, t, v = kp.modwpt_select_cuda(xd, wv, level)
+            want_t = torch.argmax(cs.abs(), dim=-1)
+            smoke.require(
+                f"select {tag} {dt} = arg-max over the forward kernel's "
+                f"output (positions, values exact)",
+                torch.equal(t.long(), want_t) and torch.equal(
+                    v, torch.gather(cs, -1, want_t[..., None])[..., 0])
+                and torch.equal(a, v.abs()))
+            del cs
+            if kernel_supported(n, level, wv.length, "pinv"):
+                r = kp.modwpt_inv_cuda(c, wv)
+                smoke.check(f"packet inv {tag} {dt} vs plain",
+                            max_err(r, kp.modwpt_inv_plain(c, wv)), tol_i)
+                smoke.check(f"packet round trip {tag} {dt}",
+                            max_err(r, xd), tol_rt)
+                del r
+            del c
+        torch.cuda.empty_cache()
+
+
 def run_slice(smoke: Smoke, torch, jt, dev, signal, card):
     """The statistics and packet-tree path: phases 10-14.  Returns the
     launches on its main path, each kernel's max-abs-err against its plain
@@ -677,6 +734,7 @@ def run_slice(smoke: Smoke, torch, jt, dev, signal, card):
         smoke.check(f"select ({b}, {n}) {name} value vs plain at its "
                     f"position", max_err(v, at_t), 1e-5)
         del c
+    packet_edges(smoke, torch, jt, kp, signal)
     x = signal(16, 8192)
     x16 = x.bfloat16()
     smoke.check("bf16 var vs bf16 plain (relative)",
@@ -862,6 +920,12 @@ def run_slice(smoke: Smoke, torch, jt, dev, signal, card):
               f"{times[name][0]:.4f} ms a call (CUDA events) [{card}]",
               flush=True)
         times[name] = (dev_ms, times[name][1])
+    for what, call in (
+            ("modwpt", lambda: jt.modwpt(xp, w, PACKET_LEVEL)),
+            ("imodwpt", lambda: jt.imodwpt(cp, w))):
+        print(f"  wall {what} {PACKET_SHAPE} L{PACKET_LEVEL}: "
+              f"{wall_ms(torch, call):.3f} ms (host clock, median of 3) "
+              f"[{card}]", flush=True)
 
     print(f"== phase 14: matching pursuit wall time {MP_SHAPE} K={MP_ATOMS} "
           f"(host clock, median of 3) on {card}", flush=True)
@@ -1407,7 +1471,15 @@ def run_volume_cwt_slice(smoke: Smoke, torch, jt, dev, signal, card):
         fft = jt.cwt(xs, scales, wav, method="fft").coefficients
         smoke.check(f"CWT {wav.name} fused vs the 'fft' path (relative)",
                     scaled_err(cf, fft), 1e-4)
-        del res, cf, fft
+        # concrete tensor scales are static scales: the same kernel launch
+        res_t, _ = counted(
+            f"cwt(method='fused'), {wav.name}, tensor scales",
+            lambda: jt.cwt(xs, torch.tensor(scales, device=dev), wav,
+                           method="fused"), {"cwt_ifft": 1})
+        smoke.require(f"CWT {wav.name} with tensor scales = the list-scales "
+                      f"call (dtype, values bitwise)",
+                      torch.equal(res_t.coefficients, cf))
+        del res, res_t, cf, fft
     wav = jt.MorletWavelet()
     xf, m, is_real = spectra(wav, cb, cp, scales)
     got = kw.cwt_ifft_cuda(xf, m, cp, is_real)

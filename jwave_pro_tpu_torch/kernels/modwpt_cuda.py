@@ -21,7 +21,11 @@ Replaces ``jwave_pro_tpu/kernels/modwpt_pallas.py``:
 Each block walks its tile's tree depth-first, so its shared memory grows
 with L (2L − 1 rows forward, 2L inverse) rather than with 2^L; any N runs,
 halo longer than N included (:func:`kernels.modwt_cuda.kernel_supported`,
-kinds 'pfwd', 'select', 'pinv').
+kinds 'pfwd', 'select', 'pinv').  All three compute in register chains
+with the taps as parameter-bank operands (``modwt_cuda.CHAIN``); the
+forward stages each warp's leaves in shared memory so that its stores,
+2^L rows for each row read, stay coalesced, and the inverse loads each
+leaf pair with batched loads.
 
 Beside each kernel: its plain PyTorch version (``modwpt_fwd_plain``,
 ``modwpt_inv_plain``, ``modwpt_select_plain``) and a launch counter
@@ -43,9 +47,9 @@ from ..ops.modwt import _check_level, modwt_base_filters
 from ..wavelets.base import DiscreteWavelet
 from . import _build
 from .modwt_cuda import (
-    _I, _P, DTYPE_CODES, TILES, TilePlan, _compute_dtype, check_grid,
+    _I, _P, DTYPE_CODES, TilePlan, _compute_dtype, check_grid,
     check_operand, halo, kernel_supported, kernel_taps, smem_bytes, tickets,
-    tile_plan,
+    tile_of, tile_plan,
 )
 
 __all__ = [
@@ -125,13 +129,14 @@ def modwpt_fwd_cuda(x: torch.Tensor, wavelet: DiscreteWavelet,
     b, n = x.shape
     m = wavelet.length
     _require(n, level, wavelet, "pfwd", x.shape, "MODWPT forward")
-    check_grid(b, n, "pfwd")
+    tile = tile_of("pfwd", level, m)
+    check_grid(b, n, "pfwd", tile)
     out = torch.empty((1 << level, b, n), dtype=x.dtype, device=x.device)
     g, h = kernel_taps(wavelet)
     lib = _lib()
     code = lib.jw_modwpt_fwd(
         x.data_ptr(), out.data_ptr(), b, n, level, g.ctypes.data,
-        h.ctypes.data, m, TILES["pfwd"], halo(m, level),
+        h.ctypes.data, m, tile, halo(m, level),
         smem_bytes(level, m, "pfwd"), DTYPE_CODES[x.dtype], x.device.index,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, code, "MODWPT forward kernel")
@@ -152,13 +157,14 @@ def modwpt_inv_cuda(c: torch.Tensor, wavelet: DiscreteWavelet
                          f"nodes, got {nodes}")
     level, m = nodes.bit_length() - 1, wavelet.length
     _require(n, level, wavelet, "pinv", c.shape, "MODWPT inverse")
-    check_grid(b, n, "pinv")
+    tile = tile_of("pinv", level, m)
+    check_grid(b, n, "pinv", tile)
     out = torch.empty((b, n), dtype=c.dtype, device=c.device)
     g, h = kernel_taps(wavelet)
     lib = _lib()
     code = lib.jw_modwpt_inv(
         c.data_ptr(), out.data_ptr(), b, n, level, g.ctypes.data,
-        h.ctypes.data, m, TILES["pinv"], halo(m, level),
+        h.ctypes.data, m, tile, halo(m, level),
         smem_bytes(level, m, "pinv"), DTYPE_CODES[c.dtype], c.device.index,
         torch.cuda.current_stream(c.device).cuda_stream)
     _build.check(lib, code, "MODWPT inverse kernel")

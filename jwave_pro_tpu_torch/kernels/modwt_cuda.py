@@ -55,18 +55,23 @@ WARPS = 512 // 32             # JW_THREADS / 32 in csrc/common.cuh
 SMEM_LIMIT = 232_448          # shared memory one H100 block may use (227 KB)
 # outputs per block; the packet kernels ('pfwd', 'select', 'pinv') keep
 # 2L - 1 or 2L window rows, hence the smaller tile of two (the select's and
-# the forward's are cut where their rows do not fit: :func:`tile_of`)
+# both forwards' are cut where their rows do not fit: :func:`tile_of`)
 TILES = {"fwd": 4096, "inv": 4096, "denoise": 2048, "var": 4096,
          "pfwd": 2048, "select": 4096, "pinv": 2048}
 # outputs in one thread's register chain: JW_VAR_R (csrc/variance.cu),
-# JW_SELECT_R (csrc/modwpt.cu), JW_FWD_R and JW_INV_R (csrc/modwt.cu) and
-# JW_DENOISE_R (csrc/denoise.cu, both its analysis and its synthesis
-# chains); odd, so a warp's loads hit 32 banks
-CHAIN = {"var": 9, "select": 5, "fwd": 9, "inv": 7, "denoise": 5}
+# JW_SELECT_R, JW_PFWD_R and JW_PINV_R (csrc/modwpt.cu), JW_FWD_R and
+# JW_INV_R (csrc/modwt.cu) and JW_DENOISE_R (csrc/denoise.cu, both its
+# analysis and its synthesis chains); odd, so a warp's loads hit 32 banks
+CHAIN = {"var": 9, "select": 5, "fwd": 9, "inv": 7, "denoise": 5,
+         "pfwd": 5, "pinv": 5}
 FWD_THREADS = 256             # JW_FWD_THREADS in csrc/modwt.cu
-# the forward's W staging, floats a block: a slice of 32 chains' outputs a
-# warp (JW_FWD_SLICE)
+PFWD_THREADS = 256            # JW_PFWD_THREADS in csrc/modwpt.cu
+# the forwards' output staging, floats a block: a slice of 32 chains'
+# outputs a warp, W_j for 'fwd' (JW_FWD_SLICE), both leaves for 'pfwd'
+# (JW_PFWD_SLICE)
 FWD_SLICE = FWD_THREADS * CHAIN["fwd"]
+PFWD_SLICE = PFWD_THREADS * 2 * CHAIN["pfwd"]
+SLICES = {"fwd": FWD_SLICE, "pfwd": PFWD_SLICE}
 # the slice is paid for out of the forward's tile, not its halo: the tile is
 # cut to what the slice leaves of the budget (:func:`tile_of`), and a shape
 # runs only where that leaves this much, i.e. where its halo fits beside a
@@ -82,40 +87,53 @@ def halo(m: int, level: int) -> int:
     return (m - 1) * ((1 << level) - 1)
 
 
+def _rows(kind: str, level: int) -> int:
+    """Window rows of the packet kernels' depth-first walk: 2L − 1 for the
+    forward and the select, 2L for the inverse (three at L = 1, where the
+    root needs a row of its own)."""
+    return {"pfwd": 2 * level - 1, "select": 2 * level - 1,
+            "pinv": max(2 * level, 3)}[kind]
+
+
 def tile_of(kind: str, level: int, m: int) -> int:
     """Outputs per block of kernel ``kind``: ``TILES[kind]``, the select's
-    and the forward's cut to what their rows (2L − 1 for the select, two
-    beside the W slices for the forward) leave of the shared-memory budget
-    (below 1 where even the halo does not fit)."""
+    and both forwards' cut to what their rows (2L − 1 for the select and
+    the packet forward, two for the MODWT forward, the forwards' beside
+    their staging slices) leave of the shared-memory budget (below 1 where
+    even the halo does not fit)."""
+    free = SMEM_LIMIT // 4 - 2 * MAX_TAPS
     if kind == "select":
-        fit = ((SMEM_LIMIT // 4 - 2 * MAX_TAPS - 8 * WARPS)
-               // (2 * level - 1) - halo(m, level))
+        fit = (free - 8 * WARPS) // _rows(kind, level) - halo(m, level)
+    elif kind == "pfwd":
+        fit = (free - PFWD_SLICE) // _rows(kind, level) - halo(m, level)
     elif kind == "fwd":
-        fit = ((SMEM_LIMIT // 4 - 2 * MAX_TAPS - FWD_SLICE) // 2
-               - halo(m, level))
+        fit = (free - FWD_SLICE) // 2 - halo(m, level)
     else:
         return TILES[kind]
     return min(TILES[kind], fit)
 
 
 def smem_bytes(level: int, m: int, kind: str, tile: int | None = None,
-               fwd_slice: int = FWD_SLICE) -> int:
+               slice_floats: int | None = None) -> int:
     """Dynamic shared memory of one block: the taps plus the window rows
     (two V buffers for 'fwd', with one W staging slice a warp; for 'var'
     two V buffers, with one warp sum a warp
     and level; two V and one W for 'inv'; two V and L W rows over a
     two-sided window for 'denoise'; the depth-first packet path's 2L − 1
-    rows for 'pfwd' and 'select', which adds two sets of two leaves' 64-bit
-    arg-max keys per warp; 2L rows for 'pinv').  ``tile`` (default
-    :func:`tile_of`) and ``fwd_slice`` (floats of the forward's W slices)
-    lay out another plan, as a probe's variant of a kernel runs it."""
+    rows for 'pfwd', with one slice of both leaves a warp, and for
+    'select', which adds two sets of two leaves' 64-bit arg-max keys per
+    warp; 2L rows for 'pinv', three at L = 1).  ``tile`` (default
+    :func:`tile_of`) and ``slice_floats`` (floats of a forward's staging
+    slices, default ``SLICES[kind]``) lay out another plan, as a probe's
+    variant of a kernel runs it."""
     h, t = halo(m, level), tile or tile_of(kind, level, m)
-    rows = {"fwd": fwd_slice + 2 * (t + h), "inv": 3 * (t + h),
+    sl = SLICES.get(kind, 0) if slice_floats is None else slice_floats
+    rows = {"fwd": sl + 2 * (t + h), "inv": 3 * (t + h),
             "denoise": (level + 2) * (t + 2 * h),
             "var": 2 * (t + h) + WARPS * (level + 1),
-            "pfwd": (2 * level - 1) * (t + h),
-            "select": (2 * level - 1) * (t + h) + 8 * WARPS,
-            "pinv": 2 * level * (t + h)}[kind]
+            "pfwd": sl + _rows("pfwd", level) * (t + h),
+            "select": _rows("select", level) * (t + h) + 8 * WARPS,
+            "pinv": _rows("pinv", level) * (t + h)}[kind]
     return 4 * (2 * MAX_TAPS + rows)
 
 
@@ -127,11 +145,20 @@ def kernel_supported(n: int, level: int, m: int, kind: str) -> bool:
     re-derived from the 227 KB shared-memory budget of a block: any N runs,
     the halo must fit (Db4 runs to L=11 forward and variance, L=8 denoise,
     packet forward and select, L=7 packet inverse; Db4 L13's 57,337-sample
-    halo does not fit).
+    halo does not fit).  The forwards' staging slices come out of their
+    tiles, not their gates: 'fwd' runs where its halo fits beside a
+    ``FWD_MIN_TILE`` tile, and 'pfwd' and 'pinv' where their 2L − 1 and 2L
+    rows fit at the full 2048-sample tile.
     """
-    return (1 <= n < 2 ** 31 and level >= 1 and 1 <= m <= MAX_TAPS
-            and tile_of(kind, level, m) >= (FWD_MIN_TILE if kind == "fwd"
-                                            else 1)
+    if not (1 <= n < 2 ** 31 and level >= 1 and 1 <= m <= MAX_TAPS):
+        return False
+    if kind in ("pfwd", "pinv"):
+        rows = 2 * level - (kind == "pfwd")
+        if 4 * (2 * MAX_TAPS + rows * (TILES[kind] + halo(m, level))
+                ) > SMEM_LIMIT:
+            return False
+    return (tile_of(kind, level, m) >= (FWD_MIN_TILE if kind == "fwd"
+                                        else 1)
             and smem_bytes(level, m, kind) <= SMEM_LIMIT)
 
 

@@ -17,9 +17,10 @@ scale grid, length and rate), the products inverse-FFT as one batch.
 path (real input, static scales); 'fused' takes the multiply + inverse FFT
 kernel (``kernels/cwt_cuda.py``: the CUDA kernel on a CUDA tensor, its
 plain version on the CPU) for float32 input at the lengths it supports,
-else the 'fft' path.  Complex input, and scales given as a tensor (the
-counterpart of the JAX package's traced scales: ψ̂ is evaluated on the
-tensor's device), take the full-FFT path.  The JAX package's pruned-band
+else the 'fft' path.  Complex input, and scales given as a tensor that
+requires grad (the counterpart of the JAX package's traced scales: ψ̂ is
+evaluated on the tensor's device), take the full-FFT path; any other
+tensor of scales is static, as a concrete array is in the JAX package.  The JAX package's pruned-band
 path ('banded', ``ops/cwt_banded.py``), ``cwt_direct`` and ``icwt`` wait
 for their slice.
 """
@@ -281,7 +282,7 @@ def _half_irfft_chunked(xh, mult, padded_n, n, cdtype, rdtype, chunk):
 
 
 def _cwt_full_fft(xp, n, scales_arr, wavelet, sampling_rate, cdtype):
-    """Full-FFT path for complex input and tensor scales: ψ̂ evaluated on
+    """Full-FFT path for complex input and scales that require grad: ψ̂ on
     the scales' device, one ``fft`` and one batched ``ifft``."""
     padded_n = xp.shape[-1]
     sig_fft = torch.fft.fft(xp.to(cdtype), dim=-1)           # (..., P)
@@ -305,7 +306,10 @@ def cwt(x: torch.Tensor, scales, wavelet: ContinuousWavelet | None = None,
     'fft' path), or 'banded' (the JAX package's pruned-band path, which
     waits for its slice and raises here).  For wavelets with real-even ψ̂
     (Mexican Hat, even-order DOG) the coefficients are mathematically real
-    and are returned as a real tensor.  ``precision`` selects the banded
+    and are returned as a real tensor.  ``scales``: a sequence, an array or
+    a tensor; a tensor that requires grad takes the full-FFT path instead
+    (complex coefficients, differentiable in the scales), as the JAX
+    package's traced scales do.  ``precision`` selects the banded
     path's matrix precision in the JAX package and changes nothing here.
     """
     if method not in ("auto", "banded", "fused", "fft"):
@@ -328,9 +332,13 @@ def cwt(x: torch.Tensor, scales, wavelet: ContinuousWavelet | None = None,
     xp = pad_signal(x, padded_n, padding)
     cdtype = torch.complex128 if x.dtype == torch.float64 else torch.complex64
     rdtype = torch.float64 if x.dtype == torch.float64 else torch.float32
-    tensor_scales = isinstance(scales, torch.Tensor)
+    # scales that need a gradient take the full-FFT path, as traced scales
+    # do in the JAX package; any other tensor is concrete and static
+    traced_scales = isinstance(scales, torch.Tensor) and scales.requires_grad
+    if isinstance(scales, torch.Tensor) and not traced_scales:
+        scales = scales.detach().cpu().double().numpy()
 
-    if tensor_scales or x.is_complex():
+    if traced_scales or x.is_complex():
         scales_arr = torch.atleast_1d(torch.as_tensor(
             scales, dtype=rdtype, device=x.device))
         coeff = _cwt_full_fft(xp, n, scales_arr, wavelet, sampling_rate,

@@ -52,13 +52,19 @@ def hard_threshold(c: torch.Tensor, t) -> torch.Tensor:
     return torch.where(torch.abs(c) > t, c, 0.0).to(c.dtype)
 
 
-def _median(a: torch.Tensor, axis: int | None) -> torch.Tensor:
+def _median(a: torch.Tensor, axis: int | tuple[int, ...] | None
+            ) -> torch.Tensor:
     """Median with the midpoint rule for an even count, as ``jnp.median``
     (``torch.median`` returns the lower middle value instead): NaN wherever
-    the reduced axis holds a NaN (``torch.sort`` puts NaN last), over every
-    element for ``axis=None``."""
+    the reduced axes hold a NaN (``torch.sort`` puts NaN last), over every
+    element for ``axis=None``, over all of them for a tuple (moved to the
+    end and flattened)."""
     if axis is None:
         a, axis = a.reshape(-1), 0
+    elif isinstance(axis, tuple):
+        k = len(axis)
+        a = torch.movedim(a, axis, tuple(range(-k, 0)))
+        a, axis = a.reshape(a.shape[:a.ndim - k] + (-1,)), -1
     n = a.shape[axis]
     s = torch.sort(a, dim=axis).values
     lo = s.narrow(axis, (n - 1) // 2, 1).squeeze(axis)

@@ -231,11 +231,17 @@ def matching_pursuit(x: torch.Tensor, wavelet: DiscreteWavelet, level: int,
     batch = tuple(x.shape[:-1])
     dev = x.device
     buf = torch.zeros(batch + (k_tot, n), dtype=x.dtype, device=dev)
+    # the least-squares bookkeeping (chol, b, the solves, coef) runs in
+    # float32 for bf16/f16 input: torch's triangular solves take neither;
+    # coef and the residual come back in x's dtype, as JAX returns them
+    lin = (torch.float32 if x.dtype in (torch.bfloat16, torch.float16)
+           else x.dtype)
+    x_lin = x.to(lin)
     # identity-padded Cholesky factor of the Gram matrix: unselected rows
     # stay e_j, so the solves return 0 for slots not yet filled
-    chol = torch.eye(k_tot, dtype=x.dtype, device=dev).expand(
+    chol = torch.eye(k_tot, dtype=lin, device=dev).expand(
         batch + (k_tot, k_tot)).clone()
-    b = torch.zeros(batch + (k_tot,), dtype=x.dtype, device=dev)
+    b = torch.zeros(batch + (k_tot,), dtype=lin, device=dev)
 
     # Degenerate-pick guard: when n_atoms exceeds the signal's effective
     # sparsity the residual hits ~0 and the arg-max re-picks an
@@ -267,7 +273,7 @@ def matching_pursuit(x: torch.Tensor, wavelet: DiscreteWavelet, level: int,
         atom = _gather_atoms(rev_unit, node, t, n)            # (..., N)
         atom = torch.where(live, atom, torch.zeros_like(atom))
         buf[..., k, :] = atom
-        ek = (slots == k).to(x.dtype)
+        ek = (slots == k).to(lin)
         if use_gram_tab:
             # ⟨atom_j, atom_k⟩ = tab[node_j, node_k, (t_j − t_k) + S−1]
             dt = ts_a - t[..., None]
@@ -279,7 +285,7 @@ def matching_pursuit(x: torch.Tensor, wavelet: DiscreteWavelet, level: int,
         else:
             row = torch.einsum("...ln,...n->...l", buf, atom)
             # parked slot: keep the identity row's 1 on the diagonal
-            row = row + (~live).to(x.dtype) * ek
+            row = row + (~live).to(lin) * ek
         nodes_a[..., k] = node
         ts_a[..., k] = t
         live_a[..., k] = live[..., 0]
@@ -290,16 +296,17 @@ def matching_pursuit(x: torch.Tensor, wavelet: DiscreteWavelet, level: int,
         yk = y[..., k]
         # ‖l_k‖² = ‖y‖² − y_k² (entries past k are exactly 0)
         d = yk - (torch.sum(y * y, dim=-1) - yk * yk)
-        pivot = torch.sqrt(torch.clamp_min(d, torch.finfo(x.dtype).tiny))
-        chol[..., k, :] = y * (slots < k).to(x.dtype) + pivot[..., None] * ek
-        b[..., k] = torch.einsum("...n,...n->...", atom, x)
+        pivot = torch.sqrt(torch.clamp_min(d, torch.finfo(lin).tiny))
+        chol[..., k, :] = y * (slots < k).to(lin) + pivot[..., None] * ek
+        b[..., k] = torch.einsum("...n,...n->...", atom.to(lin), x_lin)
         z = torch.linalg.solve_triangular(chol, b[..., None], upper=False)
         coef = torch.linalg.solve_triangular(chol.mT, z, upper=True)[..., 0]
-        r = x - torch.einsum("...k,...kn->...n", coef, buf)
+        r = (x_lin - torch.einsum("...k,...kn->...n", coef, buf.to(lin))
+             ).to(x.dtype)
         picks.append((node.to(torch.int32), t.to(torch.int32)))
     nodes, shifts = (torch.stack(p, dim=-1) for p in zip(*picks))
     # amps = the final joint LS coefficients, aligned with pick order
-    return MPResult(nodes, shifts, coef, r, level, wavelet.name)
+    return MPResult(nodes, shifts, coef.to(x.dtype), r, level, wavelet.name)
 
 
 def mp_reconstruct(result: MPResult, wavelet: DiscreteWavelet,

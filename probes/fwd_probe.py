@@ -161,7 +161,8 @@ def smem(name: str, threads: int, r: int, tile: int, m: int,
          level: int) -> int:
     """The variant's layout: the parent's has no W slices."""
     return kc.smem_bytes(level, m, "fwd", tile=tile,
-                         fwd_slice=0 if name == "parent" else threads * r)
+                         slice_floats=0 if name == "parent"
+                         else threads * r)
 
 
 def build(parent: Path | None):

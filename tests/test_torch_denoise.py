@@ -127,6 +127,42 @@ def test_threshold_estimators_take_axis_like_jax(rule, axis):
                                atol=1e-12)
 
 
+@pytest.mark.parametrize("nan", [False, True])
+@pytest.mark.parametrize("axis", [(0, 2), (-1, 0), (1,)])
+def test_mad_sigma_tuple_axis_matches_jax(axis, nan):
+    """A tuple ``axis`` reduces over all its axes, as ``jnp.median`` does;
+    a NaN anywhere in them gives NaN."""
+    d = np.random.default_rng(23).standard_normal((3, 4, 50))
+    if nan:
+        d[1, 2, 7] = np.nan
+    got = jt.mad_sigma(_t(d), axis=axis).numpy()
+    want = np.asarray(jw.mad_sigma(d, axis=axis))
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-15)
+
+
+def test_universal_threshold_tuple_axis_with_n_matches_jax():
+    d = np.random.default_rng(24).standard_normal((3, 4, 50))
+    got = jt.universal_threshold(_t(d), n=9, axis=(0, 2)).numpy()
+    want = np.asarray(jw.universal_threshold(d, n=9, axis=(0, 2)))
+    assert got.shape == want.shape == (4,)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-15)
+
+
+@pytest.mark.parametrize("rule", ["universal", "sure"])
+def test_tuple_axis_without_n_raises_in_both(rule):
+    """Both packages read ``d.shape[axis]`` here, so a tuple raises in
+    both: ``universal_threshold`` without ``n``, and ``sure_threshold``."""
+    d = np.random.default_rng(25).standard_normal((3, 4, 50))
+    fj, ft = {"universal": (jw.universal_threshold, jt.universal_threshold),
+              "sure": (jw.sure_threshold, jt.sure_threshold)}[rule]
+    with pytest.raises(TypeError):
+        fj(d, axis=(0, 2))
+    with pytest.raises(TypeError):
+        ft(_t(d), axis=(0, 2))
+
+
 @pytest.mark.parametrize("axis", [-1, 0, None])
 def test_mad_sigma_propagates_nan_like_jax(axis):
     """A NaN in the reduced axis gives NaN (``torch.sort`` puts it last, and

@@ -337,6 +337,113 @@ def test_select_edges_bitwise_repeatable(dev, batch, n, level, name, dtype):
         assert torch.equal(got, again)
 
 
+# the smoke's packet edge shapes: halo > N, N off the tile, each
+# specialised filter length and the runtime-M one (Db2), leaves at d >= 32
+# (Haar L6), L = 1, B = 300, and the gate edges at N = 2^20 (Db4 L8 forward,
+# Db4 L7 inverse)
+PACKET_EDGES = [(3, 17, 3, "Daubechies 4"), (2, 100003, 3, "Haar"),
+                (2, 5000, 2, "Symlet 8"), (3, 100003, 3, "Daubechies 2"),
+                (2, 3000, 6, "Haar"), (2, 2000, 1, "Symlet 8"),
+                (300, 5000, 3, "Daubechies 4"),
+                (2, 1 << 20, 8, "Daubechies 4"),
+                (2, 1 << 20, 7, "Daubechies 4")]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch,n,level,name", PACKET_EDGES)
+def test_packet_edges_match_plain_and_repeat_bitwise(dev, batch, n, level,
+                                                     name, dtype):
+    """The packet forward against its plain version and bitwise against a
+    second call, the select against the arg-max over its output, and the
+    inverse (where its gate admits the shape) against its plain version
+    and the input."""
+    w = jt.wavelet(name)
+    x = _signal(dev, batch, n, seed=17, dtype=dtype)
+    c = kp.modwpt_fwd_cuda(x, w, level)
+    assert c.dtype == dtype and c.shape == (1 << level, batch, n)
+    _close(c, kp.modwpt_fwd_plain(x, w, level), dtype)
+    assert torch.equal(c, kp.modwpt_fwd_cuda(x, w, level))
+    cs = c if dtype == torch.float32 else kp.modwpt_fwd_cuda(x.float(), w,
+                                                             level)
+    a, t, v = kp.modwpt_select_cuda(x, w, level)
+    want_t = torch.argmax(cs.abs(), dim=-1)
+    assert torch.equal(t.long(), want_t)
+    assert torch.equal(v, torch.gather(cs, -1, want_t[..., None])[..., 0])
+    del cs
+    if not kc.kernel_supported(n, level, w.length, "pinv"):
+        return
+    back = kp.modwpt_inv_cuda(c, w)
+    assert back.dtype == dtype and back.shape == (batch, n)
+    if dtype == torch.bfloat16:
+        _close(back, kp.modwpt_inv_plain(c, w), dtype)
+        torch.testing.assert_close(back.float(), x.float(), rtol=0, atol=1e-1)
+    else:
+        torch.testing.assert_close(back, kp.modwpt_inv_plain(c, w), rtol=0,
+                                   atol=1e-4)
+        torch.testing.assert_close(back, x, rtol=0, atol=1e-4)
+    assert torch.equal(back, kp.modwpt_inv_cuda(c, w))
+
+
+def test_packet_entry_points_reject_layouts_off_their_plan(dev):
+    """The packet forward's and inverse's C entry points launch only with
+    the plan's halo and shared-memory size (smem_bytes), and return
+    cudaErrorInvalidValue (1) for any other."""
+    x = _signal(dev, 2, 4096, seed=18)
+    c = kp.modwpt_fwd_cuda(x, DB4, 3)
+    out_c, out_x = torch.empty_like(c), torch.empty_like(x)
+    g, h = kc.kernel_taps(DB4)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    hal = kc.halo(8, 3)
+    lib = kp._lib()
+    for dh, ds, want in ((1, 0, 1), (-1, 0, 1), (0, 4, 1), (0, -4, 1),
+                         (0, 0, 0)):
+        assert lib.jw_modwpt_fwd(
+            x.data_ptr(), out_c.data_ptr(), 2, 4096, 3, g.ctypes.data,
+            h.ctypes.data, 8, kc.tile_of("pfwd", 3, 8), hal + dh,
+            kc.smem_bytes(3, 8, "pfwd") + ds, 0, 0, stream) == want
+        assert lib.jw_modwpt_inv(
+            c.data_ptr(), out_x.data_ptr(), 2, 4096, 3, g.ctypes.data,
+            h.ctypes.data, 8, kc.tile_of("pinv", 3, 8), hal + dh,
+            kc.smem_bytes(3, 8, "pinv") + ds, 0, 0, stream) == want
+    torch.cuda.synchronize()
+    assert torch.equal(out_c, c)
+
+
+def test_bf16_omp_through_the_fused_select(dev):
+    """Orthogonal matching pursuit of bf16 input runs its picks through the
+    fused select and its least squares in f32: on a signal of three atoms a
+    row (amplitudes 6-8, each above the bf16 guard 50·eps·‖x‖ ≈ 0.39 ‖x‖,
+    noise 0.01) it makes the f32 run's picks on the same values, with amps
+    and residual within the bf16 bound."""
+    x = _omp_signal()
+    x16 = x.to(dev, torch.bfloat16)
+    before = kp.modwpt_select_cuda.launches
+    got = jt.matching_pursuit(x16, DB4, 3, 3, orthogonalize=True)
+    assert kp.modwpt_select_cuda.launches - before == 3
+    want = jt.matching_pursuit(x16.float(), DB4, 3, 3, orthogonalize=True)
+    assert got.amps.dtype == got.residual.dtype == torch.bfloat16
+    assert torch.equal(got.nodes, want.nodes)
+    assert torch.equal(got.shifts, want.shifts)
+    torch.testing.assert_close(got.amps.float(), want.amps, rtol=0,
+                               atol=5e-2)
+    torch.testing.assert_close(got.residual.float(), want.residual, rtol=0,
+                               atol=5e-2)
+
+
+def _omp_signal():
+    """(2, 4096) float64: three Db4 L3 atoms a row plus 0.01 noise."""
+    picks = jt.MPResult(
+        torch.tensor([[0, 3, 5], [2, 7, 1]], dtype=torch.int32),
+        torch.tensor([[100, 1500, 3000], [600, 2000, 3500]],
+                     dtype=torch.int32),
+        torch.tensor([[8.0, -7.5, 7.0], [-7.0, 6.5, 6.0]],
+                     dtype=torch.float64),
+        torch.zeros(2, 4096, dtype=torch.float64), 3, "Daubechies 4")
+    x = jt.mp_reconstruct(picks, DB4, 4096)
+    return x + 0.01 * torch.from_numpy(
+        np.random.default_rng(19).standard_normal(x.shape))
+
+
 def test_in_launch_finish_on_two_streams(dev):
     """Each stream has its own ticket counters: launches on two streams at
     once give what each gives alone."""

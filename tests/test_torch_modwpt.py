@@ -300,7 +300,7 @@ def _chain_starts(lo, end, s, r):
     return np.where(i < end, i, -1)
 
 
-@pytest.mark.parametrize("kind", ["var", "select"])
+@pytest.mark.parametrize("kind", ["var", "select", "pfwd", "pinv"])
 @pytest.mark.parametrize("s", range(0, 8))
 def test_register_chains_cover_each_output_once_on_distinct_banks(kind, s):
     r = kc.CHAIN[kind]
@@ -374,3 +374,97 @@ def test_var_and_select_kernels_declare_no_static_shared_memory():
                  if "__shared__" in ln and not ln.lstrip().startswith("//")]
         assert lines and all(ln == "extern __shared__ float smem[];"
                              for ln in lines), (name, lines)
+
+
+# -- the packet forward's and inverse's plans and leaf stores (the kernels
+# run on the card only; their geometry is plain Python, pinned here) -------
+
+CATALOG_LENGTHS = sorted({jt.wavelet(name).length
+                          for name in jt.wavelet_names()})
+
+
+@pytest.mark.parametrize("kind", ["pfwd", "pinv"])
+@pytest.mark.parametrize("m", CATALOG_LENGTHS)
+def test_packet_gates_admit_what_they_admitted_before_the_redesign(kind, m):
+    """The forward's leaf slices and the inverse's root row come out of the
+    tile, never the gate: for every filter length of the catalog, every
+    level 1-13 and N in {16, 100003, 2^20}, each kernel admits exactly the
+    shapes whose 2L − 1 (forward) or 2L (inverse) rows fit at the full
+    2048-sample tile beside the taps -- the rule before the redesign -- and
+    runs each within the budget."""
+    for level in range(1, 14):
+        h = kc.halo(m, level)
+        rows = 2 * level - 1 if kind == "pfwd" else 2 * level
+        before = 4 * (2 * 64 + rows * (2048 + h)) <= 232_448
+        for n in (16, 100003, 1 << 20):
+            assert kc.kernel_supported(n, level, m, kind) == before
+        if before:
+            tile = kc.tile_of(kind, level, m)
+            assert 1 <= tile <= 2048
+            assert kc.smem_bytes(level, m, kind) <= kc.SMEM_LIMIT
+
+
+def test_packet_plans_at_the_main_shape_and_the_gate_edges():
+    # Db4 L3: full tiles; four blocks an SM fit (the forward with its slices)
+    assert kc.tile_of("pfwd", 3, 8) == kc.tile_of("pinv", 3, 8) == 2048
+    assert 4 * (kc.smem_bytes(3, 8, "pfwd") + 1024) <= 233_472
+    assert 4 * (kc.smem_bytes(3, 8, "pinv") + 1024) <= 233_472
+    # the gate edges at N = 2^20: forward to Db4 L8, inverse to Db4 L7
+    for kind, top in (("pfwd", 8), ("pinv", 7)):
+        assert [lv for lv in range(1, 14) if kc.kernel_supported(
+            1 << 20, lv, 8, kind)] == list(range(1, top + 1))
+    # Db4 L8: the forward's tile cut to what the slices leave of 15 rows
+    assert kc.tile_of("pfwd", 8, 8) == 1909
+    assert kc.smem_bytes(8, 8, "pfwd") <= kc.SMEM_LIMIT \
+        < kc.smem_bytes(8, 8, "pfwd", tile=1910)
+    # the inverse's root row at L = 1 is a third row; above, the g̃ leaf row
+    assert kc.smem_bytes(1, 8, "pinv") == 4 * (128 + 3 * (2048 + 7))
+    assert kc.smem_bytes(2, 8, "pinv") == 4 * (128 + 4 * (2048 + 21))
+
+
+def _leaf_turns(lo, end, s):
+    """The packet forward's leaf level as ``jw_modwpt_fwd_kernel``
+    (csrc/modwpt.cu) runs it: ``jw_level_pair``'s chains, warp by warp.
+    Yields, for each warp's turn, the window index of its first output
+    (lo + c0 R) and each lane's outputs [lane][r] (-1 for none)."""
+    r, threads, d = kc.CHAIN["pfwd"], kc.PFWD_THREADS, 1 << s
+    chains = -(-(end - lo) // (r * d)) << s
+    for warp in range(threads // 32):
+        for c0 in range(warp * 32, chains, threads):
+            c = c0 + np.arange(32)[:, None]
+            i = lo + (c >> s) * r * d + (c & (d - 1)) + np.arange(r) * d
+            yield lo + c0 * r, np.where((c < chains) & (i < end), i, -1)
+
+
+@pytest.mark.parametrize("n,level,m", [
+    (17, 3, 8), (100003, 3, 2), (5000, 2, 16), (100003, 3, 4), (3000, 6, 2),
+    (2000, 1, 16), (1 << 20, 8, 8), (1 << 18, 3, 8)])
+def test_packet_leaves_stored_once_and_coalesced(n, level, m):
+    """Every leaf output of a tile in [H, end) is stored exactly once.  At
+    d < 32 a warp's turn emits exactly the window indices [first, first +
+    32 R) below end, each lane's R outputs on distinct slice banks, and the
+    warp stores both slices as consecutive addresses; at d >= 32 the lanes'
+    outputs of one chain step are 32 consecutive indices, stored straight
+    (the smoke's packet edge shapes and the main path's)."""
+    r, h, s = kc.CHAIN["pfwd"], kc.halo(m, level), level - 1
+    tile = kc.tile_of("pfwd", level, m)
+    for end in sorted({h + min(tile, n), h + n - (n - 1) // tile * tile}):
+        stored = []
+        for first, idx in _leaf_turns(h, end, s):
+            got = idx[idx >= 0]
+            if s < 5:
+                want = np.arange(first, min(first + 32 * r, end))
+                np.testing.assert_array_equal(np.sort(got), want)
+                for step in idx.T:   # slice writes of one chain step
+                    live = step[step >= 0] - first
+                    assert len(set(live % 32)) == len(live)
+                k_lane = first + np.arange(r)[:, None] * 32 + np.arange(32)
+                stored += [k_lane[k_lane < end]]
+            else:
+                for step in idx.T:
+                    live = step[step >= 0]
+                    np.testing.assert_array_equal(
+                        live, live[:1] + np.arange(len(live)))
+                stored += [got]
+        stored = np.sort(np.concatenate(stored))
+        np.testing.assert_array_equal(stored, np.arange(h, end))

@@ -474,7 +474,9 @@ _ENTRY_POINTS = {"fwd": ("modwt.cu", "jw_modwt_fwd"),
                  "var": ("variance.cu", "jw_modwt_var"),
                  "select": ("modwpt.cu", "jw_modwpt_select"),
                  "inv": ("modwt.cu", "jw_modwt_inv"),
-                 "denoise": ("denoise.cu", "jw_modwt_denoise")}
+                 "denoise": ("denoise.cu", "jw_modwt_denoise"),
+                 "pfwd": ("modwpt.cu", "jw_modwpt_fwd"),
+                 "pinv": ("modwpt.cu", "jw_modwpt_inv")}
 
 
 @pytest.mark.parametrize("kind", sorted(_ENTRY_POINTS))
@@ -495,6 +497,7 @@ def test_smem_bytes_is_the_layout_the_entry_point_accepts(kind):
                 continue
             names = {"JW_MAX_TAPS": kc.MAX_TAPS, "JW_WARPS": kc.WARPS,
                      "JW_FWD_SLICE": kc.FWD_SLICE,
+                     "JW_PFWD_SLICE": kc.PFWD_SLICE,
                      "level": lv, "tile": kc.tile_of(kind, lv, m),
                      "halo": kc.halo(m, lv)}
             assert 4 * eval(expr, {}, names) == kc.smem_bytes(lv, m, kind)

@@ -87,6 +87,48 @@ def test_omp_both_gram_branches_match_jax(n):
             assert abs(float(got.residual[b].numpy() @ atom)) < 1e-12
 
 
+def _sparse_signal(rng):
+    """(2, 256): three Db4 L2 atoms a row, amplitudes 4-8, plus 0.05 noise,
+    so OMP's picks stay above its 50·eps·‖x‖ guard even in bf16."""
+    picks = jt.MPResult(
+        torch.tensor([[0, 3, 1], [2, 1, 3]], dtype=torch.int32),
+        torch.tensor([[10, 140, 200], [60, 7, 181]], dtype=torch.int32),
+        torch.tensor([[8.0, -6.0, 5.0], [-7.0, 6.5, 4.0]],
+                     dtype=torch.float64),
+        torch.zeros(2, 256, dtype=torch.float64), LEVEL, DB4)
+    x = jt.mp_reconstruct(picks, W_T, 256).numpy()
+    return x + 0.05 * rng.standard_normal(x.shape)
+
+
+@pytest.mark.parametrize("signal", ["noise", "sparse"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_omp_low_precision_matches_jax(dtype, signal):
+    """OMP of bf16/f16 input returns ``amps`` and ``residual`` in the input
+    dtype, as JAX does; the port solves in float32 (torch's triangular
+    solves take neither type), JAX in the input dtype, so the values agree
+    within the bf16 bound, 5e-2.  The picks agree at every step: on white
+    noise in bf16 the guard 50·eps·‖x‖ (≈ 6) lies above every correlation,
+    so both packages park each pick (amps 0) and re-pick the same atom; on
+    the sparse signal both find the three atoms and park the fourth pick
+    (bf16, row 2: the third too)."""
+    rng = np.random.default_rng(11)
+    x = (rng.standard_normal((2, 256)) if signal == "noise"
+         else _sparse_signal(rng)).astype(np.float32)
+    xj = jax.numpy.asarray(x).astype(dtype)
+    k = 8 if signal == "noise" else 4
+    want = _jax_mp(LEVEL, k, "auto", True)(xj)
+    got = jt.matching_pursuit(_t(x).to(getattr(torch, dtype)), W_T, LEVEL,
+                              k, orthogonalize=True)
+    assert got.amps.dtype == got.residual.dtype == getattr(torch, dtype)
+    assert str(want[2].dtype) == str(want[3].dtype) == dtype
+    np.testing.assert_array_equal(got.nodes.numpy(), np.asarray(want[0]))
+    np.testing.assert_array_equal(got.shifts.numpy(), np.asarray(want[1]))
+    for g, w in ((got.amps, want[2]), (got.residual, want[3])):
+        np.testing.assert_allclose(
+            g.float().numpy(), np.asarray(w.astype(np.float32)), rtol=0,
+            atol=5e-2)
+
+
 def test_reconstruct_and_energy_identities():
     x = np.random.default_rng(3).standard_normal((2, 64))
     xt = _t(x)
