@@ -21,7 +21,12 @@ float32 frames at Db4 level 3, the quad-tree packets at level 2, the 2D
 MRA at 2 × 512 × 512), the 3D volume path (forward, inverse and denoise of four
 256³ float32 volumes at Db4 level 2, the oct-tree packets of one, the 3D
 MRA at 2 × 64³), and the CWT (the fused multiply + inverse FFT over
-64 × 16384 samples at 64 log scales, Morlet and Mexican Hat).  The
+64 × 16384 samples at 64 log scales, Morlet and Mexican Hat), and the
+decimated path at bench.py's shapes (fwt/ifwt and wavedec/waverec Db4 at
+32 × 2^20, fwt2 at 16 × 1024², fwt3 at 4 × 128³, the packet tree Symlet 8
+level 6 at 64 × 65536 and its best-basis denoise at 8 × 65536; cuBLAS
+matmuls, no kernel of this package), each held to the port's CPU float64
+result and put beside the bound of its matmul form.  The
 kernels' launch counters, set to 0
 before each path and read after it, show that the path ran through them;
 CUDA events time each kernel against its plain version.  Every check
@@ -73,6 +78,13 @@ MRA3_SHAPE = (2, 64, 64, 64)
 # bench.py:241), and bench.py's own 16 × 4096
 CWT_SHAPE, CWT_SCALES = (64, 16384), 64
 CWT_BENCH = (16, 4096)
+# the decimated path at bench.py's own shapes: fwt and its L5 round trip
+# (:82, :90) and wavedec/waverec at the north-star shape, fwt2 (:110), fwt3
+# (:287), the packet tree (:222, :230) and the best-basis denoise (:161)
+DEC_IMAGE = (16, 1024, 1024)
+DEC_VOLUME, DEC_VOLUME_LEVELS = (4, 128, 128, 128), (2, 2, 2)
+WPT_SHAPE, WPT_DENOISE_SHAPE, WPT_LEVEL = (64, 65536), (8, 65536), 6
+WPT_WAVELET = "Symlet 8"
 # the forward's, the inverse's and the fused denoise's edge shapes (B, N,
 # level, wavelet): halo longer than N, N off the tile, each kernel's gate
 # edges (the forward's: Haar L13 at the public maximum, Symlet 8 L10 at its
@@ -502,6 +514,8 @@ def run(smoke: Smoke, torch, jt) -> dict:
         times.update(part_times)
         for lib in part_library:
             library.update(lib)
+
+    run_decimated_slice(smoke, torch, jt, signal, card)
 
     src = "jwave_pro_tpu_torch/csrc/"
     tpu = "jwave_pro_tpu/kernels/"
@@ -1538,6 +1552,275 @@ def run_volume_cwt_slice(smoke: Smoke, torch, jt, dev, signal, card):
         print(f"  wall {name}: {ms:.3f} ms (host clock, median of 3) "
               f"[{card}]", flush=True)
     return launches, errs, times, library
+
+
+def all_launchers() -> dict:
+    """Every kernel wrapper's launch counter, by kernel."""
+    from jwave_pro_tpu_torch.kernels import cwt_cuda as kw
+    from jwave_pro_tpu_torch.kernels import denoise_cuda as kd
+    from jwave_pro_tpu_torch.kernels import modwpt_cuda as kp
+    from jwave_pro_tpu_torch.kernels import modwt2_cuda as k2
+    from jwave_pro_tpu_torch.kernels import modwt3_cuda as k3
+    from jwave_pro_tpu_torch.kernels import modwt_cuda as kc
+    from jwave_pro_tpu_torch.kernels import variance_cuda as kv
+
+    return {"modwt_fwd": kc.modwt_fwd_cuda, "modwt_inv": kc.modwt_inv_cuda,
+            "modwt_denoise": kd.modwt_denoise_cuda,
+            "modwt_var": kv.modwt_var_cuda,
+            "modwpt_fwd": kp.modwpt_fwd_cuda,
+            "modwpt_select": kp.modwpt_select_cuda,
+            "modwpt_inv": kp.modwpt_inv_cuda,
+            "modwt2_fwd": k2.modwt2_fwd_cuda,
+            "modwt2_inv": k2.modwt2_inv_cuda,
+            "modwt2_denoise": k2.modwt2_denoise_cuda,
+            "modwt3_fwd": k3.modwt3_fwd_cuda,
+            "modwt3_inv": k3.modwt3_inv_cuda,
+            "cwt_ifft": kw.cwt_ifft_cuda}
+
+
+def matmul_flops(call) -> int:
+    """The float32 operations (2 a multiply-add) of the matmuls ``call``
+    runs, counted by wrapping the port's one matmul helper (``ops/fwt.py:
+    _mm``, which ``ops/wpt.py`` imports).  At power-of-two widths the
+    decimated transforms run no other form."""
+    import importlib
+
+    mods = [importlib.import_module(f"jwave_pro_tpu_torch.ops.{m}")
+            for m in ("fwt", "wpt")]
+    orig = mods[0]._mm
+    total = 0
+
+    def counting(u, m):
+        nonlocal total
+        total += 2 * u.numel() * m.shape[-1]
+        return orig(u, m)
+
+    for mod in mods:
+        mod._mm = counting
+    try:
+        call()
+    finally:
+        for mod in mods:
+            mod._mm = orig
+    return total
+
+
+def rel_to(smoke: Smoke, name: str, got, want, tol: float) -> float:
+    """max|got − want| ≤ tol × max|want| (both on the host, in f64)."""
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    scale = float(want.abs().max())
+    return smoke.check(f"{name} (relative to max|ref| {scale:.3g})",
+                       float((got - want).abs().max()) / scale, tol)
+
+
+def basis_cost(jt, tree, masks, n: int, per_sample: bool):
+    """The SURE cost of the basis ``masks`` selects, on the f64 ``tree``
+    (the additive cost ``wpt_denoise`` selects by)."""
+    total = 0.0
+    for l, m in enumerate(masks):
+        row = tree[l].reshape(tree.shape[1:-1] + (1 << l, n >> l))
+        c = jt.ops.sure_cost(row)
+        c = c if per_sample else c.sum(dim=tuple(range(c.ndim - 1)))
+        total = total + (c * m.double().cpu()).sum()
+    return float(total)
+
+
+def run_decimated_slice(smoke: Smoke, torch, jt, signal, card) -> None:
+    """The decimated path through the public API at bench.py's shapes
+    (phases 22-23): fwt/ifwt, fwt2/ifwt2, fwt3/ifwt3, wpt/iwpt, the
+    best-basis denoise and wavedec/waverec, float32 on the card.  Each
+    call is held to the port's own CPU float64 result on its first two
+    rows (images, volumes), timed, and put beside the bound of its matmul
+    form.  It reaches none of the 14 kernels (nor, in JAX, any Pallas
+    kernel): cuBLAS runs its banded matmuls."""
+    import importlib
+
+    fwt_mod = importlib.import_module("jwave_pro_tpu_torch.ops.fwt")
+    t_phase = time.perf_counter()
+    w, ws = jt.wavelet(WAVELET), jt.wavelet(WPT_WAVELET)
+    b, n = MAIN_SHAPE
+    x = signal(*MAIN_SHAPE)
+    img = signal(*DEC_IMAGE)
+    vol = signal(*DEC_VOLUME)
+    xw = signal(*WPT_SHAPE)
+    xd = signal(*WPT_DENOISE_SHAPE)
+    lv3 = DEC_VOLUME_LEVELS
+
+    def host(t, rows=2):
+        return t[:rows].double().cpu()
+
+    print(f"== phase 22: the decimated path through the public API, f32, "
+          f"against the port's CPU f64 result on the first two rows",
+          flush=True)
+    y = jt.fwt(x, w)
+    rel_to(smoke, f"fwt {MAIN_SHAPE} {WAVELET} default level",
+           host(y), jt.fwt(host(x), w), 1e-5)
+    y5 = jt.fwt(x, w, LEVEL)
+    rel_to(smoke, f"fwt {MAIN_SHAPE} L{LEVEL}", host(y5),
+           jt.fwt(host(x), w, LEVEL), 1e-5)
+    rel_to(smoke, f"ifwt(fwt) {MAIN_SHAPE} L{LEVEL} round trip",
+           jt.ifwt(y5, w, LEVEL), x, 1e-4)
+    y2 = jt.fwt2(img, w)
+    rel_to(smoke, f"fwt2 {DEC_IMAGE}", host(y2), jt.fwt2(host(img), w),
+           1e-5)
+    rel_to(smoke, f"ifwt2(fwt2) {DEC_IMAGE} round trip", jt.ifwt2(y2, w),
+           img, 1e-4)
+    y3 = jt.fwt3(vol, w, lv3)
+    rel_to(smoke, f"fwt3 {DEC_VOLUME} levels {lv3}", host(y3),
+           jt.fwt3(host(vol), w, lv3), 1e-5)
+    rel_to(smoke, f"ifwt3(fwt3) {DEC_VOLUME} round trip",
+           jt.ifwt3(y3, w, lv3), vol, 1e-4)
+    yw = jt.wpt(xw, ws, WPT_LEVEL)
+    rel_to(smoke, f"wpt {WPT_SHAPE} {WPT_WAVELET} L{WPT_LEVEL}", host(yw),
+           jt.wpt(host(xw), ws, WPT_LEVEL), 1e-5)
+    rel_to(smoke, f"iwpt(wpt) {WPT_SHAPE} round trip",
+           jt.iwpt(yw, ws, WPT_LEVEL), xw, 1e-4)
+    cs = jt.wavedec(x, w, LEVEL)
+    for got, want in zip(cs, jt.wavedec(host(x), w, LEVEL)):
+        rel_to(smoke, f"wavedec {MAIN_SHAPE} L{LEVEL} band "
+               f"{tuple(got.shape)}", host(got), want, 1e-5)
+    rel_to(smoke, f"waverec(wavedec) {MAIN_SHAPE} round trip",
+           jt.waverec(cs, w), x, 1e-4)
+    del y, y5, y2, y3, yw, cs
+
+    # the best-basis denoise (hard, as bench.py:161): the masks as the CPU
+    # f64 run selects them on the same input (or, where a cost ties within
+    # f32 rounding, the place where they part); the output within f32
+    # noise plus what the hard-threshold decisions that flip between f32
+    # and f64 can move (an orthonormal synthesis moves the output by at
+    # most the L1 norm of the flipped coefficients)
+    nd = WPT_DENOISE_SHAPE[1]
+    for per_sample in (False, True):
+        tag = f"wpt_denoise {WPT_DENOISE_SHAPE} per_sample={per_sample}"
+        masks, _, tree = jt.best_basis(xd, ws, WPT_LEVEL, "sure",
+                                       per_sample=per_sample)
+        xd64 = xd.double().cpu()
+        masks64, _, tree64 = jt.best_basis(xd64, ws, WPT_LEVEL, "sure",
+                                           per_sample=per_sample)
+        parts = [(l, int(torch.nonzero(m.cpu() != m64)[0][-1]))
+                 for l, (m, m64) in enumerate(zip(masks, masks64))
+                 if not torch.equal(m.cpu(), m64)]
+        if parts:
+            c_card = basis_cost(jt, tree64, masks, nd, per_sample)
+            c_ref = basis_cost(jt, tree64, masks64, nd, per_sample)
+            print(f"  {tag}: masks part at (level, node) {parts[0]}; SURE "
+                  f"of the card's basis {c_card!r}, of the f64 basis "
+                  f"{c_ref!r}", flush=True)
+            smoke.require(f"{tag}: the bases' costs tie within f32 "
+                          f"rounding", abs(c_card - c_ref)
+                          <= 1e-5 * abs(c_ref))
+        else:
+            smoke.require(f"{tag}: masks equal the CPU f64 masks", True)
+        got = jt.wpt_denoise(xd, ws, WPT_LEVEL, mode="hard",
+                             per_sample=per_sample)
+        want = jt.wpt_denoise(xd64, ws, WPT_LEVEL, mode="hard",
+                              per_sample=per_sample)
+        flat = jt.basis_coefficients(tree, masks).double().cpu()
+        flat64 = jt.basis_coefficients(tree64, masks64)
+        t = jt.universal_threshold(tree[1][..., nd // 2:], nd)
+        t64 = jt.universal_threshold(tree64[1][..., nd // 2:], nd)
+        flips = ((flat.abs() > t.double().cpu()[..., None])
+                 != (flat64.abs() > t64[..., None]))
+        slack = float(flat64.abs()[flips].sum())
+        scale = float(xd64.abs().max())
+        print(f"  {tag}: {int(flips.sum())} hard-threshold decisions flip "
+              f"between f32 and f64 (L1 {slack:.3g})", flush=True)
+        smoke.require(f"{tag} shape and finite",
+                      tuple(got.shape) == WPT_DENOISE_SHAPE
+                      and bool(torch.isfinite(got).all()))
+        smoke.check(f"{tag} vs CPU f64 (bound 1e-4 max|x| + flips)",
+                    max_err(got.cpu(), want), 1e-4 * scale + slack)
+        del masks, tree, masks64, tree64, got, want
+    # bf16 in, bf16 out, constants rounded to bf16
+    xb = x.to(torch.bfloat16)
+    yb = jt.fwt(xb, w, LEVEL)
+    smoke.require("bf16 fwt returns bf16", yb.dtype == torch.bfloat16)
+    rel_to(smoke, f"bf16 fwt {MAIN_SHAPE} L{LEVEL}", host(yb),
+           jt.fwt(host(xb), w, LEVEL), 5e-2)
+    rel_to(smoke, f"bf16 ifwt(fwt) {MAIN_SHAPE} round trip",
+           jt.ifwt(yb, w, LEVEL), xb, 5e-2)
+    del xb, yb
+    # with the process set to TF32 (through either of torch's settings),
+    # the port's products stay IEEE float32
+    ref = jt.fwt(host(x), w, LEVEL)
+    settings = [("matmul precision 'high'",
+                 lambda: torch.set_float32_matmul_precision("high"))]
+    if hasattr(torch.backends.cuda.matmul, "fp32_precision"):
+        settings.append(("per-backend fp32_precision 'tf32'", lambda: setattr(
+            torch.backends.cuda.matmul, "fp32_precision", "tf32")))
+    for what, turn_on in settings:
+        try:
+            turn_on()
+            y_tf32 = jt.fwt(x, w, LEVEL)
+            if what.startswith("matmul"):
+                xr = x[:2].reshape(-1, 256)
+                wm = torch.from_numpy(fwt_mod._analysis_matrix_fused(
+                    (w,) * LEVEL)[:256]).to(x.device, torch.float32)
+                with fwt_mod._ieee_f32():
+                    pinned = xr @ wm
+                print(f"  an unpinned product under TF32 errs by "
+                      f"{max_err(xr @ wm, pinned):.3e} (the pinned one's "
+                      f"yardstick)", flush=True)
+        finally:
+            torch.set_float32_matmul_precision("highest")
+        rel_to(smoke, f"fwt {MAIN_SHAPE} L{LEVEL} under {what}",
+               host(y_tf32), ref, 1e-5)
+        del y_tf32
+
+    print(f"== phase 23: decimated walls and bounds on {card}", flush=True)
+    y5 = jt.fwt(x, w, LEVEL)
+    y2, y3, yw = jt.fwt2(img, w), jt.fwt3(vol, w, lv3), jt.wpt(xw, ws,
+                                                                WPT_LEVEL)
+    cs = jt.wavedec(x, w, LEVEL)
+    calls = [
+        (f"fwt {MAIN_SHAPE} default level", lambda: jt.fwt(x, w), x.numel()),
+        (f"fwt {MAIN_SHAPE} L{LEVEL}", lambda: jt.fwt(x, w, LEVEL),
+         x.numel()),
+        (f"ifwt {MAIN_SHAPE} L{LEVEL}", lambda: jt.ifwt(y5, w, LEVEL),
+         x.numel()),
+        (f"fwt2 {DEC_IMAGE}", lambda: jt.fwt2(img, w), img.numel()),
+        (f"ifwt2 {DEC_IMAGE}", lambda: jt.ifwt2(y2, w), img.numel()),
+        (f"fwt3 {DEC_VOLUME} {lv3}", lambda: jt.fwt3(vol, w, lv3),
+         vol.numel()),
+        (f"ifwt3 {DEC_VOLUME} {lv3}", lambda: jt.ifwt3(y3, w, lv3),
+         vol.numel()),
+        (f"wpt {WPT_SHAPE} {WPT_WAVELET} L{WPT_LEVEL}",
+         lambda: jt.wpt(xw, ws, WPT_LEVEL), xw.numel()),
+        (f"iwpt {WPT_SHAPE} L{WPT_LEVEL}",
+         lambda: jt.iwpt(yw, ws, WPT_LEVEL), xw.numel()),
+        (f"wpt_denoise {WPT_DENOISE_SHAPE} hard",
+         lambda: jt.wpt_denoise(xd, ws, WPT_LEVEL, mode="hard"),
+         xd.numel()),
+        (f"wpt_denoise {WPT_DENOISE_SHAPE} hard per_sample",
+         lambda: jt.wpt_denoise(xd, ws, WPT_LEVEL, mode="hard",
+                                per_sample=True), xd.numel()),
+        (f"wavedec {MAIN_SHAPE} L{LEVEL}", lambda: jt.wavedec(x, w, LEVEL),
+         x.numel()),
+        (f"waverec {MAIN_SHAPE} L{LEVEL}", lambda: jt.waverec(cs, w),
+         x.numel()),
+    ]
+    counted_run(smoke, torch, all_launchers(), "the decimated path",
+                lambda: [call() for _, call, _ in calls], {})
+    for name, call, cells in calls:
+        wall = wall_ms(torch, call)
+        flops = matmul_flops(call)
+        # each input read once, each output written once (f32)
+        t_bound, by = bound(8 * cells, flops)
+        print(f"  decimated {name}: wall {wall:.3f} ms (host clock, median "
+              f"of 3); matmul flops {flops:.4e}, bytes {8 * cells:.4e}, "
+              f"bound {t_bound:.4f} ms by {by} ({t_bound / wall:.1%} of the "
+              f"wall) [{card}]", flush=True)
+    for name, call, arg in (
+            (f"fwt {MAIN_SHAPE} L{LEVEL}", lambda v: jt.fwt(v, w, LEVEL), x),
+            (f"ifwt {MAIN_SHAPE} L{LEVEL}", lambda v: jt.ifwt(v, w, LEVEL),
+             y5),
+            (f"wpt {WPT_SHAPE} L{WPT_LEVEL}",
+             lambda v: jt.wpt(v, ws, WPT_LEVEL), xw)):
+        ms = jt.time_chain(call, arg, k=5, repeats=3) * 1e3
+        print(f"  decimated {name}: {ms:.4f} ms a call between CUDA events "
+              f"(5 calls a run, median of 3) [{card}]", flush=True)
+    print(f"  decimated phases took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
 
 
 def main() -> int:

@@ -1,6 +1,11 @@
 """jwave_pro_tpu_torch — the PyTorch + CUDA port of ``jwave_pro_tpu``.
 
-These slices hold the MODWT forward → shrink → inverse path (the wavelet
+These slices hold the decimated core (the Mallat pyramid ``fwt``/``ifwt``
+in 1D, 2D and 3D with its steps and ``decompose``/``recompose``, the full
+wavelet packet tree ``wpt``/``iwpt`` with its best basis in 1D and 2D, the
+best-basis packet denoisers ``wpt_denoise``/``wpt2_denoise`` and the
+PyWavelets-style lists ``dwt``/``wavedec``/``waverec`` in 1D, 2D and 3D),
+the MODWT forward → shrink → inverse path (the wavelet
 registry, ``modwt``/``imodwt``/``modwt_mra``, the 1D denoise), the MODWT
 statistics (variance and its confidence band, covariance, correlation,
 cross-correlation, Hurst exponent, change points), the 1D shift-invariant
@@ -20,6 +25,9 @@ it.
 
     import jwave_pro_tpu_torch as jt
     w = jt.wavelet("Daubechies 4")
+    y = jt.fwt(x, w, 5)              # (B, N), [a_5 | d_5 | ... | d_1]
+    p = jt.wpt(x, jt.wavelet("Symlet 8"), 6)
+    z = jt.wpt_denoise(x, jt.wavelet("Symlet 8"), 6, mode="hard")
     c = jt.modwt(x, w, 5)            # (6, B, N)
     y = jt.modwt_denoise(x, w, 5, method="fused")
     v = jt.modwt_variance(x, w, 5)   # (5, B)
@@ -33,9 +41,18 @@ it.
     s = jt.generate_log_scales(1.0, 256.0, 64)
     r = jt.cwt(x, s, jt.MorletWavelet(), method="fused")   # (B, 64, N)
 """
-from .exceptions import JWaveException, JWaveFailure, NotKnown
+from .exceptions import (
+    JWaveError, JWaveException, JWaveFailure, NotAllocated, NotFound,
+    NotImplemented_, NotKnown, NotValid,
+)
 from .ops import (
-    MAX_DECOMPOSITION_LEVEL, CWTResult, bayes_threshold, circular_convolve,
+    MAX_DECOMPOSITION_LEVEL, CWTResult, analysis_step, basis_coefficients,
+    basis_coefficients2, basis_reconstruct, basis_reconstruct2, best_basis,
+    best_basis2, coeffs_to_flat, decompose, dwt, dwt2, dwt3, flat_to_coeffs,
+    fwt, fwt2, fwt3, idwt, idwt2, idwt3, ifwt, ifwt2, ifwt3, iwpt, iwpt2,
+    iwpt3, recompose, synthesis_step, wavedec, wavedec2, wavedec3, waverec,
+    waverec2, waverec3, wpt, wpt2, wpt2_denoise, wpt2_tree, wpt3,
+    wpt_denoise, wpt_tree, bayes_threshold, circular_convolve,
     circular_convolve_adjoint, cwt, generate_linear_scales,
     generate_log_scales, hard_threshold, imodwpt, imodwpt2, imodwpt3, imodwt,
     imodwt2, imodwt3, log_energy_cost, mad_sigma, modwpt, modwpt2,
@@ -52,7 +69,10 @@ from .ops.analysis import (
     modwt_variance_ci, scale_energies,
 )
 from .ops.mp import MPResult, matching_pursuit, mp_reconstruct
-from .utils import next_power_of_two, time_chain
+from .utils import (
+    ancient_egyptian_decomposition, is_power_of_two, max_level,
+    next_power_of_two, time_chain,
+)
 from .wavelets import (
     REGISTRY, ContinuousWavelet, DiscreteWavelet, DOGWavelet,
     MexicanHatWavelet, MeyerWavelet, MorletWavelet, PaulWavelet,
@@ -62,7 +82,9 @@ from .wavelets import (
 )
 
 __all__ = [
-    "JWaveException", "JWaveFailure", "NotKnown", "DiscreteWavelet", "from_jax_wavelet", "qmf_orthonormal",
+    "JWaveException", "JWaveFailure", "JWaveError", "NotAllocated",
+    "NotFound", "NotImplemented_", "NotKnown", "NotValid",
+    "DiscreteWavelet", "from_jax_wavelet", "qmf_orthonormal",
     "qmf_biorthogonal", "REGISTRY", "wavelet", "wavelet_names",
     "good_wavelets", "daubechies", "symlet", "coiflet", "biorthogonal",
     "legendre",
@@ -88,5 +110,14 @@ __all__ = [
     "soft_threshold", "hard_threshold", "mad_sigma", "universal_threshold",
     "sure_threshold", "bayes_threshold", "modwt_denoise",
     "modwt_denoise_inplace",
-    "time_chain", "next_power_of_two",
+    "fwt", "ifwt", "fwt2", "ifwt2", "fwt3", "ifwt3", "analysis_step",
+    "synthesis_step", "decompose", "recompose",
+    "wpt", "iwpt", "wpt2", "iwpt2", "wpt3", "iwpt3", "wpt_tree", "wpt2_tree",
+    "best_basis", "best_basis2", "basis_coefficients", "basis_coefficients2",
+    "basis_reconstruct", "basis_reconstruct2", "wpt_denoise", "wpt2_denoise",
+    "dwt", "idwt", "dwt2", "idwt2", "dwt3", "idwt3", "wavedec", "waverec",
+    "wavedec2", "waverec2", "wavedec3", "waverec3", "coeffs_to_flat",
+    "flat_to_coeffs",
+    "time_chain", "next_power_of_two", "is_power_of_two", "max_level",
+    "ancient_egyptian_decomposition",
 ]

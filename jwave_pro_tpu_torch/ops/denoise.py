@@ -1,8 +1,7 @@
 """Wavelet denoising: soft/hard thresholding + the MODWT denoise pipelines.
 
-Counterpart of the 1D, 2D and 3D MODWT parts of
-``jwave_pro_tpu/ops/denoise.py`` (the packet denoisers wait for their
-slices).  The
+Counterpart of ``jwave_pro_tpu/ops/denoise.py``: the 1D, 2D and 3D MODWT
+pipelines and the best-basis packet denoisers.  The
 reference demonstrates MODWT soft-threshold denoising in
 ``jwave/examples/MODWTExample.java:125-172`` (universal threshold
 σ·√(2·ln N) with σ estimated from level-1 detail coefficients via
@@ -14,15 +13,17 @@ import math
 
 import torch
 
-from ..utils.device import as_input
+from ..utils.device import as_input, as_signal
 from ..wavelets.base import DiscreteWavelet
 from .modwt import imodwt, modwt
+from .wpt import (basis_coefficients, basis_coefficients2, basis_reconstruct,
+                  basis_reconstruct2, best_basis, best_basis2)
 
 __all__ = [
     "soft_threshold", "hard_threshold", "universal_threshold",
     "sure_threshold", "bayes_threshold",
     "mad_sigma", "modwt_denoise", "modwt_denoise_inplace", "modwt2_denoise",
-    "modwt3_denoise",
+    "modwt3_denoise", "wpt_denoise", "wpt2_denoise",
 ]
 
 
@@ -347,3 +348,72 @@ def modwt3_denoise(x: torch.Tensor, wavelet: DiscreteWavelet, level: int,
     shrink = soft_threshold if mode == "soft" else hard_threshold
     details = shrink(c[:n_bands], threshold)
     return imodwt3(torch.cat([details, c[n_bands:]], dim=0), wavelet)
+
+
+def wpt_denoise(x: torch.Tensor, wavelet: DiscreteWavelet, level=None,
+                cost: str = "sure", mode: str = "soft",
+                threshold=None, per_sample: bool = False) -> torch.Tensor:
+    """Best-basis packet denoising: adapt the basis to the signal, then
+    shrink.
+
+    Coifman–Wickerhauser best-basis selection (:func:`.wpt.best_basis`,
+    default ``cost='sure'``, risk-matched to the soft shrinkage applied
+    after) on the noisy signal, then threshold the mixed-level basis
+    coefficients and reconstruct, keeping the pure low-pass packet (node 0
+    at its leaf level) unshrunk.  ``threshold`` defaults to the universal
+    threshold from the level-1 detail MAD.  One basis is selected for the
+    whole batch (costs summed) unless ``per_sample=True``: every sample
+    then adapts its own basis.  For strong narrowband (tonal) content
+    prefer ``mode='hard'``: soft thresholding biases every kept
+    coefficient by t.
+    """
+    x = as_signal(x)
+    n = x.shape[-1]
+    masks, _, tree = best_basis(x, wavelet, level, cost,
+                                per_sample=per_sample)
+    flat = basis_coefficients(tree, masks)
+    if threshold is None:
+        d1 = tree[1][..., n // 2:]            # level-1 details
+        threshold = universal_threshold(d1, n)[..., None]
+    shrink = soft_threshold if mode == "soft" else hard_threshold
+    shrunk = shrink(flat, threshold)
+    # keep the low-pass packet: positions [0, n >> l) of the level l whose
+    # leaf mask covers node 0 (per-sample masks keep their batch axes)
+    pos = torch.arange(n, device=x.device)
+    keep = torch.zeros((n,), dtype=torch.bool, device=x.device)
+    for l, m in enumerate(masks):
+        keep = keep | (m[..., 0:1] & (pos < (n >> l)))
+    return basis_reconstruct(torch.where(keep, flat, shrunk), masks, wavelet)
+
+
+def wpt2_denoise(x: torch.Tensor, wavelet: DiscreteWavelet, level=None,
+                 cost: str = "sure", mode: str = "soft",
+                 threshold=None, per_sample: bool = False) -> torch.Tensor:
+    """2D best-basis packet denoising (the quad-tree analog of
+    :func:`wpt_denoise`).
+
+    Basis from :func:`.wpt.best_basis2`; σ estimated from the finest
+    diagonal packet (node (1, 1) at level 1, the HH₁ convention of
+    :func:`modwt2_denoise`); the low-pass packet (node (0, 0) at its leaf
+    level) is kept unshrunk.
+    """
+    x = as_signal(x)
+    r, c = x.shape[-2], x.shape[-1]
+    masks, _, tree = best_basis2(x, wavelet, level, cost,
+                                 per_sample=per_sample)
+    flat = basis_coefficients2(tree, masks)
+    if threshold is None:
+        hh1 = tree[1][..., r // 2:, c // 2:]
+        sigma = mad_sigma(hh1.reshape(hh1.shape[:-2] + (-1,)))
+        threshold = (sigma * math.sqrt(2.0 * math.log(float(r * c)))
+                     )[..., None, None]
+    shrink = soft_threshold if mode == "soft" else hard_threshold
+    shrunk = shrink(flat, threshold)
+    rows = torch.arange(r, device=x.device)[:, None]
+    cols = torch.arange(c, device=x.device)[None, :]
+    keep = torch.zeros((r, c), dtype=torch.bool, device=x.device)
+    for l, m in enumerate(masks):
+        keep = keep | (m[..., 0:1, 0:1] & (rows < (r >> l))
+                       & (cols < (c >> l)))
+    return basis_reconstruct2(torch.where(keep, flat, shrunk), masks,
+                              wavelet)

@@ -1,5 +1,12 @@
-from .device import as_input
+from .device import as_input, as_signal
 from .profiling import time_chain
-from .validation import next_power_of_two
+from .validation import (
+    ancient_egyptian_decomposition, check_power_of_two, exponent,
+    is_power_of_two, max_level, next_power_of_two,
+)
 
-__all__ = ["as_input", "time_chain", "next_power_of_two"]
+__all__ = [
+    "as_input", "as_signal", "time_chain", "ancient_egyptian_decomposition",
+    "check_power_of_two", "exponent", "is_power_of_two", "max_level",
+    "next_power_of_two",
+]

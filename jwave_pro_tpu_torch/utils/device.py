@@ -3,7 +3,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["as_input"]
+__all__ = ["as_input", "as_signal"]
 
 
 def as_input(x) -> torch.Tensor:
@@ -18,3 +18,17 @@ def as_input(x) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x
     return torch.as_tensor(x, device=torch.device("cuda"))
+
+
+def as_signal(x) -> torch.Tensor:
+    """:func:`as_input`, with integer or boolean input promoted to torch's
+    default float dtype.
+
+    The JAX package's decimated transforms cast their filter constants to
+    the input dtype, so an integer signal gives integer zeros there; the
+    port transforms the values instead.
+    """
+    x = as_input(x)
+    if not (x.is_floating_point() or x.is_complex()):
+        x = x.to(torch.get_default_dtype())
+    return x

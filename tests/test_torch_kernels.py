@@ -951,3 +951,52 @@ def test_numpy_input_runs_on_the_card(dev):
     assert kc.modwt_fwd_cuda.launches == before + 1
     want = kc.modwt_fwd_plain(torch.from_numpy(x), DB4, 3)
     torch.testing.assert_close(c.cpu(), want, rtol=0, atol=1e-5)
+
+
+# -- the decimated core: cuBLAS matmuls, no kernel of this package ------------
+
+@pytest.mark.parametrize("setting", ["matmul precision", "per backend"])
+def test_fwt_holds_f32_under_tf32(dev, setting):
+    """With the process set to TF32 (through either of torch's settings),
+    the port's pinned products keep ``fwt`` within the 1e-5 forward bound
+    of the host f64 result, and the round trip within 1e-4; no kernel of
+    this package runs."""
+    mm = torch.backends.cuda.matmul
+    if setting == "per backend" and not hasattr(mm, "fp32_precision"):
+        pytest.skip("torch without the per-backend fp32_precision setting")
+    x = torch.from_numpy(np.random.default_rng(24).standard_normal(
+        (4, 1 << 16)))
+    want = jt.fwt(x, DB4, 5)
+    before = kc.modwt_fwd_cuda.launches
+    try:
+        if setting == "per backend":
+            mm.fp32_precision = "tf32"
+        else:
+            torch.set_float32_matmul_precision("high")
+        got = jt.fwt(x.float().to(dev), DB4, 5)
+        back = jt.ifwt(got, DB4, 5)
+    finally:
+        torch.set_float32_matmul_precision("highest")
+    assert kc.modwt_fwd_cuda.launches == before
+    scale = float(want.abs().max())
+    assert float((got.cpu().double() - want).abs().max()) <= 1e-5 * scale
+    assert float((back.cpu().double() - x).abs().max()) <= 1e-4 * float(
+        x.abs().max())
+
+
+def test_decimated_bf16_on_the_card(dev):
+    """bf16 in, bf16 out (constants rounded to bf16), within 5e-2 of the
+    host f64 result of the same bf16 input."""
+    x = torch.from_numpy(np.random.default_rng(25).standard_normal(
+        (4, 1 << 14))).to(torch.bfloat16)
+    got = jt.fwt(x.to(dev), DB4, 5)
+    assert got.dtype == torch.bfloat16
+    want = jt.fwt(x.double(), DB4, 5)
+    assert float((got.cpu().double() - want).abs().max()) <= 5e-2 * float(
+        want.abs().max())
+    sym8 = jt.wavelet("Symlet 8")
+    p = jt.wpt(x.to(dev), sym8, 6)
+    assert p.dtype == torch.bfloat16
+    want = jt.wpt(x.double(), sym8, 6)
+    assert float((p.cpu().double() - want).abs().max()) <= 5e-2 * float(
+        want.abs().max())

@@ -115,7 +115,8 @@ def test_port_taps_equal_jax_taps_exactly():
 
 
 def test_port_runs_without_the_jax_package(tmp_path):
-    """The port copied alone runs a transform and never loads JAX or the
+    """The port copied alone runs the MODWT, the decimated pyramid, the
+    packet denoise and the pywt-style lists, and never loads JAX or the
     JAX package."""
     port = Path(jt.__file__).resolve().parent
     shutil.copytree(port, tmp_path / port.name,
@@ -126,6 +127,15 @@ def test_port_runs_without_the_jax_package(tmp_path):
         "c = jt.modwt(torch.randn(2, 100, dtype=torch.float64), "
         "jt.wavelet('db4'), 3)\n"
         "assert tuple(c.shape) == (4, 2, 100), c.shape\n"
+        "x = torch.randn(2, 512, dtype=torch.float64)\n"
+        "w = jt.wavelet('db4')\n"
+        "y = jt.fwt(x, w, 5)\n"
+        "assert torch.allclose(jt.ifwt(y, w, 5), x), 'fwt round trip'\n"
+        "d = jt.wpt_denoise(x, jt.wavelet('Symlet 8'), 4, mode='hard')\n"
+        "assert d.shape == x.shape and bool(torch.isfinite(d).all())\n"
+        "cs = jt.wavedec(x, w, 3)\n"
+        "assert [tuple(v.shape) for v in cs] == "
+        "[(2, 64), (2, 64), (2, 128), (2, 256)]\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.split('.')[0] == 'jwave_pro_tpu']\n"
         "assert not bad, bad\n"
