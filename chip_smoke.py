@@ -25,8 +25,16 @@ MRA at 2 × 64³), and the CWT (the fused multiply + inverse FFT over
 decimated path at bench.py's shapes (fwt/ifwt and wavedec/waverec Db4 at
 32 × 2^20, fwt2 at 16 × 1024², fwt3 at 4 × 128³, the packet tree Symlet 8
 level 6 at 64 × 65536 and its best-basis denoise at 8 × 65536; cuBLAS
-matmuls, no kernel of this package), each held to the port's CPU float64
-result and put beside the bound of its matmul form.  The
+matmuls, no kernel of this package), and the decimated satellites and the
+first continuous slice at bench.py's shapes (the CDF 9/7 and 5/3 lifting
+pyramids, the compressors, AED and SWT, the dual-tree transform in 1D at
+32 × 2^20 and in 2D at 16 × 1024² with its denoisers, FFT and DFT, the
+banded CWT under its three precision tiers beside the irfft path, the
+direct and inverse CWT, the Hilbert tools and the wavelet coherence;
+cuBLAS, cuFFT and elementwise torch, no kernel of this package), each
+held to the port's CPU float64 result and put beside the bound of its
+products and FFTs; and the decimated gradients with the process set to
+TF32, held to the CPU float64 gradient.  The
 kernels' launch counters, set to 0
 before each path and read after it, show that the path ran through them;
 CUDA events time each kernel against its plain version.  Every check
@@ -112,6 +120,16 @@ PACKET_EDGES = ((3, 17, 3, "Daubechies 4"), (2, 100003, 3, "Haar"),
                 (300, 5000, 3, "Daubechies 4"),
                 (2, 1 << 20, 8, "Daubechies 4"),
                 (2, 1 << 20, 7, "Daubechies 4"))
+# the continuous slice at bench.py's shapes: the lifting pyramids,
+# compressors, SWT, DTCWT (:102, :183), FFT and Hilbert tools at the
+# north-star shape; the AED at the arbitrary length of :266; the 2D DTCWT
+# at the image shape of :110; the banded CWT at :241 (and at the CWT
+# path's 64 × 16384), the direct CWT and the coherence at :241's shape
+SWT_ODD = (32, (1 << 16) + 1)
+AED_SHAPE = (32, 100003)
+DTCWT2_SHAPE, DTCWT2_LEVEL = (16, 1024, 1024), 3
+DFT_SHAPE = (64, 4096)
+DIRECT_SCALES = 32
 # the H100's published peaks (SXM, 700 W): HBM bytes/s, f32 FLOP/s
 HBM_RATE, F32_RATE = 3.35e12, 67e12
 
@@ -516,6 +534,8 @@ def run(smoke: Smoke, torch, jt) -> dict:
             library.update(lib)
 
     run_decimated_slice(smoke, torch, jt, signal, card)
+    run_continuous_slice(smoke, torch, jt, signal, card)
+    run_backward_pin(smoke, torch, jt, signal, card)
 
     src = "jwave_pro_tpu_torch/csrc/"
     tpu = "jwave_pro_tpu/kernels/"
@@ -1578,36 +1598,79 @@ def all_launchers() -> dict:
             "cwt_ifft": kw.cwt_ifft_cuda}
 
 
-def matmul_flops(call) -> int:
-    """The float32 operations (2 a multiply-add) of the matmuls ``call``
-    runs, counted by wrapping the port's one matmul helper (``ops/fwt.py:
-    _mm``, which ``ops/wpt.py`` imports).  At power-of-two widths the
+def op_flops(call) -> int:
+    """The operations ``call`` runs in products and FFTs.  The products are
+    counted by wrapping the port's one product helper (``ops/fwt.py:_mm``,
+    which ``ops/wpt.py``, ``fft.py``, ``cwt.py`` and ``cwt_banded.py``
+    import): 2 a real multiply-add, 8 a complex one.  Each FFT of length n
+    counts 5·n·log₂n, a real-input or real-output one 2.5·n·log₂n (the
+    ``torch.fft`` calls wrapped likewise).  At power-of-two widths the
     decimated transforms run no other form."""
     import importlib
 
+    import torch
+
     mods = [importlib.import_module(f"jwave_pro_tpu_torch.ops.{m}")
-            for m in ("fwt", "wpt")]
+            for m in ("fwt", "wpt", "fft", "cwt", "cwt_banded")]
     orig = mods[0]._mm
     total = 0
 
-    def counting(u, m):
+    def counting(u, m, tf32=False):
         nonlocal total
-        total += 2 * u.numel() * m.shape[-1]
-        return orig(u, m)
+        out = orig(u, m, tf32)
+        total += (8 if out.is_complex() else 2) * out.numel() * u.shape[-1]
+        return out
 
+    def fft_counting(fn, per_point, real_in):
+        def wrapped(inp, n=None, dim=-1, norm=None):
+            nonlocal total
+            out = fn(inp, n=n, dim=dim, norm=norm)
+            length = (n or inp.shape[dim]) if real_in else out.shape[dim]
+            rows = out.numel() // out.shape[dim]
+            total += int(per_point * length * math.log2(max(length, 2))
+                         * rows)
+            return out
+        return wrapped
+
+    ffts = {"fft": (5.0, False), "ifft": (5.0, False),
+            "rfft": (2.5, True), "irfft": (2.5, False)}
+    saved = {name: getattr(torch.fft, name) for name in ffts}
     for mod in mods:
         mod._mm = counting
+    for name, (per_point, real_in) in ffts.items():
+        setattr(torch.fft, name, fft_counting(saved[name], per_point,
+                                              real_in))
     try:
         call()
     finally:
         for mod in mods:
             mod._mm = orig
+        for name, fn in saved.items():
+            setattr(torch.fft, name, fn)
     return total
+
+
+def tensor_bytes(obj) -> int:
+    """The bytes of every tensor in ``obj`` (a tensor, or a tuple or list
+    of them, nested)."""
+    if hasattr(obj, "nbytes") and hasattr(obj, "is_cuda"):
+        return obj.nbytes
+    if isinstance(obj, (tuple, list)):
+        return sum(tensor_bytes(o) for o in obj)
+    return 0
+
+
+def host64(t):
+    """``t`` on the host in float64 (complex128 if complex)."""
+    import torch
+
+    t = t.detach().cpu()
+    return t.to(torch.complex128) if t.is_complex() else t.double()
 
 
 def rel_to(smoke: Smoke, name: str, got, want, tol: float) -> float:
     """max|got − want| ≤ tol × max|want| (both on the host, in f64)."""
-    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    got, want = host64(got), host64(want)
     scale = float(want.abs().max())
     return smoke.check(f"{name} (relative to max|ref| {scale:.3g})",
                        float((got - want).abs().max()) / scale, tol)
@@ -1756,7 +1819,7 @@ def run_decimated_slice(smoke: Smoke, torch, jt, signal, card) -> None:
                 xr = x[:2].reshape(-1, 256)
                 wm = torch.from_numpy(fwt_mod._analysis_matrix_fused(
                     (w,) * LEVEL)[:256]).to(x.device, torch.float32)
-                with fwt_mod._ieee_f32():
+                with fwt_mod._f32_products():
                     pinned = xr @ wm
                 print(f"  an unpinned product under TF32 errs by "
                       f"{max_err(xr @ wm, pinned):.3e} (the pinned one's "
@@ -1803,7 +1866,7 @@ def run_decimated_slice(smoke: Smoke, torch, jt, signal, card) -> None:
                 lambda: [call() for _, call, _ in calls], {})
     for name, call, cells in calls:
         wall = wall_ms(torch, call)
-        flops = matmul_flops(call)
+        flops = op_flops(call)
         # each input read once, each output written once (f32)
         t_bound, by = bound(8 * cells, flops)
         print(f"  decimated {name}: wall {wall:.3f} ms (host clock, median "
@@ -1820,6 +1883,387 @@ def run_decimated_slice(smoke: Smoke, torch, jt, signal, card) -> None:
         print(f"  decimated {name}: {ms:.4f} ms a call between CUDA events "
               f"(5 calls a run, median of 3) [{card}]", flush=True)
     print(f"  decimated phases took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
+def compress_check(smoke: Smoke, name: str, got, want, c64, thr: float):
+    """A compressor's output against the f64 one: equal within f32 noise
+    where both make the same keep/zero decision, and every decision that
+    differs made on a coefficient within f32 noise of the threshold."""
+    g, wv = host64(got), host64(want)
+    flips = (g == 0) != (wv == 0)
+    scale = float(c64.abs().max())
+    nflip = int(flips.sum())
+    err = float((g - wv).abs()[~flips].max()) / scale
+    near = (float((c64.abs()[flips] - thr).abs().max()) / scale
+            if nflip else 0.0)
+    print(f"  {name}: {nflip} keep/zero decisions differ from f64 (the "
+          f"farthest {near:.3e} of max|c| from the threshold)", flush=True)
+    smoke.check(f"{name} vs CPU f64 where the decisions agree (relative)",
+                err, 1e-5)
+    smoke.check(f"{name}: differing decisions lie at the threshold "
+                f"(relative)", near, 1e-5)
+    return nflip
+
+
+def run_continuous_slice(smoke: Smoke, torch, jt, signal, card) -> None:
+    """The decimated satellites and the first continuous slice through the
+    public API (phases 24-25): the lifting pyramids, compressors,
+    arbitrary-length wrappers, the DTCWT in 1D and 2D with its denoisers,
+    the FFT and DFT, the banded CWT under its three tiers beside the 'fft'
+    path, the direct CWT, the inverse CWT, the Hilbert tools and the
+    wavelet coherence, float32 on the card at bench.py's shapes.  Each call
+    is held to the port's own CPU float64 result on its first two rows,
+    timed, and put beside its bound.  None of them reaches a kernel of the
+    package: cuBLAS products, cuFFT and elementwise torch."""
+    t_phase = time.perf_counter()
+    w, haar = jt.wavelet(WAVELET), jt.wavelet("Haar")
+    b, n = MAIN_SHAPE
+    x = signal(*MAIN_SHAPE)
+    xh = host64(x[:2])
+    cb, cn = CWT_BENCH
+    scales = jt.generate_log_scales(1.0, 256.0, CWT_SCALES)
+    direct_scales = jt.generate_log_scales(1.0, 64.0, DIRECT_SCALES)
+    morlet, mexhat, dog1 = (jt.MorletWavelet(), jt.MexicanHatWavelet(),
+                            jt.DOGWavelet(1))
+
+    def host(t, rows=2):
+        return host64(t[:rows])
+
+    print(f"== phase 24: lifting, compression, AED/SWT, DTCWT, FFT, the "
+          f"banded, direct and inverse CWT, Hilbert tools and coherence, "
+          f"f32, against the port's CPU f64 result on the first two rows",
+          flush=True)
+    for fwd, inv in ((jt.cdf97, jt.icdf97), (jt.cdf53, jt.icdf53)):
+        y = fwd(x)
+        rel_to(smoke, f"{fwd.__name__} {MAIN_SHAPE} full depth", host(y),
+               fwd(xh), 1e-5)
+        rel_to(smoke, f"{inv.__name__}({fwd.__name__}) {MAIN_SHAPE} round "
+               f"trip", inv(y), x, 1e-4)
+        del y
+
+    c = jt.fwt(x, w, LEVEL)
+    c64 = jt.fwt(host64(x), w, LEVEL)
+    for fn, thr in ((jt.compress_magnitude, float(c64.abs().mean())),
+                    (jt.compress_peaks_average, 0.5 * float(
+                        c64.abs().max()))):
+        got, want = fn(c), fn(c64)
+        tag = f"{fn.__name__} of fwt {MAIN_SHAPE} L{LEVEL}"
+        nflip = compress_check(smoke, tag, got, want, c64, thr)
+        rate, rate64 = jt.compression_rate(got), jt.compression_rate(want)
+        smoke.require(f"compression_rate of {tag} float32",
+                      rate.dtype == torch.float32)
+        smoke.check(f"compression_rate of {tag} vs f64 (percent, bound "
+                    f"1e-4 + the differing decisions' share)",
+                    abs(float(rate) - float(rate64)),
+                    1e-4 + 100.0 * nflip / c.numel())
+        del got, want
+    del c, c64
+
+    xa = signal(*AED_SHAPE)
+    ya = jt.aed_forward(xa, w)
+    rel_to(smoke, f"aed_forward {AED_SHAPE} {WAVELET}", host(ya),
+           jt.aed_forward(host(xa), w), 1e-5)
+    rel_to(smoke, f"aed_inverse(aed_forward) {AED_SHAPE} round trip",
+           jt.aed_inverse(ya, w), xa, 1e-4)
+    del ya
+    xo = signal(*SWT_ODD)
+    for xs_ in (x, xo):
+        shape = tuple(xs_.shape)
+        ys = jt.swt_forward(xs_, haar)
+        rel_to(smoke, f"swt_forward {shape} Haar", host(ys),
+               jt.swt_forward(host(xs_), haar), 1e-5)
+        rel_to(smoke, f"swt_inverse(swt_forward) {shape} round trip",
+               jt.swt_inverse(ys, haar), xs_, 1e-4)
+        del ys
+
+    r = jt.dtcwt(x, LEVEL)
+    r64 = jt.dtcwt(xh, LEVEL)
+    smoke.require(f"dtcwt {MAIN_SHAPE} L{LEVEL}: complex64 highpass, "
+                  f"float32 lowpass", r.highpass[0].dtype == torch.complex64
+                  and r.lowpass_a.dtype == torch.float32)
+    for j, (g, want) in enumerate(zip(r.highpass, r64.highpass), start=1):
+        rel_to(smoke, f"dtcwt {MAIN_SHAPE} L{LEVEL} highpass level {j}",
+               host(g), want, 1e-5)
+    rel_to(smoke, f"dtcwt {MAIN_SHAPE} lowpass a", host(r.lowpass_a),
+           r64.lowpass_a, 1e-5)
+    rel_to(smoke, f"dtcwt {MAIN_SHAPE} lowpass b", host(r.lowpass_b),
+           r64.lowpass_b, 1e-5)
+    rel_to(smoke, f"idtcwt(dtcwt) {MAIN_SHAPE} round trip", jt.idtcwt(r),
+           x, 1e-4)
+    del r, r64
+    rel_to(smoke, f"dtcwt_denoise {MAIN_SHAPE} L{LEVEL} soft",
+           host(jt.dtcwt_denoise(x, LEVEL)), jt.dtcwt_denoise(xh, LEVEL),
+           1e-4)
+    img = signal(*DTCWT2_SHAPE)
+    img64 = host(img)
+    r2 = jt.dtcwt2(img, DTCWT2_LEVEL)
+    r264 = jt.dtcwt2(img64, DTCWT2_LEVEL)
+    for j, (g, want) in enumerate(zip(r2.highpass, r264.highpass), start=1):
+        rel_to(smoke, f"dtcwt2 {DTCWT2_SHAPE} L{DTCWT2_LEVEL} level {j}",
+               host(g), want, 1e-5)
+    rel_to(smoke, f"dtcwt2 {DTCWT2_SHAPE} lowpass", host(r2.lowpass),
+           r264.lowpass, 1e-5)
+    rel_to(smoke, f"idtcwt2(dtcwt2) {DTCWT2_SHAPE} round trip",
+           jt.idtcwt2(r2), img, 1e-4)
+    del r2, r264
+    rel_to(smoke, f"dtcwt2_denoise {DTCWT2_SHAPE} L{DTCWT2_LEVEL} soft",
+           host(jt.dtcwt2_denoise(img, DTCWT2_LEVEL)),
+           jt.dtcwt2_denoise(img64, DTCWT2_LEVEL), 1e-4)
+
+    xf = jt.fft(x)
+    rel_to(smoke, f"fft {MAIN_SHAPE}", host(xf), jt.fft(xh), 1e-5)
+    rel_to(smoke, f"ifft {MAIN_SHAPE}", host(jt.ifft(xf)),
+           jt.ifft(host(xf)), 1e-5)
+    del xf
+    xd = signal(*DFT_SHAPE)
+    yd = jt.dft(xd)
+    rel_to(smoke, f"dft {DFT_SHAPE} (pinned complex product)", host(yd),
+           jt.dft(host(xd)), 1e-5)
+    rel_to(smoke, f"idft {DFT_SHAPE}", host(jt.idft(yd)),
+           jt.idft(host(yd)), 1e-5)
+    rel_to(smoke, f"dft {DFT_SHAPE} vs fft", yd, jt.fft(xd), 1e-5)
+    del yd
+
+    xc = signal(*CWT_BENCH)
+    xc64 = host(xc)
+    xl = signal(*CWT_SHAPE)
+    banded = [(f"Morlet {CWT_BENCH}", xc, xc64, morlet, None, 2e-5, 0.0),
+              (f"Morlet {CWT_BENCH}", xc, xc64, morlet, "high", 1e-3, 1e-6),
+              (f"Morlet {CWT_BENCH}", xc, xc64, morlet, "default", 2e-2,
+               0.0),
+              (f"Mexican Hat {CWT_BENCH}", xc, xc64, mexhat, None, 2e-5,
+               0.0),
+              (f"DOG 1 {CWT_BENCH}", xc, xc64, dog1, None, 2e-5, 0.0),
+              (f"Morlet {CWT_SHAPE}", xl, host(xl), morlet, None, 2e-5,
+               0.0)]
+    for tag, xs_, x64, wav, tier, tol, atol in banded:
+        got = jt.cwt(xs_, scales, wav, method="banded",
+                     precision=tier).coefficients
+        want = jt.cwt(x64, scales, wav, method="banded").coefficients
+        err = float((host(got) - want).abs().max())
+        scale = float(want.abs().max())
+        smoke.check(f"cwt banded {tag} S={CWT_SCALES} precision={tier} vs "
+                    f"CPU f64 (relative; bound {tol:g} + {atol:g}/max|ref|)",
+                    err / scale, tol + atol / scale)
+        fft = jt.cwt(xs_, scales, wav, method="fft").coefficients
+        print(f"  cwt banded {tag} precision={tier} vs the card's 'fft' "
+              f"path: {float((got - fft).abs().max()) / scale:.3e} "
+              f"relative", flush=True)
+        del got, want, fft
+    cd = jt.cwt_direct(xc, direct_scales, morlet)
+    # the (…, N, W) windows of the widest scale: W = 2·⌊4·64⌋ + 1 = 513
+    win = cb * cn * (2 * int(4.0 * direct_scales[-1]) + 1) * 4
+    print(f"  cwt_direct {CWT_BENCH}: the widest scale's windows take "
+          f"{win / 2**20:.1f} MiB", flush=True)
+    rel_to(smoke, f"cwt_direct {CWT_BENCH} S={DIRECT_SCALES} Morlet",
+           host(cd.coefficients),
+           jt.cwt_direct(xc64, direct_scales, morlet).coefficients, 1e-4)
+    del cd
+    res = jt.cwt(xl, scales, morlet)
+    rel_to(smoke, f"icwt of the {CWT_SHAPE} S={CWT_SCALES} Morlet "
+           f"scalogram", host(jt.icwt(res)),
+           jt.icwt(jt.cwt(host(xl), scales, morlet)), 1e-4)
+    del res
+
+    z = jt.hilbert(x)
+    z64 = jt.hilbert(xh)
+    rel_to(smoke, f"hilbert {MAIN_SHAPE}", host(z), z64, 1e-5)
+    rel_to(smoke, f"envelope {MAIN_SHAPE}", host(jt.envelope(x)),
+           jt.envelope(xh), 1e-5)
+    f = host(jt.instantaneous_frequency(x))
+    f64 = jt.instantaneous_frequency(xh)
+    # a phase increment is ill-conditioned where the envelope is small:
+    # compare (wrapped) where both neighbours keep 1% of the peak
+    env = z64.abs()
+    keep = torch.minimum(env[..., 1:], env[..., :-1]) >= 1e-2 * env.max()
+    dphi = torch.remainder((f - f64) * 2 * math.pi + math.pi,
+                           2 * math.pi) - math.pi
+    print(f"  instantaneous_frequency: {float(keep.double().mean()):.4%} "
+          f"of the increments compared", flush=True)
+    smoke.check(f"instantaneous_frequency {MAIN_SHAPE} vs CPU f64 "
+                f"(radians a sample, where the envelope is ≥ 1% of its "
+                f"peak)", float(dphi.abs()[keep].max()), 1e-3)
+    del z, z64, f, f64
+
+    y = 0.5 * torch.roll(xc, 3, dims=-1) + signal(*CWT_BENCH)
+    wc = jt.wavelet_coherence(xc, y, scales, morlet)
+    wc64 = jt.wavelet_coherence(xc64, host(y), scales, morlet)
+    smoke.require(f"wavelet_coherence {CWT_BENCH} float32, in [0, 1]",
+                  wc.coherence.dtype == torch.float32
+                  and float(wc.coherence.min()) >= 0.0
+                  and float(wc.coherence.max()) <= 1.0)
+    # the coherence is a ratio of smoothed spectra: float32 arithmetic
+    # alone moves it by ~4e-4 at the largest scales (the port's own CPU
+    # float32 run of the same rows, printed beside it), hence 1e-3
+    wc32 = jt.wavelet_coherence(xc[:2].cpu(), y[:2].cpu(), scales, morlet)
+    e32 = float((wc32.coherence.double() - wc64.coherence).abs().max())
+    print(f"  wavelet_coherence: the CPU float32 run of the same rows errs "
+          f"by {e32:.3e} against f64", flush=True)
+    smoke.check(f"wavelet_coherence {CWT_BENCH} S={CWT_SCALES} vs CPU f64 "
+                f"(absolute)", float((host(wc.coherence)
+                                      - wc64.coherence).abs().max()), 1e-3)
+    strong = wc64.coherence > 1e-2
+    dp = torch.remainder(host(wc.phase) - wc64.phase + math.pi,
+                         2 * math.pi) - math.pi
+    smoke.check(f"wavelet_coherence phase vs CPU f64 (radians, where the "
+                f"coherence is > 1e-2)", float(dp.abs()[strong].max()),
+                1e-3)
+    del wc, wc64
+    print(f"  phase 24 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+    t_phase = time.perf_counter()
+    print(f"== phase 25: the slice's walls and bounds on {card}", flush=True)
+    c = jt.fwt(x, w, LEVEL)
+    yl = jt.cdf97(x)
+    yl53 = jt.cdf53(x)
+    ya = jt.aed_forward(xa, w)
+    ys, yo = jt.swt_forward(x, haar), jt.swt_forward(xo, haar)
+    r = jt.dtcwt(x, LEVEL)
+    r2 = jt.dtcwt2(img, DTCWT2_LEVEL)
+    xf = jt.fft(x)
+    yd = jt.dft(xd)
+    res = jt.cwt(xl, scales, morlet)
+    calls = [
+        (f"cdf97 {MAIN_SHAPE}", lambda: jt.cdf97(x), x),
+        (f"icdf97 {MAIN_SHAPE}", lambda: jt.icdf97(yl), yl),
+        (f"cdf53 {MAIN_SHAPE}", lambda: jt.cdf53(x), x),
+        (f"icdf53 {MAIN_SHAPE}", lambda: jt.icdf53(yl53), yl53),
+        (f"compress_magnitude {MAIN_SHAPE}",
+         lambda: jt.compress_magnitude(c), c),
+        (f"compress_peaks_average {MAIN_SHAPE}",
+         lambda: jt.compress_peaks_average(c), c),
+        (f"compression_rate {MAIN_SHAPE}", lambda: jt.compression_rate(c),
+         c),
+        (f"aed_forward {AED_SHAPE}", lambda: jt.aed_forward(xa, w), xa),
+        (f"aed_inverse {AED_SHAPE}", lambda: jt.aed_inverse(ya, w), ya),
+        (f"swt_forward {MAIN_SHAPE} Haar", lambda: jt.swt_forward(x, haar),
+         x),
+        (f"swt_inverse {MAIN_SHAPE} Haar", lambda: jt.swt_inverse(ys, haar),
+         ys),
+        (f"swt_forward {SWT_ODD} Haar", lambda: jt.swt_forward(xo, haar),
+         xo),
+        (f"swt_inverse {SWT_ODD} Haar", lambda: jt.swt_inverse(yo, haar),
+         yo),
+        (f"dtcwt {MAIN_SHAPE} L{LEVEL}", lambda: jt.dtcwt(x, LEVEL), x),
+        (f"idtcwt {MAIN_SHAPE} L{LEVEL}", lambda: jt.idtcwt(r), r),
+        (f"dtcwt_denoise {MAIN_SHAPE} L{LEVEL}",
+         lambda: jt.dtcwt_denoise(x, LEVEL), x),
+        (f"dtcwt2 {DTCWT2_SHAPE} L{DTCWT2_LEVEL}",
+         lambda: jt.dtcwt2(img, DTCWT2_LEVEL), img),
+        (f"idtcwt2 {DTCWT2_SHAPE} L{DTCWT2_LEVEL}",
+         lambda: jt.idtcwt2(r2), r2),
+        (f"dtcwt2_denoise {DTCWT2_SHAPE} L{DTCWT2_LEVEL}",
+         lambda: jt.dtcwt2_denoise(img, DTCWT2_LEVEL), img),
+        (f"fft {MAIN_SHAPE}", lambda: jt.fft(x), x),
+        (f"ifft {MAIN_SHAPE}", lambda: jt.ifft(xf), xf),
+        (f"dft {DFT_SHAPE}", lambda: jt.dft(xd), xd),
+        (f"idft {DFT_SHAPE}", lambda: jt.idft(yd), yd),
+    ]
+    for tag, xs_, _, wav, tier, _, _ in banded:
+        for method in ("banded", "fft"):
+            if method == "fft" and tier is not None:
+                continue
+            label = f" precision={tier}" if method == "banded" else ""
+            calls.append((f"cwt {method} {tag} S={CWT_SCALES}{label}",
+                          lambda xs_=xs_, wav=wav, method=method, tier=tier:
+                          jt.cwt(xs_, scales, wav, method=method,
+                                 precision=tier), xs_))
+    calls += [
+        (f"cwt_direct {CWT_BENCH} S={DIRECT_SCALES}",
+         lambda: jt.cwt_direct(xc, direct_scales, morlet), xc),
+        (f"icwt {CWT_SHAPE} S={CWT_SCALES}", lambda: jt.icwt(res),
+         res.coefficients),
+        (f"hilbert {MAIN_SHAPE}", lambda: jt.hilbert(x), x),
+        (f"envelope {MAIN_SHAPE}", lambda: jt.envelope(x), x),
+        (f"instantaneous_frequency {MAIN_SHAPE}",
+         lambda: jt.instantaneous_frequency(x), x),
+        (f"wavelet_coherence {CWT_BENCH} S={CWT_SCALES}",
+         lambda: jt.wavelet_coherence(xc, y, scales, morlet), (xc, y)),
+    ]
+    counted_run(smoke, torch, all_launchers(), "the continuous slice",
+                lambda: [call() for _, call, _ in calls], {})
+    for name, call, inputs in calls:
+        out = call()
+        nbytes = tensor_bytes(inputs) + tensor_bytes(out)
+        del out
+        flops = op_flops(call)
+        wall = wall_ms(torch, call)
+        t_bound, by = bound(nbytes, flops)
+        print(f"  slice {name}: wall {wall:.3f} ms (host clock, median of "
+              f"3); flops {flops:.4e}, bytes {nbytes:.4e}, bound "
+              f"{t_bound:.4f} ms by {by} ({t_bound / wall:.1%} of the wall) "
+              f"[{card}]", flush=True)
+    print(f"  phase 25 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
+def run_backward_pin(smoke: Smoke, torch, jt, signal, card) -> None:
+    """Phase 26: the decimated backward in IEEE float32.  With the process
+    set to TF32 through either of torch's settings, the gradient of
+    sum(f(x)·g) for fwt, ifwt, wpt and the DTCWT at the north-star shape
+    stays within 1e-5 of the CPU float64 gradient on the first two rows;
+    beside it, the error of a product pinned in its forward only (its
+    backward under the process's setting)."""
+    import importlib
+
+    mods = [importlib.import_module(f"jwave_pro_tpu_torch.ops.{m}")
+            for m in ("fwt", "wpt")]
+    pinned = mods[0]._mm
+    w, ws = jt.wavelet(WAVELET), jt.wavelet(WPT_WAVELET)
+
+    def forward_pin_only(u, m, tf32=False):
+        if not u.is_cuda:
+            return torch.matmul(u, m)
+        with mods[0]._f32_products():
+            return torch.matmul(u, m)
+
+    def dtcwt_flat(v):
+        r = jt.dtcwt(v, LEVEL)
+        parts = [p for h in r.highpass for p in (h.real, h.imag)]
+        return torch.cat(parts + [r.lowpass_a, r.lowpass_b], dim=-1)
+
+    def vjp(f, v, g):
+        v = v.detach().requires_grad_()
+        return torch.autograd.grad(f(v), v, grad_outputs=g)[0]
+
+    t_phase = time.perf_counter()
+    print(f"== phase 26: gradients under TF32 (either setting) against the "
+          f"CPU f64 gradient on the first two rows", flush=True)
+    x = signal(*MAIN_SHAPE)
+    cases = [(f"fwt {MAIN_SHAPE} L{LEVEL}", lambda v: jt.fwt(v, w, LEVEL)),
+             (f"ifwt {MAIN_SHAPE} L{LEVEL}", lambda v: jt.ifwt(v, w, LEVEL)),
+             (f"wpt {MAIN_SHAPE} {WPT_WAVELET} L{WPT_LEVEL}",
+              lambda v: jt.wpt(v, ws, WPT_LEVEL)),
+             (f"dtcwt {MAIN_SHAPE} L{LEVEL}", dtcwt_flat)]
+    settings = [("matmul precision 'high'",
+                 lambda: torch.set_float32_matmul_precision("high"))]
+    if hasattr(torch.backends.cuda.matmul, "fp32_precision"):
+        settings.append(("per-backend fp32_precision 'tf32'", lambda: setattr(
+            torch.backends.cuda.matmul, "fp32_precision", "tf32")))
+    for name, f in cases:
+        g = signal(*f(x).shape)
+        want = vjp(f, host64(x[:2]), host64(g[:2]))
+        for what, turn_on in settings:
+            try:
+                turn_on()
+                got = vjp(f, x, g)
+                for mod in mods:
+                    mod._mm = forward_pin_only
+                loose = vjp(f, x, g)
+            finally:
+                for mod in mods:
+                    mod._mm = pinned
+                torch.set_float32_matmul_precision("highest")
+            loose_err = float((host64(loose[:2]) - want).abs().max())
+            print(f"  {name} under {what}: a backward pinned in its forward "
+                  f"only errs by {loose_err / float(want.abs().max()):.3e} "
+                  f"relative", flush=True)
+            rel_to(smoke, f"grad {name} under {what}", host64(got[:2]), want,
+                   1e-5)
+            del got, loose
+    print(f"  phase 26 took {time.perf_counter() - t_phase:.1f} s",
           flush=True)
 
 

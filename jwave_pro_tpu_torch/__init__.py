@@ -14,10 +14,16 @@ pursuit, the 2D undecimated image path (``modwt2``/``imodwt2``/
 ``modwt2_mra``, ``modwt2_denoise`` with its single-pass ``method='fused'``,
 the quad-tree packets ``modwpt2`` and their tree and best basis), the 3D
 volume path (``modwt3``/``imodwt3``/``modwt3_mra``, ``modwt3_denoise``, the
-oct-tree packets ``modwpt3``), the continuous wavelets and the FFT CWT
-(``cwt`` with its ``method='fused'`` multiply + inverse FFT kernel), and
-the hand-written CUDA kernels behind them (``kernels/``, built from
-``csrc/`` with ``nvcc`` on first launch).  Names and signatures match
+oct-tree packets ``modwpt3``), the continuous wavelets and the CWT
+(``cwt`` with its ``method='fused'`` multiply + inverse FFT kernel and its
+``method='banded'`` pruned-band path, ``cwt_direct``, ``icwt``), the
+decimated satellites (the lifting pyramids ``cdf53``/``cdf97``, the
+threshold compressors, the arbitrary-length ``aed_*``/``swt_*`` wrappers,
+the dual-tree complex transform ``dtcwt``/``dtcwt2`` with its denoisers),
+the Fourier tools (``fft``/``ifft``, ``dft``/``idft``), the analytic
+signal (``hilbert``, ``envelope``, ``instantaneous_frequency``) and
+``wavelet_coherence``, and the hand-written CUDA kernels behind them
+(``kernels/``, built from ``csrc/`` with ``nvcc`` on first launch).  Names and signatures match
 the JAX package; tensors stay on the device they arrive on, and any other
 input (a NumPy array, a list) goes to the card.  Importing this package
 never imports JAX or ``jwave_pro_tpu``, and the package reads no file of
@@ -40,28 +46,39 @@ it.
     p3 = jt.modwpt3(vol, w, 2)       # (4, 4, 4, B, D, R, C)
     s = jt.generate_log_scales(1.0, 256.0, 64)
     r = jt.cwt(x, s, jt.MorletWavelet(), method="fused")   # (B, 64, N)
+    d = jt.dtcwt(x, 5)               # 5 complex bands, two lowpass rows
+    z = jt.cdf97(x)                  # JPEG2000 9/7 lifting, full depth
 """
 from .exceptions import (
     JWaveError, JWaveException, JWaveFailure, NotAllocated, NotFound,
     NotImplemented_, NotKnown, NotValid,
 )
 from .ops import (
-    MAX_DECOMPOSITION_LEVEL, CWTResult, analysis_step, basis_coefficients,
-    basis_coefficients2, basis_reconstruct, basis_reconstruct2, best_basis,
-    best_basis2, coeffs_to_flat, decompose, dwt, dwt2, dwt3, flat_to_coeffs,
-    fwt, fwt2, fwt3, idwt, idwt2, idwt3, ifwt, ifwt2, ifwt3, iwpt, iwpt2,
-    iwpt3, recompose, synthesis_step, wavedec, wavedec2, wavedec3, waverec,
-    waverec2, waverec3, wpt, wpt2, wpt2_denoise, wpt2_tree, wpt3,
-    wpt_denoise, wpt_tree, bayes_threshold, circular_convolve,
-    circular_convolve_adjoint, cwt, generate_linear_scales,
-    generate_log_scales, hard_threshold, imodwpt, imodwpt2, imodwpt3, imodwt,
-    imodwt2, imodwt3, log_energy_cost, mad_sigma, modwpt, modwpt2,
-    modwpt2_basis_reconstruct, modwpt2_best_basis, modwpt2_tree, modwpt3,
-    modwpt_basis_reconstruct, modwpt_best_basis, modwpt_mra,
-    modwpt_node_path, modwpt_tree, modwt, modwt2, modwt2_denoise, modwt2_mra,
-    modwt3, modwt3_denoise, modwt3_mra, modwt_base_filters, modwt_denoise,
-    modwt_denoise_inplace, modwt_mra, pad_signal, shannon_entropy_cost,
-    soft_threshold, sure_threshold, threshold_cost, universal_threshold,
+    MAX_DECOMPOSITION_LEVEL, CWTResult, DTCWT2Result, DTCWTResult, WTCResult,
+    aed_forward, aed_inverse, analysis_step, band_plan, banded_supported,
+    basis_coefficients, basis_coefficients2, basis_reconstruct,
+    basis_reconstruct2, best_basis, best_basis2, bayes_threshold, cdf53,
+    cdf97, circular_convolve, circular_convolve_adjoint, coeffs_to_flat,
+    compress_fixed, compress_magnitude, compress_peaks_average,
+    compression_rate, cwt, cwt_banded_coefficients, cwt_banded_wd,
+    cwt_direct, decompose, dft, dft_matrix, dtcwt, dtcwt2, dtcwt2_denoise,
+    dtcwt_denoise, dwt, dwt2, dwt3, envelope, fft, fft_interleaved,
+    flat_to_coeffs, fwt, fwt2, fwt3, generate_linear_scales,
+    generate_log_scales, hard_threshold, hilbert, icdf53, icdf97, icwt,
+    idft, idtcwt, idtcwt2, idwt, idwt2, idwt3, ifft, ifft_interleaved, ifwt,
+    ifwt2, ifwt3, imodwpt, imodwpt2, imodwpt3, imodwt, imodwt2, imodwt3,
+    instantaneous_frequency, iwpt, iwpt2, iwpt3, lifting_fwt, lifting_ifwt,
+    log_energy_cost, mad_sigma, modwpt, modwpt2, modwpt2_basis_reconstruct,
+    modwpt2_best_basis, modwpt2_tree, modwpt3, modwpt_basis_reconstruct,
+    modwpt_best_basis, modwpt_mra, modwpt_node_path, modwpt_tree, modwt,
+    modwt2, modwt2_denoise, modwt2_mra, modwt3, modwt3_denoise, modwt3_mra,
+    modwt_base_filters, modwt_denoise, modwt_denoise_inplace, modwt_mra,
+    pad_signal, qshift_design, qshift_wavelets, recompose,
+    shannon_entropy_cost, soft_threshold, sure_threshold, swt_forward,
+    swt_inverse, synthesis_step, threshold_cost, universal_threshold,
+    wavedec, wavedec2, wavedec3, wavelet_coherence, waverec, waverec2,
+    waverec3, wpt, wpt2, wpt2_denoise, wpt2_tree, wpt3, wpt_denoise,
+    wpt_tree,
 )
 from .ops.analysis import (
     ChangePoints, VarianceCI, modwt_changepoints, modwt_correlation,
@@ -120,4 +137,17 @@ __all__ = [
     "flat_to_coeffs",
     "time_chain", "next_power_of_two", "is_power_of_two", "max_level",
     "ancient_egyptian_decomposition",
+    "cdf53", "icdf53", "cdf97", "icdf97", "lifting_fwt", "lifting_ifwt",
+    "compress_fixed", "compress_magnitude", "compress_peaks_average",
+    "compression_rate",
+    "aed_forward", "aed_inverse", "swt_forward", "swt_inverse",
+    "qshift_design", "qshift_wavelets", "DTCWTResult", "DTCWT2Result",
+    "dtcwt", "idtcwt", "dtcwt2", "idtcwt2", "dtcwt_denoise",
+    "dtcwt2_denoise",
+    "fft", "ifft", "fft_interleaved", "ifft_interleaved", "dft_matrix",
+    "dft", "idft",
+    "cwt_direct", "icwt", "banded_supported", "band_plan",
+    "cwt_banded_coefficients", "cwt_banded_wd",
+    "hilbert", "envelope", "instantaneous_frequency", "WTCResult",
+    "wavelet_coherence",
 ]

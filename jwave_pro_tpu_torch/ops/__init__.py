@@ -1,14 +1,36 @@
+from .analysis import (
+    WTCResult, envelope, hilbert, instantaneous_frequency, wavelet_coherence,
+)
+from .arbitrary import aed_forward, aed_inverse, swt_forward, swt_inverse
+from .compress import (
+    compress_fixed, compress_magnitude, compress_peaks_average,
+    compression_rate,
+)
 from .cwt import (
-    CWTResult, cwt, generate_linear_scales, generate_log_scales, pad_signal,
+    CWTResult, cwt, cwt_direct, generate_linear_scales, generate_log_scales,
+    icwt, pad_signal,
+)
+from .cwt_banded import (
+    band_plan, banded_supported, cwt_banded_coefficients, cwt_banded_wd,
 )
 from .denoise import (
     bayes_threshold, hard_threshold, mad_sigma, modwt2_denoise,
     modwt3_denoise, modwt_denoise, modwt_denoise_inplace, soft_threshold,
     sure_threshold, universal_threshold, wpt2_denoise, wpt_denoise,
 )
+from .dtcwt import (
+    DTCWT2Result, DTCWTResult, dtcwt, dtcwt2, dtcwt2_denoise, dtcwt_denoise,
+    idtcwt, idtcwt2, qshift_design, qshift_wavelets,
+)
+from .fft import (
+    dft, dft_matrix, fft, fft_interleaved, idft, ifft, ifft_interleaved,
+)
 from .fwt import (
     analysis_step, decompose, fwt, fwt2, fwt3, ifwt, ifwt2, ifwt3, recompose,
     synthesis_step,
+)
+from .lifting import (
+    cdf53, cdf97, icdf53, icdf97, lifting_fwt, lifting_ifwt,
 )
 from .modwt import (
     MAX_DECOMPOSITION_LEVEL, circular_convolve, circular_convolve_adjoint,
@@ -45,8 +67,10 @@ __all__ = [
     "basis_coefficients", "basis_reconstruct", "best_basis", "iwpt", "iwpt2",
     "basis_coefficients2", "basis_reconstruct2", "best_basis2", "wpt2_tree",
     "iwpt3", "wpt", "wpt2", "wpt3", "wpt_tree",
-    "cwt", "CWTResult", "generate_log_scales", "generate_linear_scales",
-    "pad_signal",
+    "cwt", "cwt_direct", "icwt", "CWTResult", "generate_log_scales",
+    "generate_linear_scales", "pad_signal",
+    "banded_supported", "band_plan", "cwt_banded_coefficients",
+    "cwt_banded_wd",
     "log_energy_cost", "shannon_entropy_cost", "sure_cost", "threshold_cost",
     "soft_threshold", "hard_threshold", "mad_sigma", "universal_threshold",
     "sure_threshold", "bayes_threshold", "modwt_denoise",
@@ -55,4 +79,15 @@ __all__ = [
     "dwt", "idwt", "dwt2", "idwt2", "dwt3", "idwt3", "wavedec", "waverec",
     "wavedec2", "waverec2", "wavedec3", "waverec3", "coeffs_to_flat",
     "flat_to_coeffs",
+    "cdf53", "icdf53", "cdf97", "icdf97", "lifting_fwt", "lifting_ifwt",
+    "compress_fixed", "compress_magnitude", "compress_peaks_average",
+    "compression_rate",
+    "aed_forward", "aed_inverse", "swt_forward", "swt_inverse",
+    "qshift_design", "qshift_wavelets", "DTCWTResult", "DTCWT2Result",
+    "dtcwt", "idtcwt", "dtcwt2", "idtcwt2", "dtcwt_denoise",
+    "dtcwt2_denoise",
+    "fft", "ifft", "fft_interleaved", "ifft_interleaved", "dft_matrix",
+    "dft", "idft",
+    "hilbert", "envelope", "instantaneous_frequency", "WTCResult",
+    "wavelet_coherence",
 ]

@@ -1,15 +1,15 @@
 """Wavelet-domain statistics on the MODWT: variance, covariance,
 correlation, cross-correlation, Hurst exponent, per-scale energies and
-variance change points.
+variance change points; the analytic signal and CWT wavelet coherence.
 
-Counterpart of the MODWT half of ``jwave_pro_tpu/ops/analysis.py``; same
-semantics and names.  The core tool is the Percival–Walden MODWT wavelet
-variance: the signal's variance decomposed by scale, ``Var[x] = Σ_j ν²_j``,
-on the shift-invariant MODWT (biased estimator over all N coefficients —
-the circular-boundary convention of this library's transform), plus the
-tools built on it.  The CWT/FFT functions of that module (``hilbert``,
-``envelope``, ``instantaneous_frequency``, ``wavelet_coherence``) are not
-ported yet.
+Counterpart of ``jwave_pro_tpu/ops/analysis.py``; same semantics and
+names.  The core tool is the Percival–Walden MODWT wavelet variance: the
+signal's variance decomposed by scale, ``Var[x] = Σ_j ν²_j``, on the
+shift-invariant MODWT (biased estimator over all N coefficients — the
+circular-boundary convention of this library's transform), plus the tools
+built on it.  ``hilbert``, ``envelope`` and ``instantaneous_frequency``
+run on ``torch.fft``; ``wavelet_coherence`` smooths two ``cwt``
+scalograms with host-built (float64) Torrence–Compo operators.
 
 On a CUDA float32/bfloat16 tensor, ``method='auto'`` computes the biased
 periodic variance with the single-pass fused kernel
@@ -17,19 +17,24 @@ periodic variance with the single-pass fused kernel
 """
 from __future__ import annotations
 
+import functools
+import math
 import typing
 
 import numpy as np
 import torch
 
-from ..utils.device import as_input
+from ..utils.device import as_input, as_signal
 from ..wavelets.base import DiscreteWavelet
+from .fwt import _on
 from .modwt import modwt
 
 __all__ = [
     "modwt_variance", "modwt_variance_ci", "VarianceCI", "modwt_covariance",
     "modwt_correlation", "modwt_cross_correlation", "modwt_hurst",
     "scale_energies", "ChangePoints", "modwt_changepoints",
+    "hilbert", "envelope", "instantaneous_frequency", "WTCResult",
+    "wavelet_coherence",
 ]
 
 
@@ -411,3 +416,174 @@ def modwt_changepoints(x: torch.Tensor, wavelet: DiscreteWavelet,
                            dtype=d.dtype, device=d.device)
     crit_b = crit.reshape((level,) + (1,) * (d.ndim - 1))
     return ChangePoints(d, loc, crit, d > crit_b)
+
+
+# -- the analytic signal and wavelet coherence ---------------------------------
+
+def hilbert(x: torch.Tensor) -> torch.Tensor:
+    """Analytic signal x + i·H[x] of real ``x`` (..., N) — one-sided FFT.
+
+    The spectral one-sided multiplier (2 on positive bins, 1 at DC and
+    Nyquist, 0 on negative bins); batches over leading dims.  |result| is
+    the amplitude envelope, its phase derivative the instantaneous
+    frequency.  Integer input is read in torch's default float dtype and
+    half-precision input in float32 (the FFT's dtypes): complex64, or
+    complex128 for float64 input.
+    """
+    x = as_signal(x)
+    if x.is_complex():
+        raise ValueError("hilbert expects a real signal")
+    if x.dtype in (torch.bfloat16, torch.float16):
+        x = x.to(torch.float32)
+    n = x.shape[-1]
+    xf = torch.fft.fft(x)
+    mult = torch.zeros(n, dtype=x.dtype, device=x.device)
+    mult[0] = 1.0
+    if n % 2 == 0:
+        mult[n // 2] = 1.0
+        mult[1:n // 2] = 2.0
+    else:
+        mult[1:(n + 1) // 2] = 2.0
+    return torch.fft.ifft(xf * mult)
+
+
+def envelope(x: torch.Tensor) -> torch.Tensor:
+    """Amplitude envelope |x + i·H[x]| of a real signal."""
+    return torch.abs(hilbert(x))
+
+
+def instantaneous_frequency(x: torch.Tensor,
+                            sampling_rate: float = 1.0) -> torch.Tensor:
+    """Instantaneous frequency (Hz) of real ``x`` (..., N) → (..., N−1).
+
+    Phase increments of the analytic signal via the wrap-free identity
+    angle(z_{k+1}·conj(z_k)) — no unwrap pass — divided by 2πΔt.
+    Meaningful for (locally) monocomponent signals.
+    """
+    z = hilbert(x)
+    dphi = torch.angle(z[..., 1:] * torch.conj(z[..., :-1]))
+    return dphi * (float(sampling_rate) / (2.0 * math.pi))
+
+
+class WTCResult(typing.NamedTuple):
+    """Squared wavelet coherence + cross-wavelet phase over (scale, time)."""
+    coherence: torch.Tensor   # (..., S, N) real in [0, 1]
+    phase: torch.Tensor       # (..., S, N) radians; x-leads-y angle
+    scales: torch.Tensor      # (S,)
+    times: torch.Tensor       # (N,)
+
+
+@functools.lru_cache(maxsize=64)
+def _coherence_smoothers(scales: tuple, n: int, sampling_rate: float,
+                         octaves: float):
+    """Host-precomputed (float64) smoothing operators for Torrence–Compo
+    coherence.
+
+    Time smoothing: per-scale circular convolution with the unit-sum
+    Gaussian ``exp(−d²/(2a²))`` of circular distance d (a in samples),
+    realized as a (S, F) multiplier on the rfft of each scale row — the
+    kernel's exact DFT.  Scale smoothing: boxcar over ``octaves`` (Morlet
+    decorrelation length 0.6, Torrence & Compo 1998 §6a) assuming a
+    log-spaced grid; width 1 (no-op) if the grid has < 3 scales.
+    """
+    a = np.asarray(scales, dtype=np.float64) * sampling_rate  # in samples
+    t = np.arange(n, dtype=np.float64)
+    t = np.minimum(t, n - t)                     # circular distance
+    ker = np.exp(-0.5 * (t[None, :] / a[:, None]) ** 2)
+    ker /= ker.sum(axis=1, keepdims=True)
+    tmult = np.fft.rfft(ker, axis=1)             # (S, n//2+1) complex
+    s_count = len(scales)
+    width = 1
+    if s_count >= 3:
+        dj = np.diff(np.log2(np.asarray(scales, dtype=np.float64)))
+        djm = float(np.mean(dj))
+        if djm > 0 and np.allclose(dj, djm, rtol=0.05):
+            width = min(s_count, max(1, int(round(octaves / djm))))
+    return tmult, width
+
+
+def _full_time_multiplier(scales: tuple, n: int, sampling_rate: float,
+                          octaves: float) -> np.ndarray:
+    """The time smoother's multiplier on the full FFT grid (for complex
+    rows), host float64."""
+    tmult, _ = _coherence_smoothers(scales, n, sampling_rate, octaves)
+    return np.fft.fft(np.fft.irfft(tmult, n=n, axis=1), axis=1)
+
+
+def _half_time_multiplier(scales: tuple, n: int, sampling_rate: float,
+                          octaves: float) -> np.ndarray:
+    return _coherence_smoothers(scales, n, sampling_rate, octaves)[0]
+
+
+def _smooth(p: torch.Tensor, key: tuple, width: int) -> torch.Tensor:
+    """Apply the (time × scale) smoothing operator of the smoothers ``key``
+    (scales, N, rate, octaves) to (..., S, N) rows; the multipliers are
+    kept on the rows' device (``ops/fwt.py:_on``)."""
+    n = p.shape[-1]
+    if p.is_complex():
+        mult = _on(_full_time_multiplier, key, p.dtype, p.device)
+        sm = torch.fft.ifft(torch.fft.fft(p, dim=-1) * mult, dim=-1)
+    else:
+        cdt = torch.complex128 if p.dtype == torch.float64 \
+            else torch.complex64
+        mult = _on(_half_time_multiplier, key, cdt, p.device)
+        sm = torch.fft.irfft(torch.fft.rfft(p, dim=-1) * mult, n=n,
+                             dim=-1).to(p.dtype)
+    if width > 1:
+        # boxcar over the scale axis, edge-truncated (normalize by the
+        # number of in-range scales at each position)
+        s_count = sm.shape[-2]
+        h = width // 2
+        c = torch.cumsum(torch.nn.functional.pad(
+            sm, (0, 0, h + 1, width - 1 - h)), dim=-2)
+        sums = c[..., width:, :] - c[..., :-width, :]
+        idx = np.arange(s_count)
+        cnt = (np.minimum(idx + (width - 1 - h), s_count - 1)
+               - np.maximum(idx - h, 0) + 1)
+        sm = sums / torch.from_numpy(cnt[:, None]).to(sums.device,
+                                                      sums.real.dtype)
+    return sm
+
+
+def wavelet_coherence(x: torch.Tensor, y: torch.Tensor, scales,
+                      wavelet=None, sampling_rate: float = 1.0,
+                      padding: str = "zero",
+                      smoothing_octaves: float = 0.6) -> WTCResult:
+    """Squared wavelet coherence R²(a, t) of two signals (Torrence–Compo).
+
+    ``R² = |S(a⁻¹·W_x·conj(W_y))|² / (S(a⁻¹|W_x|²)·S(a⁻¹|W_y|²))`` where S
+    smooths in time (per-scale Gaussian of std a) and scale (boxcar over
+    ``smoothing_octaves``); without S the ratio is identically 1.  ``phase``
+    is the smoothed cross-spectrum angle — the local lead/lag of x over y
+    in radians at that scale.  Both transforms are ``cwt(method='auto')``.
+
+    Smoothing is circular along time (the library-wide boundary
+    convention); the scales are static (host-precomputed operators).  The
+    denominator is floored at the dtype's smallest normal number, so a
+    dead (all-zero) channel gives coherence 0, not NaN; the coherence is
+    clipped to [0, 1].
+    """
+    from .cwt import cwt
+
+    scales_t = tuple(float(s) for s in np.atleast_1d(np.asarray(
+        scales.detach().cpu() if isinstance(scales, torch.Tensor)
+        else scales)))
+    rx = cwt(x, scales_t, wavelet, sampling_rate, padding)
+    ry = cwt(y, scales_t, wavelet, sampling_rate, padding)
+    wx, wy = rx.coefficients, ry.coefficients
+    n = wx.shape[-1]
+    key = (scales_t, n, float(sampling_rate), float(smoothing_octaves))
+    width = _coherence_smoothers(*key)[1]
+    rdt = wx.real.dtype
+    inv_a = torch.from_numpy(1.0 / np.asarray(scales_t)[:, None]).to(
+        wx.device, rdt)
+    cross = wx * torch.conj(wy) if wx.is_complex() or wy.is_complex() \
+        else wx * wy
+    s_xy = _smooth(cross * inv_a, key, width)
+    s_xx = _smooth((torch.abs(wx) ** 2) * inv_a, key, width)
+    s_yy = _smooth((torch.abs(wy) ** 2) * inv_a, key, width)
+    denom = torch.clamp_min(s_xx * s_yy, torch.finfo(s_xx.dtype).tiny)
+    r2 = torch.clamp((torch.abs(s_xy) ** 2) / denom, 0.0, 1.0)
+    phase = torch.angle(s_xy) if s_xy.is_complex() \
+        else (s_xy < 0).to(r2.dtype) * math.pi
+    return WTCResult(r2, phase, rx.scales, rx.time_axis)

@@ -17,12 +17,21 @@ scale grid, length and rate), the products inverse-FFT as one batch.
 path (real input, static scales); 'fused' takes the multiply + inverse FFT
 kernel (``kernels/cwt_cuda.py``: the CUDA kernel on a CUDA tensor, its
 plain version on the CPU) for float32 input at the lengths it supports,
-else the 'fft' path.  Complex input, and scales given as a tensor that
+else the 'fft' path; 'banded' the pruned-band path
+(``ops/cwt_banded.py``: per-scale spectral bands and a factorized inverse
+DFT on cuBLAS products).  Complex input, and scales given as a tensor that
 requires grad (the counterpart of the JAX package's traced scales: ψ̂ is
 evaluated on the tensor's device), take the full-FFT path; any other
-tensor of scales is static, as a concrete array is in the JAX package.  The JAX package's pruned-band
-path ('banded', ``ops/cwt_banded.py``), ``cwt_direct`` and ``icwt`` wait
-for their slice.
+tensor of scales is static, as a concrete array is in the JAX package.
+
+'auto' keeps the irfft path where the JAX package's rule takes the banded
+one on a TPU (``_banded_auto_ok``): that rule was tuned against an XLA FFT
+at ~1 TFLOP/s effective, which cuFFT is not; the two paths agree to 5e-8
+relative, and ``chip_smoke.py`` times both on the card for the choice.
+
+Also here: ``cwt_direct`` (the reference's time-domain correlation with
+support clipping) and ``icwt`` (the frequency-compensated single-integral
+inverse, its filter built on the host in float64).
 """
 from __future__ import annotations
 
@@ -36,10 +45,11 @@ import torch
 from ..utils.device import as_input
 from ..utils.validation import next_power_of_two
 from ..wavelets.continuous import ContinuousWavelet, MorletWavelet
+from .fwt import _mm
 
 __all__ = [
-    "cwt", "CWTResult", "generate_log_scales", "generate_linear_scales",
-    "pad_signal",
+    "cwt", "cwt_direct", "icwt", "CWTResult", "generate_log_scales",
+    "generate_linear_scales", "pad_signal",
 ]
 
 
@@ -294,6 +304,21 @@ def _cwt_full_fft(xp, n, scales_arr, wavelet, sampling_rate, cdtype):
     return torch.fft.ifft(prod, dim=-1)[..., :n]
 
 
+def _resolve_precision(precision, low_default: bool) -> str:
+    """The banded path's product tier from the user-facing ``precision``.
+
+    ``None`` → 'highest' (IEEE float32) for float32 input, or 'high' (TF32)
+    when ``low_default`` (bfloat16 input opted into the fast tier); the
+    strings 'highest', 'high' and 'default' map to themselves.
+    """
+    if precision is None:
+        return "high" if low_default else "highest"
+    tier = str(precision).lower()
+    if tier not in ("highest", "high", "default"):
+        raise ValueError(f"unknown precision {precision!r}")
+    return tier
+
+
 def cwt(x: torch.Tensor, scales, wavelet: ContinuousWavelet | None = None,
         sampling_rate: float = 1.0, padding: str = "zero",
         method: str = "auto", precision=None) -> CWTResult:
@@ -301,32 +326,36 @@ def cwt(x: torch.Tensor, scales, wavelet: ContinuousWavelet | None = None,
 
     Equivalent of ``transformFFT`` (``ContinuousWaveletTransform.java:
     183-229``) in one batched op.  ``method``: 'auto' and 'fft' (the
-    half-spectrum irfft path), 'fused' (the multiply + inverse FFT kernel
+    half-spectrum irfft path; 'auto' does not switch to 'banded' as the
+    JAX package's TPU rule does — see the module docstring), 'fused' (the
+    multiply + inverse FFT kernel
     for float32 input at power-of-two padded lengths 64..16384, else the
-    'fft' path), or 'banded' (the JAX package's pruned-band path, which
-    waits for its slice and raises here).  For wavelets with real-even ψ̂
+    'fft' path), or 'banded' (the pruned-band path, ``ops/cwt_banded.py``;
+    it needs a padded length that is a multiple of 128 and at least 512,
+    and raises ``ValueError`` otherwise).  For wavelets with real-even ψ̂
     (Mexican Hat, even-order DOG) the coefficients are mathematically real
     and are returned as a real tensor.  ``scales``: a sequence, an array or
     a tensor; a tensor that requires grad takes the full-FFT path instead
     (complex coefficients, differentiable in the scales), as the JAX
-    package's traced scales do.  ``precision`` selects the banded
-    path's matrix precision in the JAX package and changes nothing here.
+    package's traced scales do.
+
+    ``precision`` sets the banded path's float32 product tier:
+    ``None``/'highest' IEEE float32, 'high' TF32 (a bfloat16 input selects
+    it when ``precision`` is None; its coefficients are complex64 all the
+    same), 'default' operands rounded to bfloat16 with float32 sums.  The
+    other paths have no product to set.
     """
     if method not in ("auto", "banded", "fused", "fft"):
         raise ValueError(f"unknown CWT method {method!r}")
-    if method == "banded":
-        raise ValueError("method='banded' needs ops/cwt_banded.py, which is "
-                         "not ported yet; use 'auto', 'fft' or 'fused'")
-    if precision is not None and str(precision).lower() not in (
-            "highest", "high", "default"):
-        raise ValueError(f"unknown precision {precision!r}")
     if wavelet is None:
         wavelet = MorletWavelet()
     x = as_input(x)
     if not (x.is_floating_point() or x.is_complex()):
         x = x.to(torch.float32)
-    if x.dtype in (torch.bfloat16, torch.float16):
+    low_prec = x.dtype in (torch.bfloat16, torch.float16)
+    if low_prec:
         x = x.to(torch.float32)       # spectra and FFTs have no bf16 form
+    tier = _resolve_precision(precision, low_prec)
     n = x.shape[-1]
     padded_n = next_power_of_two(n)
     xp = pad_signal(x, padded_n, padding)
@@ -343,6 +372,19 @@ def cwt(x: torch.Tensor, scales, wavelet: ContinuousWavelet | None = None,
             scales, dtype=rdtype, device=x.device))
         coeff = _cwt_full_fft(xp, n, scales_arr, wavelet, sampling_rate,
                               cdtype)
+    elif method == "banded":
+        from .cwt_banded import banded_supported, cwt_banded_coefficients
+
+        if not banded_supported(padded_n, n):
+            raise ValueError(
+                f"banded CWT needs a 128-divisible padded length ≥ 512, "
+                f"got {padded_n}")
+        scales_np = np.atleast_1d(np.asarray(scales, dtype=np.float64))
+        scales_arr = torch.as_tensor(scales_np, dtype=rdtype,
+                                     device=x.device)
+        coeff = cwt_banded_coefficients(torch.fft.rfft(xp, dim=-1), n,
+                                        scales_np, wavelet, sampling_rate,
+                                        padded_n, precision=tier)
     else:
         scales_np = np.atleast_1d(np.asarray(scales, dtype=np.float64))
         coeff = None
@@ -374,3 +416,145 @@ def cwt(x: torch.Tensor, scales, wavelet: ContinuousWavelet | None = None,
                                 device=x.device)
     return CWTResult(coeff, scales_arr, time_axis, sampling_rate,
                      wavelet.name)
+
+
+def cwt_direct(x: torch.Tensor, scales,
+               wavelet: ContinuousWavelet | None = None,
+               sampling_rate: float = 1.0) -> CWTResult:
+    """Direct (time-domain) CWT with support clipping.
+
+    Parity with ``transform``/``computeCoefficient``
+    (``ContinuousWaveletTransform.java:153-260``): for output time index b,
+    ``c[a,b] = dt · Σ_{i∈support} x[i] · conj(ψ_{a}((i−b)·dt))`` where the
+    support window is ``[b + ⌊s₀·a·fs⌋, b + ⌊s₁·a·fs⌋]`` clipped to the
+    signal.  Per scale the (…, N, W) windows over a static offset range
+    (an ``unfold`` of the zero-padded signal) and one product with the W
+    taps (host float64, rounded to the input's precision); a real signal
+    multiplies the taps' real and imaginary parts as two columns, so its
+    windows stay real.
+    Coefficients are complex64, or complex128 for float64 input.
+    """
+    if wavelet is None:
+        wavelet = MorletWavelet()
+    x = as_input(x)
+    if not (x.is_floating_point() or x.is_complex()):
+        x = x.to(torch.float32)
+    n = x.shape[-1]
+    dt = 1.0 / sampling_rate
+    scales_np = np.atleast_1d(np.asarray(
+        scales.detach().cpu().double().numpy()
+        if isinstance(scales, torch.Tensor) else scales, dtype=np.float64))
+    s0, s1 = wavelet.effective_support()
+    real = not x.is_complex()
+    rdtype = torch.float64 if x.dtype in (torch.float64,
+                                          torch.complex128) else torch.float32
+    cdtype = torch.complex128 if rdtype == torch.float64 else torch.complex64
+
+    rows = []
+    for a in scales_np:
+        # static offsets for this scale: j = i − b ∈ [off_lo, off_hi]
+        off_lo = max(int(s0 * a * sampling_rate), -(n - 1))
+        off_hi = min(int(s1 * a * sampling_rate), n - 1)
+        offs = np.arange(off_lo, off_hi + 1)
+        taps = np.conj(wavelet.psi_scaled(offs * dt, float(a)).numpy()) * dt
+        # c[b] = Σ_j x[b+j]·taps[j], clipped at the edges (no wrap): zero
+        # padding, like the reference's min/max index clamp
+        pad_l, pad_r = max(0, -off_lo), max(0, off_hi)
+        xpad = torch.nn.functional.pad(x, (pad_l, pad_r))
+        start = off_lo + pad_l          # window b holds xpad[b + start + j]
+        windows = xpad[..., start:].unfold(-1, offs.size, 1)[..., :n, :]
+        if real:
+            cols = torch.from_numpy(np.stack([taps.real, taps.imag], -1)).to(
+                device=x.device, dtype=rdtype)              # (W, 2)
+            out = _mm(windows.to(rdtype), cols)
+            rows.append(torch.complex(out[..., 0], out[..., 1]))
+        else:
+            col = torch.from_numpy(taps[:, None]).to(device=x.device,
+                                                     dtype=cdtype)
+            rows.append(_mm(windows.to(cdtype), col)[..., 0])
+    coeff = torch.stack(rows, dim=-2)                       # (…, S, N)
+    time_axis = torch.as_tensor(np.arange(n) * dt, device=x.device)
+    return CWTResult(coeff, torch.as_tensor(scales_np, device=x.device),
+                     time_axis, sampling_rate, wavelet.name)
+
+
+def _icwt_weights(scales: np.ndarray) -> np.ndarray:
+    """Trapezoid weights in ln(a) over 1/√a (host-side, float64).
+
+    With this library's FFT-path convention
+    C(a,·) = IFFT[X · conj(√a·ψ̂(aω))], a flat reconstruction kernel needs
+    w(a) = Δln(a)/√a:  Σ_a w(a)·√a·ψ̂(aω) = ∫ψ̂(aω) dln a, which is
+    ω-independent by scale invariance of dln a.
+    """
+    log_s = np.log(scales)
+    dln = np.gradient(log_s)
+    return dln / np.sqrt(scales)
+
+
+@functools.lru_cache(maxsize=256)
+def _recon_filter(wavelet: ContinuousWavelet, scales: tuple, n: int,
+                  sampling_rate: float):
+    """Regularized reconstruction filter G(ω) — host numpy float64, cached
+    per (wavelet, scale grid, length, fs).
+
+    The weighted scale sum R(t) = Σ_a w_a·W(a,t) is x convolved with a
+    kernel whose spectrum is H(ω) = Σ_a w_a·conj(√a·ψ̂(aω)); G is its
+    Tikhonov-regularized inverse on the non-negative-frequency grid,
+    conj(H)/(|H|² + ε²) with ε = 5% of the in-band peak — exact inside the
+    scale-covered band, gracefully zero outside it (wavelets are zero-mean,
+    so DC is never recoverable).  ψ̂ is evaluated through the port's own
+    formulas on CPU float64 tensors.
+    """
+    scales_np = np.asarray(scales, dtype=np.float64)
+    p = next_power_of_two(n)
+    omega = torch.from_numpy(_omega_axis(p, sampling_rate))
+    weights = _icwt_weights(scales_np)
+    h = np.zeros(p, dtype=np.complex128)
+    for a, w_a in zip(scales_np, weights):
+        h += w_a * np.conj(wavelet.psi_hat_scaled(omega, float(a)).numpy())
+    h_pos = h[:p // 2 + 1]
+    peak = float(np.max(np.abs(h_pos)))
+    if peak < 1e-30:
+        raise ValueError("wavelet/scale grid cannot be calibrated for icwt")
+    eps2 = (0.05 * peak) ** 2
+    g = np.conj(h_pos) / (np.abs(h_pos) ** 2 + eps2)
+    return g, p
+
+
+def icwt(result: CWTResult, wavelet: ContinuousWavelet | None = None,
+         scales=None) -> torch.Tensor:
+    """Approximate inverse CWT (signal reconstruction from a scalogram).
+
+    The reference has no inverse CWT; this is the single-integral
+    reconstruction (Torrence & Compo 1998 eq. 11 generalized) with
+    frequency compensation: the weighted scale sum R(t) = Σ_a Δln(a)/√a ·
+    W(a,t) is deconvolved by the scale grid's aggregate response H(ω) (a
+    cached host constant — see :func:`_recon_filter`), which makes the
+    inverse self-consistent with this library's FFT-path conventions and
+    works for all five continuous families, anti-symmetric odd-order DOG
+    included.  The scale grid is ``scales=`` or, by default,
+    ``result.scales`` moved to the host.
+
+    Accuracy is that of the method (sub-1% relative L2 inside the
+    scale-covered band for ≥ 16 scales/decade).  The signal mean (DC) is
+    not recoverable from zero-mean wavelets.
+    """
+    if wavelet is None:
+        wavelet = MorletWavelet()
+    coeffs = as_input(result.coefficients)
+    if scales is None:
+        scales = result.scales
+    if isinstance(scales, torch.Tensor):
+        scales = scales.detach().cpu().double().numpy()
+    scales_np = np.atleast_1d(np.asarray(scales, dtype=np.float64))
+    n = coeffs.shape[-1]
+    g, p = _recon_filter(wavelet, tuple(float(a) for a in scales_np), n,
+                         float(result.sampling_rate))
+    weights = torch.from_numpy(_icwt_weights(scales_np)).to(
+        device=coeffs.device, dtype=coeffs.dtype)
+    r = _mm(weights, coeffs)                             # Σ_s w_s·c[…, s, t]
+    rf = torch.fft.fft(r, n=p, dim=-1)[..., :p // 2 + 1]
+    x = torch.fft.irfft(rf * torch.from_numpy(g).to(device=rf.device,
+                                                    dtype=rf.dtype),
+                        n=p, dim=-1)
+    return x[..., :n]

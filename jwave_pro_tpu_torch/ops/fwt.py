@@ -20,9 +20,10 @@ JAX package picks it:
 The banded constants are built once per wavelet tuple in numpy float64 on
 the host and kept on each device in each dtype they are used in (rounded
 to that dtype, as the JAX package rounds them).  Every float32 product is
-pinned to IEEE float32 whatever the process's TF32 setting — the
-counterpart of the JAX package's per-call ``Precision.HIGHEST``: a TF32
-product loses the 1e-5 forward bound.
+pinned to IEEE float32 whatever the process's TF32 setting, in the
+forward and in its gradient (``_mm``) — the counterpart of the JAX
+package's per-call ``Precision.HIGHEST``, whose transpose is HIGHEST too:
+a TF32 product loses the 1e-5 forward bound.
 
 Coefficient layout matches the reference: ``[approx | detail]`` halves
 recursively on the prefix of the array.
@@ -49,41 +50,69 @@ _BLK = 256  # input block width of the banded step (outputs 128 lo + 128 hi)
 
 
 @contextlib.contextmanager
-def _ieee_f32():
-    """cuBLAS float32 products in IEEE float32 (no TF32) inside the block;
-    the process's setting is restored after it.
+def _f32_products(tf32: bool = False):
+    """cuBLAS float32 products in IEEE float32 (or, with ``tf32``, in TF32)
+    inside the block; the process's setting is restored after it.
 
     Torch keeps two settings, the float32 matmul precision and (newer) the
     per-backend ``fp32_precision``, and may refuse a product while they
-    disagree; so the pin goes through the one the caller set.  The first
-    reads back only while both agree: set through it, they agree.
+    disagree; so the block sets the one the caller set.  The first reads
+    back only while both agree: set through it, they agree.
     """
     try:
         prev = torch.get_float32_matmul_precision()
     except RuntimeError:  # only the per-backend setting was used
         mm = torch.backends.cuda.matmul
         prev_backend = mm.fp32_precision
-        mm.fp32_precision = "ieee"
+        mm.fp32_precision = "tf32" if tf32 else "ieee"
         try:
             yield
         finally:
             mm.fp32_precision = prev_backend
         return
-    torch.set_float32_matmul_precision("highest")
+    torch.set_float32_matmul_precision("high" if tf32 else "highest")
     try:
         yield
     finally:
         torch.set_float32_matmul_precision(prev)
 
 
-def _mm(u: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
-    """``u @ m`` over the last axis of ``u``, float32 kept in full float32
-    on the card.  The pin covers this product; a backward pass runs under
-    the process's own setting."""
+class _PinnedProduct(torch.autograd.Function):
+    """``a @ b`` on the card with its forward and its backward products in
+    one float32 tier, as the JAX package's ``Precision.HIGHEST`` product
+    and its transpose are both HIGHEST.  Each gradient is itself a pinned
+    product (so a second derivative stays pinned too), summed back over
+    the axes the forward broadcast."""
+
+    @staticmethod
+    def forward(ctx, a, b, tf32):
+        ctx.save_for_backward(a, b)
+        ctx.tf32 = tf32
+        with _f32_products(tf32):
+            return torch.matmul(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = _mm(g, b.mH, ctx.tf32).sum_to_size(a.shape)
+        if ctx.needs_input_grad[1]:
+            gb = _mm(a.mH, g, ctx.tf32).sum_to_size(b.shape)
+        return ga, gb, None
+
+
+def _mm(u: torch.Tensor, m: torch.Tensor, tf32: bool = False
+        ) -> torch.Tensor:
+    """``u @ m`` (``torch.matmul``'s broadcasting; either side may be the
+    constant), float32 and complex64 kept in full float32 on the card — or
+    in TF32 where ``tf32`` asks for it — in the forward and the backward
+    alike.  On the CPU, ``torch.matmul`` itself."""
     if not u.is_cuda:
         return torch.matmul(u, m)
-    with _ieee_f32():
-        return torch.matmul(u, m)
+    if u.ndim == 1:
+        return _PinnedProduct.apply(u[None], m, tf32)[..., 0, :]
+    return _PinnedProduct.apply(u, m, tf32)
 
 
 @functools.lru_cache(maxsize=256)

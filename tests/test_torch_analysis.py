@@ -282,3 +282,99 @@ def test_var_plan_edges_and_main_shape():
         lo += 7 << (j - 1)
         d = 1 << (j - 1)
         assert -(-(4096 + 217 - lo) // (9 * d)) * d <= 512
+
+
+# -- the analytic signal and wavelet coherence ---------------------------------
+
+@pytest.mark.parametrize("shape", [(256,), (2, 3, 101), (4, 1000)])
+def test_hilbert_tools_match_jax_f64(shape):
+    x = np.random.default_rng(shape[-1]).standard_normal(shape)
+    want = np.asarray(jax.jit(jw.hilbert)(x))
+    got = jt.hilbert(torch.from_numpy(x))
+    assert got.dtype == torch.complex128 and got.shape == want.shape
+    assert np.abs(got.numpy() - want).max() <= 1e-12 * np.abs(want).max()
+    env = jt.envelope(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(env, np.asarray(jax.jit(jw.envelope)(x)),
+                               rtol=0, atol=1e-12 * np.abs(want).max())
+    f = jt.instantaneous_frequency(torch.from_numpy(x), 250.0).numpy()
+    fw = np.asarray(jax.jit(lambda v: jw.instantaneous_frequency(
+        v, 250.0))(x))
+    assert f.shape == shape[:-1] + (shape[-1] - 1,)
+    # phase increments near ±π may land on either branch in another
+    # summation order: compare away from the cut
+    ok = np.abs(np.abs(fw) - 125.0) > 1e-6
+    assert np.abs(f - fw)[ok].max() <= 1e-9 * 125.0
+
+
+def test_hilbert_gradient_dtypes_and_errors():
+    rng = np.random.default_rng(3)
+    x, wts = rng.standard_normal((2, 200)), rng.standard_normal((2, 200))
+    want = np.asarray(jax.jit(jax.grad(
+        lambda v: jnp.sum(jnp.imag(jw.hilbert(v)) * wts)))(x))
+    xt = torch.from_numpy(x).requires_grad_()
+    (jt.hilbert(xt).imag * torch.from_numpy(wts)).sum().backward()
+    assert np.abs(xt.grad.numpy() - want).max() <= 1e-9 * np.abs(want).max()
+    with pytest.raises(ValueError, match="real signal"):
+        jt.hilbert(torch.zeros(8, dtype=torch.complex64))
+    for dtype, want_dtype in ((torch.float32, torch.complex64),
+                              (torch.bfloat16, torch.complex64),
+                              (torch.int32, torch.complex64)):
+        assert jt.hilbert(torch.ones(16, dtype=dtype)).dtype == want_dtype
+    # a pure tone's envelope is flat and its frequency the tone's
+    t = np.arange(1000) / 1000.0
+    tone = torch.from_numpy(np.cos(2 * np.pi * 50.0 * t))
+    assert float((jt.envelope(tone)[100:-100] - 1).abs().max()) <= 1e-2
+    f = jt.instantaneous_frequency(tone, 1000.0)[100:-100]
+    assert float((f - 50.0).abs().max()) <= 0.5
+
+
+@pytest.mark.parametrize("make", [lambda p: p.MorletWavelet(),
+                                  lambda p: p.MexicanHatWavelet(),
+                                  lambda p: p.DOGWavelet(1)],
+                         ids=["morlet", "mexhat", "dog1"])
+@pytest.mark.parametrize("octaves", [0.6, 0.0])
+def test_wavelet_coherence_matches_jax_f64(make, octaves):
+    """Coherence and phase within 1e-9 of the JAX package's (both smooth
+    float64 scalograms with the same host operators)."""
+    rng = np.random.default_rng(5)
+    t = np.arange(600)
+    common = np.sin(2 * np.pi * t / 30.0)
+    x = common + 0.5 * rng.standard_normal((2, 600))
+    y = np.roll(common, 4) + 0.5 * rng.standard_normal((2, 600))
+    scales = jw.generate_log_scales(2.0, 64.0, 16)
+    want = jw.wavelet_coherence(x, y, scales, make(jw),
+                                smoothing_octaves=octaves)
+    got = jt.wavelet_coherence(torch.from_numpy(x), torch.from_numpy(y),
+                               scales, make(jt), smoothing_octaves=octaves)
+    wc, gc = np.asarray(want.coherence), got.coherence.numpy()
+    assert gc.shape == wc.shape == (2, 16, 600) and gc.dtype == wc.dtype
+    assert np.abs(gc - wc).max() <= 1e-9
+    wp, gp = np.asarray(want.phase), got.phase.numpy()
+    # compare the phase where the cross-spectrum is not near ±π
+    dp = np.abs(np.angle(np.exp(1j * (gp - wp))))
+    assert dp.max() <= 1e-9
+    np.testing.assert_array_equal(got.scales.numpy(), np.asarray(want.scales))
+    np.testing.assert_array_equal(got.times.numpy(), np.asarray(want.times))
+    assert 0.0 <= gc.min() and gc.max() <= 1.0
+
+
+def test_wavelet_coherence_dead_channel_and_float32():
+    """A dead (all-zero) channel gives coherence 0, not NaN (the floored
+    denominator); float32 in, float32 coherence within 1e-5 of f64."""
+    x = np.random.default_rng(6).standard_normal((2, 512))
+    y = x.copy()
+    y[1] = 0.0
+    scales = jt.generate_log_scales(2.0, 32.0, 8)
+    r = jt.wavelet_coherence(torch.from_numpy(x), torch.from_numpy(y),
+                             scales)
+    assert bool(torch.isfinite(r.coherence).all())
+    assert float(r.coherence[1].abs().max()) == 0.0
+    assert float(r.coherence[0].min()) > 0.99   # a signal with itself
+    r32 = jt.wavelet_coherence(torch.from_numpy(x.astype(np.float32)),
+                               torch.from_numpy(np.roll(x, 3, -1).astype(
+                                   np.float32)), scales)
+    r64 = jt.wavelet_coherence(torch.from_numpy(x),
+                               torch.from_numpy(np.roll(x, 3, -1)), scales)
+    assert r32.coherence.dtype == torch.float32
+    assert float((r32.coherence.double() - r64.coherence).abs().max()) \
+        <= 1e-5

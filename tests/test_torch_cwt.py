@@ -14,6 +14,12 @@ Inputs are numpy arrays from a seed handed to both packages.  Tolerances:
   ``tests/test_pallas_kernels.py`` holds that kernel to (its 3-pass bf16
   split loses ~2⁻¹⁶ a product); the plain version's own algorithm is held
   to ``numpy.fft.ifft`` at complex128, 1e-12.
+* ``cwt(method='banded')`` against the JAX package's banded path, and
+  ``cwt_direct`` and ``icwt`` against the JAX package's, at f64, 1e-10
+  relative to max|ref|: the same host float64 constants (ψ̂ and ψ through
+  each package's own formulas) and the same float64 products, FFTs and
+  sums in another order.  ``cwt_direct`` of float32 input, 1e-5 relative
+  to the f64 result (its taps rounded to float32).
 """
 import importlib
 import math
@@ -261,7 +267,8 @@ def test_cwt_concrete_tensor_scales_dtype_matches_jax(make, rate, dtype):
 
 def test_cwt_methods_and_validation():
     x = _t(np.random.default_rng(6).standard_normal(64))
-    with pytest.raises(ValueError, match="cwt_banded"):
+    # the banded path needs a padded length of 512 or more (P = 64 here)
+    with pytest.raises(ValueError, match="banded CWT needs"):
         jt.cwt(x, [2.0, 4.0], method="banded")
     with pytest.raises(ValueError, match="unknown CWT method"):
         jt.cwt(x, [2.0, 4.0], method="direct")
@@ -357,3 +364,85 @@ def test_cwt_kernel_twiddle_table(p):
     want = np.exp(2j * np.pi * np.arange(p) / p).astype(np.complex64)
     np.testing.assert_array_equal(tw.numpy(), want)
     assert kc.twiddles(p, torch.device("cpu")) is tw
+
+
+# -- the banded path, cwt_direct and icwt --------------------------------------
+
+@pytest.mark.parametrize("make,label", PAIRS)
+def test_cwt_banded_matches_jax_banded_f64(make, label):
+    x = np.random.default_rng(12).standard_normal((2, 700))
+    scales = tuple(float(s) for s in jw.generate_log_scales(1.0, 48.0, 12))
+    want = jax.jit(lambda v: jw.cwt(v, scales, make(jw), 2.0,
+                                    method="banded").coefficients)(x)
+    got = jt.cwt(_t(x), scales, make(jt), 2.0, method="banded").coefficients
+    assert got.numpy().dtype == np.asarray(want).dtype
+    assert _rel(got.numpy(), np.asarray(want)) <= 1e-10, label
+
+
+@pytest.mark.parametrize("make,label", [PAIRS[0], PAIRS[3], PAIRS[4],
+                                        PAIRS[5], PAIRS[8]])
+@pytest.mark.parametrize("rate", [1.0, 2.5])
+def test_cwt_direct_matches_jax_f64(make, label, rate):
+    x = np.random.default_rng(13).standard_normal((2, 3, 160))
+    scales = tuple(float(s) for s in jw.generate_log_scales(1.0, 24.0, 6))
+    want = jax.jit(lambda v: jw.cwt_direct(v, scales, make(jw),
+                                           rate).coefficients)(x)
+    got = jt.cwt_direct(_t(x), np.asarray(scales), make(jt), rate)
+    assert got.coefficients.dtype == torch.complex128
+    assert got.coefficients.shape == (2, 3, 6, 160)
+    assert _rel(got.coefficients.numpy(), np.asarray(want)) <= 1e-10, label
+    np.testing.assert_array_equal(got.scales.numpy(), np.asarray(scales))
+
+
+def test_cwt_direct_complex_float32_and_large_scales():
+    """Complex input, float32 input (complex64 out) and a scale whose
+    support exceeds the signal (the offsets clip to ±(N − 1))."""
+    rng = np.random.default_rng(14)
+    x = rng.standard_normal((2, 90)) + 1j * rng.standard_normal((2, 90))
+    scales = (1.5, 6.0, 80.0)
+    want = np.asarray(jax.jit(lambda v: jw.cwt_direct(
+        v, scales).coefficients)(x))
+    got = jt.cwt_direct(_t(x), scales).coefficients.numpy()
+    assert _rel(got, want) <= 1e-10
+    xr = rng.standard_normal((2, 90)).astype(np.float32)
+    g32 = jt.cwt_direct(_t(xr), scales)
+    assert g32.coefficients.dtype == torch.complex64
+    g64 = jt.cwt_direct(_t(xr).double(), scales).coefficients
+    assert _rel(g32.coefficients.numpy(), g64.numpy()) <= 1e-5
+    assert jt.cwt_direct(torch.arange(90) % 4, scales
+                         ).coefficients.dtype == torch.complex64
+
+
+@pytest.mark.parametrize("make,label", [PAIRS[0], PAIRS[3], PAIRS[4],
+                                        PAIRS[6], PAIRS[8]])
+def test_icwt_matches_jax_f64(make, label):
+    x = np.random.default_rng(15).standard_normal((2, 500))
+    scales = jw.generate_log_scales(1.0, 64.0, 40)
+    want_r = jw.cwt(x, scales, make(jw), 2.0)
+    want = np.asarray(jw.icwt(want_r, make(jw)))
+    res = jt.cwt(_t(x), scales, make(jt), 2.0)
+    got = jt.icwt(res, make(jt))
+    assert got.dtype == torch.float64 and got.shape == (2, 500)
+    assert _rel(got.numpy(), want) <= 1e-10, label
+    # the grid given as scales= (the JAX package's form under jit)
+    got2 = jt.icwt(res, make(jt), scales=tuple(scales))
+    torch.testing.assert_close(got2, got, rtol=0, atol=0)
+    filt, p = tcwt._recon_filter(make(jt), tuple(float(a) for a in scales),
+                                 500, 2.0)
+    jfilt, jp = importlib.import_module("jwave_pro_tpu.ops.cwt")._recon_filter(
+        make(jw), tuple(float(a) for a in scales), 500, 2.0)
+    assert p == jp == 512
+    assert np.abs(filt - jfilt).max() <= 1e-12 * np.abs(jfilt).max()
+
+
+def test_icwt_reconstructs_a_band_limited_signal():
+    """Round trip inside the covered band (the method's own accuracy:
+    the JAX tests pin ≤ 5% relative L2 for every family)."""
+    t = np.arange(2048)
+    x = np.sin(2 * np.pi * t / 40.0) + 0.5 * np.sin(2 * np.pi * t / 13.0)
+    scales = jt.generate_log_scales(2.0, 64.0, 48)
+    res = jt.cwt(_t(x), scales, jt.MorletWavelet())
+    back = jt.icwt(res).numpy()
+    err = np.linalg.norm(back[200:-200] - x[200:-200]) / np.linalg.norm(
+        x[200:-200])
+    assert err <= 5e-2

@@ -419,9 +419,9 @@ def test_gradients_match_jax(inverse):
 
 @pytest.mark.parametrize("setting", ["matmul precision", "per backend"])
 def test_f32_pin_restores_the_process_setting(setting):
-    """``_ieee_f32`` sets IEEE f32 products for its block, with torch's two
-    settings in agreement, and restores the TF32 the process had, set
-    through either of them."""
+    """``_f32_products()`` sets IEEE f32 products for its block, with
+    torch's two settings in agreement, and restores the TF32 the process
+    had, set through either of them."""
     mm = torch.backends.cuda.matmul
     if setting == "per backend" and not hasattr(mm, "fp32_precision"):
         pytest.skip("torch without the per-backend fp32_precision setting")
@@ -431,12 +431,39 @@ def test_f32_pin_restores_the_process_setting(setting):
             mm.fp32_precision = "tf32"
         else:
             torch.set_float32_matmul_precision("high")
-        with tfwt._ieee_f32():
+        with tfwt._f32_products():
             assert torch.get_float32_matmul_precision() == "highest"
             assert not mm.allow_tf32
         if setting == "per backend":
             assert mm.fp32_precision == "tf32"
         else:
             assert torch.get_float32_matmul_precision() == "high"
+    finally:
+        torch.set_float32_matmul_precision(prev)
+
+
+@pytest.mark.parametrize("setting", ["matmul precision", "per backend"])
+def test_tf32_tier_sets_and_restores_the_process_setting(setting):
+    """``_f32_products(tf32=True)`` (the banded CWT's 'high' tier) sets TF32
+    products for its block through the setting the caller used, and
+    restores the IEEE float32 the process had."""
+    mm = torch.backends.cuda.matmul
+    if setting == "per backend" and not hasattr(mm, "fp32_precision"):
+        pytest.skip("torch without the per-backend fp32_precision setting")
+    prev = torch.get_float32_matmul_precision()
+    try:
+        if setting == "per backend":
+            mm.fp32_precision = "ieee"
+        else:
+            torch.set_float32_matmul_precision("highest")
+        with tfwt._f32_products(tf32=True):
+            if setting == "per backend":
+                assert mm.fp32_precision == "tf32"
+            else:
+                assert torch.get_float32_matmul_precision() == "high"
+        if setting == "per backend":
+            assert mm.fp32_precision == "ieee"
+        else:
+            assert torch.get_float32_matmul_precision() == "highest"
     finally:
         torch.set_float32_matmul_precision(prev)

@@ -25,6 +25,11 @@ on-chip bounds above: the same f32 cascade in another order); bf16 as
 above, the bf16 round trip 1e-1.  The CWT kernel: 1e-4 × max|c| against
 its plain version and against ``torch.fft.ifft`` (an f32 FFT against an
 f32 two-stage DFT and cuFFT, errors ~log₂P ulps of the largest value).
+The decimated products' gradients under TF32: 1e-5 relative to the host
+f64 gradient (the forward's on-chip bound; a TF32 backward misses it by
+an order of magnitude).  The banded CWT's tiers against the host f64
+irfft path, the JAX tests' bounds (``tests/test_cwt_banded.py``):
+'highest' 2e-5, 'high' 1e-3 + 1e-6, 'default' 2e-2 relative to max|c|.
 """
 import numpy as np
 import pytest
@@ -1000,3 +1005,73 @@ def test_decimated_bf16_on_the_card(dev):
     want = jt.wpt(x.double(), sym8, 6)
     assert float((p.cpu().double() - want).abs().max()) <= 5e-2 * float(
         want.abs().max())
+
+
+# -- the decimated backward under TF32, the banded CWT's tiers ---------------
+
+def _dtcwt_flat(v):
+    """The DTCWT's coefficients as one real tensor (both parts of each
+    complex band, then both lowpass rows)."""
+    r = jt.dtcwt(v, 5)
+    parts = [p for h in r.highpass for p in (h.real, h.imag)]
+    return torch.cat(parts + [r.lowpass_a, r.lowpass_b], dim=-1)
+
+
+GRAD_FNS = {
+    "fwt": lambda v: jt.fwt(v, DB4, 5),
+    "ifwt": lambda v: jt.ifwt(v, DB4, 5),
+    "wpt": lambda v: jt.wpt(v, jt.wavelet("Symlet 8"), 6),
+    "dtcwt": _dtcwt_flat,
+}
+
+
+@pytest.mark.parametrize("fn", sorted(GRAD_FNS))
+@pytest.mark.parametrize("setting", ["matmul precision", "per backend"])
+def test_gradients_hold_f32_under_tf32(dev, setting, fn):
+    """With the process set to TF32 (through either of torch's settings),
+    the gradient of sum(f(x)·g) stays within 1e-5 relative of the host
+    f64 gradient: the products' backward is pinned to IEEE f32 too."""
+    mm = torch.backends.cuda.matmul
+    if setting == "per backend" and not hasattr(mm, "fp32_precision"):
+        pytest.skip("torch without the per-backend fp32_precision setting")
+    f = GRAD_FNS[fn]
+    rng = np.random.default_rng(26)
+    x = torch.from_numpy(rng.standard_normal((4, 1 << 16)))
+    g = torch.from_numpy(rng.standard_normal(tuple(f(x).shape)))
+
+    def vjp(v, gv):
+        v = v.detach().requires_grad_()
+        return torch.autograd.grad(f(v), v, grad_outputs=gv)[0]
+
+    want = vjp(x, g)
+    try:
+        if setting == "per backend":
+            mm.fp32_precision = "tf32"
+        else:
+            torch.set_float32_matmul_precision("high")
+        got = vjp(x.float().to(dev), g.float().to(dev))
+    finally:
+        torch.set_float32_matmul_precision("highest")
+    err = float((got.cpu().double() - want).abs().max())
+    assert err <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("precision,tol,atol", [
+    ("highest", 2e-5, 0.0), ("high", 1e-3, 1e-6), ("default", 2e-2, 0.0)])
+def test_banded_tiers_on_the_card(dev, precision, tol, atol):
+    """The banded CWT's three product tiers within the JAX tests' bounds of
+    the host f64 irfft path, at bench.py's shape; the call leaves the
+    process's float32 matmul setting as it found it."""
+    rng = np.random.default_rng(27)
+    x = rng.standard_normal((16, 4096)).astype(np.float32)
+    scales = jt.generate_log_scales(1.0, 256.0, 64)
+    wav = jt.MorletWavelet()
+    want = jt.cwt(torch.from_numpy(x).double(), scales, wav,
+                  method="fft").coefficients
+    before = torch.get_float32_matmul_precision()
+    got = jt.cwt(torch.from_numpy(x).to(dev), scales, wav, method="banded",
+                 precision=precision).coefficients
+    assert torch.get_float32_matmul_precision() == before
+    assert got.dtype == torch.complex64
+    err = float((got.cpu().to(torch.complex128) - want).abs().max())
+    assert err <= tol * float(want.abs().max()) + atol

@@ -116,8 +116,9 @@ def test_port_taps_equal_jax_taps_exactly():
 
 def test_port_runs_without_the_jax_package(tmp_path):
     """The port copied alone runs the MODWT, the decimated pyramid, the
-    packet denoise and the pywt-style lists, and never loads JAX or the
-    JAX package."""
+    packet denoise, the pywt-style lists, the lifting pyramid, the DTCWT,
+    the banded CWT, the Hilbert transform and the wavelet coherence, and
+    never loads JAX or the JAX package."""
     port = Path(jt.__file__).resolve().parent
     shutil.copytree(port, tmp_path / port.name,
                     ignore=shutil.ignore_patterns("__pycache__"))
@@ -136,6 +137,16 @@ def test_port_runs_without_the_jax_package(tmp_path):
         "cs = jt.wavedec(x, w, 3)\n"
         "assert [tuple(v.shape) for v in cs] == "
         "[(2, 64), (2, 64), (2, 128), (2, 256)]\n"
+        "z = jt.icdf97(jt.cdf97(x, 4), 4)\n"
+        "assert torch.allclose(z, x), 'cdf97 round trip'\n"
+        "r = jt.dtcwt(x, 4)\n"
+        "assert torch.allclose(jt.idtcwt(r), x), 'dtcwt round trip'\n"
+        "s = jt.generate_log_scales(1.0, 32.0, 8)\n"
+        "cb = jt.cwt(x, s, method='banded').coefficients\n"
+        "cf = jt.cwt(x, s, method='fft').coefficients\n"
+        "assert torch.allclose(cb, cf, atol=1e-9), 'banded vs fft'\n"
+        "assert jt.wavelet_coherence(x, x, s).coherence.shape == (2, 8, 512)\n"
+        "assert jt.hilbert(x).dtype == torch.complex128\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.split('.')[0] == 'jwave_pro_tpu']\n"
         "assert not bad, bad\n"
@@ -147,3 +158,26 @@ def test_port_runs_without_the_jax_package(tmp_path):
         cwd=tmp_path, capture_output=True, text=True, timeout=300)
     assert done.returncode == 0, done.stderr
     assert "stand-alone ok" in done.stdout
+
+
+def test_no_port_module_imports_jax_or_the_jax_package():
+    """No module of the port (nor ``chip_smoke.py``) names ``jax`` or
+    ``jwave_pro_tpu`` in an import statement, at any depth (a function's
+    local import included)."""
+    import ast
+
+    port = Path(jt.__file__).resolve().parent
+    files = sorted(port.rglob("*.py")) + [port.parent / "chip_smoke.py"]
+    found = []
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            found += [(path.name, n) for n in names
+                      if n.split(".")[0] in ("jax", "jwave_pro_tpu")]
+    assert len(files) > 30
+    assert not found, found
