@@ -33,8 +33,23 @@ banded CWT under its three precision tiers beside the irfft path, the
 direct and inverse CWT, the Hilbert tools and the wavelet coherence;
 cuBLAS, cuFFT and elementwise torch, no kernel of this package), each
 held to the port's CPU float64 result and put beside the bound of its
-products and FFTs; and the decimated gradients with the process set to
-TF32, held to the CPU float64 gradient.  The
+products and FFTs; the decimated gradients with the process set to
+TF32, held to the CPU float64 gradient; the second continuous slice
+(phases 27 and 29: synchrosqueezing at 4 × 4096 and 64 × 16384 with its
+inverse, every bin held to the f64 one within its float32 error bound,
+each differing decision required to lie at a half-integer bin or the
+threshold within that bound, Σ_bins Tx held to the weighted scale sum, the
+ridge DP against the CPU run on the card's own Tx, the 2D CWT on sixteen
+512² images (Mexican Hat) and four (Morlet, 6 scales × 8 angles) with
+its inverse, 1D and 2D scattering at bench.py's shapes, the EWT at
+32 × 2^20 with its inverse; cuFFT and elementwise torch, no kernel of
+this package); and streaming (phases 28 and 29: the causal tail at
+64 × 4313, a stream of sixteen 4096-sample chunks through a 16384-sample
+buffer held to the MODWT of the whole signal, the full recompute,
+modwt_chunked over 64 × 2^20, the variance tracker, each windowed
+transform, a save/load round trip), which runs the batched forward (#1)
+and the flat forward (#2); phase 29 gives every call's wall beside its
+bound and times both synchrosqueezing front ends and the ridge loop.  The
 kernels' launch counters, set to 0
 before each path and read after it, show that the path ran through them;
 CUDA events time each kernel against its plain version.  Every check
@@ -130,6 +145,21 @@ AED_SHAPE = (32, 100003)
 DTCWT2_SHAPE, DTCWT2_LEVEL = (16, 1024, 1024), 3
 DFT_SHAPE = (64, 4096)
 DIRECT_SCALES = 32
+# the second continuous slice at bench.py's shapes: synchrosqueezing
+# (:400-414, and 64 × 16384 at 64 scales), the 2D CWT on sixteen and four
+# 512² images, scattering (:370, :385), the EWT at 32 × 2^20; streaming at
+# :201-219's shape (64 channels, buffer 16384, chunks of 4096, Db4 L5)
+SSQ_BENCH, SSQ_SCALES = (4, 4096), 32
+SSQ_WIDE, SSQ_WIDE_SCALES = (64, 16384), 64
+SSQ_GAMMA = 1e-4
+SSQ_COND = 64   # float32 error units a bin may move (check_ssq)
+CWT2_REAL, CWT2_REAL_SCALES = (16, 512, 512), 8
+CWT2_DIR, CWT2_DIR_SCALES, CWT2_ANGLES = (4, 512, 512), 6, 8
+SCAT1_SHAPE, SCAT1_J, SCAT1_Q = (8, 65536), 8, 8
+SCAT2_SHAPE, SCAT2_J, SCAT2_L = (4, 256, 256), 4, 8
+EWT_SHAPE, EWT_MODES = (32, 1 << 20), 6
+STREAM_CH, STREAM_BUF, STREAM_CHUNK, STREAM_UPDATES = 64, 16384, 4096, 16
+CHUNKED_SHAPE = (64, 1 << 20)
 # the H100's published peaks (SXM, 700 W): HBM bytes/s, f32 FLOP/s
 HBM_RATE, F32_RATE = 3.35e12, 67e12
 
@@ -536,6 +566,9 @@ def run(smoke: Smoke, torch, jt) -> dict:
     run_decimated_slice(smoke, torch, jt, signal, card)
     run_continuous_slice(smoke, torch, jt, signal, card)
     run_backward_pin(smoke, torch, jt, signal, card)
+    calls = run_continuous2_slice(smoke, torch, jt, signal, card)
+    stream_calls = run_streaming_slice(smoke, torch, jt, signal, card)
+    run_slice_walls(smoke, torch, jt, calls, stream_calls, card)
 
     src = "jwave_pro_tpu_torch/csrc/"
     tpu = "jwave_pro_tpu/kernels/"
@@ -1603,8 +1636,9 @@ def op_flops(call) -> int:
     counted by wrapping the port's one product helper (``ops/fwt.py:_mm``,
     which ``ops/wpt.py``, ``fft.py``, ``cwt.py`` and ``cwt_banded.py``
     import): 2 a real multiply-add, 8 a complex one.  Each FFT of length n
-    counts 5·n·log₂n, a real-input or real-output one 2.5·n·log₂n (the
-    ``torch.fft`` calls wrapped likewise).  At power-of-two widths the
+    counts 5·n·log₂n, a real-input or real-output one 2.5·n·log₂n, a 2D
+    one of n = H·W points likewise (the ``torch.fft`` calls wrapped the
+    same way).  At power-of-two widths the
     decimated transforms run no other form."""
     import importlib
 
@@ -1632,14 +1666,33 @@ def op_flops(call) -> int:
             return out
         return wrapped
 
+    def fft2_counting(fn, per_point, real_in):
+        def wrapped(inp, s=None, dim=(-2, -1), norm=None):
+            nonlocal total
+            out = fn(inp, s=s, dim=dim, norm=norm)
+            grid = (inp if real_in else out).shape[-2:]
+            if s is not None and not real_in:
+                grid = s
+            length = grid[0] * grid[1]
+            rows = out.numel() // (out.shape[-2] * out.shape[-1])
+            total += int(per_point * length * math.log2(max(length, 2))
+                         * rows)
+            return out
+        return wrapped
+
     ffts = {"fft": (5.0, False), "ifft": (5.0, False),
             "rfft": (2.5, True), "irfft": (2.5, False)}
-    saved = {name: getattr(torch.fft, name) for name in ffts}
+    ffts2 = {"fft2": (5.0, False), "ifft2": (5.0, False),
+             "rfft2": (2.5, True), "irfft2": (2.5, False)}
+    saved = {name: getattr(torch.fft, name) for name in (*ffts, *ffts2)}
     for mod in mods:
         mod._mm = counting
     for name, (per_point, real_in) in ffts.items():
         setattr(torch.fft, name, fft_counting(saved[name], per_point,
                                               real_in))
+    for name, (per_point, real_in) in ffts2.items():
+        setattr(torch.fft, name, fft2_counting(saved[name], per_point,
+                                               real_in))
     try:
         call()
     finally:
@@ -2264,6 +2317,481 @@ def run_backward_pin(smoke: Smoke, torch, jt, signal, card) -> None:
                    1e-5)
             del got, loose
     print(f"  phase 26 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
+def ssq_planes(torch, jt, x, scales):
+    """The irfft front end's (W, ∂_t W) quadrature planes of ``x``, as
+    ``ssq_cwt`` computes them (zero padding, the same chunking)."""
+    import importlib
+
+    tssq = importlib.import_module("jwave_pro_tpu_torch.ops.ssq")
+    n = x.shape[-1]
+    p = jt.next_power_of_two(n)
+    f64 = x.dtype == torch.float64
+    mults = tssq._ssq_multipliers(jt.MorletWavelet(),
+                                  tuple(float(s) for s in scales), p, 1.0)
+    return tssq._ssq_planes(jt.pad_signal(x, p), n, mults,
+                            torch.float64 if f64 else torch.float32,
+                            torch.complex128 if f64 else torch.complex64)
+
+
+def ssq_grid(scales, fc=1.0):
+    """(log_lo, dlog) of ssq_cwt's default bin grid for scales of a wavelet
+    of centre frequency ``fc`` (MorletWavelet()'s is 1)."""
+    log_lo = math.log(fc / max(scales))
+    return log_lo, (math.log(fc / min(scales)) - log_lo) / (len(scales) - 1)
+
+
+def check_ssq(smoke: Smoke, torch, jt, x, scales, tag: str):
+    """ssq_cwt of ``x`` on the card against the port's CPU f64 result on
+    the first two rows.
+
+    Bin decisions (which coefficients are reassigned, and to which bin)
+    are compared one by one.  A coefficient's fractional bin idx_f is
+    Im(∂W/W) through a log, so its float32 error grows as |W| and the
+    frequency ω fall: at most COND·ε₃₂·(max_t|∂W| + ω·max_t|W|)/(ω·|W|·Δ)
+    bins (Δ the bins' log spacing, the maxima over the row; the CPU's
+    float32 run stays within 12 of those units at these shapes).  Every
+    coefficient the card and the CPU both reassign must have its card
+    idx_f within that bound of the f64 one, and a decision that differs
+    must lie within it (and within 1e-4 at least) of a half-integer bin,
+    or as near the threshold γ.  Tx is held to 1e-5 on the time columns
+    where every decision agrees, and the card's Σ_bins Tx to its own
+    Σ_a w_a·W over the coefficients it reassigned, an identity no bin
+    decision moves.  Returns the card's result and the CPU's."""
+    import importlib
+
+    tssq = importlib.import_module("jwave_pro_tpu_torch.ops.ssq")
+    log_lo, dlog = ssq_grid(scales)
+    nf = len(scales)
+    eps32 = torch.finfo(torch.float32).eps
+    res = jt.ssq_cwt(x, scales, gamma=SSQ_GAMMA)
+    x64 = host64(x[:2])
+    res64 = jt.ssq_cwt(x64, scales, gamma=SSQ_GAMMA)
+    rel_to(smoke, f"ssq_cwt {tag} Wx", host64(res.Wx[:2]), res64.Wx, 1e-5)
+    planes = ssq_planes(torch, jt, x, scales)
+    idx, valid, idxf = tssq._bins(*planes, log_lo, dlog, nf, SSQ_GAMMA,
+                                  torch.float32)
+    w_re, w_im = planes[0], planes[1]
+    del planes
+    p64 = ssq_planes(torch, jt, x64, scales)
+    idx64, valid64, idxf64 = tssq._bins(*p64, log_lo, dlog, nf, SSQ_GAMMA,
+                                        torch.float64)
+    w64 = torch.sqrt(p64[0] ** 2 + p64[1] ** 2)
+    dw64 = torch.sqrt(p64[2] ** 2 + p64[3] ** 2)
+    del p64
+    omega = 2 * math.pi * torch.exp(log_lo + dlog * idxf64)
+    cond = eps32 * (dw64.amax(dim=-1, keepdim=True) + omega * w64.amax(
+        dim=-1, keepdim=True)) / (omega * w64 * dlog)
+    bin_tol = torch.clamp_min(SSQ_COND * cond, 1e-4)
+    thr_tol = torch.clamp_min(SSQ_COND * 2 * eps32 * w64.amax(
+        dim=-1, keepdim=True) / w64, 1e-4)
+    idx2, valid2 = idx[:2].cpu(), valid[:2].cpu()
+    both = valid2 & valid64
+    drift = ((idxf[:2].cpu().double() - idxf64).abs() / (SSQ_COND * cond))
+    smoke.check(f"ssq_cwt {tag}: each reassigned coefficient's bin vs CPU "
+                f"f64, in units of its float32 bound (COND = {SSQ_COND})",
+                float(drift[both].max()), 1.0)
+    differ = (valid2 != valid64) | (valid64 & (idx2 != idx64))
+    half = (idxf64 - torch.floor(idxf64) - 0.5).abs()
+    near_thr = (w64 ** 2 / SSQ_GAMMA ** 2 - 1.0).abs()
+    ties = differ & (half <= 1e-4)
+    cond_ok = differ & ~ties & (half <= bin_tol)
+    thr_ok = differ & (near_thr <= thr_tol)
+    bad = differ & ~(ties | cond_ok | thr_ok)
+    print(f"  ssq_cwt {tag}: {int(differ.sum())} of {differ.numel()} bin "
+          f"decisions differ from CPU f64: {int(ties.sum())} within 1e-4 "
+          f"bins of a half-integer, {int(cond_ok.sum())} within their "
+          f"coefficient's float32 bound of one, {int(thr_ok.sum())} at the "
+          f"threshold, {int(bad.sum())} otherwise", flush=True)
+    for k in torch.nonzero(differ & ~ties)[:8].tolist():
+        k = tuple(k)
+        print(f"    {k}: {float(half[k]):.3e} bins from a half-integer, "
+              f"bound {float(bin_tol[k]):.3e}; |W| / the row's max "
+              f"{float(w64[k] / w64[k[:2]].max()):.3e}", flush=True)
+    smoke.require(f"ssq_cwt {tag}: every differing bin decision lies at a "
+                  f"half-integer bin or the threshold, within its bound",
+                  not bool(bad.any()))
+    agree = ~differ.any(dim=-2, keepdim=True)                # (2, 1, N)
+    got, want = host64(res.Tx[:2]), res64.Tx
+    err = float(((got - want).abs() * agree).max())
+    smoke.check(f"ssq_cwt {tag} Tx vs CPU f64 where the decisions agree "
+                f"(relative to max|ref| {float(want.abs().max()):.3g})",
+                err / float(want.abs().max()), 1e-5)
+    wts = torch.from_numpy(tssq._ssq_weights(tuple(float(s)
+                                                   for s in scales))).to(
+        x.device, torch.float32)
+    lhs = res.Tx.sum(dim=-2)
+    rhs = (torch.complex(w_re, w_im) * valid * wts[:, None]).sum(dim=-2)
+    rel_to(smoke, f"ssq_cwt {tag}: Σ_bins Tx against Σ_a w_a·W of the "
+           f"reassigned", lhs, rhs, 1e-5)
+    return res, res64
+
+
+def ridge_cost(u, path, penalty=2.0) -> float:
+    """The DP's cost of ``path`` (N,) on the log-energy plane u (L, N)."""
+    import torch
+
+    l = u.shape[0]
+    unary = -u[path, torch.arange(u.shape[1])].sum()
+    dl = (path[1:] - path[:-1]).double()
+    return float(unary + (penalty * (dl / l) ** 2 * l).sum())
+
+
+def check_ridges(smoke: Smoke, torch, jt, tx, n_ridges=2, mask_width=2):
+    """extract_ridges on the card against the port's CPU run on the card's
+    own Tx moved to the host: indices equal, or, where a ridge differs,
+    both paths' costs (each on its own masked plane, float64) within
+    1e-5 relative — a tie."""
+    got = jt.extract_ridges(tx, n_ridges=n_ridges, mask_width=mask_width)
+    tx_h = tx.cpu()
+    want = jt.extract_ridges(tx_h, n_ridges=n_ridges, mask_width=mask_width)
+    gi, wi = got.indices.cpu().long(), want.indices.long()
+    ncols = int((gi != wi).sum())
+    u = torch.log(tx_h.real.double() ** 2 + tx_h.imag.double() ** 2
+                  + 1e-12)
+    worst = 0.0
+    bins = torch.arange(u.shape[-2])[:, None]
+    for b in range(u.shape[0]):
+        cur_g, cur_w = u[b].clone(), u[b].clone()
+        for r in range(n_ridges):
+            pg, pw = gi[b, r], wi[b, r]
+            if not torch.equal(pg, pw):
+                cg, cw = ridge_cost(cur_g, pg), ridge_cost(cur_w, pw)
+                worst = max(worst, abs(cg - cw) / abs(cw))
+            cur_g = torch.where((bins - pg[None]).abs() <= mask_width,
+                                -torch.inf, cur_g)
+            cur_w = torch.where((bins - pw[None]).abs() <= mask_width,
+                                -torch.inf, cur_w)
+    print(f"  extract_ridges {tuple(tx.shape)}: {ncols} of {gi.numel()} "
+          f"ridge columns differ from the CPU run on the same Tx",
+          flush=True)
+    smoke.check(f"extract_ridges {tuple(tx.shape)}: differing ridges' costs "
+                f"(relative)", worst, 1e-5)
+    return got
+
+
+def run_continuous2_slice(smoke: Smoke, torch, jt, signal, card) -> list:
+    """The second continuous slice through the public API (phase 27):
+    ssq_cwt and issq_cwt, extract_ridges, cwt2/icwt2, scattering1d and
+    scattering2d, ewt1d/iewt1d, float32 on the card at bench.py's shapes,
+    each against the port's own CPU float64 result on the first two rows.
+    Returns phase 29's calls: (name, call, inputs, extra flops)."""
+    import importlib
+
+    tssq = importlib.import_module("jwave_pro_tpu_torch.ops.ssq")
+    t_phase = time.perf_counter()
+    print(f"== phase 27: synchrosqueezing, ridges, 2D CWT, scattering and "
+          f"EWT, f32, against the port's CPU f64 result on the first two "
+          f"rows", flush=True)
+    fc = jt.MorletWavelet().center_frequency
+    scales = jt.generate_log_scales(fc / 0.4, fc / 0.01, SSQ_SCALES)
+    wide = jt.generate_log_scales(fc / 0.4, fc / 0.01, SSQ_WIDE_SCALES)
+    xs, xw = signal(*SSQ_BENCH), signal(*SSQ_WIDE)
+    res, res64 = check_ssq(smoke, torch, jt, xs, scales, f"{SSQ_BENCH} "
+                           f"S={SSQ_SCALES}")
+    resw, _ = check_ssq(smoke, torch, jt, xw, wide, f"{SSQ_WIDE} "
+                        f"S={SSQ_WIDE_SCALES}")
+    del resw
+    band = (0.05, 0.2)
+    rel_to(smoke, f"issq_cwt(ssq_cwt) {SSQ_BENCH} vs CPU f64",
+           host64(jt.issq_cwt(res)[:2]), jt.issq_cwt(res64), 1e-4)
+    rel_to(smoke, f"issq_cwt(ssq_cwt, freq_range={band}) {SSQ_BENCH} vs "
+           f"CPU f64", host64(jt.issq_cwt(res, freq_range=band)[:2]),
+           jt.issq_cwt(res64, freq_range=band), 1e-4)
+    check_ridges(smoke, torch, jt, res.Tx)
+
+    mh, mo = jt.MexicanHat2D(), jt.Morlet2D()
+    s_real = jt.generate_log_scales(1.0, 16.0, CWT2_REAL_SCALES)
+    s_dir = jt.generate_log_scales(1.0, 16.0, CWT2_DIR_SCALES)
+    angles = np.pi * np.arange(CWT2_ANGLES) / CWT2_ANGLES
+    img_r, img_d = signal(*CWT2_REAL), signal(*CWT2_DIR)
+    for tag, img, sc, wav, ang in (
+            (f"MexicanHat2D {CWT2_REAL} S={CWT2_REAL_SCALES}", img_r,
+             s_real, mh, None),
+            (f"Morlet2D {CWT2_DIR} S={CWT2_DIR_SCALES} A={CWT2_ANGLES}",
+             img_d, s_dir, mo, angles)):
+        r = jt.cwt2(img, sc, wav, ang)
+        r64 = jt.cwt2(host64(img[:2]), sc, wav, ang)
+        smoke.require(f"cwt2 {tag}: {r.coefficients.dtype}",
+                      r.coefficients.dtype == (torch.float32 if ang is None
+                                               else torch.complex64))
+        rel_to(smoke, f"cwt2 {tag}", host64(r.coefficients[:2]),
+               r64.coefficients, 1e-5)
+        rel_to(smoke, f"icwt2(cwt2) {tag} vs CPU f64",
+               host64(jt.icwt2(r, wav)[:2]), jt.icwt2(r64, wav), 1e-4)
+        del r, r64
+
+    x1 = signal(*SCAT1_SHAPE)
+    sc1 = jt.scattering1d(x1, SCAT1_J, SCAT1_Q)
+    sc1_64 = jt.scattering1d(host64(x1[:2]), SCAT1_J, SCAT1_Q)
+    for order in ("s0", "s1", "s2"):
+        rel_to(smoke, f"scattering1d {SCAT1_SHAPE} J={SCAT1_J} Q={SCAT1_Q} "
+               f"{order}", host64(getattr(sc1, order)[:2]),
+               getattr(sc1_64, order), 1e-5)
+    x2 = signal(*SCAT2_SHAPE)
+    sc2 = jt.scattering2d(x2, SCAT2_J, SCAT2_L)
+    sc2_64 = jt.scattering2d(host64(x2[:2]), SCAT2_J, SCAT2_L)
+    for order in ("s0", "s1", "s2"):
+        rel_to(smoke, f"scattering2d {SCAT2_SHAPE} J={SCAT2_J} L={SCAT2_L} "
+               f"{order}", host64(getattr(sc2, order)[:2]),
+               getattr(sc2_64, order), 1e-5)
+    del sc1, sc1_64, sc2, sc2_64
+
+    xe = ewt_signal(torch, signal)
+    e = jt.ewt1d(xe, EWT_MODES)
+    e64 = jt.ewt1d(host64(xe[:2]), EWT_MODES)
+    n = xe.shape[-1]
+    pb = torch.round(host64(e.peaks[:2]) * n / (2 * math.pi))
+    pb64 = torch.round(e64.peaks * n / (2 * math.pi))
+    smoke.require(f"ewt1d {EWT_SHAPE} K={EWT_MODES}: peak bins equal the "
+                  f"CPU f64 ones", torch.equal(pb, pb64),
+                  f"(bins {pb64[0].long().tolist()})")
+    smoke.check(f"ewt1d {EWT_SHAPE} boundaries vs CPU f64 (relative; one "
+                f"float32 ulp is 1.2e-7)", float(
+                    ((host64(e.boundaries[:2]) - e64.boundaries).abs()
+                     / e64.boundaries.abs()).max()), 1.2e-7)
+    rel_to(smoke, f"ewt1d {EWT_SHAPE} components", host64(
+        e.components[:2]), e64.components, 1e-5)
+    rel_to(smoke, f"iewt1d(ewt1d) {EWT_SHAPE} round trip",
+           jt.iewt1d(e.components, e.filters), xe, 1e-4)
+    del e, e64
+    print(f"  phase 27 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+    banded_front = (lambda xx, ss: ssq_banded(torch, jt, tssq, xx, ss))
+    r2 = jt.cwt2(img_r, s_real, mh)
+    rd = jt.cwt2(img_d, s_dir, mo, angles)
+    e = jt.ewt1d(xe, EWT_MODES)
+    b, l, nn = res.Tx.shape
+    return [
+        (f"ssq_cwt {SSQ_BENCH} S={SSQ_SCALES} (irfft front end)",
+         lambda: jt.ssq_cwt(xs, scales, gamma=SSQ_GAMMA), xs, 0),
+        (f"ssq banded front end + _reassign_planes {SSQ_BENCH} "
+         f"S={SSQ_SCALES}", lambda: banded_front(xs, scales), xs, 0),
+        (f"ssq_cwt {SSQ_WIDE} S={SSQ_WIDE_SCALES} (irfft front end)",
+         lambda: jt.ssq_cwt(xw, wide, gamma=SSQ_GAMMA), xw, 0),
+        (f"ssq banded front end + _reassign_planes {SSQ_WIDE} "
+         f"S={SSQ_WIDE_SCALES}", lambda: banded_front(xw, wide), xw, 0),
+        (f"issq_cwt {SSQ_BENCH}", lambda: jt.issq_cwt(res), res.Tx, 0),
+        (f"issq_cwt {SSQ_BENCH} band {band}",
+         lambda: jt.issq_cwt(res, freq_range=band), res.Tx, 0),
+        (f"extract_ridges {(b, l, nn)} 2 ridges (the DP loop)",
+         lambda: jt.extract_ridges(res.Tx, n_ridges=2, mask_width=2),
+         res.Tx, 2 * 2 * b * l * l * nn),
+        (f"cwt2 MexicanHat2D {CWT2_REAL} S={CWT2_REAL_SCALES}",
+         lambda: jt.cwt2(img_r, s_real, mh), img_r, 0),
+        (f"icwt2 MexicanHat2D {CWT2_REAL}", lambda: jt.icwt2(r2, mh),
+         r2.coefficients, 0),
+        (f"cwt2 Morlet2D {CWT2_DIR} S={CWT2_DIR_SCALES} A={CWT2_ANGLES}",
+         lambda: jt.cwt2(img_d, s_dir, mo, angles), img_d, 0),
+        (f"icwt2 Morlet2D {CWT2_DIR}", lambda: jt.icwt2(rd, mo),
+         rd.coefficients, 0),
+        (f"scattering1d {SCAT1_SHAPE} J={SCAT1_J} Q={SCAT1_Q}",
+         lambda: jt.scattering1d(x1, SCAT1_J, SCAT1_Q), x1, 0),
+        (f"scattering2d {SCAT2_SHAPE} J={SCAT2_J} L={SCAT2_L}",
+         lambda: jt.scattering2d(x2, SCAT2_J, SCAT2_L), x2, 0),
+        (f"ewt1d {EWT_SHAPE} K={EWT_MODES}",
+         lambda: jt.ewt1d(xe, EWT_MODES), xe, 0),
+        (f"iewt1d {EWT_SHAPE} K={EWT_MODES}",
+         lambda: jt.iewt1d(e.components, e.filters), e.components, 0),
+    ]
+
+
+def ssq_banded(torch, jt, tssq, x, scales):
+    """JAX's TPU front end on the card: cwt_banded_wd feeding
+    _reassign_planes (what ssq_cwt would run with the banded front end)."""
+    n = x.shape[-1]
+    p = jt.next_power_of_two(n)
+    log_lo, dlog = ssq_grid(scales)
+    w_c, d_c = jt.cwt_banded_wd(torch.fft.rfft(jt.pad_signal(x, p)), n,
+                                np.asarray(scales), jt.MorletWavelet(), 1.0,
+                                p)
+    return tssq._reassign_planes(
+        w_c.real, w_c.imag, d_c.real, d_c.imag,
+        tssq._ssq_weights(tuple(float(s) for s in scales)), log_lo, dlog,
+        len(scales), SSQ_GAMMA, torch.float32, torch.complex64)
+
+
+def ewt_signal(torch, signal):
+    """EWT_SHAPE rows of six tones (distinct per row) in unit noise."""
+    b, n = EWT_SHAPE
+    noise = signal(b, n)
+    t = torch.arange(n, device=noise.device, dtype=torch.float64)
+    rows = []
+    for r in range(b):
+        f = [0.013, 0.041, 0.09, 0.16, 0.27, 0.38]
+        rows.append(sum((k + 2) * torch.cos(2 * math.pi * (fk + 1e-4 * r)
+                                            * t)
+                        for k, fk in enumerate(f)))
+    return torch.stack(rows).float() + noise
+
+
+def run_streaming_slice(smoke: Smoke, torch, jt, signal, card) -> list:
+    """Streaming on the card (phase 28): the causal tail at bench.py's
+    streaming shape, StreamingMODWT incremental and full recompute,
+    modwt_chunked, StreamingVariance, one update of each windowed
+    transform and a save/load round trip.  The forward kernel's counter
+    is read around each call: 1D windows run the flat forward (#2),
+    batched ones the batched forward (#1); both must run.  Returns phase
+    29's calls and the launches each makes."""
+    from jwave_pro_tpu_torch import streaming as st
+    from jwave_pro_tpu_torch.kernels import modwt_cuda as kc
+
+    t_phase = time.perf_counter()
+    w = jt.wavelet(WAVELET)
+    halo = (w.length - 1) * ((1 << LEVEL) - 1)
+    chunk, buf = STREAM_CHUNK, STREAM_BUF
+    print(f"== phase 28: streaming on the card, {WAVELET} L{LEVEL}, buffer "
+          f"{buf}, chunks of {chunk} (halo {halo})", flush=True)
+    launched = {"#1 batched": 0, "#2 flat": 0}
+
+    def counted(kind, fn):
+        torch.cuda.synchronize()
+        before = kc.modwt_fwd_cuda.launches
+        out = fn()
+        torch.cuda.synchronize()
+        launched[kind] += kc.modwt_fwd_cuda.launches - before
+        return out
+
+    kc.modwt_fwd_cuda.launches = 0
+    c0 = signal(LEVEL + 1, STREAM_CH, buf)
+    window = c0[-1, :, :halo + chunk]
+    tail = counted("#1 batched",
+                   lambda: st._causal_tail(window, chunk, w, LEVEL))
+    rel_to(smoke, f"_causal_tail {tuple(window.shape)} vs CPU f64",
+           host64(tail[:, :2]), st._causal_tail(host64(window[:2]), chunk,
+                                                w, LEVEL), 1e-5)
+    sig = signal(STREAM_UPDATES * chunk)
+    cfg = st.StreamingConfig(buf, LEVEL, device=sig.device)
+    sm = st.StreamingMODWT(w, cfg)
+    for i in range(STREAM_UPDATES):
+        out = counted("#2 flat", lambda: sm.update(
+            sig[i * chunk:(i + 1) * chunk]))
+    whole = jt.modwt(sig, w, LEVEL)[..., -buf:]
+    scale = float(whole.abs().max())
+    smoke.check(f"StreamingMODWT incremental, {STREAM_UPDATES} updates, vs "
+                f"modwt of the whole signal on the columns ≥ halo "
+                f"(relative to max {scale:.3g})", float(
+                    (out[..., halo:] - whole[..., halo:]).abs().max())
+                / scale, 1e-6)
+    full_cfg = st.StreamingConfig(
+        buf, LEVEL, update_strategy=st.UpdateStrategy.FULL_RECOMPUTE,
+        device=sig.device)
+    sf = st.StreamingMODWT(w, full_cfg)
+    for i in range(STREAM_UPDATES):
+        outf = sf.update(sig[i * chunk:(i + 1) * chunk])
+    rel_to(smoke, f"StreamingMODWT full recompute vs CPU f64 modwt of the "
+           f"buffer", outf, jt.modwt(host64(sf.get_current_buffer()), w,
+                                     LEVEL, method="direct"), 1e-5)
+    xc = signal(*CHUNKED_SHAPE)
+    parts = counted("#1 batched", lambda: list(st.modwt_chunked(
+        xc.split(chunk, dim=-1), w, LEVEL)))
+    got = torch.cat(parts, dim=-1)
+    del parts
+    want = jt.modwt(xc, w, LEVEL)
+    scale = float(want.abs().max())
+    smoke.check(f"modwt_chunked {CHUNKED_SHAPE} in chunks of {chunk} vs "
+                f"modwt on the columns ≥ halo (relative to max "
+                f"{scale:.3g})", float((got[..., halo:] - want[..., halo:])
+                                       .abs().max()) / scale, 1e-6)
+    del got, want
+    sv = st.StreamingVariance(w, cfg)
+    sv64 = st.StreamingVariance(w, st.StreamingConfig(
+        buf, LEVEL, dtype=torch.float64, device="cpu"))
+    for i in range(STREAM_UPDATES):
+        piece = sig[i * chunk:(i + 1) * chunk]
+        v = counted("#2 flat", lambda: sv.update(piece))
+        v64 = sv64.update(host64(piece))
+    rel_to(smoke, f"StreamingVariance {STREAM_UPDATES} updates vs CPU f64",
+           v, v64, 1e-5)
+    xs_ = jt.generate_log_scales(1.0, 64.0, 16)
+    windowed = {"fwt": w, "wpt": w, "fft": None, "cwt": jt.MorletWavelet()}
+    for kind, wav in windowed.items():
+        kw = {"scales": xs_} if kind == "cwt" else {}
+        s = st.streaming_transform(kind, wav, cfg, **kw)
+        s64 = st.streaming_transform(kind, wav, st.StreamingConfig(
+            buf, LEVEL, dtype=torch.float64, device="cpu"), **kw)
+        rel_to(smoke, f"Streaming{kind.upper()} one update vs CPU f64",
+               s.update(sig[:chunk]), s64.update(host64(sig[:chunk])), 1e-5)
+    state = Path(__file__).resolve().parent / "build" / "smoke_stream.npz"
+    state.parent.mkdir(exist_ok=True)
+    st.save_state(sm, str(state))
+    again = st.StreamingMODWT(w, cfg)
+    st.load_state(again, str(state))
+    state.unlink()
+    same = True
+    for i in range(2):
+        piece = sig[i * chunk:(i + 1) * chunk]
+        a = counted("#2 flat", lambda: sm.update(piece))
+        b = counted("#2 flat", lambda: again.update(piece))
+        same &= torch.equal(a, b)
+    smoke.require("save_state/load_state round trip: the next two updates "
+                  "bitwise equal the saved stream's", same)
+    print(f"  forward kernel launches in phase 28: {launched}", flush=True)
+    smoke.require("phase 28 ran the batched forward (#1) and the flat "
+                  "forward (#2)", all(n > 0 for n in launched.values()),
+                  str(launched))
+    print(f"  phase 28 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    fwt_s = st.streaming_transform("fwt", w, cfg)
+    wpt_s = st.streaming_transform("wpt", w, cfg)
+    fft_s = st.streaming_transform("fft", None, cfg)
+    cwt_s = st.streaming_transform("cwt", jt.MorletWavelet(), cfg,
+                                   scales=xs_)
+    piece = sig[:chunk]
+    return [
+        (f"_causal_tail {tuple(window.shape)}",
+         lambda: st._causal_tail(window, chunk, w, LEVEL), window, 0, 1),
+        (f"StreamingMODWT.update incremental ({chunk},)",
+         lambda: sm.update(piece), piece, 0, 1),
+        (f"StreamingMODWT.update full recompute ({chunk},)",
+         lambda: sf.update(piece), piece, 0, 0),
+        (f"modwt_chunked {CHUNKED_SHAPE} in chunks of {chunk}",
+         lambda: list(st.modwt_chunked(xc.split(chunk, dim=-1), w, LEVEL)),
+         xc, 0, CHUNKED_SHAPE[1] // chunk),
+        (f"StreamingVariance.update ({chunk},)", lambda: sv.update(piece),
+         piece, 0, 1),
+        (f"StreamingFWT.update ({chunk},)", lambda: fwt_s.update(piece),
+         piece, 0, 0),
+        (f"StreamingWPT.update ({chunk},)", lambda: wpt_s.update(piece),
+         piece, 0, 0),
+        (f"StreamingFFT.update ({chunk},)", lambda: fft_s.update(piece),
+         piece, 0, 0),
+        (f"StreamingCWT.update ({chunk},) S=16",
+         lambda: cwt_s.update(piece), piece, 0, 0),
+    ]
+
+
+def run_slice_walls(smoke: Smoke, torch, jt, calls: list, stream_calls: list,
+                    card) -> None:
+    """Phase 29: every call of phases 27-28 in a counted window (phase
+    27's launch none of the 14 kernels, phase 28's the forward kernel as
+    many times as their windows), then each call's wall beside its bound:
+    max(bytes / 3.35 TB/s, FFT-and-product flops / 67 TFLOP/s), with
+    each FFT 5·n·log₂n (a real one half) and the ridge DP's adds and
+    compares counted too."""
+    t_phase = time.perf_counter()
+    print(f"== phase 29: walls and bounds of phases 27-28 on {card}",
+          flush=True)
+    counted_run(smoke, torch, all_launchers(), "the second continuous "
+                "slice", lambda: [c() for _, c, _, _ in calls], {})
+    counted_run(smoke, torch, all_launchers(), "the streaming calls",
+                lambda: [c() for _, c, _, _, _ in stream_calls],
+                {"modwt_fwd": sum(n for *_, n in stream_calls)})
+    for name, call, inputs, extra, *_ in calls + stream_calls:
+        out = call()
+        nbytes = tensor_bytes(inputs) + tensor_bytes(out)
+        del out
+        flops = op_flops(call) + extra
+        wall = wall_ms(torch, call)
+        t_bound, by = bound(nbytes, flops)
+        print(f"  slice {name}: wall {wall:.3f} ms (host clock, median of "
+              f"3); flops {flops:.4e}, bytes {nbytes:.4e}, bound "
+              f"{t_bound:.4f} ms by {by} ({t_bound / wall:.1%} of the wall) "
+              f"[{card}]", flush=True)
+    print(f"  phase 29 took {time.perf_counter() - t_phase:.1f} s",
           flush=True)
 
 

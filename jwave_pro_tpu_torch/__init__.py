@@ -53,32 +53,35 @@ from .exceptions import (
     JWaveError, JWaveException, JWaveFailure, NotAllocated, NotFound,
     NotImplemented_, NotKnown, NotValid,
 )
+from . import streaming
 from .ops import (
-    MAX_DECOMPOSITION_LEVEL, CWTResult, DTCWT2Result, DTCWTResult, WTCResult,
-    aed_forward, aed_inverse, analysis_step, band_plan, banded_supported,
-    basis_coefficients, basis_coefficients2, basis_reconstruct,
-    basis_reconstruct2, best_basis, best_basis2, bayes_threshold, cdf53,
-    cdf97, circular_convolve, circular_convolve_adjoint, coeffs_to_flat,
-    compress_fixed, compress_magnitude, compress_peaks_average,
-    compression_rate, cwt, cwt_banded_coefficients, cwt_banded_wd,
+    MAX_DECOMPOSITION_LEVEL, CWT2Result, CWTResult, DTCWT2Result, DTCWTResult,
+    EWTResult, RidgeResult, SSQResult, Scattering2DResult, ScatteringResult,
+    WTCResult, aed_forward, aed_inverse, analysis_step, band_plan,
+    banded_supported, basis_coefficients, basis_coefficients2,
+    basis_reconstruct, basis_reconstruct2, bayes_threshold, best_basis,
+    best_basis2, cdf53, cdf97, circular_convolve, circular_convolve_adjoint,
+    coeffs_to_flat, compress_fixed, compress_magnitude, compress_peaks_average,
+    compression_rate, cwt, cwt2, cwt_banded_coefficients, cwt_banded_wd,
     cwt_direct, decompose, dft, dft_matrix, dtcwt, dtcwt2, dtcwt2_denoise,
-    dtcwt_denoise, dwt, dwt2, dwt3, envelope, fft, fft_interleaved,
-    flat_to_coeffs, fwt, fwt2, fwt3, generate_linear_scales,
-    generate_log_scales, hard_threshold, hilbert, icdf53, icdf97, icwt,
-    idft, idtcwt, idtcwt2, idwt, idwt2, idwt3, ifft, ifft_interleaved, ifwt,
-    ifwt2, ifwt3, imodwpt, imodwpt2, imodwpt3, imodwt, imodwt2, imodwt3,
-    instantaneous_frequency, iwpt, iwpt2, iwpt3, lifting_fwt, lifting_ifwt,
-    log_energy_cost, mad_sigma, modwpt, modwpt2, modwpt2_basis_reconstruct,
-    modwpt2_best_basis, modwpt2_tree, modwpt3, modwpt_basis_reconstruct,
-    modwpt_best_basis, modwpt_mra, modwpt_node_path, modwpt_tree, modwt,
-    modwt2, modwt2_denoise, modwt2_mra, modwt3, modwt3_denoise, modwt3_mra,
-    modwt_base_filters, modwt_denoise, modwt_denoise_inplace, modwt_mra,
-    pad_signal, qshift_design, qshift_wavelets, recompose,
-    shannon_entropy_cost, soft_threshold, sure_threshold, swt_forward,
-    swt_inverse, synthesis_step, threshold_cost, universal_threshold,
-    wavedec, wavedec2, wavedec3, wavelet_coherence, waverec, waverec2,
-    waverec3, wpt, wpt2, wpt2_denoise, wpt2_tree, wpt3, wpt_denoise,
-    wpt_tree,
+    dtcwt_denoise, dwt, dwt2, dwt3, envelope, ewt1d, ewt_filter_bank,
+    extract_ridges, fft, fft_interleaved, flat_to_coeffs, fwt, fwt2, fwt3,
+    generate_linear_scales, generate_log_scales, hard_threshold, hilbert,
+    icdf53, icdf97, icwt, icwt2, idft, idtcwt, idtcwt2, idwt, idwt2, idwt3,
+    iewt1d, ifft, ifft_interleaved, ifwt, ifwt2, ifwt3, imodwpt, imodwpt2,
+    imodwpt3, imodwt, imodwt2, imodwt3, instantaneous_frequency, issq_cwt,
+    iwpt, iwpt2, iwpt3, lifting_fwt, lifting_ifwt, log_energy_cost, mad_sigma,
+    modwpt, modwpt2, modwpt2_basis_reconstruct, modwpt2_best_basis,
+    modwpt2_tree, modwpt3, modwpt_basis_reconstruct, modwpt_best_basis,
+    modwpt_mra, modwpt_node_path, modwpt_tree, modwt, modwt2, modwt2_denoise,
+    modwt2_mra, modwt3, modwt3_denoise, modwt3_mra, modwt_base_filters,
+    modwt_denoise, modwt_denoise_inplace, modwt_mra, pad_signal, qshift_design,
+    qshift_wavelets, recompose, scattering1d, scattering2d,
+    scattering2d_filters, scattering_filters, shannon_entropy_cost,
+    soft_threshold, ssq_cwt, sure_threshold, swt_forward, swt_inverse,
+    synthesis_step, threshold_cost, universal_threshold, wavedec, wavedec2,
+    wavedec3, wavelet_coherence, waverec, waverec2, waverec3, wpt, wpt2,
+    wpt2_denoise, wpt2_tree, wpt3, wpt_denoise, wpt_tree,
 )
 from .ops.analysis import (
     ChangePoints, VarianceCI, modwt_changepoints, modwt_correlation,
@@ -91,9 +94,10 @@ from .utils import (
     next_power_of_two, time_chain,
 )
 from .wavelets import (
-    REGISTRY, ContinuousWavelet, DiscreteWavelet, DOGWavelet,
-    MexicanHatWavelet, MeyerWavelet, MorletWavelet, PaulWavelet,
-    biorthogonal, coiflet, continuous_wavelet, daubechies, from_jax_wavelet,
+    REGISTRY, ContinuousWavelet, ContinuousWavelet2D, DiscreteWavelet,
+    DOGWavelet, MexicanHat2D, MexicanHatWavelet, MeyerWavelet, Morlet2D,
+    MorletWavelet, PaulWavelet, biorthogonal, coiflet, continuous_wavelet,
+    continuous_wavelet2d, daubechies, from_jax_continuous, from_jax_wavelet,
     good_wavelets, legendre, qmf_biorthogonal, qmf_orthonormal, symlet,
     wavelet, wavelet_names,
 )
@@ -150,4 +154,11 @@ __all__ = [
     "cwt_banded_coefficients", "cwt_banded_wd",
     "hilbert", "envelope", "instantaneous_frequency", "WTCResult",
     "wavelet_coherence",
+    "ContinuousWavelet2D", "MexicanHat2D", "Morlet2D",
+    "continuous_wavelet2d", "from_jax_continuous",
+    "cwt2", "icwt2", "CWT2Result", "ssq_cwt", "issq_cwt", "SSQResult",
+    "extract_ridges", "RidgeResult", "scattering1d", "scattering_filters",
+    "ScatteringResult", "scattering2d", "scattering2d_filters",
+    "Scattering2DResult", "ewt1d", "iewt1d", "ewt_filter_bank", "EWTResult",
+    "streaming",
 ]

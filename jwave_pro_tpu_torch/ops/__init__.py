@@ -10,6 +10,7 @@ from .cwt import (
     CWTResult, cwt, cwt_direct, generate_linear_scales, generate_log_scales,
     icwt, pad_signal,
 )
+from .cwt2d import CWT2Result, cwt2, icwt2
 from .cwt_banded import (
     band_plan, banded_supported, cwt_banded_coefficients, cwt_banded_wd,
 )
@@ -22,6 +23,7 @@ from .dtcwt import (
     DTCWT2Result, DTCWTResult, dtcwt, dtcwt2, dtcwt2_denoise, dtcwt_denoise,
     idtcwt, idtcwt2, qshift_design, qshift_wavelets,
 )
+from .ewt import EWTResult, ewt1d, ewt_filter_bank, iewt1d
 from .fft import (
     dft, dft_matrix, fft, fft_interleaved, idft, ifft, ifft_interleaved,
 )
@@ -46,6 +48,12 @@ from .pywt_compat import (
     coeffs_to_flat, dwt, dwt2, dwt3, flat_to_coeffs, idwt, idwt2, idwt3,
     wavedec, wavedec2, wavedec3, waverec, waverec2, waverec3,
 )
+from .ridge import RidgeResult, extract_ridges
+from .scattering import ScatteringResult, scattering1d, scattering_filters
+from .scattering2d import (
+    Scattering2DResult, scattering2d, scattering2d_filters,
+)
+from .ssq import SSQResult, issq_cwt, ssq_cwt
 from .wpt import (
     basis_coefficients, basis_coefficients2, basis_reconstruct,
     basis_reconstruct2, best_basis, best_basis2, iwpt, iwpt2, iwpt3,
@@ -90,4 +98,8 @@ __all__ = [
     "dft", "idft",
     "hilbert", "envelope", "instantaneous_frequency", "WTCResult",
     "wavelet_coherence",
+    "cwt2", "icwt2", "CWT2Result", "ssq_cwt", "issq_cwt", "SSQResult",
+    "extract_ridges", "RidgeResult", "scattering1d", "scattering_filters",
+    "ScatteringResult", "scattering2d", "scattering2d_filters",
+    "Scattering2DResult", "ewt1d", "iewt1d", "ewt_filter_bank", "EWTResult",
 ]

@@ -150,6 +150,14 @@ def pad_signal(x: torch.Tensor, target: int, mode: str = "zero"
     return torch.cat([x, ext], dim=-1)
 
 
+def _host_grid(values) -> np.ndarray:
+    """A scale (or angle) grid as a 1D float64 host array; a tensor is
+    detached and moved to the host."""
+    if isinstance(values, torch.Tensor):
+        values = values.detach().cpu().double().numpy()
+    return np.atleast_1d(np.asarray(values, dtype=np.float64))
+
+
 def _omega_axis(n: int, fs: float) -> np.ndarray:
     """ω_i = 2π·i·fs/n, flipped negative past n/2 (reference ``:450-459``)."""
     omega = 2.0 * math.pi * np.arange(n) * fs / n
@@ -441,9 +449,7 @@ def cwt_direct(x: torch.Tensor, scales,
         x = x.to(torch.float32)
     n = x.shape[-1]
     dt = 1.0 / sampling_rate
-    scales_np = np.atleast_1d(np.asarray(
-        scales.detach().cpu().double().numpy()
-        if isinstance(scales, torch.Tensor) else scales, dtype=np.float64))
+    scales_np = _host_grid(scales)
     s0, s1 = wavelet.effective_support()
     real = not x.is_complex()
     rdtype = torch.float64 if x.dtype in (torch.float64,
@@ -542,11 +548,7 @@ def icwt(result: CWTResult, wavelet: ContinuousWavelet | None = None,
     if wavelet is None:
         wavelet = MorletWavelet()
     coeffs = as_input(result.coefficients)
-    if scales is None:
-        scales = result.scales
-    if isinstance(scales, torch.Tensor):
-        scales = scales.detach().cpu().double().numpy()
-    scales_np = np.atleast_1d(np.asarray(scales, dtype=np.float64))
+    scales_np = _host_grid(result.scales if scales is None else scales)
     n = coeffs.shape[-1]
     g, p = _recon_filter(wavelet, tuple(float(a) for a in scales_np), n,
                          float(result.sampling_rate))

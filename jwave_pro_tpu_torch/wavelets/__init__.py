@@ -5,6 +5,9 @@ from .continuous import (
     ContinuousWavelet, DOGWavelet, MexicanHatWavelet, MeyerWavelet,
     MorletWavelet, PaulWavelet, continuous_wavelet, from_jax_continuous,
 )
+from .continuous2d import (
+    ContinuousWavelet2D, MexicanHat2D, Morlet2D, continuous_wavelet2d,
+)
 from .families import (
     REGISTRY, biorthogonal, coiflet, daubechies, good_wavelets, legendre,
     symlet, wavelet, wavelet_names,
@@ -18,4 +21,6 @@ __all__ = [
     "ContinuousWavelet", "MorletWavelet", "MexicanHatWavelet",
     "PaulWavelet", "DOGWavelet", "MeyerWavelet", "continuous_wavelet",
     "from_jax_continuous",
+    "ContinuousWavelet2D", "MexicanHat2D", "Morlet2D",
+    "continuous_wavelet2d",
 ]

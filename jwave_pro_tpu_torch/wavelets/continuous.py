@@ -423,11 +423,14 @@ def continuous_wavelet(name: str, *args, **kwargs) -> ContinuousWavelet:
     return _CONTINUOUS[key](*args, **kwargs)
 
 
-def from_jax_continuous(w) -> ContinuousWavelet:
-    """This package's continuous wavelet built from a ``jwave_pro_tpu``
-    one of the same family (its class name), with the same parameters read
-    by attribute — so this module never imports JAX."""
-    for cls, params in _PARAMS.items():
+def from_jax_continuous(w):
+    """This package's continuous wavelet (1D, or 2D from
+    ``continuous2d.py``) built from a ``jwave_pro_tpu`` one of the same
+    family (its class name), with the same parameters read by attribute —
+    so this module never imports JAX."""
+    from .continuous2d import _PARAMS_2D
+
+    for cls, params in (*_PARAMS.items(), *_PARAMS_2D.items()):
         if type(w).__name__ == cls.__name__:
             return cls(*(getattr(w, p) for p in params))
     raise ValueError(f"no continuous wavelet family {type(w).__name__!r}")

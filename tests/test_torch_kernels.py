@@ -30,6 +30,8 @@ f64 gradient (the forward's on-chip bound; a TF32 backward misses it by
 an order of magnitude).  The banded CWT's tiers against the host f64
 irfft path, the JAX tests' bounds (``tests/test_cwt_banded.py``):
 'highest' 2e-5, 'high' 1e-3 + 1e-6, 'default' 2e-2 relative to max|c|.
+The streaming path's coefficients against the host f64 MODWT of the whole
+signal on the columns ≥ halo: 1e-5 absolute, the forward's bound.
 """
 import numpy as np
 import pytest
@@ -1075,3 +1077,37 @@ def test_banded_tiers_on_the_card(dev, precision, tol, atol):
     assert got.dtype == torch.complex64
     err = float((got.cpu().to(torch.complex128) - want).abs().max())
     assert err <= tol * float(want.abs().max()) + atol
+
+
+def test_streaming_path_launches_the_forward_kernel(dev):
+    """A stream's (halo + chunk,) window runs the flat forward (#2), one
+    launch an incremental update; ``modwt_chunked`` over batched chunks
+    runs the batched forward (#1), one launch a chunk.  The incremental
+    coefficients equal the whole signal's MODWT on the columns ≥ halo
+    (1e-5 absolute, the forward's bound), and so do the chunked ones."""
+    from jwave_pro_tpu_torch import streaming as st
+
+    level, buf, chunk = 5, 4096, 1024
+    halo = (DB4.length - 1) * ((1 << level) - 1)
+    sig = _signal(dev, 8 * chunk, seed=31)
+    s = st.StreamingMODWT(DB4, st.StreamingConfig(buffer_size=buf,
+                                                  max_level=level))
+    before = kc.modwt_fwd_cuda.launches
+    for i in range(0, sig.shape[-1], chunk):
+        out = s.update(sig[i:i + chunk])
+    torch.cuda.synchronize()
+    assert kc.modwt_fwd_cuda.launches - before == 8
+    assert out.device == sig.device and out.dtype == torch.float32
+    full = jt.modwt(sig.double().cpu(), DB4, level)[..., -buf:]
+    torch.testing.assert_close(out.cpu().double()[..., halo:],
+                               full[..., halo:], rtol=0, atol=1e-5)
+
+    x = _signal(dev, 4, 8 * chunk, seed=32)
+    before = kc.modwt_fwd_cuda.launches
+    parts = list(st.modwt_chunked(x.split(chunk, dim=-1), DB4, level))
+    torch.cuda.synchronize()
+    assert kc.modwt_fwd_cuda.launches - before == 8
+    got = torch.cat(parts, dim=-1).cpu().double()
+    want = jt.modwt(x.double().cpu(), DB4, level)
+    torch.testing.assert_close(got[..., halo:], want[..., halo:], rtol=0,
+                               atol=1e-5)

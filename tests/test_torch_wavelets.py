@@ -117,8 +117,9 @@ def test_port_taps_equal_jax_taps_exactly():
 def test_port_runs_without_the_jax_package(tmp_path):
     """The port copied alone runs the MODWT, the decimated pyramid, the
     packet denoise, the pywt-style lists, the lifting pyramid, the DTCWT,
-    the banded CWT, the Hilbert transform and the wavelet coherence, and
-    never loads JAX or the JAX package."""
+    the banded CWT, the Hilbert transform, the wavelet coherence, the 2D
+    CWT, synchrosqueezing and its ridges, both scattering transforms, the
+    EWT and a stream, and never loads JAX or the JAX package."""
     port = Path(jt.__file__).resolve().parent
     shutil.copytree(port, tmp_path / port.name,
                     ignore=shutil.ignore_patterns("__pycache__"))
@@ -147,6 +148,18 @@ def test_port_runs_without_the_jax_package(tmp_path):
         "assert torch.allclose(cb, cf, atol=1e-9), 'banded vs fft'\n"
         "assert jt.wavelet_coherence(x, x, s).coherence.shape == (2, 8, 512)\n"
         "assert jt.hilbert(x).dtype == torch.complex128\n"
+        "img = torch.randn(2, 32, 32, dtype=torch.float64)\n"
+        "assert jt.icwt2(jt.cwt2(img, [1.0, 2.0])).shape == img.shape\n"
+        "r = jt.ssq_cwt(x, s)\n"
+        "assert jt.extract_ridges(r.Tx).indices.shape == (2, 1, 512)\n"
+        "assert jt.issq_cwt(r).shape == x.shape\n"
+        "assert jt.scattering1d(x, 3, 2).s2.shape[-1] == 64\n"
+        "assert jt.scattering2d(img, 2, 2).s1.shape == (2, 4, 8, 8)\n"
+        "e = jt.ewt1d(x, 3)\n"
+        "assert torch.allclose(e.reconstruct(), x), 'ewt round trip'\n"
+        "st = jt.streaming.StreamingMODWT(w, jt.streaming.StreamingConfig(\n"
+        "    256, 3, device='cpu'))\n"
+        "assert st.update(torch.ones(64)).shape == (4, 256)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.split('.')[0] == 'jwave_pro_tpu']\n"
         "assert not bad, bad\n"
