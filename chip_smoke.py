@@ -49,7 +49,19 @@ buffer held to the MODWT of the whole signal, the full recompute,
 modwt_chunked over 64 × 2^20, the variance tracker, each windowed
 transform, a save/load round trip), which runs the batched forward (#1)
 and the flat forward (#2); phase 29 gives every call's wall beside its
-bound and times both synchrosqueezing front ends and the ridge loop.  The
+bound and times both synchrosqueezing front ends and the ridge loop; the
+financial chain (phase 30: ``preprocess_prices`` over 64 × 65536 float32
+prices with 1% gaps, each stage held to the CPU float64 run within its
+float32 error units, the clip decisions counted, ``median_select``
+exactly the CPU's, and its output through ``modwt`` (#1) and
+``modwt_variance`` (#5)); the transform facades (phase 31: every
+``build_transform`` engine's round trip at 32 × 2^20, the MODWT engine's
+#1 and #3 launches, the console demo in a subprocess); and export and
+serving (phase 32: the denoise on #1 and #3, the fused denoise on #4 and
+the variance on #5, exported batch-polymorphic to bytes and served at
+three batch sizes from one artifact, each call's launches counted and
+its output bitwise the eager call's; an exported ``fwt`` served under
+TF32 held to the IEEE bound; the kernel operators' host time a launch).  The
 kernels' launch counters, set to 0
 before each path and read after it, show that the path ran through them;
 CUDA events time each kernel against its plain version.  Every check
@@ -160,6 +172,11 @@ SCAT2_SHAPE, SCAT2_J, SCAT2_L = (4, 256, 256), 4, 8
 EWT_SHAPE, EWT_MODES = (32, 1 << 20), 6
 STREAM_CH, STREAM_BUF, STREAM_CHUNK, STREAM_UPDATES = 64, 16384, 4096, 16
 CHUNKED_SHAPE = (64, 1 << 20)
+# phase 30: preprocess_prices at bench.py:172's shape, a share of the prices
+# marked as gaps, and the float32 error units a stage may move (check_chain)
+FIN_SHAPE, FIN_GAPS, FIN_COND = (64, 1 << 16), 0.01, 16
+# phase 32: the batches one exported artifact serves
+SERVE_BATCHES = (1, 8, 32)
 # the H100's published peaks (SXM, 700 W): HBM bytes/s, f32 FLOP/s
 HBM_RATE, F32_RATE = 3.35e12, 67e12
 
@@ -569,6 +586,9 @@ def run(smoke: Smoke, torch, jt) -> dict:
     calls = run_continuous2_slice(smoke, torch, jt, signal, card)
     stream_calls = run_streaming_slice(smoke, torch, jt, signal, card)
     run_slice_walls(smoke, torch, jt, calls, stream_calls, card)
+    run_financial_slice(smoke, torch, jt, card)
+    run_facade_slice(smoke, torch, jt, signal, card)
+    run_export_slice(smoke, torch, jt, signal, card)
 
     src = "jwave_pro_tpu_torch/csrc/"
     tpu = "jwave_pro_tpu/kernels/"
@@ -1634,8 +1654,8 @@ def all_launchers() -> dict:
 def op_flops(call) -> int:
     """The operations ``call`` runs in products and FFTs.  The products are
     counted by wrapping the port's one product helper (``ops/fwt.py:_mm``,
-    which ``ops/wpt.py``, ``fft.py``, ``cwt.py`` and ``cwt_banded.py``
-    import): 2 a real multiply-add, 8 a complex one.  Each FFT of length n
+    which ``ops/wpt.py``, ``fft.py``, ``cwt.py``, ``cwt_banded.py`` and
+    ``financial.py`` import): 2 a real multiply-add, 8 a complex one.  Each FFT of length n
     counts 5·n·log₂n, a real-input or real-output one 2.5·n·log₂n, a 2D
     one of n = H·W points likewise (the ``torch.fft`` calls wrapped the
     same way).  At power-of-two widths the
@@ -1645,7 +1665,8 @@ def op_flops(call) -> int:
     import torch
 
     mods = [importlib.import_module(f"jwave_pro_tpu_torch.ops.{m}")
-            for m in ("fwt", "wpt", "fft", "cwt", "cwt_banded")]
+            for m in ("fwt", "wpt", "fft", "cwt", "cwt_banded",
+                      "financial")]
     orig = mods[0]._mm
     total = 0
 
@@ -2792,6 +2813,375 @@ def run_slice_walls(smoke: Smoke, torch, jt, calls: list, stream_calls: list,
               f"{t_bound:.4f} ms by {by} ({t_bound / wall:.1%} of the wall) "
               f"[{card}]", flush=True)
     print(f"  phase 29 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
+EPS32 = 2.0 ** -24      # float32 unit roundoff
+
+
+def chain_stages(jt, prices):
+    """preprocess_prices stage by stage: (filled, returns, winsorized, z,
+    sigma), each stage the public function the chain calls."""
+    filled = jt.fill_gaps(prices)
+    r = jt.log_returns(filled)
+    rw = jt.winsorize_outliers(r)
+    return (filled, r, rw) + tuple(jt.normalize_volatility(rw))
+
+
+def check_chain(smoke: Smoke, torch, jt, got, want) -> dict:
+    """The card's float32 stages (``chain_stages``) against the CPU f64
+    ones on the same prices, each element within FIN_COND float32 error
+    units of its own size: a log return's unit ε·(|ln p_t| + |ln p_{t−1}|
+    + |r_t|); σ's ε·(2·L + 32·σ_t), L the row's max |ln p| (a return's
+    error reaches σ at most once, Cauchy–Schwarz; 32 ≈ √512 for the FIR's
+    summation); z's (ε·2L + |z_t|·unit(σ_{t−1}))/d_t + 2ε·|z_t|, d_t the
+    divisor max(σ_{t−1}, floor).  The gap fill and the medians are
+    selections: exact.  The clip decisions are counted; one that differs
+    must lie within FIN_COND units, ε·(4L + lim), of its edge
+    med ± 5·MAD/0.6745.  Returns the counts and the worst ratios."""
+    f32, r32, w32, z32, s32 = (host64(t) for t in got)
+    f64, r64, w64, z64, s64 = want
+    smoke.require("fill_gaps: the card's fill is the CPU's, exactly",
+                  torch.equal(f32, f64))
+    lp = torch.log(f64)
+    big = lp.abs().amax(-1, keepdim=True)
+    u_r = EPS32 * (lp.abs() + torch.cat([lp[:, :1], lp[:, :-1]], -1).abs()
+                   + r64.abs()) + 1e-300
+    ratio_r = float(((r32 - r64).abs() / u_r).max())
+    # the winsorizer's edges, from the f64 returns
+    med = jt.median_select(r64)[:, None]
+    lim = 5.0 * jt.median_select((r64 - med).abs())[:, None] / 0.6745
+    clip32, clip64 = w32 != r32, w64 != r64
+    differ = clip32 != clip64
+    dist = torch.minimum((r64 - (med - lim)).abs(), (r64 - (med + lim)).abs())
+    allowed = FIN_COND * EPS32 * (4 * big + lim)
+    worst_clip = float((dist / allowed).expand_as(r64)[differ].max()) \
+        if bool(differ.any()) else 0.0
+    u_s = EPS32 * (2 * big + 32 * s64)
+    ratio_s = float(((s32 - s64).abs() / (u_s + 1e-300)).max())
+    lag = torch.cat([s64[:, :1], s64[:, :-1]], -1)
+    u_lag = torch.cat([u_s[:, :1], u_s[:, :-1]], -1)
+    n = r64.shape[-1]
+    t = torch.arange(n, dtype=torch.float64)
+    rms = torch.sqrt(torch.cumsum(w64 * w64, -1) / (t + 1.0))
+    d = torch.maximum(lag, 1e-12 + 1e-3 * torch.cat([rms[:, :1],
+                                                     rms[:, :-1]], -1))
+    u_z = (EPS32 * 2 * big + z64.abs() * u_lag) / d + 2 * EPS32 * z64.abs()
+    ratio_z = float(((z32 - z64).abs() / (u_z + 1e-300)).max())
+    counts = {"clipped_card": int(clip32.sum()), "clipped_f64":
+              int(clip64.sum()), "differing": int(differ.sum())}
+    print(f"  clip decisions: {counts['clipped_card']} clipped on the card, "
+          f"{counts['clipped_f64']} in f64, {counts['differing']} differ "
+          f"(worst at {worst_clip:.3g} of its allowance); float32 units: "
+          f"returns {ratio_r:.3g}, sigma {ratio_s:.3g}, z {ratio_z:.3g} "
+          f"(limit {FIN_COND})", flush=True)
+    smoke.require("log returns within their float32 units of f64",
+                  ratio_r <= FIN_COND, f"({ratio_r:.3g})")
+    smoke.require("each differing clip decision within its units of the "
+                  "edge", worst_clip <= 1.0, f"({worst_clip:.3g})")
+    smoke.require("sigma within its float32 units of f64",
+                  ratio_s <= FIN_COND, f"({ratio_s:.3g})")
+    smoke.require("z within its float32 units of f64", ratio_z <= FIN_COND,
+                  f"({ratio_z:.3g})")
+    return dict(counts, ratio_r=ratio_r, ratio_s=ratio_s, ratio_z=ratio_z)
+
+
+def kc_halo(m: int, level: int) -> int:
+    """The MODWT cascade's reach: (M − 1)(2^L − 1) samples."""
+    return (m - 1) * ((1 << level) - 1)
+
+
+def run_financial_slice(smoke: Smoke, torch, jt, card) -> None:
+    """Phase 30: the financial chain at bench.py:172's shape (FIN_SHAPE
+    float32 prices, FIN_GAPS of them gaps, one 20% print in every row):
+    ``preprocess_prices`` stage by stage against the port's CPU float64
+    run on the same prices (``check_chain``), ``median_select`` on the
+    card exactly the CPU's, then z into ``modwt`` Db4 L5 (one #1 launch)
+    and ``modwt_variance`` (one #5 launch) in counted windows, against
+    the CPU f64 transforms of the card's z; walls beside bounds."""
+    t_phase = time.perf_counter()
+    print(f"== phase 30: the financial chain {FIN_SHAPE} f32, "
+          f"{FIN_GAPS:.0%} gaps, against the port's CPU f64 result",
+          flush=True)
+    w = jt.wavelet(WAVELET)
+    b, n = FIN_SHAPE
+    rng = np.random.default_rng(SEED + 30)
+    p = np.exp(np.cumsum(0.01 * rng.standard_normal(FIN_SHAPE), axis=-1))
+    p[np.arange(b), rng.integers(1, n, b)] *= 1.2     # a bad print a row
+    p[rng.random(FIN_SHAPE) < FIN_GAPS] = np.nan
+    p32 = p.astype(np.float32)
+    x = torch.from_numpy(p32).cuda()
+    x64 = torch.from_numpy(p32.astype(np.float64))
+    got = chain_stages(jt, x)
+    z, sigma = jt.preprocess_prices(x)
+    smoke.require("preprocess_prices is its stages, bitwise",
+                  torch.equal(z, got[3]) and torch.equal(sigma, got[4]))
+    smoke.require(f"z and sigma {FIN_SHAPE} float32, finite",
+                  z.dtype == sigma.dtype == torch.float32
+                  and tuple(z.shape) == FIN_SHAPE
+                  and bool(torch.isfinite(z).all())
+                  and bool(torch.isfinite(sigma).all()))
+    check_chain(smoke, torch, jt, got, chain_stages(jt, x64))
+    r = got[1]
+    for what, v in (("returns", r), ("|returns − median|",
+                                     (r - jt.median_select(r)[:, None]).abs())):
+        smoke.require(f"median_select of the {what} on the card is the "
+                      f"CPU's, exactly", torch.equal(
+                          jt.median_select(v).cpu(),
+                          jt.median_select(v.cpu())))
+    counters = all_launchers()
+    c, _ = counted_run(smoke, torch, counters, f"modwt of z {FIN_SHAPE} "
+                       f"L{LEVEL}", lambda: jt.modwt(z, w, LEVEL),
+                       {"modwt_fwd": 1})
+    z64 = host64(z)
+    # z[:, 1] = r[1]/1e-12 (σ_0 = 0 and the floor's RMS 0 at t = 0, as in
+    # the JAX package's chain); outside that spike's reach (the forward's
+    # halo) the coefficients are held to their own scale
+    c64, reach = jt.modwt(z64, w, LEVEL), 2 + kc_halo(w.length, LEVEL)
+    rel_to(smoke, f"modwt of z {FIN_SHAPE} L{LEVEL} vs CPU f64", c, c64,
+           1e-5)
+    rel_to(smoke, f"modwt of z {FIN_SHAPE} L{LEVEL} vs CPU f64, columns "
+           f"≥ {reach}", c[..., reach:], c64[..., reach:], 1e-5)
+    # the spike sets every level's variance of the whole z, so #5 is held
+    # on the columns past the spike's reach, where no sample dominates;
+    # the whole z's variance is checked beside it
+    zt = z[:, reach:]
+    nu, _ = counted_run(smoke, torch, counters, f"modwt_variance of z "
+                        f"{tuple(zt.shape)} (columns ≥ {reach}) L{LEVEL}",
+                        lambda: jt.modwt_variance(zt, w, LEVEL),
+                        {"modwt_var": 1})
+    rel_to(smoke, f"modwt_variance of z, columns ≥ {reach}, L{LEVEL} vs "
+           f"CPU f64", nu, jt.modwt_variance(z64[:, reach:], w, LEVEL), 1e-4)
+    nu, _ = counted_run(smoke, torch, counters, f"modwt_variance of z "
+                        f"{FIN_SHAPE} L{LEVEL}",
+                        lambda: jt.modwt_variance(z, w, LEVEL),
+                        {"modwt_var": 1})
+    rel_to(smoke, f"modwt_variance of z {FIN_SHAPE} L{LEVEL} vs CPU f64",
+           nu, jt.modwt_variance(z64, w, LEVEL), 1e-4)
+    del c, nu, zt
+    cells = b * n
+    for name, call, nbytes in (
+            (f"preprocess_prices {FIN_SHAPE}", lambda: jt.preprocess_prices(x),
+             12 * cells),
+            (f"median_select {FIN_SHAPE}", lambda: jt.median_select(r),
+             4 * (cells + b)),
+            (f"modwt of z {FIN_SHAPE} L{LEVEL}", lambda: jt.modwt(z, w, LEVEL),
+             4 * cells * (LEVEL + 2)),
+            (f"modwt_variance of z {FIN_SHAPE} L{LEVEL}",
+             lambda: jt.modwt_variance(z, w, LEVEL), 4 * (cells + b * LEVEL))):
+        flops = op_flops(call)
+        if name.startswith("modwt "):
+            flops = cells * 4 * w.length * LEVEL
+        elif name.startswith("modwt_variance"):
+            flops = cells * (4 * w.length + 2) * LEVEL
+        wall = wall_ms(torch, call)
+        t_bound, by = bound(nbytes, flops)
+        print(f"  financial {name}: wall {wall:.3f} ms (host clock, median "
+              f"of 3); flops {flops:.4e}, bytes {nbytes:.4e}, bound "
+              f"{t_bound:.4f} ms by {by} ({t_bound / wall:.1%} of the wall) "
+              f"[{card}]", flush=True)
+    print(f"  phase 30 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
+FACADES = ("Fast Wavelet Transform", "Wavelet Packet Transform",
+           "Maximal Overlap Discrete Wavelet Transform",
+           "Shifting Wavelet Transform", "Fast Fourier Transform",
+           "Discrete Fourier Transform")
+
+
+def run_facade_slice(smoke: Smoke, torch, jt, signal, card) -> None:
+    """Phase 31: the facades at the main shape, Db4 L5: ``build_transform``
+    for each name, a round trip through each engine on the card (the
+    decimated, packet, MODWT and shifting engines over MAIN_SHAPE, the
+    FFT over 2²⁰ complex samples, the DFT over DFT_SHAPE's 4096) within
+    1e-4 of the signal (``tools/tpu_smoke.py:55``), each forward against
+    the port's CPU f64 result on two rows within 1e-5; the MODWT engine's
+    forward, reverse and MRA in counted windows (1 #1; 1 #3; 1 #1 and 6
+    #3), every other engine's none; and the console demo in a
+    subprocess on the card, exit 0."""
+    t_phase = time.perf_counter()
+    print(f"== phase 31: the transform facades {MAIN_SHAPE} {WAVELET} "
+          f"L{LEVEL}", flush=True)
+    x = signal(*MAIN_SHAPE)
+    x1 = signal(2 << 20)                   # 2^20 complex, interleaved
+    xd = signal(2 * DFT_SHAPE[1])
+    counters = all_launchers()
+    runs = {
+        FACADES[0]: (x, (LEVEL,), {}),
+        FACADES[1]: (x, (LEVEL,), {}),
+        FACADES[2]: (x, (LEVEL,), {"modwt_fwd": 1}),
+        FACADES[3]: (x, (), {}),
+        FACADES[4]: (x1, (), {}),
+        FACADES[5]: (xd, (), {}),
+    }
+    for name, (v, args, launches) in runs.items():
+        t = jt.build_transform(name, WAVELET)
+        eng = t.engine
+        forward = (lambda: t.forward(v, *args)) if v.ndim == 1 or \
+            isinstance(eng, jt.MODWTTransform) else \
+            (lambda: eng.forward_1d(v, *args))
+        reverse_1d = getattr(eng, "reverse_1d")
+        y, _ = counted_run(smoke, torch, counters, f"{name} forward",
+                           forward, launches)
+        back_launches = {"modwt_inv": 1} if launches else {}
+        back, _ = counted_run(
+            smoke, torch, counters, f"{name} reverse",
+            (lambda: t.reverse(y)) if isinstance(eng, jt.MODWTTransform)
+            else (lambda: reverse_1d(y, *args)), back_launches)
+        smoke.check(f"{name} round trip {tuple(v.shape)}", max_err(back, v),
+                    1e-4)
+        rows = v[:2] if v.ndim > 1 else v
+        host_eng = jt.build_transform(name, WAVELET).engine
+        want = (host_eng.forward(host64(rows), *args)
+                if isinstance(eng, jt.MODWTTransform) or v.ndim == 1 else
+                host_eng.forward_1d(host64(rows), *args))
+        got = y[:, :2] if isinstance(eng, jt.MODWTTransform) else \
+            (y[:2] if v.ndim > 1 else y)
+        rel_to(smoke, f"{name} forward vs CPU f64", got, want, 1e-5)
+        wall = wall_ms(torch, forward)
+        print(f"  facade {name} forward {tuple(v.shape)}: wall {wall:.3f} "
+              f"ms (host clock, median of 3) [{card}]", flush=True)
+        del y, back
+    eng = jt.MODWTTransform(jt.wavelet(WAVELET))
+    mra, _ = counted_run(smoke, torch, counters, "MODWTTransform.mra",
+                         lambda: eng.mra(x, LEVEL),
+                         {"modwt_fwd": 1, "modwt_inv": LEVEL + 1})
+    smoke.check("MODWTTransform.mra components sum to the signal",
+                max_err(mra.sum(0), x), 1e-4)
+    del mra
+    t0 = time.perf_counter()
+    done = subprocess.run(
+        [sys.executable, "-m", "jwave_pro_tpu_torch.cli",
+         "Fast Wavelet Transform", WAVELET], capture_output=True, text=True,
+        timeout=300, cwd=Path(__file__).resolve().parent)
+    print("  " + "\n  ".join(done.stdout.strip().splitlines()), flush=True)
+    smoke.require("python -m jwave_pro_tpu_torch.cli exits 0 on the card",
+                  done.returncode == 0 and "reconstructed" in done.stdout,
+                  f"(rc {done.returncode}, {time.perf_counter() - t0:.1f} s"
+                  f"{'; ' + done.stderr[-300:] if done.returncode else ''})")
+    print(f"  phase 31 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
+def host_cost_per_launch(torch, jt, signal) -> tuple:
+    """(µs through ``torch.ops.jwave.modwt_fwd``, µs through the
+    launchers' eager entry ``modwt_fwd_op``, which calls the launch
+    without the dispatcher) per launch of the forward kernel at
+    a host-bound shape (1, 4096) L5: 200 launches a run between a
+    synchronize and another, median of 5."""
+    from jwave_pro_tpu_torch.kernels import modwt_cuda as kc
+
+    w = jt.wavelet(WAVELET)
+    v = signal(1, 4096)
+    taps = kc.op_taps(w)
+    direct = kc.modwt_fwd_op
+
+    def per_launch(fn):
+        for _ in range(20):
+            fn()
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(200):
+                fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) / 200 * 1e6)
+        return sorted(times)[2]
+
+    op = per_launch(lambda: torch.ops.jwave.modwt_fwd(v, *taps, LEVEL))
+    raw = per_launch(lambda: direct(v, *taps, LEVEL))
+    return op, raw
+
+
+def run_export_slice(smoke: Smoke, torch, jt, signal, card) -> None:
+    """Phase 32: export and serving.  ``export_pipeline`` of the denoise
+    (``method='auto'``: #1 and #3), the fused denoise (#4) and the
+    wavelet variance (#5) at MAIN_SHAPE, batch-polymorphic, to bytes and
+    back; each served at SERVE_BATCHES from the one artifact in counted
+    windows (its kernels once a call, nothing else) and bitwise the eager
+    call.  An exported ``fwt`` L5 served with the process set to TF32
+    (through either of torch's settings) within the 1e-5 IEEE bound of
+    CPU f64 (phase 23's), beside an unpinned product's error.  And the
+    operator route's host time per launch (``host_cost_per_launch``)
+    beside ``modwt``'s wall and its kernel time."""
+    import importlib
+
+    fwt_mod = importlib.import_module("jwave_pro_tpu_torch.ops.fwt")
+    t_phase = time.perf_counter()
+    print(f"== phase 32: export and serving {MAIN_SHAPE} {WAVELET} "
+          f"L{LEVEL}", flush=True)
+    w = jt.wavelet(WAVELET)
+    x = signal(*MAIN_SHAPE)
+    counters = all_launchers()
+    pipelines = (
+        ("modwt_denoise(threshold=0.8)",
+         lambda v: jt.modwt_denoise(v, w, LEVEL, threshold=0.8),
+         {"modwt_fwd": 1, "modwt_inv": 1}),
+        ("modwt_denoise(threshold=0.8, method='fused')",
+         lambda v: jt.modwt_denoise(v, w, LEVEL, threshold=0.8,
+                                    method="fused"), {"modwt_denoise": 1}),
+        ("modwt_variance", lambda v: jt.modwt_variance(v, w, LEVEL),
+         {"modwt_var": 1}))
+    for name, fn, want in pipelines:
+        t0 = time.perf_counter()
+        art = jt.export_pipeline(fn, x, batch_polymorphic=True)
+        t_export = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        served = jt.load_pipeline(art)
+        t_load = time.perf_counter() - t0
+        print(f"  exported {name}: {len(art)} bytes, export {t_export:.2f} "
+              f"s, load {t_load:.2f} s", flush=True)
+        smoke.require(f"exported {name} is bytes", isinstance(art, bytes))
+        for b in SERVE_BATCHES:
+            got, _ = counted_run(smoke, torch, counters,
+                                 f"served {name} at b = {b}",
+                                 lambda: served(x[:b]), want)
+            smoke.require(f"served {name} at b = {b}: bitwise the eager "
+                          f"call", torch.equal(got, fn(x[:b])))
+        print(f"  wall served {name} {MAIN_SHAPE}: "
+              f"{wall_ms(torch, lambda: served(x)):.3f} ms, eager "
+              f"{wall_ms(torch, lambda: fn(x)):.3f} ms (host clock, median "
+              f"of 3) [{card}]", flush=True)
+        del art, served
+    # the exported fwt keeps its products in IEEE f32 under TF32
+    art = jt.export_pipeline(lambda v: jt.fwt(v, w, LEVEL), x)
+    served = jt.load_pipeline(art)
+    ref = jt.fwt(host64(x[:2]), w, LEVEL)
+    settings = [("matmul precision 'high'",
+                 lambda: torch.set_float32_matmul_precision("high"))]
+    if hasattr(torch.backends.cuda.matmul, "fp32_precision"):
+        settings.append(("per-backend fp32_precision 'tf32'", lambda: setattr(
+            torch.backends.cuda.matmul, "fp32_precision", "tf32")))
+    for what, turn_on in settings:
+        try:
+            turn_on()
+            y = served(x)
+            xr = x[:2].reshape(-1, 256)
+            wm = torch.from_numpy(fwt_mod._analysis_matrix_fused(
+                (w,) * LEVEL)[:256]).to(x.device, torch.float32)
+            unpinned = xr @ wm
+        finally:
+            torch.set_float32_matmul_precision("highest")
+        rel_to(smoke, f"served fwt {MAIN_SHAPE} L{LEVEL} under {what} vs "
+               f"CPU f64", y[:2], ref, 1e-5)
+        print(f"  an unpinned product under {what} errs by "
+              f"{max_err(unpinned, xr @ wm):.3e} (the pinned one's "
+              f"yardstick)", flush=True)
+        del y
+    del art, served
+    op_us, raw_us = host_cost_per_launch(torch, jt, signal)
+    kernel = jt.time_chain(lambda v: jt.modwt(v, w, LEVEL), x, k=10,
+                           repeats=5) * 1e3
+    wall = wall_ms(torch, lambda: jt.modwt(x, w, LEVEL))
+    print(f"  operator route: {op_us:.2f} µs a launch through "
+          f"torch.ops.jwave.modwt_fwd, {raw_us:.2f} µs through the "
+          f"launchers' eager entry ({op_us - raw_us:.2f} µs the "
+          f"dispatcher's; (1, 4096) L{LEVEL}, host clock); modwt "
+          f"{MAIN_SHAPE} wall {wall:.3f} ms, {kernel:.4f} ms a call "
+          f"between CUDA events [{card}]", flush=True)
+    print(f"  phase 32 took {time.perf_counter() - t_phase:.1f} s",
           flush=True)
 
 

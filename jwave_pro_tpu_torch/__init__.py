@@ -22,12 +22,18 @@ threshold compressors, the arbitrary-length ``aed_*``/``swt_*`` wrappers,
 the dual-tree complex transform ``dtcwt``/``dtcwt2`` with its denoisers),
 the Fourier tools (``fft``/``ifft``, ``dft``/``idft``), the analytic
 signal (``hilbert``, ``envelope``, ``instantaneous_frequency``) and
-``wavelet_coherence``, and the hand-written CUDA kernels behind them
-(``kernels/``, built from ``csrc/`` with ``nvcc`` on first launch).  Names and signatures match
-the JAX package; tensors stay on the device they arrive on, and any other
-input (a NumPy array, a list) goes to the card.  Importing this package
-never imports JAX or ``jwave_pro_tpu``, and the package reads no file of
-it.
+``wavelet_coherence``, the market-data preprocessing chain
+(``preprocess_prices`` and its stages), the transform facades
+(``build_transform``, ``Transform`` and its engines), the value stores
+(``datatypes``), the console demo (``cli``), the test signals
+(``utils.signals``), the serving export (``export_pipeline``/
+``load_pipeline``), and the hand-written CUDA kernels behind them
+(``kernels/``, built from ``csrc/`` with ``nvcc`` on first launch, each
+launch a ``torch.ops.jwave`` operator that an exported graph records).
+Names and signatures match the JAX package; tensors stay on the device
+they arrive on, and any other input (a NumPy array, a list) goes to the
+card.  Importing this package never imports JAX or ``jwave_pro_tpu``, and
+the package reads no file of it.
 
     import jwave_pro_tpu_torch as jt
     w = jt.wavelet("Daubechies 4")
@@ -48,12 +54,17 @@ it.
     r = jt.cwt(x, s, jt.MorletWavelet(), method="fused")   # (B, 64, N)
     d = jt.dtcwt(x, 5)               # 5 complex bands, two lowpass rows
     z = jt.cdf97(x)                  # JPEG2000 9/7 lifting, full depth
+    z, sig = jt.preprocess_prices(prices)
+    t = jt.build_transform("Fast Wavelet Transform", "Daubechies 4")
+    den = lambda v: jt.modwt_denoise(v, w, 5, threshold=0.8)
+    art = jt.export_pipeline(den, x, batch_polymorphic=True)
+    y = jt.load_pipeline(art)(x)
 """
 from .exceptions import (
     JWaveError, JWaveException, JWaveFailure, NotAllocated, NotFound,
     NotImplemented_, NotKnown, NotValid,
 )
-from . import streaming
+from . import cli, datatypes, kernels, streaming
 from .ops import (
     MAX_DECOMPOSITION_LEVEL, CWT2Result, CWTResult, DTCWT2Result, DTCWTResult,
     EWTResult, RidgeResult, SSQResult, Scattering2DResult, ScatteringResult,
@@ -88,11 +99,24 @@ from .ops.analysis import (
     modwt_covariance, modwt_cross_correlation, modwt_hurst, modwt_variance,
     modwt_variance_ci, scale_energies,
 )
+from .ops.financial import (
+    cumulate_returns, ewma_volatility, fill_gaps, log_returns, median_select,
+    normalize_volatility, preprocess_prices, realized_volatility,
+    winsorize_outliers,
+)
 from .ops.mp import MPResult, matching_pursuit, mp_reconstruct
+from .transforms import (
+    AncientEgyptianDecomposition, ContinuousWaveletTransform,
+    DiscreteFourierTransform, FastFourierTransform, FastWaveletTransform,
+    MODWTTransform, ShiftingWaveletTransform, Transform,
+    WaveletPacketTransform, build_transform,
+)
 from .utils import (
     ancient_egyptian_decomposition, is_power_of_two, max_level,
     next_power_of_two, time_chain,
 )
+from .utils import deploy, signals
+from .utils.deploy import export_pipeline, load_pipeline
 from .wavelets import (
     REGISTRY, ContinuousWavelet, ContinuousWavelet2D, DiscreteWavelet,
     DOGWavelet, MexicanHat2D, MexicanHatWavelet, MeyerWavelet, Morlet2D,
@@ -161,4 +185,12 @@ __all__ = [
     "ScatteringResult", "scattering2d", "scattering2d_filters",
     "Scattering2DResult", "ewt1d", "iewt1d", "ewt_filter_bank", "EWTResult",
     "streaming",
+    "log_returns", "cumulate_returns", "fill_gaps", "median_select",
+    "winsorize_outliers", "ewma_volatility", "normalize_volatility",
+    "realized_volatility", "preprocess_prices",
+    "Transform", "FastWaveletTransform", "WaveletPacketTransform",
+    "MODWTTransform", "ContinuousWaveletTransform", "FastFourierTransform",
+    "DiscreteFourierTransform", "AncientEgyptianDecomposition",
+    "ShiftingWaveletTransform", "build_transform",
+    "export_pipeline", "load_pipeline", "datatypes", "cli",
 ]

@@ -26,7 +26,8 @@ row fills 135 KB of the 227 KB), any B and S.
 Beside the kernel: its plain PyTorch version :func:`cwt_ifft_plain` (the
 JAX kernel's two-stage DFT with the same stage constants, as complex
 matrix products in float32, or float64 for complex128 input) and a launch
-counter (``cwt_ifft_cuda.launches``).
+counter (``cwt_ifft_cuda.launches``).  The launch is the operator
+``jwave::cwt_ifft``.
 """
 from __future__ import annotations
 
@@ -37,11 +38,11 @@ import numpy as np
 import torch
 
 from . import _build
-from .modwt_cuda import _I, _P
+from .modwt_cuda import _I, _P, kernel_op
 
 __all__ = [
     "cwt_fused_supported", "cwt_ifft_fused", "cwt_ifft_cuda",
-    "cwt_ifft_plain", "twiddles",
+    "cwt_ifft_plain", "cwt_ifft_op", "twiddles",
 ]
 
 P_MIN, P_MAX = 64, 16384
@@ -121,30 +122,41 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check_spectrum(t: torch.Tensor, name: str) -> None:
-    if not t.is_cuda:
+def _check_spectrum(t: torch.Tensor, name: str, traced: bool) -> None:
+    if not (traced or t.is_cuda):
         raise ValueError(f"{name}: kernel needs a CUDA tensor, got {t.device}")
     if t.dtype != torch.complex64:
         raise ValueError(f"{name}: kernel takes complex64, got {t.dtype}")
     if t.ndim != 2:
         raise ValueError(f"{name}: expected 2 dims, got {tuple(t.shape)}")
-    if not t.is_contiguous():
+    if not (traced or t.is_contiguous()):
         raise ValueError(f"{name}: kernel needs a contiguous tensor")
 
 
-def cwt_ifft_cuda(xf: torch.Tensor, mult: torch.Tensor, n: int,
-                  is_real: bool) -> torch.Tensor:
-    """Launch the kernel: xf (B, P), mult (S, P) complex64 on one CUDA
-    device → (B, S, n) complex64, or float32 when ``is_real``."""
-    _check_spectrum(xf, "xf")
-    _check_spectrum(mult, "mult")
-    b, p = xf.shape
-    s = mult.shape[0]
-    if mult.shape[1] != p or mult.device != xf.device:
+def _check_cwt(xf: torch.Tensor, mult: torch.Tensor, n: int,
+               traced: bool) -> None:
+    """The launch's checks; ``traced``: the fake's, on a traced or ``meta``
+    tensor (no device, strides or batch)."""
+    _check_spectrum(xf, "xf", traced)
+    _check_spectrum(mult, "mult", traced)
+    p = xf.shape[1]
+    if mult.shape[1] != p or not (traced or mult.device == xf.device):
         raise ValueError("mult: need (S, P) on xf's device")
-    if not cwt_fused_supported(b, s, p) or not 1 <= n <= p:
+    b = 1 if traced else xf.shape[0]
+    if not cwt_fused_supported(b, mult.shape[0], p) or not 1 <= n <= p:
         raise ValueError(f"unsupported length P={p}, n={n} for the CWT "
                          f"kernel (P a power of two in [{P_MIN}, {P_MAX}])")
+
+
+@kernel_op("cwt_ifft")
+def cwt_ifft_op(xf: torch.Tensor, mult: torch.Tensor, n: int,
+                is_real: int) -> torch.Tensor:
+    """The kernel's launch as an operator (``torch.ops.jwave.cwt_ifft``):
+    xf (B, P), mult (S, P) complex64 on one CUDA device → (B, S, n)
+    complex64, or float32 when ``is_real`` is 1."""
+    _check_cwt(xf, mult, n, False)
+    b, p = xf.shape
+    s = mult.shape[0]
     if b * s >= 2 ** 31:
         raise ValueError(f"{b}×{s} rows exceed the CWT kernel grid")
     out = torch.empty((b, s, n), device=xf.device,
@@ -158,6 +170,21 @@ def cwt_ifft_cuda(xf: torch.Tensor, mult: torch.Tensor, n: int,
     _build.check(lib, code, "CWT kernel")
     cwt_ifft_cuda.launches += 1
     return out
+
+
+@cwt_ifft_op.register_fake
+def _(xf, mult, n, is_real):
+    _check_cwt(xf, mult, n, True)
+    return xf.new_empty((xf.shape[0], mult.shape[0], n),
+                        dtype=torch.float32 if is_real else torch.complex64)
+
+
+def cwt_ifft_cuda(xf: torch.Tensor, mult: torch.Tensor, n: int,
+                  is_real: bool) -> torch.Tensor:
+    """Launch the kernel as ``jwave::cwt_ifft``: xf (B, P), mult (S, P)
+    complex64 on one CUDA device → (B, S, n) complex64, or float32 when
+    ``is_real``."""
+    return cwt_ifft_op(xf, mult, n, int(is_real))
 
 
 cwt_ifft_cuda.launches = 0

@@ -18,7 +18,9 @@ budgets.  Any N runs, since each block reads its circular context
 directly.
 
 Beside the kernel: its plain PyTorch version (:func:`modwt_denoise_plain`)
-and its launch counter (``modwt_denoise_cuda.launches``).  Not
+and its launch counter (``modwt_denoise_cuda.launches``).  The launch is
+the operator ``jwave::modwt_denoise`` (``kernels/modwt_cuda.py`` says
+why).  Not
 differentiable: shrinkage is piecewise; the ``method='auto'`` pipeline is.
 """
 from __future__ import annotations
@@ -33,11 +35,12 @@ from ..wavelets.base import DiscreteWavelet
 from . import _build
 from .modwt_cuda import (
     _I, _P, DTYPE_CODES, TILES, _compute_dtype, check_grid, check_operand,
-    halo, kernel_supported, kernel_taps, modwt_fwd_plain, modwt_inv_plain,
-    smem_bytes,
+    check_taps, halo, host_taps, kernel_supported, modwt_fwd_plain,
+    modwt_inv_plain, op_taps, smem_bytes, kernel_op,
 )
 
-__all__ = ["modwt_denoise_fused", "modwt_denoise_cuda", "modwt_denoise_plain"]
+__all__ = ["modwt_denoise_fused", "modwt_denoise_cuda", "modwt_denoise_plain",
+           "modwt_denoise_op"]
 
 
 def modwt_denoise_plain(x: torch.Tensor, threshold: torch.Tensor,
@@ -64,34 +67,57 @@ def _lib():
     return lib
 
 
-def modwt_denoise_cuda(x: torch.Tensor, threshold: torch.Tensor,
-                       wavelet: DiscreteWavelet, level: int,
-                       mode: str = "soft") -> torch.Tensor:
-    """Launch the denoise kernel: x (B, N), threshold (B,) float32 → (B, N)."""
-    check_operand(x, "x", 2)
-    b, n = x.shape
-    if (threshold.dtype != torch.float32 or threshold.shape != (b,)
-            or threshold.device != x.device
-            or not threshold.is_contiguous()):
+def _check_denoise(x: torch.Tensor, threshold: torch.Tensor, g, h,
+                   level: int, traced: bool = True) -> None:
+    check_operand(x, "x", 2, traced)
+    if (threshold.dtype != torch.float32 or threshold.ndim != 1
+            or not traced and (threshold.shape[0] != x.shape[0]
+                               or threshold.device != x.device
+                               or not threshold.is_contiguous())):
         raise ValueError("threshold: kernel needs a contiguous (B,) float32 "
                          "tensor on x's device")
-    m = wavelet.length
-    if not kernel_supported(n, level, m, "denoise"):
+    if not kernel_supported(x.shape[1], level, check_taps(g, h), "denoise"):
         raise ValueError(f"unsupported shape {tuple(x.shape)} level {level} "
                          f"for the fused denoise kernel")
+
+
+@kernel_op("modwt_denoise")
+def modwt_denoise_op(x: torch.Tensor, threshold: torch.Tensor,
+                     g: list[float], h: list[float], level: int,
+                     hard: int) -> torch.Tensor:
+    """The denoise kernel's launch as an operator (``torch.ops.jwave.
+    modwt_denoise``): x (B, N), threshold (B,) float32 → (B, N); ``hard``
+    1 for hard shrinkage, 0 for soft."""
+    _check_denoise(x, threshold, g, h, level, traced=False)
+    b, n = x.shape
+    m = len(g)
     check_grid(b, n, "denoise")
     out = torch.empty_like(x)
-    g, h = kernel_taps(wavelet)
+    gh, hh = host_taps(g, h)
     lib = _lib()
     code = lib.jw_modwt_denoise(
         x.data_ptr(), threshold.data_ptr(), out.data_ptr(), b, n, level,
-        g.ctypes.data, h.ctypes.data, m, TILES["denoise"], halo(m, level),
-        smem_bytes(level, m, "denoise"), int(mode != "soft"),
-        DTYPE_CODES[x.dtype], x.device.index,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        gh.ctypes.data, hh.ctypes.data, m, TILES["denoise"], halo(m, level),
+        smem_bytes(level, m, "denoise"), int(hard), DTYPE_CODES[x.dtype],
+        x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, code, "fused denoise kernel")
     modwt_denoise_cuda.launches += 1
     return out
+
+
+@modwt_denoise_op.register_fake
+def _(x, threshold, g, h, level, hard):
+    _check_denoise(x, threshold, g, h, level)
+    return torch.empty_like(x)
+
+
+def modwt_denoise_cuda(x: torch.Tensor, threshold: torch.Tensor,
+                       wavelet: DiscreteWavelet, level: int,
+                       mode: str = "soft") -> torch.Tensor:
+    """Launch the denoise kernel as ``jwave::modwt_denoise``: x (B, N),
+    threshold (B,) float32 → (B, N)."""
+    return modwt_denoise_op(x, threshold, *op_taps(wavelet), level,
+                            int(mode != "soft"))
 
 
 modwt_denoise_cuda.launches = 0

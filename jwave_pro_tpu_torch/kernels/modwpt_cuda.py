@@ -29,12 +29,13 @@ leaf pair with batched loads.
 
 Beside each kernel: its plain PyTorch version (``modwpt_fwd_plain``,
 ``modwpt_inv_plain``, ``modwpt_select_plain``) and a launch counter
-(``<launcher>.launches``).  bfloat16 is read and written as bfloat16 and
-computed in float32; the select returns float32.  The autograd pair
-(:func:`modwpt_fused`, :func:`imodwpt_fused`) rests on Aᵀ = A⁻¹: every level
-applies the same √2-normalized perfect-reconstruction pair to each node and
-the sequency reorder is a permutation, so each direction's backward is the
-other kernel.
+(``<launcher>.launches``).  Each launch is an operator
+(``jwave::modwpt_fwd``, ``jwave::modwpt_select``, ``jwave::modwpt_inv``).
+bfloat16 is read and written as bfloat16 and computed in float32; the select
+returns float32.  The autograd pair (:func:`modwpt_fused`,
+:func:`imodwpt_fused`) rests on Aᵀ = A⁻¹: every level applies the same
+√2-normalized perfect-reconstruction pair to each node and the sequency
+reorder is a permutation, so each direction's backward is the other kernel.
 """
 from __future__ import annotations
 
@@ -47,16 +48,17 @@ from ..ops.modwt import _check_level, modwt_base_filters
 from ..wavelets.base import DiscreteWavelet
 from . import _build
 from .modwt_cuda import (
-    _I, _P, DTYPE_CODES, TilePlan, _compute_dtype, check_grid,
-    check_operand, halo, kernel_supported, kernel_taps, smem_bytes, tickets,
-    tile_of, tile_plan,
+    _I, _P, DTYPE_CODES, TilePlan, _compute_dtype, check_grid, check_operand,
+    check_taps, halo, host_taps, kernel_supported, op_taps, smem_bytes,
+    tickets, tile_of, tile_plan, kernel_op,
 )
 
 __all__ = [
     "modwpt_fused", "imodwpt_fused", "modwpt_select_fused",
     "select_fused_supported", "modwpt_fwd_cuda", "modwpt_inv_cuda",
     "modwpt_select_cuda", "modwpt_fwd_plain", "modwpt_inv_plain",
-    "modwpt_select_plain", "select_plan",
+    "modwpt_select_plain", "select_plan", "modwpt_fwd_op", "modwpt_inv_op",
+    "modwpt_select_op",
 ]
 
 
@@ -115,28 +117,35 @@ def _lib():
     return lib
 
 
-def _require(n: int, level: int, wavelet: DiscreteWavelet, kind: str,
-             shape, what: str) -> None:
-    if not kernel_supported(n, level, wavelet.length, kind):
+def _require(n: int, level: int, m: int, kind: str, shape,
+             what: str) -> None:
+    if not kernel_supported(n, level, m, kind):
         raise ValueError(f"unsupported shape {tuple(shape)} level {level} "
                          f"for the {what} kernel")
 
 
-def modwpt_fwd_cuda(x: torch.Tensor, wavelet: DiscreteWavelet,
-                    level: int) -> torch.Tensor:
-    """Launch the forward kernel: x (B, N) → (2^level, B, N), x's dtype."""
-    check_operand(x, "x", 2)
+def _check_pfwd(x: torch.Tensor, g, h, level: int, kind: str,
+                what: str, traced: bool = True) -> None:
+    check_operand(x, "x", 2, traced)
+    _require(x.shape[1], level, check_taps(g, h), kind, x.shape, what)
+
+
+@kernel_op("modwpt_fwd")
+def modwpt_fwd_op(x: torch.Tensor, g: list[float], h: list[float],
+                  level: int) -> torch.Tensor:
+    """The forward kernel's launch as an operator (``torch.ops.jwave.
+    modwpt_fwd``): x (B, N) → (2^level, B, N), x's dtype."""
+    _check_pfwd(x, g, h, level, "pfwd", "MODWPT forward", traced=False)
     b, n = x.shape
-    m = wavelet.length
-    _require(n, level, wavelet, "pfwd", x.shape, "MODWPT forward")
+    m = len(g)
     tile = tile_of("pfwd", level, m)
     check_grid(b, n, "pfwd", tile)
     out = torch.empty((1 << level, b, n), dtype=x.dtype, device=x.device)
-    g, h = kernel_taps(wavelet)
+    gh, hh = host_taps(g, h)
     lib = _lib()
     code = lib.jw_modwpt_fwd(
-        x.data_ptr(), out.data_ptr(), b, n, level, g.ctypes.data,
-        h.ctypes.data, m, tile, halo(m, level),
+        x.data_ptr(), out.data_ptr(), b, n, level, gh.ctypes.data,
+        hh.ctypes.data, m, tile, halo(m, level),
         smem_bytes(level, m, "pfwd"), DTYPE_CODES[x.dtype], x.device.index,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, code, "MODWPT forward kernel")
@@ -144,32 +153,67 @@ def modwpt_fwd_cuda(x: torch.Tensor, wavelet: DiscreteWavelet,
     return out
 
 
+@modwpt_fwd_op.register_fake
+def _(x, g, h, level):
+    _check_pfwd(x, g, h, level, "pfwd", "MODWPT forward")
+    return x.new_empty((1 << level,) + tuple(x.shape))
+
+
+def modwpt_fwd_cuda(x: torch.Tensor, wavelet: DiscreteWavelet,
+                    level: int) -> torch.Tensor:
+    """Launch the forward kernel as ``jwave::modwpt_fwd``: x (B, N) →
+    (2^level, B, N), x's dtype."""
+    return modwpt_fwd_op(x, *op_taps(wavelet), level)
+
+
 modwpt_fwd_cuda.launches = 0
 
 
-def modwpt_inv_cuda(c: torch.Tensor, wavelet: DiscreteWavelet
-                    ) -> torch.Tensor:
-    """Launch the inverse kernel: c (2^level, B, N) → (B, N), c's dtype."""
-    check_operand(c, "coeffs", 3)
-    nodes, b, n = c.shape
+def _check_pinv(c: torch.Tensor, g, h, traced: bool = True) -> int:
+    check_operand(c, "coeffs", 3, traced)
+    nodes, n = c.shape[0], c.shape[2]
     if nodes < 2 or nodes & (nodes - 1):
         raise ValueError(f"coeffs: leading axis must be 2^level ≥ 2 packet "
                          f"nodes, got {nodes}")
-    level, m = nodes.bit_length() - 1, wavelet.length
-    _require(n, level, wavelet, "pinv", c.shape, "MODWPT inverse")
+    level = nodes.bit_length() - 1
+    _require(n, level, check_taps(g, h), "pinv", c.shape, "MODWPT inverse")
+    return level
+
+
+@kernel_op("modwpt_inv")
+def modwpt_inv_op(c: torch.Tensor, g: list[float], h: list[float]
+                  ) -> torch.Tensor:
+    """The inverse kernel's launch as an operator (``torch.ops.jwave.
+    modwpt_inv``): c (2^level, B, N) → (B, N), c's dtype."""
+    level = _check_pinv(c, g, h, traced=False)
+    _, b, n = c.shape
+    m = len(g)
     tile = tile_of("pinv", level, m)
     check_grid(b, n, "pinv", tile)
     out = torch.empty((b, n), dtype=c.dtype, device=c.device)
-    g, h = kernel_taps(wavelet)
+    gh, hh = host_taps(g, h)
     lib = _lib()
     code = lib.jw_modwpt_inv(
-        c.data_ptr(), out.data_ptr(), b, n, level, g.ctypes.data,
-        h.ctypes.data, m, tile, halo(m, level),
+        c.data_ptr(), out.data_ptr(), b, n, level, gh.ctypes.data,
+        hh.ctypes.data, m, tile, halo(m, level),
         smem_bytes(level, m, "pinv"), DTYPE_CODES[c.dtype], c.device.index,
         torch.cuda.current_stream(c.device).cuda_stream)
     _build.check(lib, code, "MODWPT inverse kernel")
     modwpt_inv_cuda.launches += 1
     return out
+
+
+@modwpt_inv_op.register_fake
+def _(c, g, h):
+    _check_pinv(c, g, h)
+    return c.new_empty(tuple(c.shape[1:]))
+
+
+def modwpt_inv_cuda(c: torch.Tensor, wavelet: DiscreteWavelet
+                    ) -> torch.Tensor:
+    """Launch the inverse kernel as ``jwave::modwpt_inv``: c (2^level,
+    B, N) → (B, N), c's dtype."""
+    return modwpt_inv_op(c, *op_taps(wavelet))
 
 
 modwpt_inv_cuda.launches = 0
@@ -180,14 +224,17 @@ def select_plan(batch: int, n: int, level: int, m: int) -> TilePlan:
     return tile_plan("select", batch, n, level, m)
 
 
-def modwpt_select_cuda(x: torch.Tensor, wavelet: DiscreteWavelet,
-                       level: int):
-    """Launch the select kernel: x (B, N) → ``(absmax, shift, value)``,
-    each (2^level, B): float32, int32, float32.  One launch and nothing
-    else on the stream."""
-    check_operand(x, "x", 2)
+@kernel_op("modwpt_select")
+def modwpt_select_op(x: torch.Tensor, g: list[float], h: list[float],
+                     level: int) -> torch.Tensor:
+    """The select kernel's launch as an operator (``torch.ops.jwave.
+    modwpt_select``): x (B, N) → (3, 2^level, B) float32, the rows |w|,
+    the position's int32 bits and w.  The tile plan, the tiles' keys and
+    the ticket buffer are taken here, from the concrete batch; one launch
+    and nothing else on the stream."""
+    _check_pfwd(x, g, h, level, "select", "MODWPT select", traced=False)
     b, n = x.shape
-    m = wavelet.length
+    m = len(g)
     plan = select_plan(b, n, level, m)
     nodes = 1 << level
     # each tile's best per leaf as a 64-bit key; the rows' (|w|, position
@@ -195,16 +242,31 @@ def modwpt_select_cuda(x: torch.Tensor, wavelet: DiscreteWavelet,
     partial = torch.empty((nodes, b, plan.ntiles), dtype=torch.int64,
                           device=x.device)
     out = torch.empty((3, nodes, b), dtype=torch.float32, device=x.device)
-    g, h = kernel_taps(wavelet)
+    gh, hh = host_taps(g, h)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     lib = _lib()
     code = lib.jw_modwpt_select(
         x.data_ptr(), partial.data_ptr(), tickets(x.device, stream, b),
-        out.data_ptr(), b, n, level, g.ctypes.data, h.ctypes.data, m,
+        out.data_ptr(), b, n, level, gh.ctypes.data, hh.ctypes.data, m,
         plan.tile, plan.smem, DTYPE_CODES[x.dtype], x.device.index, stream)
     _build.check(lib, code, "MODWPT select kernel")
     modwpt_select_cuda.launches += 1
-    absmax, shift, value = out.unbind(0)
+    return out
+
+
+@modwpt_select_op.register_fake
+def _(x, g, h, level):
+    _check_pfwd(x, g, h, level, "select", "MODWPT select")
+    return x.new_empty((3, 1 << level, x.shape[0]), dtype=torch.float32)
+
+
+def modwpt_select_cuda(x: torch.Tensor, wavelet: DiscreteWavelet,
+                       level: int):
+    """Launch the select kernel as ``jwave::modwpt_select``: x (B, N) →
+    ``(absmax, shift, value)``, each (2^level, B): float32, int32,
+    float32."""
+    absmax, shift, value = modwpt_select_op(
+        x, *op_taps(wavelet), level).unbind(0)
     return absmax, shift.view(torch.int32), value
 
 
@@ -232,7 +294,7 @@ def modwpt_select_fused(x: torch.Tensor, wavelet: DiscreteWavelet,
         raise ValueError(f"fused select takes (B, N), got {tuple(x.shape)}")
     n = x.shape[-1]
     _check_level(n, level)
-    _require(n, level, wavelet, "select", x.shape, "fused select")
+    _require(n, level, wavelet.length, "select", x.shape, "fused select")
     if x.is_cuda:
         return modwpt_select_cuda(x.contiguous(), wavelet, level)
     if x.device.type != "cpu":
@@ -247,7 +309,7 @@ def _modwpt_fused_impl(x: torch.Tensor, wavelet: DiscreteWavelet,
                          f"{tuple(x.shape)}")
     n = x.shape[-1]
     _check_level(n, level)
-    _require(n, level, wavelet, "pfwd", x.shape, "fused MODWPT")
+    _require(n, level, wavelet.length, "pfwd", x.shape, "fused MODWPT")
     if x.is_cuda:
         out = modwpt_fwd_cuda(x.contiguous().reshape(-1, n), wavelet, level)
         return out.reshape((1 << level,) + tuple(x.shape))
@@ -265,7 +327,7 @@ def _imodwpt_fused_impl(c: torch.Tensor, wavelet: DiscreteWavelet
     if nodes < 2 or nodes & (nodes - 1):
         raise ValueError(f"leading axis must be 2^level ≥ 2 packet nodes, "
                          f"got {nodes}")
-    _require(n, nodes.bit_length() - 1, wavelet, "pinv", c.shape,
+    _require(n, nodes.bit_length() - 1, wavelet.length, "pinv", c.shape,
              "fused iMODWPT")
     if c.is_cuda:
         out = modwpt_inv_cuda(c.contiguous().reshape(nodes, -1, n), wavelet)

@@ -36,10 +36,12 @@ L4, Symlet 8 to L3, Haar to L7), the denoise every (M, L) whose strip has
 
 Beside each kernel: its plain PyTorch version (``modwt2_fwd_plain``,
 ``modwt2_inv_plain``, ``modwt2_denoise_plain``) and a launch counter
-(``<launcher>.launches``).  bfloat16 is read and written as bfloat16 and
-computed in float32.  Not differentiable: the JAX kernels have no VJP, and
-the dispatch gate (``ops/modwt2d.py:_try_kernel2``) sends a tensor that
-requires a gradient to the plain path.
+(``<launcher>.launches``).  Each launch is an operator
+(``jwave::modwt2_fwd``, ``jwave::modwt2_inv``, ``jwave::modwt2_denoise``)
+that plans its grid from the concrete batch.  bfloat16 is read and written as
+bfloat16 and computed in float32.  Not differentiable: the JAX kernels have
+no VJP, and the dispatch gate (``ops/modwt2d.py:_try_kernel2``) sends a
+tensor that requires a gradient to the plain path.
 """
 from __future__ import annotations
 
@@ -53,15 +55,16 @@ from ..ops.modwt2d import _check_nd, _imodwt2_direct, _modwt2_direct
 from ..wavelets.base import DiscreteWavelet
 from . import _build
 from .modwt_cuda import (
-    _I, _P, DTYPE_CODES, MAX_TAPS, SMEM_LIMIT, _compute_dtype,
-    check_operand, halo, kernel_taps,
+    _I, _P, DTYPE_CODES, MAX_TAPS, SMEM_LIMIT, _compute_dtype, check_operand,
+    check_taps, halo, host_taps, op_taps, kernel_op,
 )
 
 __all__ = [
     "modwt2_fused", "imodwt2_fused", "modwt2_denoise_fused",
     "kernel2d_supported", "modwt2_fwd_cuda", "modwt2_inv_cuda",
     "modwt2_denoise_cuda", "modwt2_fwd_plain", "modwt2_inv_plain",
-    "modwt2_denoise_plain",
+    "modwt2_denoise_plain", "modwt2_fwd_op", "modwt2_inv_op",
+    "modwt2_denoise_op",
 ]
 
 TILE2D_MIN = 8      # narrowest strip of output columns
@@ -287,73 +290,129 @@ def transform2_launch_plan(shape, level: int, m: int, kind: str,
     return w, grp, tc, run, min(b * -(-r // run) * -(-c // tc), blocks)
 
 
+def _check_transform(kind: str, a: torch.Tensor, shape: tuple, level: int,
+                     g, h) -> None:
+    what = "2D forward" if kind == "fwd" else "2D inverse"
+    if not kernel2d_supported(shape[1], shape[2], level, check_taps(g, h),
+                              kind):
+        raise ValueError(f"unsupported shape {tuple(shape)} level {level} "
+                         f"for the {what} kernel")
+
+
 def _launch_transform(kind: str, a: torch.Tensor, shape: tuple, level: int,
-                      wavelet: DiscreteWavelet) -> torch.Tensor:
+                      g, h) -> torch.Tensor:
     """Launch the forward or inverse kernel on ``a`` over (B, R, C) images
     of ``shape``; returns its new output."""
-    m = wavelet.length
+    m = len(g)
     what = "2D forward" if kind == "fwd" else "2D inverse"
-    if not kernel2d_supported(shape[1], shape[2], level, m, kind):
-        raise ValueError(f"unsupported shape {shape} level {level} for the "
-                         f"{what} kernel")
     w, grp, tc, run, grid = transform2_launch_plan(shape, level, m, kind,
                                                    a.dtype, a.device)
     out = torch.empty((3 * level + 1,) + shape if kind == "fwd" else shape,
                       dtype=a.dtype, device=a.device)
-    g, h = kernel_taps(wavelet)
+    gh, hh = host_taps(g, h)
     lib = _lib()
     launch = lib.jw_modwt2_fwd if kind == "fwd" else lib.jw_modwt2_inv
     code = launch(a.data_ptr(), out.data_ptr(), grid, *shape, level,
-                  g.ctypes.data, h.ctypes.data, m, w, grp, tc, run,
+                  gh.ctypes.data, hh.ctypes.data, m, w, grp, tc, run,
                   DTYPE_CODES[a.dtype], a.device.index,
                   torch.cuda.current_stream(a.device).cuda_stream)
     _build.check(lib, code, f"{what} kernel")
     return out
 
 
-def modwt2_fwd_cuda(x: torch.Tensor, wavelet: DiscreteWavelet,
-                    level: int) -> torch.Tensor:
-    """Launch the forward kernel: x (B, R, C) → (3·level+1, B, R, C)."""
+@kernel_op("modwt2_fwd")
+def modwt2_fwd_op(x: torch.Tensor, g: list[float], h: list[float],
+                  level: int) -> torch.Tensor:
+    """The forward kernel's launch as an operator (``torch.ops.jwave.
+    modwt2_fwd``): x (B, R, C) → (3·level+1, B, R, C).  The launch plan
+    (grid, strips, row runs) is made here, from the concrete batch."""
     check_operand(x, "x", 3)
-    out = _launch_transform("fwd", x, tuple(x.shape), level, wavelet)
+    _check_transform("fwd", x, tuple(x.shape), level, g, h)
+    out = _launch_transform("fwd", x, tuple(x.shape), level, g, h)
     modwt2_fwd_cuda.launches += 1
     return out
+
+
+@modwt2_fwd_op.register_fake
+def _(x, g, h, level):
+    check_operand(x, "x", 3, traced=True)
+    _check_transform("fwd", x, tuple(x.shape), level, g, h)
+    return x.new_empty((3 * level + 1,) + tuple(x.shape))
+
+
+def modwt2_fwd_cuda(x: torch.Tensor, wavelet: DiscreteWavelet,
+                    level: int) -> torch.Tensor:
+    """Launch the forward kernel as ``jwave::modwt2_fwd``: x (B, R, C)
+    → (3·level+1, B, R, C)."""
+    return modwt2_fwd_op(x, *op_taps(wavelet), level)
 
 
 modwt2_fwd_cuda.launches = 0
 
 
-def modwt2_inv_cuda(c: torch.Tensor, wavelet: DiscreteWavelet
-                    ) -> torch.Tensor:
-    """Launch the inverse kernel: c (3·level+1, B, R, C) → (B, R, C)."""
-    check_operand(c, "coeffs", 4)
-    rows, b, r, cols = c.shape
+def _check_inv2(c: torch.Tensor, g, h, traced: bool) -> int:
+    check_operand(c, "coeffs", 4, traced)
+    rows = c.shape[0]
     if rows % 3 != 1:
         raise ValueError(f"coeffs: need 3·level+1 bands, got {rows}")
-    out = _launch_transform("inv", c, (b, r, cols), (rows - 1) // 3, wavelet)
+    level = (rows - 1) // 3
+    _check_transform("inv", c, tuple(c.shape[1:]), level, g, h)
+    return level
+
+
+@kernel_op("modwt2_inv")
+def modwt2_inv_op(c: torch.Tensor, g: list[float], h: list[float]
+                  ) -> torch.Tensor:
+    """The inverse kernel's launch as an operator (``torch.ops.jwave.
+    modwt2_inv``): c (3·level+1, B, R, C) → (B, R, C)."""
+    level = _check_inv2(c, g, h, False)
+    out = _launch_transform("inv", c, tuple(c.shape[1:]), level, g, h)
     modwt2_inv_cuda.launches += 1
     return out
+
+
+@modwt2_inv_op.register_fake
+def _(c, g, h):
+    _check_inv2(c, g, h, True)
+    return c.new_empty(tuple(c.shape[1:]))
+
+
+def modwt2_inv_cuda(c: torch.Tensor, wavelet: DiscreteWavelet
+                    ) -> torch.Tensor:
+    """Launch the inverse kernel as ``jwave::modwt2_inv``: c
+    (3·level+1, B, R, C) → (B, R, C)."""
+    return modwt2_inv_op(c, *op_taps(wavelet))
 
 
 modwt2_inv_cuda.launches = 0
 
 
-def modwt2_denoise_cuda(x: torch.Tensor, threshold: torch.Tensor,
-                        wavelet: DiscreteWavelet, level: int,
-                        mode: str = "soft") -> torch.Tensor:
-    """Launch the denoise kernel: x (B, R, C), threshold (B,) float32 →
-    (B, R, C).  Allocates the blocks' delay rings."""
-    check_operand(x, "x", 3)
-    b, r, c = x.shape
-    m = wavelet.length
-    if (threshold.dtype != torch.float32 or threshold.shape != (b,)
-            or threshold.device != x.device
-            or not threshold.is_contiguous()):
+def _check_denoise2(x: torch.Tensor, threshold: torch.Tensor, g, h,
+                    level: int, traced: bool) -> None:
+    check_operand(x, "x", 3, traced)
+    if (threshold.dtype != torch.float32 or threshold.ndim != 1
+            or not traced and (threshold.shape[0] != x.shape[0]
+                               or threshold.device != x.device
+                               or not threshold.is_contiguous())):
         raise ValueError("threshold: kernel needs a contiguous (B,) float32 "
                          "tensor on x's device")
-    if not kernel2d_supported(r, c, level, m, "denoise"):
+    if not kernel2d_supported(x.shape[1], x.shape[2], level,
+                              check_taps(g, h), "denoise"):
         raise ValueError(f"unsupported shape {tuple(x.shape)} level {level} "
                          f"for the 2D denoise kernel")
+
+
+@kernel_op("modwt2_denoise")
+def modwt2_denoise_op(x: torch.Tensor, threshold: torch.Tensor,
+                      g: list[float], h: list[float], level: int,
+                      hard: int) -> torch.Tensor:
+    """The denoise kernel's launch as an operator (``torch.ops.jwave.
+    modwt2_denoise``): x (B, R, C), threshold (B,) float32 → (B, R, C);
+    ``hard`` 1 for hard shrinkage, 0 for soft.  The launch plan and the
+    blocks' delay rings are taken here, from the concrete batch."""
+    _check_denoise2(x, threshold, g, h, level, False)
+    b, r, c = x.shape
+    m = len(g)
     w, grp, tc = denoise2_plan(level, m)
     dtype = DTYPE_CODES[x.dtype]
     blocks = _resident_blocks("denoise", denoise2_smem_bytes(w, grp, level, m),
@@ -364,16 +423,31 @@ def modwt2_denoise_cuda(x: torch.Tensor, threshold: torch.Tensor,
         (grid, max(1, denoise2_delay_rows(grp, level, m)), w),
         dtype=torch.float32, device=x.device)
     out = torch.empty_like(x)
-    g, h = kernel_taps(wavelet)
+    gh, hh = host_taps(g, h)
     lib = _lib()
     code = lib.jw_modwt2_denoise(
         x.data_ptr(), threshold.data_ptr(), out.data_ptr(),
-        scratch.data_ptr(), grid, b, r, c, level, g.ctypes.data,
-        h.ctypes.data, m, w, grp, tc, run, int(mode != "soft"), dtype,
+        scratch.data_ptr(), grid, b, r, c, level, gh.ctypes.data,
+        hh.ctypes.data, m, w, grp, tc, run, int(hard), dtype,
         x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, code, "2D denoise kernel")
     modwt2_denoise_cuda.launches += 1
     return out
+
+
+@modwt2_denoise_op.register_fake
+def _(x, threshold, g, h, level, hard):
+    _check_denoise2(x, threshold, g, h, level, True)
+    return torch.empty_like(x)
+
+
+def modwt2_denoise_cuda(x: torch.Tensor, threshold: torch.Tensor,
+                        wavelet: DiscreteWavelet, level: int,
+                        mode: str = "soft") -> torch.Tensor:
+    """Launch the denoise kernel as ``jwave::modwt2_denoise``: x
+    (B, R, C), threshold (B,) float32 → (B, R, C)."""
+    return modwt2_denoise_op(x, threshold, *op_taps(wavelet), level,
+                             int(mode != "soft"))
 
 
 modwt2_denoise_cuda.launches = 0

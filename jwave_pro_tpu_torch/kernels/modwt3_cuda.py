@@ -41,7 +41,9 @@ take the plain path under ``method='auto'`` and raise under ``'pallas'``.
 
 Beside each kernel: its plain PyTorch version (``modwt3_fwd_plain``,
 ``modwt3_inv_plain``) and a launch counter (``<launcher>.launches``, one a
-call).  bfloat16 is read and written as bfloat16 and computed in float32
+call).  Each call is an operator (``jwave::modwt3_fwd``,
+``jwave::modwt3_inv``) that plans its depth runs from the concrete batch.
+bfloat16 is read and written as bfloat16 and computed in float32
 (the scratch stays float32).  Not differentiable: the JAX kernels have no
 VJP, and the dispatch gate (``ops/modwt2d.py:_try_kernel3``) sends a tensor
 that requires a gradient to the plain path.
@@ -59,15 +61,16 @@ from ..wavelets.base import DiscreteWavelet
 from . import _build
 from .modwt2_cuda import _check_device
 from .modwt_cuda import (
-    _I, _P, DTYPE_CODES, MAX_TAPS, SMEM_LIMIT, _compute_dtype,
-    check_operand, kernel_taps,
+    _I, _P, DTYPE_CODES, MAX_TAPS, SMEM_LIMIT, _compute_dtype, check_operand,
+    check_taps, host_taps, op_taps, kernel_op,
 )
 
 __all__ = [
     "modwt3_fused", "imodwt3_fused", "kernel3d_supported", "fwd3_rows",
     "fwd3_smem_bytes", "inv3_fits", "depth_run", "fwd3_depth_run",
     "inv3_depth_run", "modwt3_fwd_cuda", "modwt3_inv_cuda",
-    "modwt3_fwd_plain", "modwt3_inv_plain",
+    "modwt3_fwd_plain", "modwt3_inv_plain", "modwt3_fwd_op",
+    "modwt3_inv_op",
 ]
 
 MAX_LEVELS3 = 8
@@ -219,29 +222,36 @@ def _scratch(src: torch.Tensor, shape, level: int) -> torch.Tensor:
                        dtype=torch.float32, device=src.device)
 
 
-def modwt3_fwd_cuda(x: torch.Tensor, wavelet: DiscreteWavelet,
-                    level: int) -> torch.Tensor:
-    """Launch the forward kernel, one launch per level in stream order
-    (counted once a call): x (B, D, R, C) → (7·level+1, B, D, R, C)."""
-    check_operand(x, "x", 4)
-    b, d, r, c = x.shape
-    m = wavelet.length
-    if not kernel3d_supported(d, r, c, level, m, "fwd"):
+def _check_fwd3(x: torch.Tensor, g, h, level: int, traced: bool) -> None:
+    check_operand(x, "x", 4, traced)
+    if not kernel3d_supported(*x.shape[1:], level, check_taps(g, h), "fwd"):
         raise ValueError(f"unsupported shape {tuple(x.shape)} level {level} "
                          f"for the 3D forward kernel")
+
+
+@kernel_op("modwt3_fwd")
+def modwt3_fwd_op(x: torch.Tensor, g: list[float], h: list[float],
+                  level: int) -> torch.Tensor:
+    """The forward kernel's launches as an operator (``torch.ops.jwave.
+    modwt3_fwd``), one launch per level in stream order (counted once a
+    call): x (B, D, R, C) → (7·level+1, B, D, R, C).  The depth runs and
+    the scratch are taken here, from the concrete batch."""
+    _check_fwd3(x, g, h, level, False)
+    b, d, r, c = x.shape
+    m = len(g)
     out = torch.empty((7 * level + 1,) + tuple(x.shape), dtype=x.dtype,
                       device=x.device)
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     halos = [level_halo(m, j) for j in range(1, level + 1)]
-    tr = np.array([fwd3_rows(h, m) for h in halos], dtype=np.int32)
-    dc = np.array([fwd3_depth_run(b, d, r, c, h, m, sms) for h in halos],
+    tr = np.array([fwd3_rows(hl, m) for hl in halos], dtype=np.int32)
+    dc = np.array([fwd3_depth_run(b, d, r, c, hl, m, sms) for hl in halos],
                   dtype=np.int32)
     scratch = _scratch(x, x.shape, level)
-    g, h = kernel_taps(wavelet)
+    gh, hh = host_taps(g, h)
     lib = _lib()
     code = lib.jw_modwt3_fwd(
         x.data_ptr(), out.data_ptr(), scratch.data_ptr(), b, d, r, c,
-        level, g.ctypes.data, h.ctypes.data, m, tr.ctypes.data,
+        level, gh.ctypes.data, hh.ctypes.data, m, tr.ctypes.data,
         dc.ctypes.data, DTYPE_CODES[x.dtype], x.device.index,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, code, "3D forward kernel")
@@ -249,37 +259,70 @@ def modwt3_fwd_cuda(x: torch.Tensor, wavelet: DiscreteWavelet,
     return out
 
 
+@modwt3_fwd_op.register_fake
+def _(x, g, h, level):
+    _check_fwd3(x, g, h, level, True)
+    return x.new_empty((7 * level + 1,) + tuple(x.shape))
+
+
+def modwt3_fwd_cuda(x: torch.Tensor, wavelet: DiscreteWavelet,
+                    level: int) -> torch.Tensor:
+    """Launch the forward kernel as ``jwave::modwt3_fwd``: x
+    (B, D, R, C) → (7·level+1, B, D, R, C)."""
+    return modwt3_fwd_op(x, *op_taps(wavelet), level)
+
+
 modwt3_fwd_cuda.launches = 0
 
 
-def modwt3_inv_cuda(c: torch.Tensor, wavelet: DiscreteWavelet
-                    ) -> torch.Tensor:
-    """Launch the inverse kernel, one launch per level in stream order
-    (counted once a call): c (7·level+1, B, D, R, C) → (B, D, R, C)."""
-    check_operand(c, "coeffs", 5)
+def _check_inv3(c: torch.Tensor, g, h, traced: bool) -> int:
+    check_operand(c, "coeffs", 5, traced)
     if c.shape[0] % 7 != 1:
         raise ValueError(f"coeffs: need 7·level+1 bands, got {c.shape[0]}")
     level = (c.shape[0] - 1) // 7
-    b, d, r, cols = c.shape[1:]
-    m = wavelet.length
-    if not kernel3d_supported(d, r, cols, level, m, "inv"):
+    if not kernel3d_supported(*c.shape[2:], level, check_taps(g, h), "inv"):
         raise ValueError(f"unsupported shape {tuple(c.shape[1:])} level "
                          f"{level} for the 3D inverse kernel")
+    return level
+
+
+@kernel_op("modwt3_inv")
+def modwt3_inv_op(c: torch.Tensor, g: list[float], h: list[float]
+                  ) -> torch.Tensor:
+    """The inverse kernel's launches as an operator (``torch.ops.jwave.
+    modwt3_inv``), one launch per level in stream order (counted once a
+    call): c (7·level+1, B, D, R, C) → (B, D, R, C)."""
+    level = _check_inv3(c, g, h, False)
+    b, d, r, cols = c.shape[1:]
+    m = len(g)
     out = torch.empty(tuple(c.shape[1:]), dtype=c.dtype, device=c.device)
     sms = torch.cuda.get_device_properties(c.device).multi_processor_count
     dc = np.array([inv3_depth_run(b, d, r, cols, level_halo(m, j), m, sms)
                    for j in range(1, level + 1)], dtype=np.int32)
     scratch = _scratch(c, c.shape[1:], level)
-    g, h = kernel_taps(wavelet)
+    gh, hh = host_taps(g, h)
     lib = _lib()
     code = lib.jw_modwt3_inv(
         c.data_ptr(), out.data_ptr(), scratch.data_ptr(), b, d, r, cols,
-        level, g.ctypes.data, h.ctypes.data, m, dc.ctypes.data,
+        level, gh.ctypes.data, hh.ctypes.data, m, dc.ctypes.data,
         DTYPE_CODES[c.dtype], c.device.index,
         torch.cuda.current_stream(c.device).cuda_stream)
     _build.check(lib, code, "3D inverse kernel")
     modwt3_inv_cuda.launches += 1
     return out
+
+
+@modwt3_inv_op.register_fake
+def _(c, g, h):
+    _check_inv3(c, g, h, True)
+    return c.new_empty(tuple(c.shape[1:]))
+
+
+def modwt3_inv_cuda(c: torch.Tensor, wavelet: DiscreteWavelet
+                    ) -> torch.Tensor:
+    """Launch the inverse kernel as ``jwave::modwt3_inv``: c
+    (7·level+1, B, D, R, C) → (B, D, R, C)."""
+    return modwt3_inv_op(c, *op_taps(wavelet))
 
 
 modwt3_inv_cuda.launches = 0

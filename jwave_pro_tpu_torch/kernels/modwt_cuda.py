@@ -23,11 +23,15 @@ level's W row in flight while a level runs.
 Beside each kernel: its plain PyTorch version (``modwt_fwd_plain``,
 ``modwt_inv_plain``), which the CPU path runs and the chip smoke compares
 against, and a launch counter (``modwt_fwd_cuda.launches``,
-``modwt_inv_cuda.launches``).  bfloat16 tensors are read and written as
-bfloat16 and computed in float32, in the kernels and their plain versions
-alike.  The autograd pair (:func:`modwt_fused`, :func:`imodwt_fused`) rests
-on Aᵀ = A⁻¹ for the analysis operator A: each direction's backward is the
-other kernel.
+``modwt_inv_cuda.launches``).  Each launch is a ``torch.library`` operator
+(``jwave::modwt_fwd``, ``jwave::modwt_inv``) whose taps travel as float
+lists (:func:`op_taps`) and whose grid is planned at launch, so a
+batch-polymorphic ``torch.export`` records the launch and the served graph
+runs the kernel; its fake gives the output's shape.  bfloat16 tensors are
+read and written as bfloat16 and computed in float32, in the kernels and
+their plain versions alike.  The autograd pair (:func:`modwt_fused`,
+:func:`imodwt_fused`) rests on Aᵀ = A⁻¹ for the analysis operator A: each
+direction's backward is the other kernel.
 """
 from __future__ import annotations
 
@@ -42,12 +46,14 @@ from ..ops.modwt import (
     _check_level, _combined_adjoint, _conv_channels, modwt_base_filters,
     taps_as,
 )
+from ..utils.device import tracing
 from ..wavelets.base import DiscreteWavelet
 from . import _build
 
 __all__ = [
     "modwt_fused", "imodwt_fused", "kernel_supported",
     "modwt_fwd_cuda", "modwt_inv_cuda", "modwt_fwd_plain", "modwt_inv_plain",
+    "modwt_fwd_op", "modwt_inv_op", "op_taps", "kernel_op",
 ]
 
 MAX_TAPS = 64                 # JW_MAX_TAPS in csrc/common.cuh
@@ -219,15 +225,19 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def check_operand(t: torch.Tensor, name: str, ndim: int) -> None:
-    """Raise unless ``t`` is what the kernels take."""
-    if not t.is_cuda:
+def check_operand(t: torch.Tensor, name: str, ndim: int,
+                  traced: bool = False) -> None:
+    """Raise unless ``t`` is what the kernels take.  ``traced``: the check
+    an operator's fake makes, on a traced or ``meta`` tensor, leaves out
+    the device and the strides (which may be symbolic there); the launch
+    checks both on the concrete tensor."""
+    if not (traced or t.is_cuda):
         raise ValueError(f"{name}: kernel needs a CUDA tensor, got {t.device}")
     if t.dtype not in DTYPE_CODES:
         raise ValueError(f"{name}: kernel takes float32/bfloat16, got {t.dtype}")
     if t.ndim != ndim:
         raise ValueError(f"{name}: expected {ndim} dims, got {tuple(t.shape)}")
-    if not t.is_contiguous():
+    if not (traced or t.is_contiguous()):
         raise ValueError(f"{name}: kernel needs a contiguous tensor")
 
 
@@ -284,23 +294,98 @@ def tickets(device: torch.device, stream: int, rows: int) -> int:
     return buf.data_ptr()
 
 
-def modwt_fwd_cuda(x: torch.Tensor, wavelet: DiscreteWavelet,
-                   level: int) -> torch.Tensor:
-    """Launch the forward kernel: x (B, N) → (level+1, B, N), x's dtype."""
-    check_operand(x, "x", 2)
-    b, n = x.shape
-    m = wavelet.length
-    if not kernel_supported(n, level, m, "fwd"):
+@functools.lru_cache(maxsize=64)
+def _op_taps(wavelet: DiscreteWavelet) -> tuple:
+    return tuple(tuple(f.tolist()) for f in kernel_taps(wavelet))
+
+
+def op_taps(wavelet: DiscreteWavelet) -> tuple[list[float], list[float]]:
+    """(g̃, h̃) as the kernel operators take them: the float32 taps of
+    :func:`kernel_taps` as lists of Python floats (each exact), so an
+    exported graph carries them as constants and a wavelet built from
+    custom taps exports too."""
+    return tuple(list(f) for f in _op_taps(wavelet))
+
+
+@functools.lru_cache(maxsize=64)
+def _host_taps(g: tuple, h: tuple):
+    return tuple(np.ascontiguousarray(f, dtype=np.float32) for f in (g, h))
+
+
+def host_taps(g, h):
+    """The operators' tap lists back as the contiguous float32 host arrays
+    the C entry points read (cached)."""
+    return _host_taps(tuple(g), tuple(h))
+
+
+def check_taps(g, h) -> int:
+    """Raise unless (g, h) is a filter pair the kernels take; its length."""
+    if len(g) != len(h) or not 1 <= len(g) <= MAX_TAPS:
+        raise ValueError(f"taps: need two filters of equal length in "
+                         f"[1, {MAX_TAPS}], got {len(g)} and {len(h)}")
+    return len(g)
+
+
+# The launchers' operators.  Each is defined on this library with its
+# launch as the one kernel for CPU and CUDA tensors (a CPU tensor raises in
+# the launch) and a fake.  The dispatcher's host time (a sixth of a
+# ``torch.library.custom_op``'s, ``probes/op_dispatch_probe.py``) is paid
+# only where a graph needs the operator: while torch traces, and in a
+# served graph.
+_OPS = torch.library.Library("jwave", "FRAGMENT")
+
+
+def kernel_op(name: str):
+    """Decorator: define the operator ``jwave::<name>``, its schema the
+    decorated launch's signature, with the launch as its kernel; return
+    the launchers' entry to it.  The entry calls the operator while torch
+    traces, so the trace records one node that launches the kernel when
+    served, and the launch itself otherwise: the same kernel, without the
+    dispatcher's host time on every eager launch.  It has
+    ``register_fake``, the decorator that sets the operator's fake (what
+    ``meta`` tensors and ``torch.export`` run)."""
+    def define(launch):
+        _OPS.define(name + torch.library.infer_schema(launch,
+                                                      mutates_args=()))
+        for key in ("CPU", "CUDA"):
+            _OPS.impl(name, launch, key)
+        op = getattr(torch.ops.jwave, name).default
+
+        @functools.wraps(launch)
+        def call(*args):
+            return op(*args) if tracing() else launch(*args)
+
+        call.register_fake = torch.library.register_fake(
+            f"jwave::{name}", lib=_OPS)
+        return call
+    return define
+
+
+def _check_fwd(x: torch.Tensor, g, h, level: int,
+               traced: bool = True) -> None:
+    check_operand(x, "x", 2, traced)
+    if not kernel_supported(x.shape[1], level, check_taps(g, h), "fwd"):
         raise ValueError(f"unsupported shape {tuple(x.shape)} level {level} "
                          f"for the MODWT forward kernel")
+
+
+@kernel_op("modwt_fwd")
+def modwt_fwd_op(x: torch.Tensor, g: list[float], h: list[float],
+                 level: int) -> torch.Tensor:
+    """The forward kernel's launch as an operator (``torch.ops.jwave.
+    modwt_fwd``): x (B, N) → (level+1, B, N), x's dtype.  The grid is
+    planned here, from the concrete batch."""
+    _check_fwd(x, g, h, level, traced=False)
+    b, n = x.shape
+    m = len(g)
     tile = tile_of("fwd", level, m)
     check_grid(b, n, "fwd", tile)
     out = torch.empty((level + 1, b, n), dtype=x.dtype, device=x.device)
-    g, h = kernel_taps(wavelet)
+    gh, hh = host_taps(g, h)
     lib = _lib()
     code = lib.jw_modwt_fwd(
-        x.data_ptr(), out.data_ptr(), b, n, level, g.ctypes.data,
-        h.ctypes.data, m, tile, halo(m, level),
+        x.data_ptr(), out.data_ptr(), b, n, level, gh.ctypes.data,
+        hh.ctypes.data, m, tile, halo(m, level),
         smem_bytes(level, m, "fwd"), DTYPE_CODES[x.dtype], x.device.index,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, code, "modwt forward kernel")
@@ -308,29 +393,62 @@ def modwt_fwd_cuda(x: torch.Tensor, wavelet: DiscreteWavelet,
     return out
 
 
+@modwt_fwd_op.register_fake
+def _(x, g, h, level):
+    _check_fwd(x, g, h, level)
+    return x.new_empty((level + 1,) + tuple(x.shape))
+
+
+def modwt_fwd_cuda(x: torch.Tensor, wavelet: DiscreteWavelet,
+                   level: int) -> torch.Tensor:
+    """Launch the forward kernel as ``jwave::modwt_fwd``: x (B, N) →
+    (level+1, B, N), x's dtype."""
+    return modwt_fwd_op(x, *op_taps(wavelet), level)
+
+
 modwt_fwd_cuda.launches = 0
 
 
-def modwt_inv_cuda(c: torch.Tensor, wavelet: DiscreteWavelet) -> torch.Tensor:
-    """Launch the inverse kernel: c (level+1, B, N) → (B, N), c's dtype."""
-    check_operand(c, "coeffs", 3)
-    rows, b, n = c.shape
-    level, m = rows - 1, wavelet.length
-    if not kernel_supported(n, level, m, "inv"):
+def _check_inv(c: torch.Tensor, g, h, traced: bool = True) -> None:
+    check_operand(c, "coeffs", 3, traced)
+    if not kernel_supported(c.shape[2], c.shape[0] - 1, check_taps(g, h),
+                            "inv"):
         raise ValueError(f"unsupported shape {tuple(c.shape)} for the MODWT "
                          f"inverse kernel")
+
+
+@kernel_op("modwt_inv")
+def modwt_inv_op(c: torch.Tensor, g: list[float], h: list[float]
+                 ) -> torch.Tensor:
+    """The inverse kernel's launch as an operator (``torch.ops.jwave.
+    modwt_inv``): c (level+1, B, N) → (B, N), c's dtype."""
+    _check_inv(c, g, h, traced=False)
+    rows, b, n = c.shape
+    level, m = rows - 1, len(g)
     check_grid(b, n, "inv")
     out = torch.empty((b, n), dtype=c.dtype, device=c.device)
-    g, h = kernel_taps(wavelet)
+    gh, hh = host_taps(g, h)
     lib = _lib()
     code = lib.jw_modwt_inv(
-        c.data_ptr(), out.data_ptr(), b, n, level, g.ctypes.data,
-        h.ctypes.data, m, TILES["inv"], halo(m, level),
+        c.data_ptr(), out.data_ptr(), b, n, level, gh.ctypes.data,
+        hh.ctypes.data, m, TILES["inv"], halo(m, level),
         smem_bytes(level, m, "inv"), DTYPE_CODES[c.dtype], c.device.index,
         torch.cuda.current_stream(c.device).cuda_stream)
     _build.check(lib, code, "modwt inverse kernel")
     modwt_inv_cuda.launches += 1
     return out
+
+
+@modwt_inv_op.register_fake
+def _(c, g, h):
+    _check_inv(c, g, h)
+    return c.new_empty(tuple(c.shape[1:]))
+
+
+def modwt_inv_cuda(c: torch.Tensor, wavelet: DiscreteWavelet) -> torch.Tensor:
+    """Launch the inverse kernel as ``jwave::modwt_inv``: c (level+1,
+    B, N) → (B, N), c's dtype."""
+    return modwt_inv_op(c, *op_taps(wavelet))
 
 
 modwt_inv_cuda.launches = 0

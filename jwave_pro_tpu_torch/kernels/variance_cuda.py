@@ -17,7 +17,9 @@ register chains of ``modwt_cuda.CHAIN['var']`` outputs a thread
 (:func:`var_plan`).  Any N runs: positions past N never count.
 
 Beside the kernel: its plain PyTorch version (:func:`modwt_var_plain`) and
-its launch counter (``modwt_var_cuda.launches``).  The result is float32
+its launch counter (``modwt_var_cuda.launches``).  The launch is the
+operator ``jwave::modwt_var``; the tile plan and the ticket buffer are
+taken inside it, from the concrete batch.  The result is float32
 for float32 and bfloat16 input alike.
 """
 from __future__ import annotations
@@ -30,12 +32,13 @@ from ..ops.modwt import _check_level
 from ..wavelets.base import DiscreteWavelet
 from . import _build
 from .modwt_cuda import (
-    _I, _P, DTYPE_CODES, TilePlan, _compute_dtype, check_operand,
-    kernel_supported, kernel_taps, modwt_fwd_plain, tickets, tile_plan,
+    _I, _P, DTYPE_CODES, TilePlan, _compute_dtype, check_operand, check_taps,
+    host_taps, kernel_supported, modwt_fwd_plain, op_taps, tickets, tile_plan,
+    kernel_op,
 )
 
 __all__ = ["modwt_var_fused", "modwt_var_cuda", "modwt_var_plain",
-           "var_plan"]
+           "modwt_var_op", "var_plan"]
 
 
 def modwt_var_plain(x: torch.Tensor, wavelet: DiscreteWavelet,
@@ -61,27 +64,51 @@ def _lib():
     return lib
 
 
-def modwt_var_cuda(x: torch.Tensor, wavelet: DiscreteWavelet,
-                   level: int) -> torch.Tensor:
-    """Launch the variance kernel: x (B, N) → (level+1, B) float32.  One
-    launch and nothing else on the stream."""
-    check_operand(x, "x", 2)
+def _check_var(x: torch.Tensor, g, h, level: int,
+               traced: bool = True) -> None:
+    check_operand(x, "x", 2, traced)
+    if not kernel_supported(x.shape[1], level, check_taps(g, h), "var"):
+        raise ValueError(f"unsupported shape {tuple(x.shape)} level {level} "
+                         f"for the 'var' kernel")
+
+
+@kernel_op("modwt_var")
+def modwt_var_op(x: torch.Tensor, g: list[float], h: list[float],
+                 level: int) -> torch.Tensor:
+    """The variance kernel's launch as an operator (``torch.ops.jwave.
+    modwt_var``): x (B, N) → (level+1, B) float32.  The tile plan, the
+    partial sums and the ticket buffer are taken here, from the concrete
+    batch; one launch and nothing else on the stream."""
+    _check_var(x, g, h, level, traced=False)
     b, n = x.shape
-    m = wavelet.length
+    m = len(g)
     plan = var_plan(b, n, level, m)
     partial = torch.empty((level + 1, b, plan.ntiles), dtype=torch.float32,
                           device=x.device)
     out = torch.empty((level + 1, b), dtype=torch.float32, device=x.device)
-    g, h = kernel_taps(wavelet)
+    gh, hh = host_taps(g, h)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     lib = _lib()
     code = lib.jw_modwt_var(
         x.data_ptr(), partial.data_ptr(), tickets(x.device, stream, b),
-        out.data_ptr(), b, n, level, g.ctypes.data, h.ctypes.data, m,
+        out.data_ptr(), b, n, level, gh.ctypes.data, hh.ctypes.data, m,
         plan.tile, plan.smem, DTYPE_CODES[x.dtype], x.device.index, stream)
     _build.check(lib, code, "fused variance kernel")
     modwt_var_cuda.launches += 1
     return out
+
+
+@modwt_var_op.register_fake
+def _(x, g, h, level):
+    _check_var(x, g, h, level)
+    return x.new_empty((level + 1, x.shape[0]), dtype=torch.float32)
+
+
+def modwt_var_cuda(x: torch.Tensor, wavelet: DiscreteWavelet,
+                   level: int) -> torch.Tensor:
+    """Launch the variance kernel as ``jwave::modwt_var``: x (B, N) →
+    (level+1, B) float32."""
+    return modwt_var_op(x, *op_taps(wavelet), level)
 
 
 modwt_var_cuda.launches = 0

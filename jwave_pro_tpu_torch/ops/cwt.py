@@ -42,7 +42,7 @@ import typing
 import numpy as np
 import torch
 
-from ..utils.device import as_input
+from ..utils.device import as_input, tracing
 from ..utils.validation import next_power_of_two
 from ..wavelets.continuous import ContinuousWavelet, MorletWavelet
 from .fwt import _mm
@@ -238,7 +238,10 @@ def _on_device(mult: np.ndarray, device: torch.device,
                dtype: torch.dtype) -> torch.Tensor:
     """A host multiplier stack (one of the cached arrays above) as a tensor
     on ``device``, cached too: the entry holds the array, so its id stays
-    its own while the entry lives.  At most 32 entries."""
+    its own while the entry lives.  At most 32 entries; none while torch
+    traces (its tensors are fakes then)."""
+    if tracing():
+        return torch.from_numpy(mult).to(device=device, dtype=dtype)
     key = (id(mult), str(device), dtype)
     hit = _DEVICE_MULTIPLIERS.get(key)
     if hit is None:

@@ -36,7 +36,7 @@ import functools
 import numpy as np
 import torch
 
-from ..utils.device import as_input, as_signal
+from ..utils.device import as_input, as_signal, tensor_cache
 from ..utils.validation import check_power_of_two, exponent
 from ..wavelets.base import DiscreteWavelet
 from .modwt import taps_as
@@ -77,29 +77,42 @@ def _f32_products(tf32: bool = False):
         torch.set_float32_matmul_precision(prev)
 
 
-class _PinnedProduct(torch.autograd.Function):
-    """``a @ b`` on the card with its forward and its backward products in
-    one float32 tier, as the JAX package's ``Precision.HIGHEST`` product
-    and its transpose are both HIGHEST.  Each gradient is itself a pinned
-    product (so a second derivative stays pinned too), summed back over
-    the axes the forward broadcast."""
+@torch.library.custom_op("jwave::f32_mm", mutates_args=())
+def f32_mm(a: torch.Tensor, b: torch.Tensor, tf32: int) -> torch.Tensor:
+    """``a @ b`` (``torch.matmul``'s broadcasting) with its products in IEEE
+    float32, or in TF32 where ``tf32`` is 1, whatever the process's setting
+    (``torch.ops.jwave.f32_mm``).  An operator, so an exported graph records
+    each product with its tier and a served graph keeps it; its gradient is
+    two such products in the same tier (so a second derivative stays
+    pinned too), summed back over the axes the forward broadcast, as the
+    JAX package's ``Precision.HIGHEST`` product and its transpose are both
+    HIGHEST."""
+    with _f32_products(bool(tf32)):
+        return torch.matmul(a, b)
 
-    @staticmethod
-    def forward(ctx, a, b, tf32):
-        ctx.save_for_backward(a, b)
-        ctx.tf32 = tf32
-        with _f32_products(tf32):
-            return torch.matmul(a, b)
 
-    @staticmethod
-    def backward(ctx, g):
-        a, b = ctx.saved_tensors
-        ga = gb = None
-        if ctx.needs_input_grad[0]:
-            ga = _mm(g, b.mH, ctx.tf32).sum_to_size(a.shape)
-        if ctx.needs_input_grad[1]:
-            gb = _mm(a.mH, g, ctx.tf32).sum_to_size(b.shape)
-        return ga, gb, None
+@f32_mm.register_fake
+def _(a, b, tf32):
+    return torch.matmul(a, b)
+
+
+def _f32_mm_context(ctx, inputs, output):
+    a, b, tf32 = inputs
+    ctx.save_for_backward(a, b)
+    ctx.tf32 = tf32
+
+
+def _f32_mm_backward(ctx, g):
+    a, b = ctx.saved_tensors
+    ga = gb = None
+    if ctx.needs_input_grad[0]:
+        ga = f32_mm(g, b.mH, ctx.tf32).sum_to_size(a.shape)
+    if ctx.needs_input_grad[1]:
+        gb = f32_mm(a.mH, g, ctx.tf32).sum_to_size(b.shape)
+    return ga, gb, None
+
+
+f32_mm.register_autograd(_f32_mm_backward, setup_context=_f32_mm_context)
 
 
 def _mm(u: torch.Tensor, m: torch.Tensor, tf32: bool = False
@@ -107,19 +120,19 @@ def _mm(u: torch.Tensor, m: torch.Tensor, tf32: bool = False
     """``u @ m`` (``torch.matmul``'s broadcasting; either side may be the
     constant), float32 and complex64 kept in full float32 on the card — or
     in TF32 where ``tf32`` asks for it — in the forward and the backward
-    alike.  On the CPU, ``torch.matmul`` itself."""
+    alike (:func:`f32_mm`).  On the CPU, ``torch.matmul`` itself."""
     if not u.is_cuda:
         return torch.matmul(u, m)
     if u.ndim == 1:
-        return _PinnedProduct.apply(u[None], m, tf32)[..., 0, :]
-    return _PinnedProduct.apply(u, m, tf32)
+        return f32_mm(u[None], m, int(tf32))[..., 0, :]
+    return f32_mm(u, m, int(tf32))
 
 
-@functools.lru_cache(maxsize=256)
+@tensor_cache(maxsize=256)
 def _on(build, args: tuple, dtype: torch.dtype, device: torch.device):
     """The host constant ``build(*args)`` rounded to ``dtype`` on
     ``device`` (a tuple of arrays becomes a tuple of tensors).  Copied, so
-    no tensor aliases the host cache."""
+    no tensor aliases the host cache; cached but while torch traces."""
     def put(a):
         return torch.from_numpy(a).to(device=device, dtype=dtype, copy=True)
 

@@ -33,7 +33,7 @@ import typing
 import numpy as np
 import torch
 
-from ..utils.device import as_input
+from ..utils.device import as_input, tensor_cache
 from .scattering import _index
 
 __all__ = ["Scattering2DResult", "scattering2d", "scattering2d_filters"]
@@ -201,7 +201,7 @@ def _octave_decimations(j: int, t: int, oversampling: int) -> np.ndarray:
     return d
 
 
-@functools.lru_cache(maxsize=128)
+@tensor_cache(maxsize=128)
 def _bank2_on(h: int, w: int, j: int, l: int, slant: float, kind: str,
               rows: tuple, d: int, dtype: torch.dtype,
               device: torch.device) -> torch.Tensor:

@@ -1,9 +1,11 @@
 """Where a public entry point puts its input."""
 from __future__ import annotations
 
+import functools
+
 import torch
 
-__all__ = ["as_input", "as_signal"]
+__all__ = ["as_input", "as_signal", "tensor_cache", "tracing"]
 
 
 def as_input(x) -> torch.Tensor:
@@ -32,3 +34,28 @@ def as_signal(x) -> torch.Tensor:
     if not (x.is_floating_point() or x.is_complex()):
         x = x.to(torch.get_default_dtype())
     return x
+
+
+def tracing() -> bool:
+    """Whether torch is tracing the caller (``torch.export``,
+    ``torch.compile``): its tensors are then fakes, which no cache may
+    keep past the trace."""
+    return torch.compiler.is_compiling()
+
+
+def tensor_cache(maxsize: int | None):
+    """``functools.lru_cache`` for a function that returns device tensors,
+    bypassed while torch traces (:func:`tracing`): a tensor made during an
+    export is a fake, and a cached fake would stand in for the constant in
+    every later call."""
+    def wrap(fn):
+        cached = functools.lru_cache(maxsize)(fn)
+
+        @functools.wraps(fn)
+        def call(*args):
+            return fn(*args) if tracing() else cached(*args)
+
+        call.cache_clear = cached.cache_clear
+        return call
+
+    return wrap

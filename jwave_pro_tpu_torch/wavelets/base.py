@@ -21,6 +21,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..utils.device import tracing
+
 __all__ = [
     "DiscreteWavelet", "qmf_orthonormal", "qmf_biorthogonal",
     "from_jax_wavelet",
@@ -56,13 +58,15 @@ class DiscreteWavelet:
 
     def tensor_banks(self, device=None, dtype=torch.float64):
         """``(dec_lo, dec_hi, rec_lo, rec_hi)`` as tensors, cached per
-        ``(device, dtype)`` — at most a few entries per wavelet."""
+        ``(device, dtype)`` — at most a few entries per wavelet; none while
+        torch traces (its tensors are fakes then)."""
         key = (torch.device(device or "cpu"), dtype)
         banks = self._tensor_cache.get(key)
         if banks is None:
             banks = tuple(torch.as_tensor(getattr(self, f), dtype=dtype,
                                           device=key[0]) for f in _BANKS)
-            self._tensor_cache[key] = banks
+            if not tracing():
+                self._tensor_cache[key] = banks
         return banks
 
     def __repr__(self):  # pragma: no cover

@@ -105,10 +105,10 @@ def test_pinned_product_gradients(tf32, a_shape, b_shape):
         a.requires_grad_()
         b.requires_grad_()
         if len(a_shape) == 1:
-            fn = lambda u, v: tfwt._PinnedProduct.apply(  # noqa: E731
-                u[None], v, tf32)[..., 0, :]
+            fn = lambda u, v: tfwt.f32_mm(  # noqa: E731
+                u[None], v, int(tf32))[..., 0, :]
         else:
-            fn = lambda u, v: tfwt._PinnedProduct.apply(u, v, tf32)  # noqa
+            fn = lambda u, v: tfwt.f32_mm(u, v, int(tf32))  # noqa: E731
         torch.testing.assert_close(fn(a, b), torch.matmul(a, b), rtol=0,
                                    atol=1e-12)
         assert torch.autograd.gradcheck(fn, (a, b))

@@ -1111,3 +1111,73 @@ def test_streaming_path_launches_the_forward_kernel(dev):
     want = jt.modwt(x.double().cpu(), DB4, level)
     torch.testing.assert_close(got[..., halo:], want[..., halo:], rtol=0,
                                atol=1e-5)
+
+
+# -- the kernel operators and the serving export ------------------------------
+
+def test_exported_pipelines_launch_their_kernels(dev):
+    """An exported denoise (forward and inverse kernels, or the fused
+    kernel) and variance (the variance kernel), served from bytes on the
+    card at three batch sizes from one artifact: each call launches its
+    kernels once, and the output is bitwise the eager call's."""
+    x = _signal(dev, 8, 8192, seed=40)
+    counters = {"fwd": kc.modwt_fwd_cuda, "inv": kc.modwt_inv_cuda,
+                "fused": kd.modwt_denoise_cuda, "var": kv.modwt_var_cuda}
+    pipelines = (
+        (lambda v: jt.modwt_denoise(v, DB4, 5, threshold=0.8),
+         {"fwd": 1, "inv": 1}),
+        (lambda v: jt.modwt_denoise(v, DB4, 5, threshold=0.8,
+                                    method="fused"), {"fused": 1}),
+        (lambda v: jt.modwt_variance(v, DB4, 5), {"var": 1}))
+    for fn, want in pipelines:
+        served = jt.load_pipeline(jt.export_pipeline(
+            fn, x, batch_polymorphic=True))
+        for b in (1, 3, 8):
+            before = {k: c.launches for k, c in counters.items()}
+            got = served(x[:b])
+            torch.cuda.synchronize()
+            ran = {k: c.launches - before[k] for k, c in counters.items()}
+            assert ran == {k: want.get(k, 0) for k in counters}
+            assert torch.equal(got, fn(x[:b]))
+
+
+def test_operator_checks_of_the_1d_kernels(dev):
+    """``torch.library.opcheck`` (schema, fake against the launch, the
+    autograd registration, a traced dynamic-shape call) on the 1D
+    operators #1-#5 at a small shape."""
+    g, h = kc.op_taps(DB4)
+    x = _signal(dev, 3, 1000, seed=41)
+    c = kc.modwt_fwd_cuda(x, DB4, 3)
+    thr = torch.full((3,), 0.5, device=dev)
+    for op, args in ((torch.ops.jwave.modwt_fwd, (x, g, h, 3)),
+                     (torch.ops.jwave.modwt_inv, (c, g, h)),
+                     (torch.ops.jwave.modwt_denoise, (x, thr, g, h, 3, 0)),
+                     (torch.ops.jwave.modwt_var, (x, g, h, 3))):
+        torch.library.opcheck(op, args)
+    torch.library.opcheck(torch.ops.jwave.f32_mm,
+                          (x, torch.ones(1000, 7, device=dev), 0))
+
+
+@pytest.mark.parametrize("setting", ["matmul precision", "per backend"])
+def test_exported_fwt_keeps_ieee_f32_under_tf32(dev, setting):
+    """An exported ``fwt`` served with the process set to TF32 (through
+    either of torch's settings) keeps its products in IEEE f32: within
+    the 1e-5 forward bound of the host f64 result, as eager ``fwt``."""
+    mm = torch.backends.cuda.matmul
+    if setting == "per backend" and not hasattr(mm, "fp32_precision"):
+        pytest.skip("torch without the per-backend fp32_precision setting")
+    x = torch.from_numpy(np.random.default_rng(42).standard_normal(
+        (4, 1 << 16)))
+    want = jt.fwt(x, DB4, 5)
+    served = jt.load_pipeline(jt.export_pipeline(
+        lambda v: jt.fwt(v, DB4, 5), x.float().to(dev)))
+    try:
+        if setting == "per backend":
+            mm.fp32_precision = "tf32"
+        else:
+            torch.set_float32_matmul_precision("high")
+        got = served(x.float().to(dev))
+    finally:
+        torch.set_float32_matmul_precision("highest")
+    scale = float(want.abs().max())
+    assert float((got.cpu().double() - want).abs().max()) <= 1e-5 * scale
