@@ -61,7 +61,11 @@ serving (phase 32: the denoise on #1 and #3, the fused denoise on #4 and
 the variance on #5, exported batch-polymorphic to bytes and served at
 three batch sizes from one artifact, each call's launches counted and
 its output bitwise the eager call's; an exported ``fwt`` served under
-TF32 held to the IEEE bound; the kernel operators' host time a launch).  The
+TF32 held to the IEEE bound; the kernel operators' host time a launch);
+and the sharded tier (phase 33: ``jwave_pro_tpu_torch.parallel`` over a
+one-rank NCCL world, all 19 sharded transforms at bench.py's shapes, each
+gathered result held to the port's single-device call, the collectives
+each posts and its wall beside the single-device wall).  The
 kernels' launch counters, set to 0
 before each path and read after it, show that the path ran through them;
 CUDA events time each kernel against its plain version.  Every check
@@ -177,6 +181,9 @@ CHUNKED_SHAPE = (64, 1 << 20)
 FIN_SHAPE, FIN_GAPS, FIN_COND = (64, 1 << 16), 0.01, 16
 # phase 32: the batches one exported artifact serves
 SERVE_BATCHES = (1, 8, 32)
+# phase 33: the sharded tier's signal-sharded CWT takes the CWT path's
+# shape on scales that pass its aliasing gate (Morlet: a above ~4.4)
+SHARD_CWT_SCALES = (5.0, 256.0)
 # the H100's published peaks (SXM, 700 W): HBM bytes/s, f32 FLOP/s
 HBM_RATE, F32_RATE = 3.35e12, 67e12
 
@@ -589,6 +596,7 @@ def run(smoke: Smoke, torch, jt) -> dict:
     run_financial_slice(smoke, torch, jt, card)
     run_facade_slice(smoke, torch, jt, signal, card)
     run_export_slice(smoke, torch, jt, signal, card)
+    run_sharded_slice(smoke, torch, jt, signal, card)
 
     src = "jwave_pro_tpu_torch/csrc/"
     tpu = "jwave_pro_tpu/kernels/"
@@ -3182,6 +3190,205 @@ def run_export_slice(smoke: Smoke, torch, jt, signal, card) -> None:
           f"{MAIN_SHAPE} wall {wall:.3f} ms, {kernel:.4f} ms a call "
           f"between CUDA events [{card}]", flush=True)
     print(f"  phase 32 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
+def rel_card(smoke: Smoke, name: str, got, want, tol: float) -> float:
+    """max|got − want| ≤ tol × max|want|, computed on the card in the
+    tensors' own dtype (a DTensor gathered first)."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(got, DTensor):
+        got = got.full_tensor()
+    scale = float(want.abs().max())
+    return smoke.check(f"{name} (relative to max|ref| {scale:.3g})",
+                       float((got - want).abs().max()) / scale, tol)
+
+
+def sharded_calls(torch, jt, par, meshes, signal) -> list:
+    """Phase 33's calls at bench.py's shapes: (name, sharded call, the
+    port's single-device call, check), where check(smoke, got, want, x)
+    holds the gathered result to the single-device one."""
+    sig, sca, dat = meshes
+    w, sym8 = jt.wavelet(WAVELET), jt.wavelet(WPT_WAVELET)
+    mor, mh = jt.MorletWavelet(), jt.MexicanHat2D()
+    x = signal(*MAIN_SHAPE)
+    img = signal(*IMAGE_SHAPE)
+    dimg = signal(*DEC_IMAGE)
+    xw = signal(*WPT_SHAPE)
+    xp = signal(*PACKET_SHAPE)
+    xc = signal(*CWT_SHAPE)
+    xi = signal(*CWT2_REAL)
+    x1, x2 = signal(*SCAT1_SHAPE), signal(*SCAT2_SHAPE)
+    cwt_scales = jt.generate_log_scales(1.0, 256.0, CWT_SCALES)
+    long_scales = jt.generate_log_scales(*SHARD_CWT_SCALES, CWT_SCALES)
+    fc = mor.center_frequency
+    wide = jt.generate_log_scales(fc / 0.4, fc / 0.01, SSQ_WIDE_SCALES)
+    s_real = jt.generate_log_scales(1.0, 16.0, CWT2_REAL_SCALES)
+    c = jt.modwt(x, w, LEVEL)
+    c2 = jt.modwt2(img, w, IMAGE_LEVEL)
+    y = jt.fwt(x, w, LEVEL)
+    d = jt.dtcwt(x, LEVEL)
+    p = jt.wpt(xw, sym8, WPT_LEVEL)
+    q = jt.modwpt(xp, w, PACKET_LEVEL)
+
+    def fwd(smoke, name, got, want, inp):
+        rel_card(smoke, name, got, want, 1e-5)
+
+    def inv(smoke, name, got, want, inp):
+        rel_card(smoke, name + " vs the single-device inverse", got, want,
+                 1e-5)
+        rel_card(smoke, name + " round trip", got, inp, 1e-4)
+
+    def dtc(smoke, name, got, want, inp):
+        for i, (g, v) in enumerate(zip(got.highpass, want.highpass)):
+            rel_card(smoke, f"{name} highpass {i + 1}", g, v, 1e-5)
+        rel_card(smoke, f"{name} lowpass a", got.lowpass_a, want.lowpass_a,
+                 1e-5)
+        rel_card(smoke, f"{name} lowpass b", got.lowpass_b, want.lowpass_b,
+                 1e-5)
+
+    def coeffs(smoke, name, got, want, inp):
+        rel_card(smoke, name, got.coefficients, want.coefficients, 1e-5)
+
+    def ssq(smoke, name, got, want, inp):
+        tx = got.Tx.full_tensor()
+        moved = int(((tx != 0) != (want.Tx != 0)).sum())
+        smoke.require(f"{name}: every bin decision as ssq_cwt's on the "
+                      f"card", moved == 0, f"({moved} differ)")
+        rel_card(smoke, f"{name} Tx", tx, want.Tx, 1e-5)
+        rel_card(smoke, f"{name} Wx", got.Wx, want.Wx, 1e-5)
+
+    def scattering(smoke, name, got, want, inp):
+        keep = got.pairs[:, 0] >= 0
+        smoke.require(f"{name}: the unpadded pairs are the single-device "
+                      f"ones", np.array_equal(got.pairs[keep], want.pairs))
+        for order in ("s0", "s1"):
+            rel_card(smoke, f"{name} {order}", getattr(got, order),
+                     getattr(want, order), 1e-5)
+        s2 = got.s2.full_tensor()    # (B, paths, ...): padding rows out
+        rows = torch.from_numpy(np.nonzero(keep)[0]).to(s2.device)
+        rel_card(smoke, f"{name} s2", s2.index_select(1, rows), want.s2,
+                 1e-5)
+
+    lv = f"{WAVELET} L{LEVEL} {MAIN_SHAPE}"
+    return [
+        (f"modwt_sharded {lv}", x, lambda: par.modwt_sharded(x, w, LEVEL, sig),
+         lambda: jt.modwt(x, w, LEVEL), fwd),
+        (f"imodwt_sharded {lv}", x, lambda: par.imodwt_sharded(c, w, sig),
+         lambda: jt.imodwt(c, w), inv),
+        (f"fwt_sharded {lv}", x, lambda: par.fwt_sharded(x, w, LEVEL, sig),
+         lambda: jt.fwt(x, w, LEVEL), fwd),
+        (f"ifwt_sharded {lv}", x,
+         lambda: par.ifwt_sharded(y, w, LEVEL, sig),
+         lambda: jt.ifwt(y, w, LEVEL), inv),
+        (f"dtcwt_sharded L{LEVEL} {MAIN_SHAPE}", x,
+         lambda: par.dtcwt_sharded(x, LEVEL, sig),
+         lambda: jt.dtcwt(x, LEVEL), dtc),
+        (f"idtcwt_sharded L{LEVEL} {MAIN_SHAPE}", x,
+         lambda: par.idtcwt_sharded(d, sig), lambda: jt.idtcwt(d), inv),
+        (f"modwt2_sharded {WAVELET} L{IMAGE_LEVEL} {IMAGE_SHAPE}", img,
+         lambda: par.modwt2_sharded(img, w, IMAGE_LEVEL, sig),
+         lambda: jt.modwt2(img, w, IMAGE_LEVEL), fwd),
+        (f"imodwt2_sharded {WAVELET} L{IMAGE_LEVEL} {IMAGE_SHAPE}", img,
+         lambda: par.imodwt2_sharded(c2, w, sig),
+         lambda: jt.imodwt2(c2, w), inv),
+        (f"fwt2_sharded {WAVELET} {DEC_IMAGE}", dimg,
+         lambda: par.fwt2_sharded(dimg, w, dat), lambda: jt.fwt2(dimg, w),
+         fwd),
+        (f"wpt_sharded {WPT_WAVELET} L{WPT_LEVEL} {WPT_SHAPE}", xw,
+         lambda: par.wpt_sharded(xw, sym8, WPT_LEVEL, sca),
+         lambda: jt.wpt(xw, sym8, WPT_LEVEL), fwd),
+        (f"iwpt_sharded {WPT_WAVELET} L{WPT_LEVEL} {WPT_SHAPE}", xw,
+         lambda: par.iwpt_sharded(p, sym8, WPT_LEVEL, sca),
+         lambda: jt.iwpt(p, sym8, WPT_LEVEL), inv),
+        (f"modwpt_sharded {WAVELET} L{PACKET_LEVEL} {PACKET_SHAPE}", xp,
+         lambda: par.modwpt_sharded(xp, w, PACKET_LEVEL, sca),
+         lambda: jt.modwpt(xp, w, PACKET_LEVEL), fwd),
+        (f"imodwpt_sharded {WAVELET} L{PACKET_LEVEL} {PACKET_SHAPE}", xp,
+         lambda: par.imodwpt_sharded(q, w, sca),
+         lambda: jt.imodwpt(q, w), inv),
+        (f"cwt_sharded Morlet {CWT_SHAPE} S={CWT_SCALES}", xc,
+         lambda: par.cwt_sharded(xc, cwt_scales, mor, sca),
+         lambda: jt.cwt(xc, cwt_scales, mor), coeffs),
+        (f"cwt_signal_sharded Morlet {CWT_SHAPE} S={CWT_SCALES} "
+         f"a in {SHARD_CWT_SCALES}", xc,
+         lambda: par.cwt_signal_sharded(xc, long_scales, mor, sig),
+         lambda: jt.cwt(xc, long_scales, mor), coeffs),
+        (f"ssq_sharded {SSQ_WIDE} S={SSQ_WIDE_SCALES}", xc,
+         lambda: par.ssq_sharded(xc, wide, mesh=sca),
+         lambda: jt.ssq_cwt(xc, wide), ssq),
+        (f"cwt2_sharded MexicanHat2D {CWT2_REAL} S={CWT2_REAL_SCALES}", xi,
+         lambda: par.cwt2_sharded(xi, s_real, mh, sca),
+         lambda: jt.cwt2(xi, s_real, mh), coeffs),
+        (f"scattering_sharded {SCAT1_SHAPE} J={SCAT1_J} Q={SCAT1_Q}", x1,
+         lambda: par.scattering_sharded(x1, SCAT1_J, SCAT1_Q, mesh=sca),
+         lambda: jt.scattering1d(x1, SCAT1_J, SCAT1_Q, oversampling=64),
+         scattering),
+        (f"scattering2d_sharded {SCAT2_SHAPE} J={SCAT2_J} L={SCAT2_L}", x2,
+         lambda: par.scattering2d_sharded(x2, SCAT2_J, SCAT2_L, mesh=sca),
+         lambda: jt.scattering2d(x2, SCAT2_J, SCAT2_L, oversampling=64),
+         scattering),
+    ]
+
+
+def run_sharded_slice(smoke: Smoke, torch, jt, signal, card) -> None:
+    """Phase 33: the sharded tier (``jwave_pro_tpu_torch.parallel``) over
+    a one-rank NCCL world.  The world starts through ``init_distributed``
+    (a file store in a temporary directory) and ends with the phase; a
+    failure of NCCL fails the run.  All 19 transforms run on
+    ``make_mesh`` meshes at bench.py's shapes, each gathered result held
+    to the port's single-device call on the card (forwards 1e-5 ×
+    max|ref|, round trips 1e-4, synchrosqueezing's bin decisions all the
+    single-device ones); a counted window shows they launch none of the
+    kernels (plain torch and collectives); each call's collectives posted
+    (none on one rank) and its wall beside the single-device wall."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from jwave_pro_tpu_torch import parallel as par
+    from jwave_pro_tpu_torch.parallel import sharded
+
+    t_phase = time.perf_counter()
+    print(f"== phase 33: the sharded tier over a one-rank NCCL world, f32, "
+          f"against the single-device calls on {card}", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        par.init_distributed(f"file://{tmp}/store", 1, 0,
+                             device_type="cuda", timeout=600)
+        try:
+            probe = torch.ones(4, device="cuda")
+            dist.all_reduce(probe)
+            torch.cuda.synchronize()
+            smoke.require(f"NCCL {torch.cuda.nccl.version()} world of "
+                          f"{dist.get_world_size()} answers an all-reduce "
+                          f"(backend {dist.get_backend()})",
+                          float(probe.sum()) == 4.0)
+            meshes = (par.make_mesh({"signal": 1}), par.make_mesh(
+                {"scale": 1}), par.make_mesh())
+            calls = sharded_calls(torch, jt, par, meshes, signal)
+            def every_call():
+                for _, _, run, _, _ in calls:
+                    run()
+
+            counted_run(smoke, torch, all_launchers(), "the sharded tier",
+                        every_call, {})
+            for name, inp, run, single, check in calls:
+                sharded.reset_collectives()
+                got = run()
+                torch.cuda.synchronize()
+                posted = dict(sharded.COLLECTIVES)
+                check(smoke, name, got, single(), inp)
+                del got
+                wall = wall_ms(torch, run)
+                wall1 = wall_ms(torch, single)
+                print(f"  {name}: wall {wall:.3f} ms, single-device "
+                      f"{wall1:.3f} ms (host clock, median of 3); "
+                      f"collectives posted {posted} [{card}]", flush=True)
+            del calls
+        finally:
+            dist.destroy_process_group()
+    print(f"  phase 33 took {time.perf_counter() - t_phase:.1f} s",
           flush=True)
 
 

@@ -117,7 +117,8 @@ def _ssq_planes(xp, n, mults, rdtype, cdtype):
             for m in mults]
 
 
-def _bins(w_re, w_im, d_re, d_im, log_lo, dlog, n_freqs, gamma, rdtype):
+def _bins(w_re, w_im, d_re, d_im, log_lo, dlog, n_freqs, gamma, rdtype,
+          group=None):
     """Each coefficient's bin: (idx, valid, idx_f).
 
     ``idx_f`` is the fractional log-frequency bin of the instantaneous
@@ -125,11 +126,16 @@ def _bins(w_re, w_im, d_re, d_im, log_lo, dlog, n_freqs, gamma, rdtype):
     half to even, as ``jnp.round``), clipped into range; ``valid`` marks
     the coefficients that are reassigned: above the threshold (``gamma``,
     or 1e-6 of each signal's peak |W|), with a positive frequency inside
-    the bin grid."""
+    the bin grid.  With a process ``group`` the planes hold one shard of
+    the scales and the peak is the MAX over the group's shards
+    (``lax.pmax`` in the JAX package's ``axis_name``)."""
     mag2 = w_re * w_re + w_im * w_im
     tiny = torch.finfo(rdtype).tiny
     if gamma is None:
         peak = torch.amax(mag2, dim=(-2, -1), keepdim=True)
+        if group is not None:
+            from ..parallel.sharded import all_reduce_max
+            peak = all_reduce_max(peak, group)
         thresh2 = (1e-6 ** 2) * peak
     else:
         thresh2 = torch.tensor(float(gamma) ** 2, dtype=rdtype,
@@ -146,21 +152,27 @@ def _bins(w_re, w_im, d_re, d_im, log_lo, dlog, n_freqs, gamma, rdtype):
 
 
 def _reassign_planes(w_re, w_im, d_re, d_im, weights, log_lo, dlog, n_freqs,
-                     gamma, rdtype, cdtype):
+                     gamma, rdtype, cdtype, group=None):
     """(W, ∂_t W) quadrature planes → (Tx, W) — the reassignment scatter.
 
     ``weights``: the (S,) host float64 weights (rounded to ``rdtype`` on
     the planes' device).  Each valid coefficient goes, weighted, to its
-    bin (:func:`_bins`)."""
+    bin (:func:`_bins`).  With a process ``group`` (each rank one shard of
+    the scales) the partial Tx are summed over it in one SUM all-reduce,
+    reassignment being additive over scales (``lax.psum``)."""
     idx, valid, _ = _bins(w_re, w_im, d_re, d_im, log_lo, dlog, n_freqs,
-                          gamma, rdtype)
+                          gamma, rdtype, group)
     wts = _on_device(weights, w_re.device, rdtype)[:, None]
     shape = w_re.shape[:-2] + (n_freqs, w_re.shape[-1])
     tx_re, tx_im = (
         torch.zeros(shape, dtype=rdtype, device=w_re.device).scatter_add_(
             -2, idx, torch.where(valid, part, 0.0) * wts)
         for part in (w_re, w_im))
-    return torch.complex(tx_re, tx_im), torch.complex(w_re, w_im)
+    tx = torch.complex(tx_re, tx_im)
+    if group is not None:
+        from ..parallel.sharded import all_reduce_sum
+        tx = all_reduce_sum(tx, group)
+    return tx, torch.complex(w_re, w_im)
 
 
 def _static_scales(scales) -> np.ndarray:

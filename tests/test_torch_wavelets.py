@@ -120,8 +120,9 @@ def test_port_runs_without_the_jax_package(tmp_path):
     the banded CWT, the Hilbert transform, the wavelet coherence, the 2D
     CWT, synchrosqueezing and its ridges, both scattering transforms, the
     EWT, a stream, the preprocessing chain, a facade, the value stores, the
-    test signals and an exported pipeline, and never loads JAX or the JAX
-    package."""
+    test signals, an exported pipeline and a sharded MODWT round trip on a
+    one-rank gloo mesh that ``make_mesh`` starts, and never loads JAX or
+    the JAX package."""
     port = Path(jt.__file__).resolve().parent
     shutil.copytree(port, tmp_path / port.name,
                     ignore=shutil.ignore_patterns("__pycache__"))
@@ -174,6 +175,11 @@ def test_port_runs_without_the_jax_package(tmp_path):
         "f = deploy.load_pipeline(deploy.export_pipeline(\n"
         "    lambda v: jt.fwt(v, w, 3), x, batch_polymorphic=True))\n"
         "assert torch.equal(f(x[:1]), jt.fwt(x[:1], w, 3))\n"
+        "from jwave_pro_tpu_torch import parallel as par\n"
+        "m = par.make_mesh({'signal': 1}, device_type='cpu')\n"
+        "c = par.modwt_sharded(x, w, 3, m)\n"
+        "assert torch.allclose(c.full_tensor(), jt.modwt(x, w, 3))\n"
+        "assert torch.allclose(par.imodwt_sharded(c, w, m).full_tensor(), x)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.split('.')[0] == 'jwave_pro_tpu']\n"
         "assert not bad, bad\n"
@@ -223,15 +229,25 @@ def test_every_public_name_of_the_jax_package_has_a_counterpart():
               if not isinstance(getattr(jw, n), types.ModuleType)]
     assert len(values) >= 193
     assert [n for n in values if not hasattr(jt, n)] == []
-    # the sharded tier (``parallel``, which other test files import into
-    # the namespace) is the one part not ported yet: ROADMAP.md, Queue 1
-    modules = [n for n in names if n != "parallel"
-               and isinstance(getattr(jw, n), types.ModuleType)]
+    modules = [n for n in names
+               if isinstance(getattr(jw, n), types.ModuleType)]
     for mod in modules + ["datatypes", "cli", "utils.signals",
-                          "utils.deploy", "ops.financial"]:
+                          "utils.deploy", "ops.financial", "parallel",
+                          "parallel.mesh", "parallel.sharded"]:
         importlib.import_module(f"jwave_pro_tpu.{mod}")
         port = importlib.import_module(f"jwave_pro_tpu_torch.{mod}")
         assert port.__name__ == f"jwave_pro_tpu_torch.{mod}"
+    # the sharded tier, name for name, with ``init_distributed`` of
+    # ``parallel.mesh`` exported from the package as well
+    jpar = importlib.import_module("jwave_pro_tpu.parallel")
+    tpar = importlib.import_module("jwave_pro_tpu_torch.parallel")
+    want = set(jpar.__all__) | {"init_distributed"}
+    assert set(tpar.__all__) == want
+    assert all(hasattr(tpar, n) for n in want)
+    for mod in ("mesh", "sharded"):
+        jmod = importlib.import_module(f"jwave_pro_tpu.parallel.{mod}")
+        tmod = importlib.import_module(f"jwave_pro_tpu_torch.parallel.{mod}")
+        assert [n for n in jmod.__all__ if not hasattr(tmod, n)] == []
     for name in ("Line", "Block", "Space", "SuperLine"):
         assert hasattr(importlib.import_module("jwave_pro_tpu_torch."
                                                "datatypes"), name)
