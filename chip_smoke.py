@@ -65,10 +65,17 @@ TF32 held to the IEEE bound; the kernel operators' host time a launch);
 and the sharded tier (phase 33: ``jwave_pro_tpu_torch.parallel`` over a
 one-rank NCCL world, all 19 sharded transforms at bench.py's shapes, each
 gathered result held to the port's single-device call, the collectives
-each posts and its wall beside the single-device wall).  The
+each posts and its wall beside the single-device wall); and the north
+star as ``bench.py`` defines it (phase 34: the chained Db4 L5 forward
+step at 32 × 2^20 and the round trip at 8 × 2^20 through
+``utils.profiling.measure_samples_per_sec``, each kernel's launches
+counted, then a ``utils.profiling.trace`` of three chained steps that
+must name the forward kernel, and a steady trace of 24 chained steps read
+back for its top kernels and the device's busy share).  The
 kernels' launch counters, set to 0
 before each path and read after it, show that the path ran through them;
-CUDA events time each kernel against its plain version.  Every check
+CUDA events time each kernel against its plain version (``event_time``:
+the median time of one call on a fixed input).  Every check
 prints a line; any failure exits non-zero.  The second-to-last line
 is a JSON object describing each kernel — its launches on the main path,
 error against its plain version, time, the plain version's time, its
@@ -82,6 +89,7 @@ from __future__ import annotations
 
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -184,6 +192,14 @@ SERVE_BATCHES = (1, 8, 32)
 # phase 33: the sharded tier's signal-sharded CWT takes the CWT path's
 # shape on scales that pass its aliasing gate (Morlet: a above ~4.4)
 SHARD_CWT_SCALES = (5.0, 256.0)
+# phase 34: bench.py's chained measurement (the JAX package's defaults for
+# measure_samples_per_sec: chains of 4 and 24 steps, 3 repeats), its round
+# trip's batch (bench.py:66), and the chained steps each trace records: a
+# short first trace (it also takes the profiler's start-up cost), then a
+# steady window long enough that the busy share is the device's
+CHAIN_SHORT, CHAIN_LONG, CHAIN_REPEATS = 4, 24, 3
+ROUNDTRIP_SHAPE = (8, 1 << 20)
+TRACE_STEPS, STEADY_TRACE_STEPS = 3, 24
 # the H100's published peaks (SXM, 700 W): HBM bytes/s, f32 FLOP/s
 HBM_RATE, F32_RATE = 3.35e12, 67e12
 
@@ -210,13 +226,35 @@ def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
-def time_pair(jt, kern, plain, arg):
+def event_time(torch, fn, arg, k: int = 10, repeats: int = 5) -> float:
+    """Seconds a call of ``fn(arg)`` takes on the card, on the same ``arg``
+    every call: two untimed calls, then ``repeats`` runs of ``k`` calls
+    between two CUDA events on the current stream; the median of the
+    per-call times.  It times calls that are not shape-preserving, which
+    the port's chained ``time_chain`` cannot take."""
+    for _ in range(2):
+        fn(arg)
+    torch.cuda.synchronize(arg.device)
+    times = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(k):
+            fn(arg)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / 1e3 / k)
+    return statistics.median(times)
+
+
+def time_pair(torch, kern, plain, arg):
     """(kernel ms, plain ms) by CUDA events, in the order plain, kernel,
     kernel, plain: the two orders cancel drift."""
-    tp1 = jt.time_chain(plain, arg, k=3, repeats=3)
-    tk1 = jt.time_chain(kern, arg, k=10, repeats=5)
-    tk2 = jt.time_chain(kern, arg, k=10, repeats=5)
-    tp2 = jt.time_chain(plain, arg, k=3, repeats=3)
+    tp1 = event_time(torch, plain, arg, k=3, repeats=3)
+    tk1 = event_time(torch, kern, arg, k=10, repeats=5)
+    tk2 = event_time(torch, kern, arg, k=10, repeats=5)
+    tp2 = event_time(torch, plain, arg, k=3, repeats=3)
     return (tk1 + tk2) / 2 * 1e3, (tp1 + tp2) / 2 * 1e3
 
 
@@ -575,7 +613,7 @@ def run(smoke: Smoke, torch, jt) -> dict:
     }
     times = {}
     for name, (arg, kern, plain) in pairs.items():
-        times[name] = report_time(jt, name, arg, kern, plain, card)
+        times[name] = report_time(torch, name, arg, kern, plain, card)
 
     library = {}
     for run_part in (run_slice, run_image_slice, run_volume_cwt_slice):
@@ -597,6 +635,7 @@ def run(smoke: Smoke, torch, jt) -> dict:
     run_facade_slice(smoke, torch, jt, signal, card)
     run_export_slice(smoke, torch, jt, signal, card)
     run_sharded_slice(smoke, torch, jt, signal, card)
+    run_profiling_slice(smoke, torch, jt, signal, card)
 
     src = "jwave_pro_tpu_torch/csrc/"
     tpu = "jwave_pro_tpu/kernels/"
@@ -702,12 +741,12 @@ def counted_run(smoke: Smoke, torch, counters: dict, what: str, calls,
     return out, got
 
 
-def report_time(jt, name, arg, kern, plain, card, samples=None):
+def report_time(torch, name, arg, kern, plain, card, samples=None):
     """Time kernel against plain version and print both with the card;
     ``samples`` defaults to the last two dims of ``arg``."""
     if samples is None:
         samples = arg.shape[-1] * (arg.shape[-2] if arg.ndim > 1 else 1)
-    tk, tp = time_pair(jt, kern, plain, arg)
+    tk, tp = time_pair(torch, kern, plain, arg)
     print(f"  {name} {tuple(arg.shape)}: kernel {tk:.4f} ms "
           f"({samples / tk * 1e3:.4e} samples/s), plain {tp:.4f} ms "
           f"({samples / tp * 1e3:.4e} samples/s) [{card}]", flush=True)
@@ -1003,7 +1042,7 @@ def run_slice(smoke: Smoke, torch, jt, dev, signal, card):
     }
     times = {}
     for name, (arg, kern, plain) in pairs.items():
-        times[name] = report_time(jt, name, arg, kern, plain, card)
+        times[name] = report_time(torch, name, arg, kern, plain, card)
     # both finish their reduction in one launch: their device time from a
     # CUDA graph of the wrapper's calls (the kernels line's ms), beside the
     # wrapper's time per call as a caller sees it (the line above)
@@ -1272,7 +1311,7 @@ def run_image_slice(smoke: Smoke, torch, jt, dev, signal, card):
                 lambda u: k2.modwt2_denoise_plain(u, th, w, lvl)),
         }
         for name, (arg, kern, plain) in pairs.items():
-            t = report_time(jt, name, arg, kern, plain, card,
+            t = report_time(torch, name, arg, kern, plain, card,
                             samples=math.prod(shape))
             if shape == IMAGE_SHAPE:
                 times[name] = t
@@ -1597,7 +1636,7 @@ def run_volume_cwt_slice(smoke: Smoke, torch, jt, dev, signal, card):
                  lambda u: k3.modwt3_fwd_plain(u, w, lvl)),
                 ("modwt3_inv", cv, lambda u: k3.modwt3_inv_cuda(u, w),
                  lambda u: k3.modwt3_inv_plain(u, w))):
-            t = report_time(jt, name, arg, kern, plain, card,
+            t = report_time(torch, name, arg, kern, plain, card,
                             samples=math.prod(shape))
             if shape == VOLUME_SHAPE:
                 times[name] = t
@@ -1609,10 +1648,10 @@ def run_volume_cwt_slice(smoke: Smoke, torch, jt, dev, signal, card):
             xf, m, is_real = spectra(wav, sb, sp, scales)
             name = f"cwt_ifft {wav.name}"
             t = report_time(
-                jt, name, xf, lambda u: kw.cwt_ifft_cuda(u, m, sp, is_real),
+                torch, name, xf, lambda u: kw.cwt_ifft_cuda(u, m, sp, is_real),
                 lambda u: kw.cwt_ifft_plain(u, m, sp, is_real), card,
                 samples=sb * sp)
-            t_lib = jt.time_chain(lambda u: torch.fft.ifft(
+            t_lib = event_time(torch, lambda u: torch.fft.ifft(
                 u[:, None, :] * m, dim=-1)[..., :sp], xf) * 1e3
             print(f"  {name} {shape} S={CWT_SCALES}: library call "
                   f"torch.fft.ifft {t_lib:.4f} ms [{card}]", flush=True)
@@ -1961,7 +2000,7 @@ def run_decimated_slice(smoke: Smoke, torch, jt, signal, card) -> None:
              y5),
             (f"wpt {WPT_SHAPE} L{WPT_LEVEL}",
              lambda v: jt.wpt(v, ws, WPT_LEVEL), xw)):
-        ms = jt.time_chain(call, arg, k=5, repeats=3) * 1e3
+        ms = event_time(torch, call, arg, k=5, repeats=3) * 1e3
         print(f"  decimated {name}: {ms:.4f} ms a call between CUDA events "
               f"(5 calls a run, median of 3) [{card}]", flush=True)
     print(f"  decimated phases took {time.perf_counter() - t_phase:.1f} s",
@@ -3180,8 +3219,8 @@ def run_export_slice(smoke: Smoke, torch, jt, signal, card) -> None:
         del y
     del art, served
     op_us, raw_us = host_cost_per_launch(torch, jt, signal)
-    kernel = jt.time_chain(lambda v: jt.modwt(v, w, LEVEL), x, k=10,
-                           repeats=5) * 1e3
+    kernel = event_time(torch, lambda v: jt.modwt(v, w, LEVEL), x, k=10,
+                        repeats=5) * 1e3
     wall = wall_ms(torch, lambda: jt.modwt(x, w, LEVEL))
     print(f"  operator route: {op_us:.2f} µs a launch through "
           f"torch.ops.jwave.modwt_fwd, {raw_us:.2f} µs through the "
@@ -3389,6 +3428,128 @@ def run_sharded_slice(smoke: Smoke, torch, jt, signal, card) -> None:
         finally:
             dist.destroy_process_group()
     print(f"  phase 33 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
+def trace_summary(events) -> dict:
+    """A ``torch.profiler`` trace's device kernels summed by name
+    (``{name: [events, µs]}``) and the device's busy share of the window
+    (the kernels' summed durations over the span from the first kernel's
+    start to the last one's end)."""
+    kernels = [e for e in events
+               if e.get("cat") == "kernel" and e.get("ph") == "X"]
+    by_name = {}
+    for e in kernels:
+        entry = by_name.setdefault(e["name"], [0, 0.0])
+        entry[0] += 1
+        entry[1] += float(e["dur"])
+    busy = None
+    if kernels:
+        span = (max(e["ts"] + e["dur"] for e in kernels)
+                - min(e["ts"] for e in kernels))
+        busy = sum(e["dur"] for e in kernels) / span if span > 0 else None
+    return {"kernels": by_name, "busy": busy}
+
+
+def run_profiling_slice(smoke: Smoke, torch, jt, signal, card) -> None:
+    """Phase 34: the north star measured as ``bench.py:39-70`` defines it,
+    through the port's ``utils.profiling.measure_samples_per_sec`` with
+    the JAX package's defaults (chains of 4 and 24 steps, 3 repeats):
+    ``bench_modwt``'s step ``modwt(v)[L]`` at (32, 2²⁰) f32 Db4 L5 (in
+    eager torch nothing is dead-code-eliminated, so it is the kernel
+    branch) and ``bench_modwt_roundtrip``'s ``imodwt(modwt(v))`` at
+    (8, 2²⁰), each in a counted window of (4 + 24)·(1 + 3) launches of
+    each kernel it runs, each rate held to at most 1.05 × the rate at its
+    kernels' bound; then three chained forward steps inside
+    ``utils.profiling.trace``, whose trace must hold the forward kernel
+    with device time, and after it a steady trace of 24 chained steps,
+    whose file gives the top kernels by device time and the device's busy
+    share (the first trace takes the profiler's start-up host work, which
+    would otherwise set the busy share of a short window)."""
+    import tempfile
+
+    from jwave_pro_tpu_torch.utils import profiling
+
+    t_phase = time.perf_counter()
+    print(f"== phase 34: the north star through measure_samples_per_sec "
+          f"(chains {CHAIN_SHORT}/{CHAIN_LONG}, {CHAIN_REPEATS} repeats, "
+          f"CUDA events) on {card}", flush=True)
+    w = jt.wavelet(WAVELET)
+    chained = (CHAIN_SHORT + CHAIN_LONG) * (1 + CHAIN_REPEATS)
+
+    def step(v):
+        return jt.modwt(v, w, LEVEL)[LEVEL]
+
+    def roundtrip(v):
+        return jt.imodwt(jt.modwt(v, w, LEVEL), w)
+
+    m = w.length
+    x = signal(*MAIN_SHAPE)
+    for name, fn, arg, want in (
+            (f"north star modwt {WAVELET} L{LEVEL}", step, x,
+             {"modwt_fwd": chained}),
+            (f"round trip imodwt(modwt) {WAVELET} L{LEVEL}", roundtrip,
+             signal(*ROUNDTRIP_SHAPE),
+             {"modwt_fwd": chained, "modwt_inv": chained})):
+        rate, _ = counted_run(
+            smoke, torch, all_launchers(), f"the {name} chains",
+            lambda: profiling.measure_samples_per_sec(
+                fn, arg, CHAIN_SHORT, CHAIN_LONG, CHAIN_REPEATS), want)
+        # a forward, or a forward and an inverse: the same bytes and flops
+        cells, passes = arg.numel(), len(want)
+        bound_ms, by = bound(4 * cells * (LEVEL + 2) * passes,
+                             cells * 4 * m * LEVEL * passes)
+        bound_rate = cells / bound_ms * 1e3
+        print(f"  {name} {tuple(arg.shape)} f32: {rate:.6e} samples/s, "
+              f"{cells / rate * 1e3:.4f} ms a step; at its kernels' bound "
+              f"{bound_ms:.4f} ms ({by}) {bound_rate:.6e} samples/s, "
+              f"{rate / bound_rate:.1%} of it [{card}]", flush=True)
+        smoke.require(f"{name}: rate positive and at most 1.05 × the "
+                      f"bound's", 0 < rate <= 1.05 * bound_rate,
+                      f"({rate:.4e} against {bound_rate:.4e} samples/s)")
+        del arg
+
+    def traced(steps, logdir):
+        """The trace of ``steps`` chained forward steps, summarised; None
+        if ``trace`` wrote no single file or it lacks the forward kernel's
+        device time."""
+        v = x
+        torch.cuda.synchronize()
+        with profiling.trace(logdir):
+            for _ in range(steps):
+                v = step(v)
+            torch.cuda.synchronize()
+        files = sorted(Path(logdir).glob("*.pt.trace.json"))
+        smoke.require(f"utils.profiling.trace of {steps} steps wrote one "
+                      f"trace file", len(files) == 1,
+                      f"({[f.name for f in files]})")
+        if len(files) != 1:
+            return None
+        summary = trace_summary(json.loads(files[0].read_text())[
+            "traceEvents"])
+        fwd = [entry for name, entry in summary["kernels"].items()
+               if "jw_modwt_fwd_kernel" in name]
+        ok = (sum(c for c, _ in fwd) == steps
+              and sum(us for _, us in fwd) > 0)
+        smoke.require(f"trace of {steps} steps holds jw_modwt_fwd_kernel "
+                      f"{steps} times with device time", ok, f"({fwd})")
+        return summary if ok else None
+
+    with tempfile.TemporaryDirectory() as tmp:
+        first = traced(TRACE_STEPS, Path(tmp) / "first")
+        steady = traced(STEADY_TRACE_STEPS, Path(tmp) / "steady")
+    if first is None or steady is None:
+        return
+    top = sorted(steady["kernels"].items(), key=lambda kv: -kv[1][1])[:5]
+    for name, (count, us) in top:
+        print(f"  trace kernel {name[:96]}: {count} events, {us:.1f} µs "
+              f"[{card}]", flush=True)
+    for label, summary, steps in (("first", first, TRACE_STEPS),
+                                  ("steady", steady, STEADY_TRACE_STEPS)):
+        print(f"  {label} trace of {steps} chained steps: device busy "
+              f"{summary['busy']:.1%} of the span from the first kernel's "
+              f"start to the last one's end [{card}]", flush=True)
+    print(f"  phase 34 took {time.perf_counter() - t_phase:.1f} s",
           flush=True)
 
 

@@ -546,11 +546,17 @@ def icwt(result: CWTResult, wavelet: ContinuousWavelet | None = None,
 
     Accuracy is that of the method (sub-1% relative L2 inside the
     scale-covered band for ≥ 16 scales/decade).  The signal mean (DC) is
-    not recoverable from zero-mean wavelets.
+    not recoverable from zero-mean wavelets.  Float16 and bfloat16
+    coefficients are summed and transformed in float32 (the JAX package
+    sums them in their own dtype; both return float32).
     """
     if wavelet is None:
         wavelet = MorletWavelet()
     coeffs = as_input(result.coefficients)
+    if coeffs.dtype in (torch.float16, torch.bfloat16):
+        # torch's FFTs take no bfloat16, and float16 only at powers of two
+        # on CUDA
+        coeffs = coeffs.float()
     scales_np = _host_grid(result.scales if scales is None else scales)
     n = coeffs.shape[-1]
     g, p = _recon_filter(wavelet, tuple(float(a) for a in scales_np), n,

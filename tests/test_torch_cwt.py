@@ -435,6 +435,52 @@ def test_icwt_matches_jax_f64(make, label):
     assert np.abs(filt - jfilt).max() <= 1e-12 * np.abs(jfilt).max()
 
 
+def test_float16_input_is_wider_than_jax():
+    """``cwt`` and ``icwt`` of float16 input: the JAX package raises
+    ``ValueError`` (its rfft takes float32 or float64 only), so it forms
+    neither; the port computes in float32, within the float32 bound (1e-5
+    relative) of the JAX package's float64 result on the same rounded
+    input."""
+    x16 = np.random.default_rng(16).standard_normal((2, 500)).astype(
+        np.float16)
+    scales = jw.generate_log_scales(1.0, 64.0, 40)
+    with pytest.raises(ValueError, match="float32 or float64"):
+        jw.cwt(jnp.asarray(x16), scales, jw.MorletWavelet(), 2.0)
+    want = jw.cwt(x16.astype(np.float64), scales, jw.MorletWavelet(), 2.0)
+    got = jt.cwt(_t(x16), scales, jt.MorletWavelet(), 2.0)
+    assert got.coefficients.dtype == torch.complex64
+    assert _rel(got.coefficients.numpy(),
+                np.asarray(want.coefficients)) <= 1e-5
+    back = jt.icwt(got)
+    assert back.dtype == torch.float32
+    assert _rel(back.numpy(),
+                np.asarray(jw.icwt(want, jw.MorletWavelet()))) <= 1e-5
+
+
+@pytest.mark.parametrize("dtype,eps", [(np.float16, 2.0 ** -11),
+                                       ("bfloat16", 2.0 ** -8)])
+def test_icwt_of_half_precision_coefficients_matches_jax(dtype, eps):
+    """A ``CWTResult`` whose real coefficients are float16 or bfloat16:
+    both packages return float32.  The JAX package sums the scales in the
+    half dtype (about one unit of it off: bound 4 units of max|ref|); the
+    port sums and transforms in float32 (1e-5 relative of its float64
+    result on the same coefficients)."""
+    x = np.random.default_rng(17).standard_normal((2, 500))
+    scales = jw.generate_log_scales(1.0, 64.0, 40)
+    wav = (jw.MexicanHatWavelet(1.3), jt.MexicanHatWavelet(1.3))
+    jres = jw.cwt(x, scales, wav[0], 2.0)
+    jhalf = jres.coefficients.astype(jnp.dtype(dtype))
+    want = np.asarray(jw.icwt(jres._replace(coefficients=jhalf), wav[0]))
+    tres = jt.cwt(_t(x), scales, wav[1], 2.0)
+    half = torch.from_numpy(np.array(jhalf.astype(jnp.float32))).to(
+        getattr(torch, jnp.dtype(dtype).name))
+    got = jt.icwt(tres._replace(coefficients=half), wav[1])
+    ref = jt.icwt(tres._replace(coefficients=half.double()), wav[1])
+    assert got.dtype == torch.float32 and want.dtype == np.float32
+    assert _rel(got.numpy(), ref.numpy()) <= 1e-5
+    assert _rel(got.numpy(), want) <= 4 * eps
+
+
 def test_icwt_reconstructs_a_band_limited_signal():
     """Round trip inside the covered band (the method's own accuracy:
     the JAX tests pin ≤ 5% relative L2 for every family)."""

@@ -180,6 +180,32 @@ def test_dtype_table_against_jax():
     np.testing.assert_array_equal(got.peaks.numpy(), np.asarray(want.peaks))
 
 
+@pytest.mark.parametrize("dtype", ["float16", "bfloat16"])
+def test_half_precision_input_is_wider_than_jax(dtype):
+    """Float16 and bfloat16 input: the JAX package raises ``ValueError``
+    (its rfft takes float32 or float64 only); the port transforms in
+    float32.  Against the JAX package's float64 transform of the same
+    rounded input: the peaks in the same bins (well separated tones), the
+    boundaries within one float32 rounding, the components within 1e-5
+    relative (float32 FFTs) and the inverse within 1e-5 relative of that
+    input."""
+    x = _tones(np.random.default_rng(7), (2, 256)) * 10
+    half = torch.from_numpy(x.astype(np.float32)).to(getattr(torch, dtype))
+    with pytest.raises(ValueError, match="float32 or float64"):
+        jw.ewt1d(jnp.asarray(x, jnp.dtype(dtype)), 3)
+    want = _jax(half.double().numpy(), 3)
+    got = jt.ewt1d(half, 3)
+    assert got.components.dtype == torch.float32
+    bins = 256 / (2 * np.pi)
+    np.testing.assert_array_equal(np.rint(got.peaks.numpy() * bins),
+                                  np.rint(want[3] * bins))
+    np.testing.assert_allclose(got.boundaries.numpy(), want[2],
+                               rtol=2.0 ** -23)
+    assert _rel(got.components.numpy(), want[0]) <= 1e-5
+    back = jt.iewt1d(got.components, got.filters)
+    assert _rel(back.numpy(), half.double().numpy()) <= 1e-5
+
+
 def test_validation_errors_match_jax():
     x = np.zeros((2, 64))
     bad = [lambda p, v: p.ewt1d(v + 1j, 3), lambda p, v: p.ewt1d(v, 1),

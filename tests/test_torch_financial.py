@@ -320,6 +320,23 @@ def test_realized_volatility_matches_jax(annualize):
         np.sqrt(np.sum(r[:, 48:64] ** 2, axis=-1)), rtol=1e-12)
 
 
+def test_realized_volatility_bfloat16_keeps_the_dtype_in_both():
+    """A reference caveat, copied: both packages take the running sum of
+    r² in the input dtype and subtract its shifted copy, so in bfloat16
+    the difference cancels.  Both return bfloat16, and at (4, 65536) with
+    window 8 both are more than 100% of max off the float64 result of the
+    same rounded returns."""
+    r = np.random.default_rng(16).standard_normal((4, 65536))
+    rb = torch.from_numpy(r.astype(np.float32)).to(torch.bfloat16)
+    got = jt.realized_volatility(rb, 8)
+    want = _jax("realized_volatility", 8, None)(
+        jnp.asarray(rb.float().numpy(), jnp.bfloat16))
+    assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+    ref = jt.realized_volatility(rb.double(), 8).numpy()
+    for out in (got.double().numpy(), np.asarray(want, np.float64)):
+        assert np.abs(out - ref).max() > np.abs(ref).max()
+
+
 # -- the chain -----------------------------------------------------------------
 
 @pytest.mark.parametrize("devolatize", [True, False])

@@ -1181,3 +1181,14 @@ def test_exported_fwt_keeps_ieee_f32_under_tf32(dev, setting):
         torch.set_float32_matmul_precision("highest")
     scale = float(want.abs().max())
     assert float((got.cpu().double() - want).abs().max()) <= 1e-5 * scale
+
+
+def test_time_chain_times_the_card(dev):
+    """``time_chain`` on a CUDA tensor: CUDA events around chained steps
+    through the forward kernel, one launch a step, give a positive time
+    above the 1e-9 floor."""
+    x = torch.randn(4, 4096, device=dev)
+    kc.modwt_fwd_cuda.launches = 0
+    dt = jt.time_chain(lambda v: jt.modwt(v, DB4, 3)[3], x, 2, 5, 2)
+    assert kc.modwt_fwd_cuda.launches == (2 + 5) * (1 + 2)
+    assert 1e-9 < dt < 1

@@ -220,6 +220,30 @@ def test_dtype_table_against_jax():
         "complex64"
 
 
+def test_float16_input_is_wider_than_jax():
+    """Float16 input: the JAX package raises ``ValueError`` (its rfft
+    takes float32 or float64 only); the port computes in float32, as for
+    bfloat16.  Against the JAX package's float64 result on the same
+    rounded input: Wx within 1e-5 relative, Tx within 1e-5 relative where
+    both pick the same bin (the float32 rows above)."""
+    x16 = (_chirps(np.random.default_rng(6), (2, 256)) * 10).astype(
+        np.float16)
+    scales = _scales(num=8)
+    with pytest.raises(ValueError, match="float32 or float64"):
+        jw.ssq_cwt(jnp.asarray(x16), scales, sampling_rate=256.0)
+    want = _jax_ssq(x16.astype(np.float64), scales, sampling_rate=256.0)
+    got = jt.ssq_cwt(torch.from_numpy(x16), scales, sampling_rate=256.0)
+    assert got.Tx.dtype == torch.complex64 and got.Wx.dtype == \
+        torch.complex64
+    assert _rel(got.Wx.numpy(), want[1]) <= 1e-5
+    same = (got.Tx.numpy() != 0) == (want[0] != 0)
+    assert same.mean() > 0.99
+    err = np.abs(got.Tx.numpy() - want[0])[same].max()
+    assert err / np.abs(want[0]).max() <= 1e-5
+    back = jt.issq_cwt(got)
+    assert back.dtype == torch.float32
+
+
 def test_validation_errors_match_jax():
     x = np.random.default_rng(5).standard_normal((2, 128))
     scales = _scales(num=8)

@@ -251,3 +251,39 @@ def test_every_public_name_of_the_jax_package_has_a_counterpart():
     for name in ("Line", "Block", "Space", "SuperLine"):
         assert hasattr(importlib.import_module("jwave_pro_tpu_torch."
                                                "datatypes"), name)
+
+
+def _jax_modules():
+    """Every module of ``jwave_pro_tpu`` but ``kernels/``, dotted below the
+    package ('' for the package itself), from the source tree."""
+    root = Path(jw.__file__).resolve().parent
+    mods = []
+    for path in sorted(root.rglob("*.py")):
+        parts = path.relative_to(root).with_suffix("").parts
+        if parts[0] == "kernels":
+            continue
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        mods.append(".".join(parts))
+    return mods
+
+
+@pytest.mark.parametrize("mod", _jax_modules())
+def test_every_module_has_its_public_names_in_the_port(mod):
+    """Module by module: each public name of a JAX module (its
+    ``__all__``, or else the public functions and classes it defines)
+    exists on the port's module of the same dotted name."""
+    import importlib
+    import inspect
+
+    jmod = importlib.import_module(f"jwave_pro_tpu{'.' * bool(mod)}{mod}")
+    tmod = importlib.import_module(
+        f"jwave_pro_tpu_torch{'.' * bool(mod)}{mod}")
+    if hasattr(jmod, "__all__"):
+        names = list(jmod.__all__)
+    else:
+        names = [n for n, v in vars(jmod).items()
+                 if not n.startswith("_")
+                 and (inspect.isfunction(v) or inspect.isclass(v))
+                 and v.__module__ == jmod.__name__]
+    assert [n for n in names if not hasattr(tmod, n)] == []
