@@ -510,21 +510,21 @@ def run(smoke: Smoke, torch, jt) -> dict:
           f"and 1D N={MAIN_1D}, through the public API", flush=True)
     x = signal(*MAIN_SHAPE)
     x1 = signal(MAIN_1D)
-    counters = (kc.modwt_fwd_cuda, kc.modwt_inv_cuda, kd.modwt_denoise_cuda)
+    counters = ("modwt_fwd", "modwt_inv", "modwt_denoise")
     torch.cuda.synchronize()
-    for fn in counters:
-        fn.launches = 0
+    for name in counters:
+        kc.LAUNCHES[name] = 0
     c = jt.modwt(x, w, LEVEL)
     xr = jt.imodwt(c, w)
     den = jt.modwt_denoise(x, w, LEVEL, method="fused")
-    fwd_batched = kc.modwt_fwd_cuda.launches
+    fwd_batched = kc.LAUNCHES["modwt_fwd"]
     c1 = jt.modwt(x1, w, LEVEL)
     torch.cuda.synchronize()
     launches = {
         "modwt_fwd": fwd_batched,
-        "modwt_fwd_1d": kc.modwt_fwd_cuda.launches - fwd_batched,
-        "modwt_inv": kc.modwt_inv_cuda.launches,
-        "modwt_denoise": kd.modwt_denoise_cuda.launches,
+        "modwt_fwd_1d": kc.LAUNCHES["modwt_fwd"] - fwd_batched,
+        "modwt_inv": kc.LAUNCHES["modwt_inv"],
+        "modwt_denoise": kc.LAUNCHES["modwt_denoise"],
     }
     print(f"  launches on the main path: {launches}", flush=True)
     for name, count in launches.items():
@@ -537,9 +537,7 @@ def run(smoke: Smoke, torch, jt) -> dict:
                       tuple(t.shape) == shape
                       and bool(torch.isfinite(t).all()))
     smoke.check("main-path round trip", max_err(xr, x), 1e-4)
-    mra_counters = {"modwt_fwd": kc.modwt_fwd_cuda,
-                    "modwt_inv": kc.modwt_inv_cuda,
-                    "modwt_denoise": kd.modwt_denoise_cuda}
+    mra_counters = ("modwt_fwd", "modwt_inv", "modwt_denoise")
     # modwt alone: one forward launch
     counted_run(smoke, torch, mra_counters, f"modwt {MAIN_SHAPE} L{LEVEL}",
                 lambda: jt.modwt(x, w, LEVEL), {"modwt_fwd": 1})
@@ -724,16 +722,19 @@ def kernel_bounds(w) -> dict:
     }
 
 
-def counted_run(smoke: Smoke, torch, counters: dict, what: str, calls,
+def counted_run(smoke: Smoke, torch, counters, what: str, calls,
                 want: dict):
-    """Run ``calls`` with every counter at 0 and require exactly the
-    launches ``want`` names (0 for the others); returns (output, counts)."""
+    """Run ``calls`` with the launch count of every operator named in
+    ``counters`` at 0 and require exactly the launches ``want`` names (0
+    for the others); returns (output, counts)."""
+    from jwave_pro_tpu_torch.kernels.modwt_cuda import LAUNCHES
+
     torch.cuda.synchronize()
-    for fn in counters.values():
-        fn.launches = 0
+    for name in counters:
+        LAUNCHES[name] = 0
     out = calls()
     torch.cuda.synchronize()
-    got = {name: fn.launches for name, fn in counters.items()}
+    got = {name: LAUNCHES[name] for name in counters}
     want = {name: want.get(name, 0) for name in counters}
     print(f"  launches on {what}: {got}", flush=True)
     smoke.require(f"launches on {what} as expected", got == want,
@@ -920,10 +921,7 @@ def run_slice(smoke: Smoke, torch, jt, dev, signal, card):
     y = 0.5 * x + signal(*MAIN_SHAPE)
     xp = signal(*PACKET_SHAPE)
     xm = signal(*MP_SHAPE)
-    counters = {"modwt_var": kv.modwt_var_cuda,
-                "modwpt_fwd": kp.modwpt_fwd_cuda,
-                "modwpt_inv": kp.modwpt_inv_cuda,
-                "modwpt_select": kp.modwpt_select_cuda}
+    counters = ("modwt_var", "modwpt_fwd", "modwpt_inv", "modwpt_select")
     # each call in a counted window of its own, with its exact launches:
     # one variance kernel a statistic (four for the correlation: x + y,
     # x − y, x, y), one select a pursuit's pick
@@ -1179,11 +1177,8 @@ def run_image_slice(smoke: Smoke, torch, jt, dev, signal, card):
           flush=True)
     x = signal(*IMAGE_SHAPE)
     xm = signal(*MRA_SHAPE)
-    counters = {"modwt2_fwd": k2.modwt2_fwd_cuda,
-                "modwt2_inv": k2.modwt2_inv_cuda,
-                "modwt2_denoise": k2.modwt2_denoise_cuda,
-                "modwpt_fwd": kp.modwpt_fwd_cuda,
-                "modwpt_inv": kp.modwpt_inv_cuda}
+    counters = ("modwt2_fwd", "modwt2_inv", "modwt2_denoise", "modwpt_fwd",
+                "modwpt_inv")
 
     def counted(what, calls, want):
         return counted_run(smoke, torch, counters, what, calls, want)
@@ -1473,11 +1468,8 @@ def run_volume_cwt_slice(smoke: Smoke, torch, jt, dev, signal, card):
     print(f"== phase 19: 3D path {VOLUME_SHAPE} f32 {WAVELET} L{lvl}, "
           f"oct-tree packets {PACKET3_SHAPE} L{lvl}, MRA {MRA3_SHAPE}, "
           f"through the public API", flush=True)
-    counters = {"modwt3_fwd": k3.modwt3_fwd_cuda,
-                "modwt3_inv": k3.modwt3_inv_cuda,
-                "modwpt_fwd": kp.modwpt_fwd_cuda,
-                "modwpt_inv": kp.modwpt_inv_cuda,
-                "cwt_ifft": kw.cwt_ifft_cuda}
+    counters = ("modwt3_fwd", "modwt3_inv", "modwpt_fwd", "modwpt_inv",
+                "cwt_ifft")
 
     def counted(what, calls, want):
         return counted_run(smoke, torch, counters, what, calls, want)
@@ -1674,28 +1666,12 @@ def run_volume_cwt_slice(smoke: Smoke, torch, jt, dev, signal, card):
     return launches, errs, times, library
 
 
-def all_launchers() -> dict:
-    """Every kernel wrapper's launch counter, by kernel."""
-    from jwave_pro_tpu_torch.kernels import cwt_cuda as kw
-    from jwave_pro_tpu_torch.kernels import denoise_cuda as kd
-    from jwave_pro_tpu_torch.kernels import modwpt_cuda as kp
-    from jwave_pro_tpu_torch.kernels import modwt2_cuda as k2
-    from jwave_pro_tpu_torch.kernels import modwt3_cuda as k3
-    from jwave_pro_tpu_torch.kernels import modwt_cuda as kc
-    from jwave_pro_tpu_torch.kernels import variance_cuda as kv
-
-    return {"modwt_fwd": kc.modwt_fwd_cuda, "modwt_inv": kc.modwt_inv_cuda,
-            "modwt_denoise": kd.modwt_denoise_cuda,
-            "modwt_var": kv.modwt_var_cuda,
-            "modwpt_fwd": kp.modwpt_fwd_cuda,
-            "modwpt_select": kp.modwpt_select_cuda,
-            "modwpt_inv": kp.modwpt_inv_cuda,
-            "modwt2_fwd": k2.modwt2_fwd_cuda,
-            "modwt2_inv": k2.modwt2_inv_cuda,
-            "modwt2_denoise": k2.modwt2_denoise_cuda,
-            "modwt3_fwd": k3.modwt3_fwd_cuda,
-            "modwt3_inv": k3.modwt3_inv_cuda,
-            "cwt_ifft": kw.cwt_ifft_cuda}
+def all_launchers() -> tuple:
+    """Every kernel operator, by the name its launches count under."""
+    return ("modwt_fwd", "modwt_inv", "modwt_denoise", "modwt_var",
+            "modwpt_fwd", "modwpt_select", "modwpt_inv", "modwt2_fwd",
+            "modwt2_inv", "modwt2_denoise", "modwt3_fwd", "modwt3_inv",
+            "cwt_ifft")
 
 
 def op_flops(call) -> int:
@@ -2717,13 +2693,13 @@ def run_streaming_slice(smoke: Smoke, torch, jt, signal, card) -> list:
 
     def counted(kind, fn):
         torch.cuda.synchronize()
-        before = kc.modwt_fwd_cuda.launches
+        before = kc.LAUNCHES["modwt_fwd"]
         out = fn()
         torch.cuda.synchronize()
-        launched[kind] += kc.modwt_fwd_cuda.launches - before
+        launched[kind] += kc.LAUNCHES["modwt_fwd"] - before
         return out
 
-    kc.modwt_fwd_cuda.launches = 0
+    kc.LAUNCHES["modwt_fwd"] = 0
     c0 = signal(LEVEL + 1, STREAM_CH, buf)
     window = c0[-1, :, :halo + chunk]
     tail = counted("#1 batched",

@@ -26,7 +26,7 @@ row fills 135 KB of the 227 KB), any B and S.
 Beside the kernel: its plain PyTorch version :func:`cwt_ifft_plain` (the
 JAX kernel's two-stage DFT with the same stage constants, as complex
 matrix products in float32, or float64 for complex128 input) and a launch
-counter (``cwt_ifft_cuda.launches``).  The launch is the operator
+count (``modwt_cuda.LAUNCHES["cwt_ifft"]``).  The launch is the operator
 ``jwave::cwt_ifft``.
 """
 from __future__ import annotations
@@ -168,7 +168,6 @@ def cwt_ifft_op(xf: torch.Tensor, mult: torch.Tensor, n: int,
         p, n, int(is_real), xf.device.index,
         torch.cuda.current_stream(xf.device).cuda_stream)
     _build.check(lib, code, "CWT kernel")
-    cwt_ifft_cuda.launches += 1
     return out
 
 
@@ -185,9 +184,6 @@ def cwt_ifft_cuda(xf: torch.Tensor, mult: torch.Tensor, n: int,
     complex64 on one CUDA device → (B, S, n) complex64, or float32 when
     ``is_real``."""
     return cwt_ifft_op(xf, mult, n, int(is_real))
-
-
-cwt_ifft_cuda.launches = 0
 
 
 def cwt_ifft_fused(xf: torch.Tensor, mult: torch.Tensor, n: int,

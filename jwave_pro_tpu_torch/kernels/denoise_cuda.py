@@ -18,10 +18,10 @@ budgets.  Any N runs, since each block reads its circular context
 directly.
 
 Beside the kernel: its plain PyTorch version (:func:`modwt_denoise_plain`)
-and its launch counter (``modwt_denoise_cuda.launches``).  The launch is
-the operator ``jwave::modwt_denoise`` (``kernels/modwt_cuda.py`` says
-why).  Not
-differentiable: shrinkage is piecewise; the ``method='auto'`` pipeline is.
+and its launch count (``modwt_cuda.LAUNCHES["modwt_denoise"]``).  The
+launch is the operator ``jwave::modwt_denoise`` (``kernels/modwt_cuda.py``
+says why).  Not differentiable: shrinkage is piecewise; the
+``method='auto'`` pipeline is.
 """
 from __future__ import annotations
 
@@ -101,7 +101,6 @@ def modwt_denoise_op(x: torch.Tensor, threshold: torch.Tensor,
         smem_bytes(level, m, "denoise"), int(hard), DTYPE_CODES[x.dtype],
         x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, code, "fused denoise kernel")
-    modwt_denoise_cuda.launches += 1
     return out
 
 
@@ -118,9 +117,6 @@ def modwt_denoise_cuda(x: torch.Tensor, threshold: torch.Tensor,
     threshold (B,) float32 → (B, N)."""
     return modwt_denoise_op(x, threshold, *op_taps(wavelet), level,
                             int(mode != "soft"))
-
-
-modwt_denoise_cuda.launches = 0
 
 
 def modwt_denoise_fused(x: torch.Tensor, threshold: torch.Tensor,

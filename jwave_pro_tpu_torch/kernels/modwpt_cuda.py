@@ -28,8 +28,8 @@ forward stages each warp's leaves in shared memory so that its stores,
 leaf pair with batched loads.
 
 Beside each kernel: its plain PyTorch version (``modwpt_fwd_plain``,
-``modwpt_inv_plain``, ``modwpt_select_plain``) and a launch counter
-(``<launcher>.launches``).  Each launch is an operator
+``modwpt_inv_plain``, ``modwpt_select_plain``) and a launch count
+(``modwt_cuda.LAUNCHES["<op>"]``).  Each launch is an operator
 (``jwave::modwpt_fwd``, ``jwave::modwpt_select``, ``jwave::modwpt_inv``).
 bfloat16 is read and written as bfloat16 and computed in float32; the select
 returns float32.  The autograd pair (:func:`modwpt_fused`,
@@ -149,7 +149,6 @@ def modwpt_fwd_op(x: torch.Tensor, g: list[float], h: list[float],
         smem_bytes(level, m, "pfwd"), DTYPE_CODES[x.dtype], x.device.index,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, code, "MODWPT forward kernel")
-    modwpt_fwd_cuda.launches += 1
     return out
 
 
@@ -164,9 +163,6 @@ def modwpt_fwd_cuda(x: torch.Tensor, wavelet: DiscreteWavelet,
     """Launch the forward kernel as ``jwave::modwpt_fwd``: x (B, N) →
     (2^level, B, N), x's dtype."""
     return modwpt_fwd_op(x, *op_taps(wavelet), level)
-
-
-modwpt_fwd_cuda.launches = 0
 
 
 def _check_pinv(c: torch.Tensor, g, h, traced: bool = True) -> int:
@@ -199,7 +195,6 @@ def modwpt_inv_op(c: torch.Tensor, g: list[float], h: list[float]
         smem_bytes(level, m, "pinv"), DTYPE_CODES[c.dtype], c.device.index,
         torch.cuda.current_stream(c.device).cuda_stream)
     _build.check(lib, code, "MODWPT inverse kernel")
-    modwpt_inv_cuda.launches += 1
     return out
 
 
@@ -214,9 +209,6 @@ def modwpt_inv_cuda(c: torch.Tensor, wavelet: DiscreteWavelet
     """Launch the inverse kernel as ``jwave::modwpt_inv``: c (2^level,
     B, N) → (B, N), c's dtype."""
     return modwpt_inv_op(c, *op_taps(wavelet))
-
-
-modwpt_inv_cuda.launches = 0
 
 
 def select_plan(batch: int, n: int, level: int, m: int) -> TilePlan:
@@ -250,7 +242,6 @@ def modwpt_select_op(x: torch.Tensor, g: list[float], h: list[float],
         out.data_ptr(), b, n, level, gh.ctypes.data, hh.ctypes.data, m,
         plan.tile, plan.smem, DTYPE_CODES[x.dtype], x.device.index, stream)
     _build.check(lib, code, "MODWPT select kernel")
-    modwpt_select_cuda.launches += 1
     return out
 
 
@@ -268,9 +259,6 @@ def modwpt_select_cuda(x: torch.Tensor, wavelet: DiscreteWavelet,
     absmax, shift, value = modwpt_select_op(
         x, *op_taps(wavelet), level).unbind(0)
     return absmax, shift.view(torch.int32), value
-
-
-modwpt_select_cuda.launches = 0
 
 
 # ---------------------------------------------------------------------------

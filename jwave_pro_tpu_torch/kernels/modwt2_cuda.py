@@ -35,8 +35,8 @@ L4, Symlet 8 to L3, Haar to L7), the denoise every (M, L) whose strip has
 8 columns, halo ≤ 65 (Db4 to L3, Symlet 8 to L2, Haar to L6).
 
 Beside each kernel: its plain PyTorch version (``modwt2_fwd_plain``,
-``modwt2_inv_plain``, ``modwt2_denoise_plain``) and a launch counter
-(``<launcher>.launches``).  Each launch is an operator
+``modwt2_inv_plain``, ``modwt2_denoise_plain``) and a launch count
+(``modwt_cuda.LAUNCHES["<op>"]``).  Each launch is an operator
 (``jwave::modwt2_fwd``, ``jwave::modwt2_inv``, ``jwave::modwt2_denoise``)
 that plans its grid from the concrete batch.  bfloat16 is read and written as
 bfloat16 and computed in float32.  Not differentiable: the JAX kernels have
@@ -329,7 +329,6 @@ def modwt2_fwd_op(x: torch.Tensor, g: list[float], h: list[float],
     check_operand(x, "x", 3)
     _check_transform("fwd", x, tuple(x.shape), level, g, h)
     out = _launch_transform("fwd", x, tuple(x.shape), level, g, h)
-    modwt2_fwd_cuda.launches += 1
     return out
 
 
@@ -345,9 +344,6 @@ def modwt2_fwd_cuda(x: torch.Tensor, wavelet: DiscreteWavelet,
     """Launch the forward kernel as ``jwave::modwt2_fwd``: x (B, R, C)
     → (3·level+1, B, R, C)."""
     return modwt2_fwd_op(x, *op_taps(wavelet), level)
-
-
-modwt2_fwd_cuda.launches = 0
 
 
 def _check_inv2(c: torch.Tensor, g, h, traced: bool) -> int:
@@ -367,7 +363,6 @@ def modwt2_inv_op(c: torch.Tensor, g: list[float], h: list[float]
     modwt2_inv``): c (3·level+1, B, R, C) → (B, R, C)."""
     level = _check_inv2(c, g, h, False)
     out = _launch_transform("inv", c, tuple(c.shape[1:]), level, g, h)
-    modwt2_inv_cuda.launches += 1
     return out
 
 
@@ -382,9 +377,6 @@ def modwt2_inv_cuda(c: torch.Tensor, wavelet: DiscreteWavelet
     """Launch the inverse kernel as ``jwave::modwt2_inv``: c
     (3·level+1, B, R, C) → (B, R, C)."""
     return modwt2_inv_op(c, *op_taps(wavelet))
-
-
-modwt2_inv_cuda.launches = 0
 
 
 def _check_denoise2(x: torch.Tensor, threshold: torch.Tensor, g, h,
@@ -431,7 +423,6 @@ def modwt2_denoise_op(x: torch.Tensor, threshold: torch.Tensor,
         hh.ctypes.data, m, w, grp, tc, run, int(hard), dtype,
         x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, code, "2D denoise kernel")
-    modwt2_denoise_cuda.launches += 1
     return out
 
 
@@ -448,9 +439,6 @@ def modwt2_denoise_cuda(x: torch.Tensor, threshold: torch.Tensor,
     (B, R, C), threshold (B,) float32 → (B, R, C)."""
     return modwt2_denoise_op(x, threshold, *op_taps(wavelet), level,
                              int(mode != "soft"))
-
-
-modwt2_denoise_cuda.launches = 0
 
 
 # ---------------------------------------------------------------------------

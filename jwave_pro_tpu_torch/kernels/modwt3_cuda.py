@@ -40,8 +40,8 @@ Db4 to L2, Haar to L5, Symlet 8 at L1.  Deeper levels and longer filters
 take the plain path under ``method='auto'`` and raise under ``'pallas'``.
 
 Beside each kernel: its plain PyTorch version (``modwt3_fwd_plain``,
-``modwt3_inv_plain``) and a launch counter (``<launcher>.launches``, one a
-call).  Each call is an operator (``jwave::modwt3_fwd``,
+``modwt3_inv_plain``) and a launch count (``modwt_cuda.LAUNCHES["<op>"]``,
+one a call).  Each call is an operator (``jwave::modwt3_fwd``,
 ``jwave::modwt3_inv``) that plans its depth runs from the concrete batch.
 bfloat16 is read and written as bfloat16 and computed in float32
 (the scratch stays float32).  Not differentiable: the JAX kernels have no
@@ -255,7 +255,6 @@ def modwt3_fwd_op(x: torch.Tensor, g: list[float], h: list[float],
         dc.ctypes.data, DTYPE_CODES[x.dtype], x.device.index,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, code, "3D forward kernel")
-    modwt3_fwd_cuda.launches += 1
     return out
 
 
@@ -270,9 +269,6 @@ def modwt3_fwd_cuda(x: torch.Tensor, wavelet: DiscreteWavelet,
     """Launch the forward kernel as ``jwave::modwt3_fwd``: x
     (B, D, R, C) → (7·level+1, B, D, R, C)."""
     return modwt3_fwd_op(x, *op_taps(wavelet), level)
-
-
-modwt3_fwd_cuda.launches = 0
 
 
 def _check_inv3(c: torch.Tensor, g, h, traced: bool) -> int:
@@ -308,7 +304,6 @@ def modwt3_inv_op(c: torch.Tensor, g: list[float], h: list[float]
         DTYPE_CODES[c.dtype], c.device.index,
         torch.cuda.current_stream(c.device).cuda_stream)
     _build.check(lib, code, "3D inverse kernel")
-    modwt3_inv_cuda.launches += 1
     return out
 
 
@@ -323,9 +318,6 @@ def modwt3_inv_cuda(c: torch.Tensor, wavelet: DiscreteWavelet
     """Launch the inverse kernel as ``jwave::modwt3_inv``: c
     (7·level+1, B, D, R, C) → (B, D, R, C)."""
     return modwt3_inv_op(c, *op_taps(wavelet))
-
-
-modwt3_inv_cuda.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -22,8 +22,8 @@ level's W row in flight while a level runs.
 
 Beside each kernel: its plain PyTorch version (``modwt_fwd_plain``,
 ``modwt_inv_plain``), which the CPU path runs and the chip smoke compares
-against, and a launch counter (``modwt_fwd_cuda.launches``,
-``modwt_inv_cuda.launches``).  Each launch is a ``torch.library`` operator
+against, and a launch count (``LAUNCHES["modwt_fwd"]``,
+``LAUNCHES["modwt_inv"]``).  Each launch is a ``torch.library`` operator
 (``jwave::modwt_fwd``, ``jwave::modwt_inv``) whose taps travel as float
 lists (:func:`op_taps`) and whose grid is planned at launch, so a
 batch-polymorphic ``torch.export`` records the launch and the served graph
@@ -35,6 +35,7 @@ direction's backward is the other kernel.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 from typing import NamedTuple
@@ -47,13 +48,14 @@ from ..ops.modwt import (
     taps_as,
 )
 from ..utils.device import tracing
+from ..utils.profiling import spanned
 from ..wavelets.base import DiscreteWavelet
 from . import _build
 
 __all__ = [
     "modwt_fused", "imodwt_fused", "kernel_supported",
     "modwt_fwd_cuda", "modwt_inv_cuda", "modwt_fwd_plain", "modwt_inv_plain",
-    "modwt_fwd_op", "modwt_inv_op", "op_taps", "kernel_op",
+    "modwt_fwd_op", "modwt_inv_op", "op_taps", "kernel_op", "LAUNCHES",
 ]
 
 MAX_TAPS = 64                 # JW_MAX_TAPS in csrc/common.cuh
@@ -335,25 +337,39 @@ def check_taps(g, h) -> int:
 _OPS = torch.library.Library("jwave", "FRAGMENT")
 
 
+#: Kernel launches by operator name (``LAUNCHES["modwt_fwd"]``), eager and
+#: served alike: each is counted where :func:`kernel_op` launches it.
+LAUNCHES: collections.Counter = collections.Counter()
+
+
 def kernel_op(name: str):
     """Decorator: define the operator ``jwave::<name>``, its schema the
     decorated launch's signature, with the launch as its kernel; return
     the launchers' entry to it.  The entry calls the operator while torch
     traces, so the trace records one node that launches the kernel when
     served, and the launch itself otherwise: the same kernel, without the
-    dispatcher's host time on every eager launch.  It has
-    ``register_fake``, the decorator that sets the operator's fake (what
-    ``meta`` tensors and ``torch.export`` run)."""
+    dispatcher's host time on every eager launch.  Either way the launch
+    runs inside the span ``jwave.launch.<name>`` and, once it returns,
+    counts in ``LAUNCHES[name]``.  The entry has ``register_fake``, the
+    decorator that sets the operator's fake (what ``meta`` tensors and
+    ``torch.export`` run)."""
     def define(launch):
         _OPS.define(name + torch.library.infer_schema(launch,
                                                       mutates_args=()))
+        @spanned("jwave.launch." + name)
+        @functools.wraps(launch)
+        def counted(*args):
+            out = launch(*args)
+            LAUNCHES[name] += 1
+            return out
+
         for key in ("CPU", "CUDA"):
-            _OPS.impl(name, launch, key)
+            _OPS.impl(name, counted, key)
         op = getattr(torch.ops.jwave, name).default
 
         @functools.wraps(launch)
         def call(*args):
-            return op(*args) if tracing() else launch(*args)
+            return op(*args) if tracing() else counted(*args)
 
         call.register_fake = torch.library.register_fake(
             f"jwave::{name}", lib=_OPS)
@@ -389,7 +405,6 @@ def modwt_fwd_op(x: torch.Tensor, g: list[float], h: list[float],
         smem_bytes(level, m, "fwd"), DTYPE_CODES[x.dtype], x.device.index,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, code, "modwt forward kernel")
-    modwt_fwd_cuda.launches += 1
     return out
 
 
@@ -404,9 +419,6 @@ def modwt_fwd_cuda(x: torch.Tensor, wavelet: DiscreteWavelet,
     """Launch the forward kernel as ``jwave::modwt_fwd``: x (B, N) →
     (level+1, B, N), x's dtype."""
     return modwt_fwd_op(x, *op_taps(wavelet), level)
-
-
-modwt_fwd_cuda.launches = 0
 
 
 def _check_inv(c: torch.Tensor, g, h, traced: bool = True) -> None:
@@ -435,7 +447,6 @@ def modwt_inv_op(c: torch.Tensor, g: list[float], h: list[float]
         smem_bytes(level, m, "inv"), DTYPE_CODES[c.dtype], c.device.index,
         torch.cuda.current_stream(c.device).cuda_stream)
     _build.check(lib, code, "modwt inverse kernel")
-    modwt_inv_cuda.launches += 1
     return out
 
 
@@ -449,9 +460,6 @@ def modwt_inv_cuda(c: torch.Tensor, wavelet: DiscreteWavelet) -> torch.Tensor:
     """Launch the inverse kernel as ``jwave::modwt_inv``: c (level+1,
     B, N) → (B, N), c's dtype."""
     return modwt_inv_op(c, *op_taps(wavelet))
-
-
-modwt_inv_cuda.launches = 0
 
 
 # ---------------------------------------------------------------------------

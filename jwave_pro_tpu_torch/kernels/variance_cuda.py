@@ -17,8 +17,8 @@ register chains of ``modwt_cuda.CHAIN['var']`` outputs a thread
 (:func:`var_plan`).  Any N runs: positions past N never count.
 
 Beside the kernel: its plain PyTorch version (:func:`modwt_var_plain`) and
-its launch counter (``modwt_var_cuda.launches``).  The launch is the
-operator ``jwave::modwt_var``; the tile plan and the ticket buffer are
+its launch count (``modwt_cuda.LAUNCHES["modwt_var"]``).  The launch is
+the operator ``jwave::modwt_var``; the tile plan and the ticket buffer are
 taken inside it, from the concrete batch.  The result is float32
 for float32 and bfloat16 input alike.
 """
@@ -94,7 +94,6 @@ def modwt_var_op(x: torch.Tensor, g: list[float], h: list[float],
         out.data_ptr(), b, n, level, gh.ctypes.data, hh.ctypes.data, m,
         plan.tile, plan.smem, DTYPE_CODES[x.dtype], x.device.index, stream)
     _build.check(lib, code, "fused variance kernel")
-    modwt_var_cuda.launches += 1
     return out
 
 
@@ -109,9 +108,6 @@ def modwt_var_cuda(x: torch.Tensor, wavelet: DiscreteWavelet,
     """Launch the variance kernel as ``jwave::modwt_var``: x (B, N) →
     (level+1, B) float32."""
     return modwt_var_op(x, *op_taps(wavelet), level)
-
-
-modwt_var_cuda.launches = 0
 
 
 def modwt_var_fused(x: torch.Tensor, wavelet: DiscreteWavelet,

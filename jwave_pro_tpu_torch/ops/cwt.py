@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from ..utils.device import as_input, tracing
+from ..utils.profiling import spanned
 from ..utils.validation import next_power_of_two
 from ..wavelets.continuous import ContinuousWavelet, MorletWavelet
 from .fwt import _mm
@@ -173,6 +174,7 @@ def _psi_hat_grid(wavelet: ContinuousWavelet, omega: np.ndarray,
 
 
 @functools.lru_cache(maxsize=256)
+@spanned("jwave.cwt.multipliers")
 def _half_spectrum_multipliers(wavelet: ContinuousWavelet, scales: tuple,
                                padded_n: int, sampling_rate: float):
     """Host-side (A, B) multipliers on the rfft half grid — f64 numpy.
@@ -213,6 +215,7 @@ def _half_spectrum_multipliers(wavelet: ContinuousWavelet, scales: tuple,
 
 
 @functools.lru_cache(maxsize=256)
+@spanned("jwave.cwt.multipliers")
 def _full_spectrum_multipliers(wavelet: ContinuousWavelet, scales: tuple,
                                padded_n: int, sampling_rate: float):
     """Host-side full-spectrum multipliers + real-output flag.
@@ -245,11 +248,20 @@ def _on_device(mult: np.ndarray, device: torch.device,
     key = (id(mult), str(device), dtype)
     hit = _DEVICE_MULTIPLIERS.get(key)
     if hit is None:
-        if len(_DEVICE_MULTIPLIERS) >= 32:
-            _DEVICE_MULTIPLIERS.pop(next(iter(_DEVICE_MULTIPLIERS)))
-        hit = (mult, torch.from_numpy(mult).to(device=device, dtype=dtype))
-        _DEVICE_MULTIPLIERS[key] = hit
+        hit = _upload(key, mult, device, dtype)
     return hit[1]
+
+
+@spanned("jwave.cwt.multipliers")
+def _upload(key, mult: np.ndarray, device: torch.device,
+            dtype: torch.dtype) -> tuple:
+    """:func:`_on_device`'s miss: the stack copied to the device and
+    cached under ``key``, the oldest entry dropped past 32."""
+    if len(_DEVICE_MULTIPLIERS) >= 32:
+        _DEVICE_MULTIPLIERS.pop(next(iter(_DEVICE_MULTIPLIERS)))
+    hit = (mult, torch.from_numpy(mult).to(device=device, dtype=dtype))
+    _DEVICE_MULTIPLIERS[key] = hit
+    return hit
 
 
 def _cwt_fused(xp: torch.Tensor, n: int, scales_np: np.ndarray,
@@ -315,6 +327,14 @@ def _cwt_full_fft(xp, n, scales_arr, wavelet, sampling_rate, cdtype):
     return torch.fft.ifft(prod, dim=-1)[..., :n]
 
 
+@spanned("jwave.cwt.axes")
+def _axis(values: np.ndarray, dtype: torch.dtype | None,
+          device: torch.device) -> torch.Tensor:
+    """A host axis of the result (its scales, its time axis) on
+    ``device``: a copy from pageable memory, which waits for the card."""
+    return torch.as_tensor(values, dtype=dtype, device=device)
+
+
 def _resolve_precision(precision, low_default: bool) -> str:
     """The banded path's product tier from the user-facing ``precision``.
 
@@ -330,6 +350,7 @@ def _resolve_precision(precision, low_default: bool) -> str:
     return tier
 
 
+@spanned("jwave.cwt")
 def cwt(x: torch.Tensor, scales, wavelet: ContinuousWavelet | None = None,
         sampling_rate: float = 1.0, padding: str = "zero",
         method: str = "auto", precision=None) -> CWTResult:
@@ -401,9 +422,9 @@ def cwt(x: torch.Tensor, scales, wavelet: ContinuousWavelet | None = None,
         coeff = None
         if method == "fused" and x.dtype == torch.float32:
             coeff = _cwt_fused(xp, n, scales_np, wavelet, sampling_rate)
-        scales_arr = torch.as_tensor(
-            scales_np, dtype=torch.float32 if coeff is not None else rdtype,
-            device=x.device)
+        scales_arr = _axis(
+            scales_np, torch.float32 if coeff is not None else rdtype,
+            x.device)
         if coeff is None:
             a, b, a_zero, b_zero = _half_spectrum_multipliers(
                 wavelet, tuple(float(s) for s in scales_np), padded_n,
@@ -423,8 +444,7 @@ def cwt(x: torch.Tensor, scales, wavelet: ContinuousWavelet | None = None,
             else:
                 coeff = torch.complex(half(a), half(b)).to(cdtype)
 
-    time_axis = torch.as_tensor(np.arange(n) * (1.0 / sampling_rate),
-                                device=x.device)
+    time_axis = _axis(np.arange(n) * (1.0 / sampling_rate), None, x.device)
     return CWTResult(coeff, scales_arr, time_axis, sampling_rate,
                      wavelet.name)
 

@@ -14,6 +14,7 @@ import math
 import torch
 
 from ..utils.device import as_input, as_signal
+from ..utils.profiling import spanned
 from ..wavelets.base import DiscreteWavelet
 from .modwt import imodwt, modwt
 from .wpt import (basis_coefficients, basis_coefficients2, basis_reconstruct,
@@ -149,6 +150,7 @@ def bayes_threshold(d: torch.Tensor, sigma, axis: int = -1) -> torch.Tensor:
                        sigma ** 2 / torch.where(sig_x > 0, sig_x, 1.0), dmax)
 
 
+@spanned("jwave.denoise.threshold")
 def _rule_threshold(kind: str, w1: torch.Tensor, details: torch.Tensor,
                     n: int) -> torch.Tensor:
     """Threshold of rule ``kind`` with σ from the level-1 details ``w1``,
@@ -162,6 +164,7 @@ def _rule_threshold(kind: str, w1: torch.Tensor, details: torch.Tensor,
     raise ValueError(f"unknown threshold rule {kind!r}")
 
 
+@spanned("jwave.modwt_denoise")
 def modwt_denoise(x: torch.Tensor, wavelet: DiscreteWavelet, level: int,
                   mode: str = "soft", method: str = "auto",
                   threshold=None) -> torch.Tensor:
@@ -201,9 +204,15 @@ def modwt_denoise(x: torch.Tensor, wavelet: DiscreteWavelet, level: int,
     if threshold is None or isinstance(threshold, str):
         threshold = _rule_threshold(threshold or "universal", c[0],
                                     c[:level], x.shape[-1])[..., None]
+    return imodwt(_shrunk(c, level, threshold, mode), wavelet, method)
+
+
+@spanned("jwave.denoise.shrink")
+def _shrunk(c: torch.Tensor, level: int, threshold, mode: str
+            ) -> torch.Tensor:
+    """``c`` with its ``level`` detail rows shrunk by ``threshold``."""
     shrink = soft_threshold if mode == "soft" else hard_threshold
-    details = shrink(c[:level], threshold)
-    return imodwt(torch.cat([details, c[level:]], dim=0), wavelet, method)
+    return torch.cat([shrink(c[:level], threshold), c[level:]], dim=0)
 
 
 def modwt_denoise_inplace(x: torch.Tensor, wavelet: DiscreteWavelet,

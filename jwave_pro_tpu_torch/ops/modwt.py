@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..utils.device import as_input
+from ..utils.profiling import spanned
 from ..wavelets.base import DiscreteWavelet
 
 __all__ = [
@@ -241,6 +242,7 @@ def _as_signal(x) -> torch.Tensor:
     return x
 
 
+@spanned("jwave.modwt")
 def modwt(x: torch.Tensor, wavelet: DiscreteWavelet, level: int,
           method: str = "auto") -> torch.Tensor:
     """Forward MODWT on the last axis; works for arbitrary (non-pow2) N.
@@ -285,6 +287,7 @@ def modwt(x: torch.Tensor, wavelet: DiscreteWavelet, level: int,
     return torch.stack(rows, dim=0)
 
 
+@spanned("jwave.imodwt")
 def imodwt(coeffs: torch.Tensor, wavelet: DiscreteWavelet,
            method: str = "auto") -> torch.Tensor:
     """Inverse MODWT: reconstruct the signal from ``(level+1, ..., N)`` coeffs.

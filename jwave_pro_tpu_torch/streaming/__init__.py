@@ -53,6 +53,7 @@ from ..ops.fwt import fwt as _fwt
 from ..ops.modwt import modwt as _modwt
 from ..ops.wpt import wpt as _wpt
 from ..utils.device import as_input
+from ..utils.profiling import spanned
 from ..utils.validation import next_power_of_two
 from ..wavelets.base import DiscreteWavelet
 
@@ -81,6 +82,7 @@ class CircularBuffer(typing.NamedTuple):
     def capacity(self) -> int:
         return self.data.shape[0]
 
+    @spanned("jwave.stream.append")
     def append(self, chunk) -> "CircularBuffer":
         """Append samples; returns the new buffer (this one is unchanged).
         Sample i goes to position (head + i) mod capacity."""
@@ -102,6 +104,7 @@ class CircularBuffer(typing.NamedTuple):
         return self.to_array()[self.capacity - size:] \
             if size < self.capacity else self.to_array()
 
+    @spanned("jwave.stream.window")
     def to_array(self) -> torch.Tensor:
         """Full buffer, oldest → newest."""
         return torch.roll(self.data, -self.head)
@@ -155,6 +158,7 @@ def _sig(t: torch.Tensor) -> tuple:
     return tuple(t.shape), t.dtype, t.device
 
 
+@spanned("jwave.stream.tail")
 def _causal_tail(window, s, wavelet: DiscreteWavelet, level: int):
     """Coefficients for the last ``s`` positions of ``window``.
 
@@ -178,7 +182,15 @@ def _incremental_modwt_step(buffer: CircularBuffer, coeffs, samples, *,
     s = samples.shape[-1]
     buffer = buffer.append(samples)
     tail = _causal_tail(buffer.window(halo + s), s, wavelet, level)
-    return buffer, torch.cat([coeffs[..., s:], tail.to(coeffs.dtype)], -1)
+    return buffer, _splice(coeffs, tail)
+
+
+@spanned("jwave.stream.splice")
+def _splice(coeffs, tail):
+    """The coefficients shifted left by the tail's width, the tail
+    after them."""
+    s = tail.shape[-1]
+    return torch.cat([coeffs[..., s:], tail.to(coeffs.dtype)], -1)
 
 
 def _full_modwt_step(buffer: CircularBuffer, samples, *,
@@ -214,6 +226,7 @@ class _StreamingBase:
     def get_current_buffer(self):
         return self.buffer.to_array()
 
+    @spanned("jwave.stream.chunk")
     def _samples(self, samples) -> torch.Tensor:
         return torch.as_tensor(samples, dtype=self.config.dtype,
                                device=torch.device(self.config.device))
@@ -269,6 +282,7 @@ class StreamingMODWT(_StreamingBase):
                 level=self.config.max_level, halo=self._halo)
         return self._coeffs
 
+    @spanned("jwave.stream.update")
     def update(self, samples):
         out = self._update_coeffs(samples)
         self._notify(out)
@@ -324,6 +338,7 @@ class StreamingVariance(StreamingMODWT):
         """Current (level,) per-scale variance estimate."""
         return self._var
 
+    @spanned("jwave.stream.update")
     def update(self, samples):
         samples = self._samples(samples)
         s = int(samples.shape[-1])

@@ -1,18 +1,54 @@
 """Profiling helpers (counterpart of ``jwave_pro_tpu/utils/profiling.py``):
 the chained samples/s measurement ``bench.py`` defines its throughputs by,
-and a ``torch.profiler`` trace context."""
+a ``torch.profiler`` trace context, and the program's own spans
+(:func:`span`, :func:`spanned`), which that trace records.
+
+``__all__`` stays the JAX module's; the spans are this package's own.
+"""
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 import tempfile
 import time
 
 import torch
 
-from .device import as_input
+from .device import as_input, tracing
 
 __all__ = ["time_chain", "measure_samples_per_sec", "trace"]
+
+# whether a profiler records on this process: one C call, no Python frame
+_profiling = torch._C._autograd._profiler_enabled
+_NULL = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context that marks ``name`` on the profiler's timeline: a
+    ``torch.profiler.record_function`` (a ``user_annotation`` event on
+    the calling thread, on the clock the device's events are aligned to;
+    spans opened inside it nest under it).  With no profiler running, or
+    while torch traces (an exported graph must not record the span's
+    operators), the one shared null context: the only cost is the check
+    of whether a profiler runs."""
+    if not _profiling() or tracing():
+        return _NULL
+    return torch.profiler.record_function(name)
+
+
+def spanned(name: str):
+    """Decorator form of :func:`span`: every call of the function runs
+    inside ``span(name)``, checked at the call."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            if not _profiling():
+                return fn(*args, **kwargs)
+            with span(name):
+                return fn(*args, **kwargs)
+        return call
+    return wrap
 
 
 def _chain(step, x, k):

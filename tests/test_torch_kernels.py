@@ -45,6 +45,7 @@ from jwave_pro_tpu_torch.kernels import modwt2_cuda as k2
 from jwave_pro_tpu_torch.kernels import modwt3_cuda as k3
 from jwave_pro_tpu_torch.kernels import modwt_cuda as kc
 from jwave_pro_tpu_torch.kernels import variance_cuda as kv
+from jwave_pro_tpu_torch.kernels.modwt_cuda import LAUNCHES
 
 pytestmark = pytest.mark.cuda
 
@@ -193,13 +194,13 @@ def test_entry_points_reject_shared_memory_off_their_layout(dev):
 
 def test_public_path_launches_each_kernel(dev):
     x = _signal(dev, 4, 8192, seed=2)
-    counters = (kc.modwt_fwd_cuda, kc.modwt_inv_cuda, kd.modwt_denoise_cuda)
-    before = [fn.launches for fn in counters]
+    counters = ("modwt_fwd", "modwt_inv", "modwt_denoise")
+    before = [LAUNCHES[op] for op in counters]
     c = jt.modwt(x, DB4, 5)
     xr = jt.imodwt(c, DB4)
     den = jt.modwt_denoise(x, DB4, 5, method="fused")
     torch.cuda.synchronize()
-    assert [fn.launches - b for fn, b in zip(counters, before)] == [1, 1, 1]
+    assert [LAUNCHES[op] - b for op, b in zip(counters, before)] == [1, 1, 1]
     torch.testing.assert_close(xr, x, rtol=0, atol=1e-4)
     torch.testing.assert_close(
         den, jt.modwt_denoise(x, DB4, 5, method="direct"), rtol=0, atol=1e-5)
@@ -208,10 +209,10 @@ def test_public_path_launches_each_kernel(dev):
 
 
 def test_auto_routes_f64_and_unsupported_shapes_to_plain(dev):
-    before = kc.modwt_fwd_cuda.launches
+    before = LAUNCHES["modwt_fwd"]
     jt.modwt(_signal(dev, 2, 1024, dtype=torch.float64), DB4, 3)
     jt.modwt(_signal(dev, 1 << 14), DB4, 13)   # Db4 L13 does not fit
-    assert kc.modwt_fwd_cuda.launches == before
+    assert LAUNCHES["modwt_fwd"] == before
     with pytest.raises(ValueError):
         jt.modwt(_signal(dev, 2, 1024, dtype=torch.float64), DB4, 3,
                  method="pallas")
@@ -424,9 +425,9 @@ def test_bf16_omp_through_the_fused_select(dev):
     and residual within the bf16 bound."""
     x = _omp_signal()
     x16 = x.to(dev, torch.bfloat16)
-    before = kp.modwpt_select_cuda.launches
+    before = LAUNCHES["modwpt_select"]
     got = jt.matching_pursuit(x16, DB4, 3, 3, orthogonalize=True)
-    assert kp.modwpt_select_cuda.launches - before == 3
+    assert LAUNCHES["modwpt_select"] - before == 3
     want = jt.matching_pursuit(x16.float(), DB4, 3, 3, orthogonalize=True)
     assert got.amps.dtype == got.residual.dtype == torch.bfloat16
     assert torch.equal(got.nodes, want.nodes)
@@ -477,16 +478,15 @@ def test_slice_public_path_launches_each_kernel(dev):
     w = DB4
     x = _signal(dev, 4, 8192, seed=8)
     y = _signal(dev, 4, 8192, seed=9)
-    counters = (kv.modwt_var_cuda, kp.modwpt_fwd_cuda, kp.modwpt_inv_cuda,
-                kp.modwpt_select_cuda)
-    before = [fn.launches for fn in counters]
+    counters = ("modwt_var", "modwpt_fwd", "modwpt_inv", "modwpt_select")
+    before = [LAUNCHES[op] for op in counters]
     v = jt.modwt_variance(x, w, 5)
     rho = jt.modwt_correlation(x, y, w, 5)
     c = jt.modwpt(x, w, 3)
     xr = jt.imodwpt(c, w)
     r = jt.matching_pursuit(x, w, 3, 4)
     torch.cuda.synchronize()
-    launched = [fn.launches - b for fn, b in zip(counters, before)]
+    launched = [LAUNCHES[op] - b for op, b in zip(counters, before)]
     # variance: 1; correlation: x+y, x−y, x, y; MP: one select per atom
     assert launched == [5, 1, 1, 4]
     assert v.shape == (5, 4) and v.dtype == torch.float32
@@ -504,14 +504,14 @@ def test_slice_public_path_launches_each_kernel(dev):
 
 
 def test_slice_auto_routes_f64_and_unsupported_shapes_to_plain(dev):
-    counters = (kv.modwt_var_cuda, kp.modwpt_fwd_cuda, kp.modwpt_select_cuda)
-    before = [fn.launches for fn in counters]
+    counters = ("modwt_var", "modwpt_fwd", "modwpt_select")
+    before = [LAUNCHES[op] for op in counters]
     x64 = _signal(dev, 2, 1024, dtype=torch.float64)
     jt.modwt_variance(x64, DB4, 3)
     jt.modwpt(x64, DB4, 3)
     jt.matching_pursuit(x64, DB4, 2, 2)
     jt.modwpt(_signal(dev, 1, 1024), DB4, 9)       # Db4 L9 does not fit
-    assert [fn.launches for fn in counters] == before
+    assert [LAUNCHES[op] for op in counters] == before
     with pytest.raises(ValueError, match="float32/bfloat16"):
         jt.modwt_variance(x64, DB4, 3, method="fused")
 
@@ -668,10 +668,9 @@ def test_numpy_threshold_on_the_card(dev):
 def test_2d_public_path_launches_each_kernel(dev):
     w = DB4
     x = _signal(dev, 2, 256, 192, seed=14)
-    counters = (k2.modwt2_fwd_cuda, k2.modwt2_inv_cuda,
-                k2.modwt2_denoise_cuda, kp.modwpt_fwd_cuda,
-                kp.modwpt_inv_cuda)
-    before = [fn.launches for fn in counters]
+    counters = ("modwt2_fwd", "modwt2_inv", "modwt2_denoise", "modwpt_fwd",
+                "modwpt_inv")
+    before = [LAUNCHES[op] for op in counters]
     c = jt.modwt2(x, w, 3)
     xr = jt.imodwt2(c, w)
     den = jt.modwt2_denoise(x, w, 3, method="fused")
@@ -679,8 +678,8 @@ def test_2d_public_path_launches_each_kernel(dev):
     xp = jt.imodwpt2(p, w)
     torch.cuda.synchronize()
     # the packet pair runs one 1D launch per axis
-    assert [fn.launches - b for fn, b in zip(counters, before)] == [1, 1, 1,
-                                                                   2, 2]
+    assert [LAUNCHES[op] - b for op, b in zip(counters, before)] == [
+        1, 1, 1, 2, 2]
     torch.testing.assert_close(xr, x, rtol=0, atol=1e-4)
     torch.testing.assert_close(xp, x, rtol=0, atol=1e-4)
     torch.testing.assert_close(
@@ -690,22 +689,22 @@ def test_2d_public_path_launches_each_kernel(dev):
 
 def test_2d_pipeline_numpy_threshold_stays_on_the_kernels(dev):
     x = _signal(dev, 3, 64, 96, seed=15)
-    before = k2.modwt2_inv_cuda.launches
+    before = LAUNCHES["modwt2_inv"]
     got = jt.modwt2_denoise(x, DB4, 2, threshold=np.array([0.3, 0.6, 1.2]))
     assert got.dtype == torch.float32
-    assert k2.modwt2_inv_cuda.launches == before + 1
+    assert LAUNCHES["modwt2_inv"] == before + 1
 
 
 def test_2d_auto_routes_f64_grad_and_unsupported_shapes_to_plain(dev):
-    counters = (k2.modwt2_fwd_cuda, k2.modwt2_inv_cuda)
-    before = [fn.launches for fn in counters]
+    counters = ("modwt2_fwd", "modwt2_inv")
+    before = [LAUNCHES[op] for op in counters]
     x64 = _signal(dev, 2, 64, 64, dtype=torch.float64)
     jt.imodwt2(jt.modwt2(x64, DB4, 3), DB4)
     jt.modwt2(_signal(dev, 2, 64, 64), DB4, 5)     # Db4 L5 does not fit
     jt.modwt2(_signal(dev, 2, 2, 32, 32), DB4, 2)  # 4-D: leading dims
     xg = _signal(dev, 2, 64, 64).requires_grad_()
     (jt.modwt2(xg, DB4, 2) ** 2).sum().backward()
-    assert [fn.launches for fn in counters] == before
+    assert [LAUNCHES[op] for op in counters] == before
     # the gradient is the plain path's
     xp = xg.detach().clone().requires_grad_()
     (jt.modwt2(xp, DB4, 2, method="direct") ** 2).sum().backward()
@@ -815,9 +814,8 @@ def test_3d_forward_depth_runs_match_plain(dev, shape, level, name, dtype):
 def test_3d_public_path_launches_each_kernel(dev):
     w = DB4
     x = _signal(dev, 2, 16, 24, 20, seed=17)
-    counters = (k3.modwt3_fwd_cuda, k3.modwt3_inv_cuda, kp.modwpt_fwd_cuda,
-                kp.modwpt_inv_cuda)
-    before = [fn.launches for fn in counters]
+    counters = ("modwt3_fwd", "modwt3_inv", "modwpt_fwd", "modwpt_inv")
+    before = [LAUNCHES[op] for op in counters]
     c = jt.modwt3(x, w, 2)
     xr = jt.imodwt3(c, w)
     den = jt.modwt3_denoise(x, w, 2)
@@ -825,8 +823,8 @@ def test_3d_public_path_launches_each_kernel(dev):
     xp = jt.imodwpt3(p, w)
     torch.cuda.synchronize()
     # the denoise runs both kernels; the oct tree one 1D launch per axis
-    assert [fn.launches - b for fn, b in zip(counters, before)] == [2, 2, 3,
-                                                                   3]
+    assert [LAUNCHES[op] - b for op, b in zip(counters, before)] == [
+        2, 2, 3, 3]
     torch.testing.assert_close(xr, x, rtol=0, atol=1e-4)
     torch.testing.assert_close(xp, x, rtol=0, atol=1e-4)
     want = jt.modwt3_denoise(x.double(), w, 2).float()
@@ -835,15 +833,15 @@ def test_3d_public_path_launches_each_kernel(dev):
 
 
 def test_3d_auto_routes_f64_grad_and_unsupported_shapes_to_plain(dev):
-    counters = (k3.modwt3_fwd_cuda, k3.modwt3_inv_cuda)
-    before = [fn.launches for fn in counters]
+    counters = ("modwt3_fwd", "modwt3_inv")
+    before = [LAUNCHES[op] for op in counters]
     x64 = _signal(dev, 2, 8, 8, 16, dtype=torch.float64)
     jt.imodwt3(jt.modwt3(x64, DB4, 2), DB4)
     jt.modwt3(_signal(dev, 1, 16, 16, 16), DB4, 3)   # Db4 L3 does not fit
     jt.modwt3(_signal(dev, 2, 2, 8, 8, 16), DB4, 1)  # 5-D: leading dims
     xg = _signal(dev, 2, 8, 8, 16).requires_grad_()
     (jt.modwt3(xg, DB4, 1) ** 2).sum().backward()
-    assert [fn.launches for fn in counters] == before
+    assert [LAUNCHES[op] for op in counters] == before
     xp = xg.detach().clone().requires_grad_()
     (jt.modwt3(xp, DB4, 1, method="direct") ** 2).sum().backward()
     torch.testing.assert_close(xg.grad, xp.grad, rtol=0, atol=0)
@@ -916,20 +914,20 @@ def test_cwt_kernel_every_length_ragged_rows(dev, wav, p):
 def test_cwt_public_path_launches_the_kernel(dev):
     x = _signal(dev, 4, 3000, seed=19)
     scales = jt.generate_log_scales(1.0, 64.0, 11)
-    before = kcw.cwt_ifft_cuda.launches
+    before = LAUNCHES["cwt_ifft"]
     for wav in (jt.MorletWavelet(), jt.MexicanHatWavelet()):
         fused = jt.cwt(x, scales, wav, method="fused").coefficients
         fft = jt.cwt(x, scales, wav, method="fft").coefficients
         assert fused.dtype == fft.dtype and fused.device == x.device
         scale = float(fft.abs().max())
         assert float((fused - fft).abs().max()) <= 1e-4 * scale
-    assert kcw.cwt_ifft_cuda.launches == before + 2
+    assert LAUNCHES["cwt_ifft"] == before + 2
     # float64 and padded lengths outside [64, 16384] take the 'fft' path
     jt.cwt(x.double(), scales, jt.MorletWavelet(), method="fused")
     jt.cwt(x[:, :20], scales, jt.MorletWavelet(), method="fused")
     jt.cwt(_signal(dev, 1, 20000), scales, jt.MorletWavelet(),
            method="fused")
-    assert kcw.cwt_ifft_cuda.launches == before + 2
+    assert LAUNCHES["cwt_ifft"] == before + 2
 
 
 def test_cwt_launcher_rejects_what_the_kernel_does_not_take(dev):
@@ -952,10 +950,10 @@ def test_cwt_launcher_rejects_what_the_kernel_does_not_take(dev):
 def test_numpy_input_runs_on_the_card(dev):
     x = np.random.default_rng(23).standard_normal((4, 3000)).astype(
         np.float32)
-    before = kc.modwt_fwd_cuda.launches
+    before = LAUNCHES["modwt_fwd"]
     c = jt.modwt(x, DB4, 3)
     assert c.is_cuda and c.dtype == torch.float32
-    assert kc.modwt_fwd_cuda.launches == before + 1
+    assert LAUNCHES["modwt_fwd"] == before + 1
     want = kc.modwt_fwd_plain(torch.from_numpy(x), DB4, 3)
     torch.testing.assert_close(c.cpu(), want, rtol=0, atol=1e-5)
 
@@ -974,7 +972,7 @@ def test_fwt_holds_f32_under_tf32(dev, setting):
     x = torch.from_numpy(np.random.default_rng(24).standard_normal(
         (4, 1 << 16)))
     want = jt.fwt(x, DB4, 5)
-    before = kc.modwt_fwd_cuda.launches
+    before = LAUNCHES["modwt_fwd"]
     try:
         if setting == "per backend":
             mm.fp32_precision = "tf32"
@@ -984,7 +982,7 @@ def test_fwt_holds_f32_under_tf32(dev, setting):
         back = jt.ifwt(got, DB4, 5)
     finally:
         torch.set_float32_matmul_precision("highest")
-    assert kc.modwt_fwd_cuda.launches == before
+    assert LAUNCHES["modwt_fwd"] == before
     scale = float(want.abs().max())
     assert float((got.cpu().double() - want).abs().max()) <= 1e-5 * scale
     assert float((back.cpu().double() - x).abs().max()) <= 1e-4 * float(
@@ -1092,21 +1090,21 @@ def test_streaming_path_launches_the_forward_kernel(dev):
     sig = _signal(dev, 8 * chunk, seed=31)
     s = st.StreamingMODWT(DB4, st.StreamingConfig(buffer_size=buf,
                                                   max_level=level))
-    before = kc.modwt_fwd_cuda.launches
+    before = LAUNCHES["modwt_fwd"]
     for i in range(0, sig.shape[-1], chunk):
         out = s.update(sig[i:i + chunk])
     torch.cuda.synchronize()
-    assert kc.modwt_fwd_cuda.launches - before == 8
+    assert LAUNCHES["modwt_fwd"] - before == 8
     assert out.device == sig.device and out.dtype == torch.float32
     full = jt.modwt(sig.double().cpu(), DB4, level)[..., -buf:]
     torch.testing.assert_close(out.cpu().double()[..., halo:],
                                full[..., halo:], rtol=0, atol=1e-5)
 
     x = _signal(dev, 4, 8 * chunk, seed=32)
-    before = kc.modwt_fwd_cuda.launches
+    before = LAUNCHES["modwt_fwd"]
     parts = list(st.modwt_chunked(x.split(chunk, dim=-1), DB4, level))
     torch.cuda.synchronize()
-    assert kc.modwt_fwd_cuda.launches - before == 8
+    assert LAUNCHES["modwt_fwd"] - before == 8
     got = torch.cat(parts, dim=-1).cpu().double()
     want = jt.modwt(x.double().cpu(), DB4, level)
     torch.testing.assert_close(got[..., halo:], want[..., halo:], rtol=0,
@@ -1121,8 +1119,8 @@ def test_exported_pipelines_launch_their_kernels(dev):
     card at three batch sizes from one artifact: each call launches its
     kernels once, and the output is bitwise the eager call's."""
     x = _signal(dev, 8, 8192, seed=40)
-    counters = {"fwd": kc.modwt_fwd_cuda, "inv": kc.modwt_inv_cuda,
-                "fused": kd.modwt_denoise_cuda, "var": kv.modwt_var_cuda}
+    counters = {"fwd": "modwt_fwd", "inv": "modwt_inv",
+                "fused": "modwt_denoise", "var": "modwt_var"}
     pipelines = (
         (lambda v: jt.modwt_denoise(v, DB4, 5, threshold=0.8),
          {"fwd": 1, "inv": 1}),
@@ -1133,10 +1131,10 @@ def test_exported_pipelines_launch_their_kernels(dev):
         served = jt.load_pipeline(jt.export_pipeline(
             fn, x, batch_polymorphic=True))
         for b in (1, 3, 8):
-            before = {k: c.launches for k, c in counters.items()}
+            before = {k: LAUNCHES[op] for k, op in counters.items()}
             got = served(x[:b])
             torch.cuda.synchronize()
-            ran = {k: c.launches - before[k] for k, c in counters.items()}
+            ran = {k: LAUNCHES[op] - before[k] for k, op in counters.items()}
             assert ran == {k: want.get(k, 0) for k in counters}
             assert torch.equal(got, fn(x[:b]))
 
@@ -1188,7 +1186,7 @@ def test_time_chain_times_the_card(dev):
     through the forward kernel, one launch a step, give a positive time
     above the 1e-9 floor."""
     x = torch.randn(4, 4096, device=dev)
-    kc.modwt_fwd_cuda.launches = 0
+    LAUNCHES["modwt_fwd"] = 0
     dt = jt.time_chain(lambda v: jt.modwt(v, DB4, 3)[3], x, 2, 5, 2)
-    assert kc.modwt_fwd_cuda.launches == (2 + 5) * (1 + 2)
+    assert LAUNCHES["modwt_fwd"] == (2 + 5) * (1 + 2)
     assert 1e-9 < dt < 1

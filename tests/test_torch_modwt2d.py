@@ -31,6 +31,7 @@ from jwave_pro_tpu.kernels.modwt2_pallas import (
     modwt2_fused as jax_modwt2_fused,
 )
 from jwave_pro_tpu_torch.kernels import modwt2_cuda as k2
+from jwave_pro_tpu_torch.kernels.modwt_cuda import LAUNCHES
 
 DB4 = "Daubechies 4"
 WAVELETS = [DB4, "Haar", "Symlet 8"]
@@ -138,10 +139,10 @@ def test_gate_on_cpu_pallas_raises_and_auto_is_plain():
                                   method="pallas")):
         with pytest.raises(ValueError, match="unavailable"):
             fn()
-    before = [k2.modwt2_fwd_cuda.launches, k2.modwt2_inv_cuda.launches]
+    before = [LAUNCHES["modwt2_fwd"], LAUNCHES["modwt2_inv"]]
     jt.imodwt2(jt.modwt2(x, wt, 2), wt)
-    assert [k2.modwt2_fwd_cuda.launches,
-            k2.modwt2_inv_cuda.launches] == before
+    assert [LAUNCHES["modwt2_fwd"],
+            LAUNCHES["modwt2_inv"]] == before
 
 
 def test_requires_grad_takes_plain_path_and_matches_jax_grad():

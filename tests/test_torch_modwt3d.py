@@ -33,6 +33,7 @@ from jwave_pro_tpu.kernels.modwt3_pallas import (
 )
 from jwave_pro_tpu_torch.kernels import modwt3_cuda as k3
 from jwave_pro_tpu_torch.kernels import modwpt_cuda as kp
+from jwave_pro_tpu_torch.kernels.modwt_cuda import LAUNCHES
 
 DB4 = "Daubechies 4"
 # (name, shape, level): non-cubic sizes, halo (Db4 L3: 49) larger than
@@ -138,11 +139,11 @@ def test_gate_on_cpu_pallas_raises_and_auto_is_plain():
                                   method="pallas")):
         with pytest.raises(ValueError, match="unavailable"):
             fn()
-    before = [k3.modwt3_fwd_cuda.launches, k3.modwt3_inv_cuda.launches]
+    before = [LAUNCHES["modwt3_fwd"], LAUNCHES["modwt3_inv"]]
     jt.imodwt3(jt.modwt3(x, wt, 2), wt)
     jt.modwt3_denoise(x + 1.0, wt, 1)
-    assert [k3.modwt3_fwd_cuda.launches,
-            k3.modwt3_inv_cuda.launches] == before
+    assert [LAUNCHES["modwt3_fwd"],
+            LAUNCHES["modwt3_inv"]] == before
 
 
 def test_requires_grad_takes_plain_path_and_matches_jax_grad():
@@ -349,10 +350,10 @@ def test_modwpt3_validation_and_cpu_dispatch():
         jt.imodwpt3(torch.zeros(2, 2, 2, 8, 8), w)
     with pytest.raises(ValueError, match="powers of two"):
         jt.imodwpt3(torch.zeros(2, 2, 4, 4, 4, 4), w)
-    before = [kp.modwpt_fwd_cuda.launches, kp.modwpt_inv_cuda.launches]
+    before = [LAUNCHES["modwpt_fwd"], LAUNCHES["modwpt_inv"]]
     jt.imodwpt3(jt.modwpt3(torch.ones(4, 4, 4), w, 1), w)
-    assert [kp.modwpt_fwd_cuda.launches,
-            kp.modwpt_inv_cuda.launches] == before
+    assert [LAUNCHES["modwpt_fwd"],
+            LAUNCHES["modwpt_inv"]] == before
 
 
 @pytest.mark.parametrize("m", [2, 4, 8, 16, 21, 22])
