@@ -71,7 +71,12 @@ step at 32 × 2^20 and the round trip at 8 × 2^20 through
 ``utils.profiling.measure_samples_per_sec``, each kernel's launches
 counted, then a ``utils.profiling.trace`` of three chained steps that
 must name the forward kernel, and a steady trace of 24 chained steps read
-back for its top kernels and the device's busy share).  The
+back for its top kernels and the device's busy share); and the
+threshold's median kernel (#15, phase 35: bitwise against its plain
+version and the sort path, timed at 16 × 2^20 and 16 × 2·10^6 beside its
+one-read bound and the sort-median, and the walls of the fused denoise at
+32 × 2^20 and the 2D denoise at 16 × 2048² with the kernel and with the
+sort path in its place).  The
 kernels' launch counters, set to 0
 before each path and read after it, show that the path ran through them;
 CUDA events time each kernel against its plain version (``event_time``:
@@ -200,6 +205,9 @@ SHARD_CWT_SCALES = (5.0, 256.0)
 CHAIN_SHORT, CHAIN_LONG, CHAIN_REPEATS = 4, 24, 3
 ROUNDTRIP_SHAPE = (8, 1 << 20)
 TRACE_STEPS, STEADY_TRACE_STEPS = 3, 24
+# phase 35: the median kernel's shapes, 16 rows as the denoise passes them
+# (the north star's length, and the longest request of the denoise cell)
+MEDIAN_SHAPES = ((16, 1 << 20), (16, 2_000_000))
 # the H100's published peaks (SXM, 700 W): HBM bytes/s, f32 FLOP/s
 HBM_RATE, F32_RATE = 3.35e12, 67e12
 
@@ -634,6 +642,9 @@ def run(smoke: Smoke, torch, jt) -> dict:
     run_export_slice(smoke, torch, jt, signal, card)
     run_sharded_slice(smoke, torch, jt, signal, card)
     run_profiling_slice(smoke, torch, jt, signal, card)
+    for part, got in zip((launches, errs, times, library),
+                         run_median_slice(smoke, torch, jt, signal, card)):
+        part.update(got)
 
     src = "jwave_pro_tpu_torch/csrc/"
     tpu = "jwave_pro_tpu/kernels/"
@@ -652,6 +663,7 @@ def run(smoke: Smoke, torch, jt) -> dict:
         "modwt3_fwd": ("modwt3.cu", "modwt3_pallas.py:172"),
         "modwt3_inv": ("modwt3.cu", "modwt3_pallas.py:331"),
         "cwt_ifft": ("cwt.cu", "cwt_pallas.py:105"),
+        "median": ("median.cu", None),   # replaces no Pallas kernel
     }
     bounds = kernel_bounds(w)
     for name in meta:
@@ -661,7 +673,8 @@ def run(smoke: Smoke, torch, jt) -> dict:
               flush=True)
     return {"kernels": [
         {"name": name, "route": "cuda", "source": src + meta[name][0],
-         "replaces": tpu + meta[name][1], "launches": launches[name],
+         "replaces": meta[name][1] and tpu + meta[name][1],
+         "launches": launches[name],
          "max_abs_err": errs[name], "ms": times[name][0],
          "plain_ms": times[name][1], "bound_ms": bounds[name][0],
          "bound_by": bounds[name][1], "library_ms": library.get(name)}
@@ -719,6 +732,8 @@ def kernel_bounds(w) -> dict:
         "modwt3_inv": bound(4 * vol * (7 * l3 + 2), vol * 28 * m * l3),
         "cwt_ifft": bound(8 * (cb * cp + CWT_SCALES * cp + rows * cp),
                           rows * (6 * cp + 5 * cp * int(math.log2(cp)))),
+        # one read of the rows; the compares and counts are not the bound
+        "median": bound(4 * math.prod(MEDIAN_SHAPES[0]), 0),
     }
 
 
@@ -3527,6 +3542,93 @@ def run_profiling_slice(smoke: Smoke, torch, jt, signal, card) -> None:
               f"start to the last one's end [{card}]", flush=True)
     print(f"  phase 34 took {time.perf_counter() - t_phase:.1f} s",
           flush=True)
+
+
+def run_median_slice(smoke: Smoke, torch, jt, signal, card) -> tuple:
+    """Phase 35: the threshold's median kernel (#15) against its plain
+    version and the sort path (``ops/denoise.py:_sort_median``), bitwise,
+    at MEDIAN_SHAPES and at small and NaN rows; one default
+    ``modwt_denoise`` in a counted window (one median launch); the kernel
+    timed at MEDIAN_SHAPES beside its one-read bound, its plain version and
+    the sort-median (``library_ms``: the yardstick, never called by the
+    port); the walls of the fused denoise at MAIN_SHAPE and the 2D denoise
+    at IMAGE_SHAPE with the kernel, and with the sort path in its place
+    (before), in the order sort, kernel, kernel, sort.  Returns the
+    kernel's (launches, errors, times, library times)."""
+    from jwave_pro_tpu_torch.kernels import median_cuda as km
+    from jwave_pro_tpu_torch.ops import denoise as dn
+
+    t_phase = time.perf_counter()
+    print(f"== phase 35: the threshold's median kernel (#15) on {card}",
+          flush=True)
+    w = jt.wavelet(WAVELET)
+
+    def bits_err(got, want) -> float:
+        """0 where the bits agree, else the largest |difference| (inf
+        where only one is NaN)."""
+        if torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            return 0.0
+        return max_err(got.nan_to_num(math.inf), want.nan_to_num(math.inf)
+                       ) or math.inf
+
+    err = 0.0
+    shapes = ((1, 1), (3, 2), (16, 1001), (16, 100003)) + MEDIAN_SHAPES
+    for shape in shapes:
+        x = signal(*shape)
+        if shape[0] > 8:
+            x[1, 0] = math.nan
+        got = km.median_op(x, True)
+        for what, want in (("plain", km.median_plain(x, True)),
+                           ("sort", dn._sort_median(x.abs(), -1))):
+            e = bits_err(got, want)
+            err = max(err, e)
+            smoke.require(f"median kernel {shape} = {what} bitwise", e == 0)
+    x = signal(16, 300007)
+    _, got = counted_run(smoke, torch, all_launchers() + ("median",),
+                         "a default modwt_denoise (16, 300007)",
+                         lambda: jt.modwt_denoise(x, w, LEVEL),
+                         {"modwt_fwd": 1, "modwt_inv": 1, "median": 1})
+    times, library = {}, {}
+    for shape in MEDIAN_SHAPES:
+        x = signal(*shape)
+        tk, tp = time_pair(torch, lambda v: km.median_op(v, True),
+                           lambda v: km.median_plain(v, True), x)
+        ts = event_time(torch, lambda v: dn._sort_median(v.abs(), -1), x,
+                        k=5) * 1e3
+        bound_ms, by = bound(4 * x.numel(), 0)
+        print(f"  median |x| {shape}: kernel {tk:.4f} ms, plain {tp:.4f} "
+              f"ms, sort-median {ts:.4f} ms, bound {bound_ms:.4f} ms ({by}),"
+              f" {bound_ms / tk:.1%} of it [{card}]", flush=True)
+        if shape == MEDIAN_SHAPES[0]:
+            times["median"], library["median"] = (tk, tp), ts
+    kernel_median = dn._median
+
+    def sort_median(a, axis, absolute=False):
+        return dn._sort_median(torch.abs(a) if absolute else a, axis)
+
+    for what, arg, call in (
+            (f"modwt_denoise(method='fused') {MAIN_SHAPE}",
+             signal(*MAIN_SHAPE),
+             lambda v: jt.modwt_denoise(v, w, LEVEL, method="fused")),
+            (f"modwt2_denoise {IMAGE_SHAPE} L{IMAGE_LEVEL}",
+             signal(*IMAGE_SHAPE),
+             lambda v: jt.modwt2_denoise(v, w, IMAGE_LEVEL))):
+        walls = {"kernel": [], "sort": []}
+        try:
+            for side in ("sort", "kernel", "kernel", "sort"):
+                dn._median = kernel_median if side == "kernel" \
+                    else sort_median
+                walls[side].append(wall_ms(torch, lambda: call(arg)))
+        finally:
+            dn._median = kernel_median
+        print(f"  wall {what}: {statistics.mean(walls['kernel']):.3f} ms "
+              f"with the kernel, {statistics.mean(walls['sort']):.3f} ms "
+              f"with the sort path (host clock, median of 3, two turns "
+              f"each) [{card}]", flush=True)
+        del arg
+    print(f"  phase 35 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return {"median": got["median"]}, {"median": err}, times, library
 
 
 def main() -> int:

@@ -6,6 +6,6 @@ registered when this package is imported — as importing
 loads and runs.  The shared library is built by ``_build`` on first
 launch."""
 from . import (  # noqa: F401  (registers the operators)
-    cwt_cuda, denoise_cuda, modwpt_cuda, modwt2_cuda, modwt3_cuda,
-    modwt_cuda, variance_cuda,
+    cwt_cuda, denoise_cuda, median_cuda, modwpt_cuda, modwt2_cuda,
+    modwt3_cuda, modwt_cuda, variance_cuda,
 )

@@ -277,23 +277,29 @@ def tile_plan(kind: str, batch: int, n: int, level: int, m: int
                     CHAIN[kind])
 
 
-_TICKETS: dict = {}
+_ZEROED: dict = {}
+
+
+def zeroed(name: str, device: torch.device, stream: int, count: int) -> int:
+    """Address of int32 zeros that the kernels using them leave zero when
+    a launch ends: one buffer per (``name``, device, stream), at least
+    ``count`` long.  Launches on one stream run in order, and two streams
+    never share a buffer.  ``stream``: the CUDA stream handle the kernel
+    runs on (the current stream's ``cuda_stream``)."""
+    key = (name, device.index, stream)
+    buf = _ZEROED.get(key)
+    if buf is None or buf.numel() < count:
+        buf = torch.zeros(max(count, 256), dtype=torch.int32, device=device)
+        _ZEROED[key] = buf
+    return buf.data_ptr()
 
 
 def tickets(device: torch.device, stream: int, rows: int) -> int:
     """Address of the per-row ticket counters of the kernels that finish
-    their cross-tile reduction inside the launch ('var', 'select'): int32
-    zeros, one buffer per (device, stream), at least ``rows`` long.  The
-    row's last block resets its ticket, so the buffer is zero between
-    launches; launches on one stream run in order, and two streams never
-    share a buffer.  ``stream``: the CUDA stream handle the kernel runs on
-    (the current stream's ``cuda_stream``)."""
-    key = (device.index, stream)
-    buf = _TICKETS.get(key)
-    if buf is None or buf.numel() < rows:
-        buf = torch.zeros(max(rows, 256), dtype=torch.int32, device=device)
-        _TICKETS[key] = buf
-    return buf.data_ptr()
+    their cross-tile reduction inside the launch ('var', 'select', the
+    median): :func:`zeroed`, at least ``rows`` long.  The row's last block
+    resets its ticket."""
+    return zeroed("tickets", device, stream, rows)
 
 
 @functools.lru_cache(maxsize=64)

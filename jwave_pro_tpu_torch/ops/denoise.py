@@ -54,19 +54,37 @@ def hard_threshold(c: torch.Tensor, t) -> torch.Tensor:
     return torch.where(torch.abs(c) > t, c, 0.0).to(c.dtype)
 
 
-def _median(a: torch.Tensor, axis: int | tuple[int, ...] | None
-            ) -> torch.Tensor:
+def _median(a: torch.Tensor, axis: int | tuple[int, ...] | None,
+            absolute: bool = False) -> torch.Tensor:
     """Median with the midpoint rule for an even count, as ``jnp.median``
     (``torch.median`` returns the lower middle value instead): NaN wherever
-    the reduced axes hold a NaN (``torch.sort`` puts NaN last), over every
-    element for ``axis=None``, over all of them for a tuple (moved to the
-    end and flattened)."""
+    the reduced axes hold a NaN, over every element for ``axis=None``, over
+    all of them for a tuple (moved to the end and flattened); of ``|a|``
+    for ``absolute``.
+
+    A float32 operand on the card or the CPU takes the exact radix select
+    (``kernels/median_cuda.py``: the kernel on the card, its plain version
+    on the CPU), bitwise the sort's result (order keys put −0 below +0, where
+    the sort may return either); other dtypes, and an operand that needs
+    its gradient, take the sort."""
     if axis is None:
         a, axis = a.reshape(-1), 0
     elif isinstance(axis, tuple):
         k = len(axis)
         a = torch.movedim(a, axis, tuple(range(-k, 0)))
         a, axis = a.reshape(a.shape[:a.ndim - k] + (-1,)), -1
+    if (a.dtype == torch.float32 and a.numel()
+            and a.device.type in ("cuda", "cpu")
+            and not (a.requires_grad and torch.is_grad_enabled())):
+        from ..kernels.median_cuda import median_rows
+
+        return median_rows(torch.movedim(a, axis, -1), absolute)
+    return _sort_median(torch.abs(a) if absolute else a, axis)
+
+
+def _sort_median(a: torch.Tensor, axis: int) -> torch.Tensor:
+    """:func:`_median` by a sort of the whole axis (``torch.sort`` puts NaN
+    last), reading its two middle values."""
     n = a.shape[axis]
     s = torch.sort(a, dim=axis).values
     lo = s.narrow(axis, (n - 1) // 2, 1).squeeze(axis)
@@ -77,7 +95,7 @@ def _median(a: torch.Tensor, axis: int | tuple[int, ...] | None
 
 def mad_sigma(d: torch.Tensor, axis: int | None = -1) -> torch.Tensor:
     """Robust noise estimate σ = median(|d|)/0.6745."""
-    return _median(torch.abs(as_input(d)), axis) / 0.6745
+    return _median(as_input(d), axis, absolute=True) / 0.6745
 
 
 def universal_threshold(d: torch.Tensor, n: int | None = None,

@@ -176,6 +176,81 @@ def test_mad_sigma_propagates_nan_like_jax(axis):
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-15)
 
 
+def _median_case(case: str) -> np.ndarray:
+    """float32 rows for the median's plain version against the sort."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+    if case.startswith("gauss"):
+        return rng.standard_normal((4, int(case[5:]))).astype(np.float32)
+    if case == "equal":
+        return np.full((3, 64), -1.5, np.float32)
+    if case == "ties":                # long tie runs across the middle
+        return rng.integers(-2, 3, (4, 1000)).astype(np.float32)
+    if case == "tie_run":             # one value holds the middle third
+        x = np.repeat(np.float32([0.1, 0.5, 0.9]), [333, 334, 333])
+        return np.stack([rng.permutation(x) for _ in range(3)])
+    if case.startswith("split"):      # even n: the middles in two buckets
+        lo, hi = {"split_first": (1e-30, 1e30),         # of the first digit
+                  "split_second": (1.0, 1.0 + 2 ** -12),  # of the second
+                  "split_last": (1.0, 1.0 + 2 ** -23)}[case]  # of the last
+        x = np.repeat(np.float32([lo, hi]), 500)
+        return np.stack([rng.permutation(x) for _ in range(3)])
+    if case == "special":             # zeros, ±inf, denormals
+        x = rng.standard_normal((4, 999)).astype(np.float32)
+        x[0, ::2] = np.inf
+        x[1, 1::2] = -np.inf
+        x[2] = rng.standard_normal(999) * np.float32(1e-41)
+        x[3, ::3] = 0.0
+        return x
+    x = rng.standard_normal((4, 1000)).astype(np.float32)      # "nan"
+    x[1, 17] = x[3, 999] = np.nan
+    return x
+
+
+MEDIAN_CASES = ["gauss1", "gauss2", "gauss3", "gauss1001", "gauss1000",
+                "equal", "ties", "tie_run", "split_first", "split_second",
+                "split_last", "special", "nan"]
+
+
+@pytest.mark.parametrize("absolute", [True, False])
+@pytest.mark.parametrize("case", MEDIAN_CASES)
+def test_median_plain_equals_the_sort_bitwise(case, absolute):
+    """The median kernel's plain version (the CPU's float32 median) is the
+    sort path's result bit for bit: n = 1, 2, odd and even, equal rows,
+    tie runs across the middle, middles split at each of the three
+    digits, zeros, infinities, denormals and NaN rows, over |x| and x.  On
+    signed input a zero may stand for either zero (order keys put −0 below
+    +0, where the sort treats them as equal)."""
+    from jwave_pro_tpu_torch.kernels import median_cuda as km
+    from jwave_pro_tpu_torch.ops import denoise as dn
+
+    x = _t(_median_case(case))
+    got = km.median_plain(x, absolute)
+    want = dn._sort_median(x.abs() if absolute else x, -1)
+    same = got.view(torch.int32) == want.view(torch.int32)
+    if not absolute:
+        same |= (got == 0) & (want == 0)
+    assert bool(same.all()), (got, want)
+    if case == "nan":
+        assert torch.isnan(got).tolist() == [False, True, False, True]
+
+
+@pytest.mark.parametrize("axis", [-1, 0, None, (0, 2)])
+def test_f32_mad_sigma_and_universal_threshold_match_jax(axis):
+    """Float32 input takes the radix select (the plain version on the
+    CPU); σ and the universal threshold stay the JAX package's."""
+    d = np.random.default_rng(26).standard_normal((3, 40, 50)).astype(
+        np.float32)
+    got = jt.mad_sigma(_t(d), axis=axis)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(jw.mad_sigma(
+        d, axis=axis)), rtol=2e-7, atol=0)
+    if not isinstance(axis, tuple):
+        np.testing.assert_allclose(
+            jt.universal_threshold(_t(d), axis=axis or -1).numpy(),
+            np.asarray(jw.universal_threshold(d, axis=axis or -1)),
+            rtol=4e-7, atol=0)
+
+
 @pytest.mark.parametrize("mode", ["soft", "hard"])
 def test_modwt_denoise_nan_outputs_match_jax(mode):
     """One NaN in a (2, 128) Db4 L3 f64 signal: as many NaN outputs as JAX

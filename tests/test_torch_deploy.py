@@ -26,6 +26,7 @@ import jwave_pro_tpu as jw
 import jwave_pro_tpu_torch as jt
 from jwave_pro_tpu_torch.kernels import cwt_cuda as kw
 from jwave_pro_tpu_torch.kernels import denoise_cuda as kd
+from jwave_pro_tpu_torch.kernels import median_cuda as km
 from jwave_pro_tpu_torch.kernels import modwpt_cuda as kp
 from jwave_pro_tpu_torch.kernels import modwt2_cuda as k2
 from jwave_pro_tpu_torch.kernels import modwt3_cuda as k3
@@ -129,7 +130,9 @@ def test_export_leaves_the_constant_caches_real(rng):
 
 OPS = ("modwt_fwd", "modwt_inv", "modwt_denoise", "modwt_var", "modwpt_fwd",
        "modwpt_select", "modwpt_inv", "modwt2_fwd", "modwt2_inv",
-       "modwt2_denoise", "modwt3_fwd", "modwt3_inv", "cwt_ifft")
+       "modwt2_denoise", "modwt3_fwd", "modwt3_inv", "cwt_ifft", "median")
+# operators that take float32 alone (the CWT's complex64)
+F32_ONLY = ("cwt_ifft", "median")
 
 
 def _operands(device, dtype=torch.float32):
@@ -175,12 +178,13 @@ def _operands(device, dtype=torch.float32):
         "modwt3_inv": ((on(c3), g, h), lambda: k3.modwt3_inv_plain(c3, DB4)),
         "cwt_ifft": ((on(xf), on(mult), 200, 0),
                      lambda: kw.cwt_ifft_plain(xf, mult, 200, False)),
+        "median": ((on(x1), True), lambda: km.median_plain(x1, True)),
     }
 
 
 @pytest.mark.parametrize("name,dtype", [
     (name, dtype) for name in OPS for dtype in (torch.float32, torch.bfloat16)
-    if name != "cwt_ifft" or dtype == torch.float32])   # CWT: complex64
+    if name not in F32_ONLY or dtype == torch.float32])
 def test_operator_fakes_match_plain_on_meta(name, dtype):
     args, plain = _operands("meta", dtype)[name]
     got = getattr(torch.ops.jwave, name)(*args)
@@ -210,6 +214,9 @@ def test_operators_reject_cpu_tensors():
     args, _ = _operands("cpu")["cwt_ifft"]
     with pytest.raises(ValueError, match="kernel needs a CUDA tensor"):
         torch.ops.jwave.cwt_ifft(*args)
+    args, _ = _operands("cpu")["median"]
+    with pytest.raises(ValueError, match="kernel needs a CUDA tensor"):
+        torch.ops.jwave.median(*args)
 
 
 def test_operator_fakes_reject_what_the_kernel_does_not_take():
@@ -221,6 +228,8 @@ def test_operator_fakes_reject_what_the_kernel_does_not_take():
         torch.ops.jwave.modwt_var(x, g, h, 12)
     with pytest.raises(ValueError, match="taps"):
         torch.ops.jwave.modwt_fwd(x, g, h[:-1], 2)
+    with pytest.raises(ValueError, match="takes float32"):
+        torch.ops.jwave.median(x.double(), True)
     with pytest.raises(ValueError, match="2\\^level"):
         torch.ops.jwave.modwpt_inv(torch.empty(3, 4, 1024, device="meta"),
                                    g, h)
@@ -268,6 +277,8 @@ F32 = torch.float32
      [((2, 16, 16, 32), F32, True)], {"modwt3_fwd", "modwt3_inv"}),
     (lambda a, m: kw.cwt_ifft_cuda(a, m, 1000, False),
      [((4, 1024), C64, True), ((6, 1024), C64, False)], {"cwt_ifft"}),
+    (lambda v: km.median_rows(v, True), [((8, 4096), F32, True)],
+     {"median"}),
     (lambda a, m: tfwt._mm(a, m, True),
      [((8, 64, 32), F32, True), ((32, 16), F32, False)], {"f32_mm"}),
 ])

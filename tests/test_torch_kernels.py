@@ -40,6 +40,7 @@ import torch
 import jwave_pro_tpu_torch as jt
 from jwave_pro_tpu_torch.kernels import cwt_cuda as kcw
 from jwave_pro_tpu_torch.kernels import denoise_cuda as kd
+from jwave_pro_tpu_torch.kernels import median_cuda as km
 from jwave_pro_tpu_torch.kernels import modwpt_cuda as kp
 from jwave_pro_tpu_torch.kernels import modwt2_cuda as k2
 from jwave_pro_tpu_torch.kernels import modwt3_cuda as k3
@@ -194,18 +195,36 @@ def test_entry_points_reject_shared_memory_off_their_layout(dev):
 
 def test_public_path_launches_each_kernel(dev):
     x = _signal(dev, 4, 8192, seed=2)
-    counters = ("modwt_fwd", "modwt_inv", "modwt_denoise")
+    counters = ("modwt_fwd", "modwt_inv", "modwt_denoise", "median")
     before = [LAUNCHES[op] for op in counters]
     c = jt.modwt(x, DB4, 5)
     xr = jt.imodwt(c, DB4)
     den = jt.modwt_denoise(x, DB4, 5, method="fused")
     torch.cuda.synchronize()
-    assert [LAUNCHES[op] - b for op, b in zip(counters, before)] == [1, 1, 1]
+    # the fused denoise's default threshold: one median of |W1|
+    assert [LAUNCHES[op] - b for op, b in zip(counters, before)] == [
+        1, 1, 1, 1]
     torch.testing.assert_close(xr, x, rtol=0, atol=1e-4)
     torch.testing.assert_close(
         den, jt.modwt_denoise(x, DB4, 5, method="direct"), rtol=0, atol=1e-5)
     # outputs stay on the input's device
     assert c.device == x.device == den.device
+    # the default denoise under CUDA graph capture, which refuses any host
+    # synchronisation: one median launch, the eager call's output bitwise
+    y = _signal(dev, 16, 300007, seed=3)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        want = jt.modwt_denoise(y, DB4, 5)
+    torch.cuda.synchronize()
+    before = LAUNCHES["median"]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        got = jt.modwt_denoise(y, DB4, 5)
+    assert LAUNCHES["median"] - before == 1
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 def test_auto_routes_f64_and_unsupported_shapes_to_plain(dev):
@@ -226,6 +245,55 @@ def test_launchers_reject_what_the_kernel_does_not_take(dev):
         kc.modwt_fwd_cuda(x.double(), DB4, 2)
     with pytest.raises(ValueError, match="threshold"):
         kd.modwt_denoise_cuda(x, torch.ones(3, device=dev), DB4, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        km.median_op(x[:, ::2], True)
+    with pytest.raises(ValueError, match="takes float32"):
+        km.median_op(x.to(torch.bfloat16), True)
+
+
+# the median kernel's lengths: n = 1 to 5, a block's least part on either
+# side, two and more blocks a row, and the denoise cell's shortest, middle,
+# 95th-percentile and longest lengths (one seed's, each moved by its ±64)
+MEDIAN_LENGTHS = (1, 2, 3, 4, 5, 8191, 8192, 16385, 100003, 1 << 20,
+                  100543, 444666, 1727876, 1988291, 2000000)
+
+
+def _median_rows(dev, kind, rows, n, seed):
+    rng = np.random.default_rng(seed)
+    if kind == "split":     # the middles far apart: split at the first digit
+        x = np.concatenate([rng.uniform(1e-30, 2e-30, (rows, n - n // 2)),
+                            rng.uniform(1e30, 2e30, (rows, n // 2))], 1)
+        x = np.ascontiguousarray(x[:, rng.permutation(n)])
+    elif kind == "ties":
+        x = rng.integers(-2, 3, (rows, n))
+    else:
+        x = rng.standard_normal((rows, n))
+        if kind == "nan":
+            x[::2, rng.integers(n)] = np.nan
+    return torch.from_numpy(x.astype(np.float32)).to(dev)
+
+
+@pytest.mark.parametrize("absolute", [True, False])
+@pytest.mark.parametrize("rows,n,kind", [
+    (r, n, "gauss") for r in (1, 16) for n in MEDIAN_LENGTHS] + [
+    (16, 100003, "nan"), (1, 2000000, "nan"), (16, 1 << 20, "split"),
+    (1, 100000, "split"), (16, 1000, "split"), (16, 3000, "ties")])
+def test_median_kernel_is_the_sort_bitwise(dev, rows, n, kind, absolute):
+    """The median kernel against the sort path and its plain version on
+    the card: bit for bit (on signed input a zero may stand for either
+    zero: order keys put −0 below +0), and two launches alike."""
+    from jwave_pro_tpu_torch.ops import denoise as dn
+
+    x = _median_rows(dev, kind, rows, n, seed=rows * n)
+    got = km.median_op(x, absolute)
+    want = dn._sort_median(x.abs() if absolute else x, -1)
+    for other in (want, km.median_plain(x, absolute)):
+        same = got.view(torch.int32) == other.view(torch.int32)
+        if not absolute:
+            same |= (got == 0) & (other == 0)
+        assert bool(same.all()), (got, other)
+    assert torch.equal(got.view(torch.int32),
+                       km.median_op(x, absolute).view(torch.int32))
 
 
 def test_gradients_through_the_kernel_pair(dev):
@@ -1150,7 +1218,8 @@ def test_operator_checks_of_the_1d_kernels(dev):
     for op, args in ((torch.ops.jwave.modwt_fwd, (x, g, h, 3)),
                      (torch.ops.jwave.modwt_inv, (c, g, h)),
                      (torch.ops.jwave.modwt_denoise, (x, thr, g, h, 3, 0)),
-                     (torch.ops.jwave.modwt_var, (x, g, h, 3))):
+                     (torch.ops.jwave.modwt_var, (x, g, h, 3)),
+                     (torch.ops.jwave.median, (x, True))):
         torch.library.opcheck(op, args)
     torch.library.opcheck(torch.ops.jwave.f32_mm,
                           (x, torch.ones(1000, 7, device=dev), 0))
