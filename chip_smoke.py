@@ -76,7 +76,11 @@ threshold's median kernel (#15, phase 35: bitwise against its plain
 version and the sort path, timed at 16 × 2^20 and 16 × 2·10^6 beside its
 one-read bound and the sort-median, and the walls of the fused denoise at
 32 × 2^20 and the 2D denoise at 16 × 2048² with the kernel and with the
-sort path in its place).  The
+sort path in its place); and the forward's context variant (phase 36:
+against its plain model at the forward's edges, bitwise the forward with
+the row's own end as the context, one launch at the sharded cell's
+(8, 2^27) shard held to the float64 segment reference past 2^31 outputs,
+timed beside the forward and its bound).  The
 kernels' launch counters, set to 0
 before each path and read after it, show that the path ran through them;
 CUDA events time each kernel against its plain version (``event_time``:
@@ -208,6 +212,10 @@ TRACE_STEPS, STEADY_TRACE_STEPS = 3, 24
 # phase 35: the median kernel's shapes, 16 rows as the denoise passes them
 # (the north star's length, and the longest request of the denoise cell)
 MEDIAN_SHAPES = ((16, 1 << 20), (16, 2_000_000))
+# phase 36: the sharded cell's shard (wavebench/configs/
+# modwt_db4_l5_sharded4.json) and the blocks of its check
+SHARD_SHAPE = (8, 1 << 27)
+SHARD_BLOCK = 1 << 16
 # the H100's published peaks (SXM, 700 W): HBM bytes/s, f32 FLOP/s
 HBM_RATE, F32_RATE = 3.35e12, 67e12
 
@@ -356,9 +364,9 @@ def run(smoke: Smoke, torch, jt) -> dict:
     # accumulators out of local memory
     marching = ("cwt_ifft", "modwt3_inv", "modwt3_fwd", "modwt2_denoise",
                 "modwt2_fwd", "modwt2_inv", "modwt_var", "modwpt_select",
-                "jw_modwt_fwd_kernel", "jw_modwt_inv_kernel",
-                "jw_denoise_kernel", "jw_modwpt_fwd_kernel",
-                "jw_modwpt_inv_kernel")
+                "jw_modwt_fwd_kernel", "jw_modwt_fwd_ctx_kernel",
+                "jw_modwt_inv_kernel", "jw_denoise_kernel",
+                "jw_modwpt_fwd_kernel", "jw_modwpt_inv_kernel")
     report = _build.ptxas_report()
     for name, (regs, stack, st, ld) in sorted(report.items()):
         if any(k in name for k in marching):
@@ -367,9 +375,9 @@ def run(smoke: Smoke, torch, jt) -> dict:
                           stack == 0 and st == 0 and ld == 0)
     # the 1D forward's, inverse's and denoise's and the packet forward's and
     # inverse's every instantiation: f32/bf16 x M = 2, 8, 16, any M
-    for kernel in ("jw_modwt_fwd_kernel", "jw_modwt_inv_kernel",
-                   "jw_denoise_kernel", "jw_modwpt_fwd_kernel",
-                   "jw_modwpt_inv_kernel"):
+    for kernel in ("jw_modwt_fwd_kernel", "jw_modwt_fwd_ctx_kernel",
+                   "jw_modwt_inv_kernel", "jw_denoise_kernel",
+                   "jw_modwpt_fwd_kernel", "jw_modwpt_inv_kernel"):
         count = sum(kernel in name for name in report)
         smoke.require(f"ptxas reports {kernel} for all 8 instantiations",
                       count == 8, f"({count})")
@@ -645,6 +653,9 @@ def run(smoke: Smoke, torch, jt) -> dict:
     for part, got in zip((launches, errs, times, library),
                          run_median_slice(smoke, torch, jt, signal, card)):
         part.update(got)
+    for part, got in zip((launches, errs, times),
+                         run_shard_slice(smoke, torch, jt, signal, card)):
+        part.update(got)
 
     src = "jwave_pro_tpu_torch/csrc/"
     tpu = "jwave_pro_tpu/kernels/"
@@ -664,6 +675,9 @@ def run(smoke: Smoke, torch, jt) -> dict:
         "modwt3_inv": ("modwt3.cu", "modwt3_pallas.py:331"),
         "cwt_ifft": ("cwt.cu", "cwt_pallas.py:105"),
         "median": ("median.cu", None),   # replaces no Pallas kernel
+        # the forward of one shard: the JAX package's sharded forward is
+        # plain XLA a level, no Pallas kernel
+        "modwt_fwd_ctx": ("modwt.cu", None),
     }
     bounds = kernel_bounds(w)
     for name in meta:
@@ -734,6 +748,10 @@ def kernel_bounds(w) -> dict:
                           rows * (6 * cp + 5 * cp * int(math.log2(cp)))),
         # one read of the rows; the compares and counts are not the bound
         "median": bound(4 * math.prod(MEDIAN_SHAPES[0]), 0),
+        # the forward's, plus the context of (M - 1)(2^L - 1) a row read
+        "modwt_fwd_ctx": bound(4 * cells * (LEVEL + 2)
+                               + 4 * b * (m - 1) * ((1 << LEVEL) - 1),
+                               cells * 4 * m * LEVEL),
     }
 
 
@@ -1683,10 +1701,10 @@ def run_volume_cwt_slice(smoke: Smoke, torch, jt, dev, signal, card):
 
 def all_launchers() -> tuple:
     """Every kernel operator, by the name its launches count under."""
-    return ("modwt_fwd", "modwt_inv", "modwt_denoise", "modwt_var",
-            "modwpt_fwd", "modwpt_select", "modwpt_inv", "modwt2_fwd",
-            "modwt2_inv", "modwt2_denoise", "modwt3_fwd", "modwt3_inv",
-            "cwt_ifft")
+    return ("modwt_fwd", "modwt_fwd_ctx", "modwt_inv", "modwt_denoise",
+            "modwt_var", "modwpt_fwd", "modwpt_select", "modwpt_inv",
+            "modwt2_fwd", "modwt2_inv", "modwt2_denoise", "modwt3_fwd",
+            "modwt3_inv", "cwt_ifft")
 
 
 def op_flops(call) -> int:
@@ -3370,9 +3388,10 @@ def run_sharded_slice(smoke: Smoke, torch, jt, signal, card) -> None:
     ``make_mesh`` meshes at bench.py's shapes, each gathered result held
     to the port's single-device call on the card (forwards 1e-5 ×
     max|ref|, round trips 1e-4, synchrosqueezing's bin decisions all the
-    single-device ones); a counted window shows they launch none of the
-    kernels (plain torch and collectives); each call's collectives posted
-    (none on one rank) and its wall beside the single-device wall."""
+    single-device ones); a counted window shows they launch one kernel,
+    the forward's context variant for ``modwt_sharded``, and none other
+    (plain torch and collectives); each call's collectives posted (none on
+    one rank) and its wall beside the single-device wall."""
     import tempfile
 
     import torch.distributed as dist
@@ -3402,7 +3421,7 @@ def run_sharded_slice(smoke: Smoke, torch, jt, signal, card) -> None:
                     run()
 
             counted_run(smoke, torch, all_launchers(), "the sharded tier",
-                        every_call, {})
+                        every_call, {"modwt_fwd_ctx": 1})
             for name, inp, run, single, check in calls:
                 sharded.reset_collectives()
                 got = run()
@@ -3629,6 +3648,98 @@ def run_median_slice(smoke: Smoke, torch, jt, signal, card) -> tuple:
     print(f"  phase 35 took {time.perf_counter() - t_phase:.1f} s",
           flush=True)
     return {"median": got["median"]}, {"median": err}, times, library
+
+
+def run_shard_slice(smoke: Smoke, torch, jt, signal, card) -> tuple:
+    """Phase 36: the forward's context variant (``jwave::modwt_fwd_ctx``,
+    one shard of a longer signal, the samples before it given) against its
+    plain model at the forward's edges, f32 and bf16, and bitwise the
+    forward kernel where the context is the row's own wrapped end; one
+    launch at the sharded cell's shard SHARD_SHAPE (6.4·10⁹ outputs, past
+    2³¹) held to the float64 segment reference
+    (``wavebench/reference/modwt_segment.py``) on W₁'s first block, a
+    block of W₃ in the middle and V₅'s last block, 1e-5 absolute; timed
+    at MAIN_SHAPE and SHARD_SHAPE beside the forward kernel and the
+    bound.  Returns (launches, errors, times) under ``modwt_fwd_ctx``."""
+    from jwave_pro_tpu_torch.kernels import modwt_cuda as kc
+    from jwave_pro_tpu_torch.kernels.modwt_cuda import LAUNCHES
+    from wavebench.reference import filters
+    from wavebench.reference import modwt_segment as seg
+
+    t_phase = time.perf_counter()
+    print(f"== phase 36: the forward's context variant on {card}",
+          flush=True)
+    w = jt.wavelet(WAVELET)
+    err = 0.0
+    for b, n, lvl, name in FWD_EDGES + ((8, 4096, LEVEL, WAVELET),
+                                        (3, 100, LEVEL, WAVELET)):
+        wv = jt.wavelet(name)
+        h = kc.halo(wv.length, lvl)
+        for dtype in (torch.float32, torch.bfloat16):
+            x, ctx = signal(b, n, dtype=dtype), signal(b, h, dtype=dtype)
+            got = kc.modwt_fwd_ctx_cuda(x, ctx, wv, lvl)
+            e = max_err(got, kc.modwt_fwd_ctx_plain(x, ctx, wv, lvl))
+            tol = 1e-5 if dtype == torch.float32 else 2e-2
+            smoke.check(f"fwd_ctx ({b}, {n}) {name} L{lvl} {dtype} vs "
+                        f"plain", e, tol)
+            if dtype == torch.float32:
+                err = max(err, e)
+            own = x[:, torch.arange(-h, 0, device=x.device) % n]
+            smoke.require(f"fwd_ctx ({b}, {n}) {name} L{lvl} {dtype} with "
+                          f"the row's own end = the forward bitwise",
+                          torch.equal(kc.modwt_fwd_ctx_cuda(
+                              x, own.contiguous(), wv, lvl),
+                              kc.modwt_fwd_cuda(x, wv, lvl)))
+    rows, n = SHARD_SHAPE
+    h = kc.halo(w.length, LEVEL)
+    dev = signal(1, 1).device
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def large(*shape):
+        # the shard's 10⁹ samples made on the card, not through the host
+        return torch.randn(shape, generator=gen, device=dev)
+
+    x, ctx = large(rows, n), large(rows, h)
+    before = LAUNCHES["modwt_fwd_ctx"]
+    c = kc.modwt_fwd_ctx_cuda(x, ctx, w, LEVEL)
+    torch.cuda.synchronize()
+    launched = LAUNCHES["modwt_fwd_ctx"] - before
+    smoke.require(f"fwd_ctx {SHARD_SHAPE}: one launch, {c.numel():.3e} "
+                  f"outputs", launched == 1 and c.numel() > 2 ** 31)
+    f = filters.BY_NAME[WAVELET]
+    for row, start in ((0, 0), (2, n // 2), (LEVEL, n - SHARD_BLOCK)):
+        want = seg.modwt_segment(x, ctx, f, LEVEL, start, SHARD_BLOCK)[row]
+        e = max_err(c[row, :, start:start + SHARD_BLOCK].double(), want)
+        smoke.check(f"fwd_ctx {SHARD_SHAPE} row {row} columns {start}+"
+                    f"{SHARD_BLOCK} vs f64 segment reference", e, 1e-5)
+    del c
+    del x, ctx
+    times = {}
+    for shape, k in ((MAIN_SHAPE, 10), (SHARD_SHAPE, 3)):
+        rows, n = shape
+        x, ctx = large(rows, n), large(rows, h)
+        tc1 = event_time(torch, lambda v: kc.modwt_fwd_ctx_cuda(
+            v, ctx, w, LEVEL), x, k=k, repeats=3) * 1e3
+        tf = event_time(torch, lambda v: kc.modwt_fwd_cuda(v, w, LEVEL), x,
+                        k=k, repeats=3) * 1e3
+        tc2 = event_time(torch, lambda v: kc.modwt_fwd_ctx_cuda(
+            v, ctx, w, LEVEL), x, k=k, repeats=3) * 1e3
+        tc = (tc1 + tc2) / 2
+        cells = rows * n
+        bound_ms, by = bound(4 * cells * (LEVEL + 2) + 4 * rows * h,
+                             cells * 4 * w.length * LEVEL)
+        print(f"  fwd_ctx {shape}: kernel {tc:.4f} ms, the forward "
+              f"{tf:.4f} ms, bound {bound_ms:.4f} ms ({by}), "
+              f"{bound_ms / tc:.1%} of it [{card}]", flush=True)
+        if shape == MAIN_SHAPE:
+            tp = event_time(torch, lambda v: kc.modwt_fwd_ctx_plain(
+                v, ctx, w, LEVEL), x, k=2, repeats=3) * 1e3
+            times["modwt_fwd_ctx"] = (tc, tp)
+        del x, ctx
+    torch.cuda.empty_cache()
+    print(f"  phase 36 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return {"modwt_fwd_ctx": launched}, {"modwt_fwd_ctx": err}, times
 
 
 def main() -> int:

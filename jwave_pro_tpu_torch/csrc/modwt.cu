@@ -59,11 +59,17 @@
 // end); outputs at [H, end) are stored.  Shared memory: the taps, one
 // slice of 32 R floats a warp (W_j staged for the warp's stores), and two
 // V rows of T + H floats (ping-pong).
-template <typename T, int MT>
-__global__ void __launch_bounds__(JW_FWD_THREADS, 4)
-jw_modwt_fwd_kernel(const T* __restrict__ x, T* __restrict__ out, int batch,
-                    int n, int level, int m_run, int tile, int halo,
-                    int ntiles, JwTaps taps) {
+//
+// CTX: the row is one shard of a longer signal, and the H samples before
+// its position 0 are row `row` of ctx (rows, H), not the row's own end:
+// position p < 0 of the window reads ctx[row, H + p].  Only the first
+// tiles of a row (s < H) read ctx; no window wraps.  Without CTX the body
+// compiles to the kernel it was before ctx existed.
+template <typename T, int MT, bool CTX>
+__device__ __forceinline__ void jw_modwt_fwd_body(
+    const T* __restrict__ x, const T* __restrict__ ctx, T* __restrict__ out,
+    int batch, int n, int level, int m_run, int tile, int halo, int ntiles,
+    const JwTaps& taps) {
   extern __shared__ float smem[];
   const int m = MT > 0 ? MT : m_run;
   float* sg = smem;
@@ -83,7 +89,14 @@ jw_modwt_fwd_kernel(const T* __restrict__ x, T* __restrict__ out, int batch,
   auto dst = [&](int r, int i) { return out + (r * plane + first_p + i); };
 
   if (MT == 0) jw_stage_taps(taps, sg, sh, m);
-  jw_load_window(x + (size_t)row * n, s - halo, n, a, end);
+  if (CTX && s < halo) {
+    // window [0, from_ctx) is ctx[row, s + i]; the rest x[row, 0 ...)
+    const int from_ctx = halo - (int)s;
+    jw_load_window(ctx + (size_t)row * halo + s, 0, halo, a, from_ctx);
+    jw_load_window(x + (size_t)row * n, 0, n, a + from_ctx, end - from_ctx);
+  } else {
+    jw_load_window(x + (size_t)row * n, s - halo, n, a, end);
+  }
   __syncthreads();
 
   int lo = 0;  // first valid index of the current V in the window
@@ -128,6 +141,26 @@ jw_modwt_fwd_kernel(const T* __restrict__ x, T* __restrict__ out, int batch,
     a = b;
     b = t;
   }
+}
+
+template <typename T, int MT>
+__global__ void __launch_bounds__(JW_FWD_THREADS, 4)
+jw_modwt_fwd_kernel(const T* __restrict__ x, T* __restrict__ out, int batch,
+                    int n, int level, int m_run, int tile, int halo,
+                    int ntiles, JwTaps taps) {
+  jw_modwt_fwd_body<T, MT, false>(x, nullptr, out, batch, n, level, m_run,
+                                  tile, halo, ntiles, taps);
+}
+
+// The forward of one shard: the window's left context from ctx (rows, H).
+template <typename T, int MT>
+__global__ void __launch_bounds__(JW_FWD_THREADS, 4)
+jw_modwt_fwd_ctx_kernel(const T* __restrict__ x, const T* __restrict__ ctx,
+                        T* __restrict__ out, int batch, int n, int level,
+                        int m_run, int tile, int halo, int ntiles,
+                        JwTaps taps) {
+  jw_modwt_fwd_body<T, MT, true>(x, ctx, out, batch, n, level, m_run, tile,
+                                 halo, ntiles, taps);
 }
 
 // Block (row, tile): window [s, s + end) mod N, end = min(T, N - s) + H.
@@ -235,6 +268,36 @@ int jw_modwt_fwd(const void* x, void* out, int batch, int n, int level,
                            JW_FWD_THREADS, smem, st, (const float*)x,
                            (float*)out, batch, n, level, m, tile, halo,
                            ntiles, taps);
+}
+
+// The same for one shard of each row: ctx (B, halo) holds the halo samples
+// before each row's position 0 (the left neighbour's last ones), which
+// take the place of the row's wrapped end.
+int jw_modwt_fwd_ctx(const void* x, const void* ctx, void* out, int batch,
+                     int n, int level, const float* g, const float* h, int m,
+                     int tile, int halo, int smem, int dtype, int device,
+                     void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  if (tile < 1 || level < 1 || m < 1 || m > JW_MAX_TAPS ||
+      halo != (m - 1) * ((1 << level) - 1) ||
+      smem != (int)sizeof(float) * (2 * JW_MAX_TAPS + JW_FWD_SLICE +
+                                    2 * (tile + halo)))
+    return (int)cudaErrorInvalidValue;
+  const JwTaps taps = jw_make_taps(g, h, m);
+  const int ntiles = (n + tile - 1) / tile;
+  const long long blocks = (long long)ntiles * batch;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == JW_BF16)
+    return jw_launch_threads(
+        JW_PICK_M(jw_modwt_fwd_ctx_kernel, __nv_bfloat16, m), blocks,
+        JW_FWD_THREADS, smem, st, (const __nv_bfloat16*)x,
+        (const __nv_bfloat16*)ctx, (__nv_bfloat16*)out, batch, n, level, m,
+        tile, halo, ntiles, taps);
+  return jw_launch_threads(JW_PICK_M(jw_modwt_fwd_ctx_kernel, float, m),
+                           blocks, JW_FWD_THREADS, smem, st, (const float*)x,
+                           (const float*)ctx, (float*)out, batch, n, level,
+                           m, tile, halo, ntiles, taps);
 }
 
 // c (L+1, B, N) -> out (B, N), both of `dtype`, contiguous, on `device`.

@@ -20,9 +20,17 @@ forward stages each warp's W outputs in shared memory so that its stores,
 L + 1 rows for each row read, stay coalesced; the inverse has the next
 level's W row in flight while a level runs.
 
+The forward has a second instantiation for one shard of a longer signal
+(``jw_modwt_fwd_ctx_kernel``, operator ``jwave::modwt_fwd_ctx``): the
+halo samples before each row's position 0 come from a (rows, halo)
+context operand, the left neighbour's last samples, in place of the
+row's own wrapped end.  ``parallel/sharded.py:modwt_sharded`` fetches
+that context in one ring hop and makes one launch.
+
 Beside each kernel: its plain PyTorch version (``modwt_fwd_plain``,
-``modwt_inv_plain``), which the CPU path runs and the chip smoke compares
-against, and a launch count (``LAUNCHES["modwt_fwd"]``,
+``modwt_fwd_ctx_plain``, ``modwt_inv_plain``), which the CPU path runs
+and the chip smoke compares against, and a launch count
+(``LAUNCHES["modwt_fwd"]``, ``LAUNCHES["modwt_fwd_ctx"]``,
 ``LAUNCHES["modwt_inv"]``).  Each launch is a ``torch.library`` operator
 (``jwave::modwt_fwd``, ``jwave::modwt_inv``) whose taps travel as float
 lists (:func:`op_taps`) and whose grid is planned at launch, so a
@@ -55,7 +63,9 @@ from . import _build
 __all__ = [
     "modwt_fused", "imodwt_fused", "kernel_supported",
     "modwt_fwd_cuda", "modwt_inv_cuda", "modwt_fwd_plain", "modwt_inv_plain",
-    "modwt_fwd_op", "modwt_inv_op", "op_taps", "kernel_op", "LAUNCHES",
+    "modwt_fwd_ctx_cuda", "modwt_fwd_ctx_plain", "modwt_shard",
+    "modwt_fwd_op", "modwt_fwd_ctx_op", "modwt_inv_op", "op_taps",
+    "kernel_op", "LAUNCHES",
 ]
 
 MAX_TAPS = 64                 # JW_MAX_TAPS in csrc/common.cuh
@@ -202,6 +212,60 @@ def modwt_fwd_plain(x: torch.Tensor, wavelet: DiscreteWavelet,
     return torch.stack(rows).to(x.dtype)
 
 
+def _fir(v: torch.Tensor, f, d: int, start: int, size: int,
+         into: torch.Tensor | None = None) -> torch.Tensor:
+    """y[t] = Σ_k f[k]·v[start + t − k·d] for t < ``size``, no wrap
+    (``start`` ≥ (len(f) − 1)·d), accumulated in place in ``into`` (a new
+    tensor when None)."""
+    for k, c in enumerate(f):
+        part = v[..., start - k * d:start - k * d + size]
+        if k:
+            into.add_(part, alpha=c)
+        elif into is None:
+            into = c * part
+        else:
+            into.copy_(part).mul_(c)
+    return into
+
+
+def modwt_fwd_ctx_plain(x: torch.Tensor, ctx: torch.Tensor,
+                        wavelet: DiscreteWavelet, level: int) -> torch.Tensor:
+    """The context variant's function in plain PyTorch: the forward of a
+    shard ``x`` (..., n) whose ``halo(M, level)`` samples before position
+    0 are ``ctx`` (..., halo) → (level+1, ..., n), x's dtype.
+
+    The level cascade runs on [ctx | x] without wrapping: level j's
+    outputs need (M−1)·2^(j−1) samples before them, so each V_j is kept
+    only where it is valid, and W_j and V_L only over the shard, each
+    written once into the output as it is computed (no list, no stack).
+    Computed in float32 (float64 for float64 input, the input's own
+    dtype for complex input); differentiable."""
+    m, n = wavelet.length, x.shape[-1]
+    if ctx.shape[-1] != halo(m, level) or ctx.shape[:-1] != x.shape[:-1]:
+        raise ValueError(f"context {tuple(ctx.shape)} for a shard "
+                         f"{tuple(x.shape)} at level {level}: need "
+                         f"(..., {halo(m, level)})")
+    cdt = x.dtype if x.is_complex() else _compute_dtype(x.dtype)
+    g, h = (taps_as(f, cdt.to_real()) for f in modwt_base_filters(wavelet))
+    v = torch.cat([ctx.to(cdt), x.to(cdt)], dim=-1)
+    out = x.new_empty((level + 1,) + tuple(x.shape))
+    direct = out.dtype == cdt
+    for j in range(1, level + 1):
+        d = 1 << (j - 1)
+        first = v.shape[-1] - n       # the shard's first sample in v
+        # W_j, and at the last level V_L, over the shard's n samples
+        rows = ((h, j - 1), (g, level)) if j == level else ((h, j - 1),)
+        for f, row in rows:
+            if direct:
+                _fir(v, f, d, first, n, out[row])
+            else:
+                out[row].copy_(_fir(v, f, d, first, n))
+        if j < level:
+            span = (m - 1) * d
+            v = _fir(v, g, d, span, v.shape[-1] - span)
+    return out
+
+
 def modwt_inv_plain(c: torch.Tensor, wavelet: DiscreteWavelet) -> torch.Tensor:
     """The inverse kernel's function in plain PyTorch: ``(level+1, ..., N)``
     → ``(..., N)``, computed like :func:`modwt_fwd_plain`."""
@@ -224,6 +288,9 @@ def _lib() -> ctypes.CDLL:
     for fn in (lib.jw_modwt_fwd, lib.jw_modwt_inv):
         fn.argtypes = [_P, _P, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P]
         fn.restype = _I
+    lib.jw_modwt_fwd_ctx.argtypes = [_P, _P, _P, _I, _I, _I, _P, _P, _I, _I,
+                                     _I, _I, _I, _I, _P]
+    lib.jw_modwt_fwd_ctx.restype = _I
     return lib
 
 
@@ -425,6 +492,73 @@ def modwt_fwd_cuda(x: torch.Tensor, wavelet: DiscreteWavelet,
     """Launch the forward kernel as ``jwave::modwt_fwd``: x (B, N) →
     (level+1, B, N), x's dtype."""
     return modwt_fwd_op(x, *op_taps(wavelet), level)
+
+
+def _check_fwd_ctx(x: torch.Tensor, ctx: torch.Tensor, g, h, level: int,
+                   traced: bool = True) -> None:
+    _check_fwd(x, g, h, level, traced)
+    check_operand(ctx, "ctx", 2, traced)
+    want = (x.shape[0], halo(len(g), level))
+    if tuple(ctx.shape) != want or ctx.dtype != x.dtype:
+        raise ValueError(f"ctx: expected {x.dtype} {want}, got {ctx.dtype} "
+                         f"{tuple(ctx.shape)}")
+
+
+@kernel_op("modwt_fwd_ctx")
+def modwt_fwd_ctx_op(x: torch.Tensor, ctx: torch.Tensor, g: list[float],
+                     h: list[float], level: int) -> torch.Tensor:
+    """The context variant's launch as an operator (``torch.ops.jwave.
+    modwt_fwd_ctx``): a shard x (B, n) and the halo samples before each
+    row's position 0, ctx (B, halo(M, level)) → (level+1, B, n), x's
+    dtype.  The plan is the forward's."""
+    _check_fwd_ctx(x, ctx, g, h, level, traced=False)
+    b, n = x.shape
+    m = len(g)
+    tile = tile_of("fwd", level, m)
+    check_grid(b, n, "fwd", tile)
+    out = torch.empty((level + 1, b, n), dtype=x.dtype, device=x.device)
+    gh, hh = host_taps(g, h)
+    lib = _lib()
+    code = lib.jw_modwt_fwd_ctx(
+        x.data_ptr(), ctx.data_ptr(), out.data_ptr(), b, n, level,
+        gh.ctypes.data, hh.ctypes.data, m, tile, halo(m, level),
+        smem_bytes(level, m, "fwd"), DTYPE_CODES[x.dtype], x.device.index,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, code, "modwt forward kernel with context")
+    return out
+
+
+@modwt_fwd_ctx_op.register_fake
+def _(x, ctx, g, h, level):
+    _check_fwd_ctx(x, ctx, g, h, level)
+    return x.new_empty((level + 1,) + tuple(x.shape))
+
+
+def modwt_fwd_ctx_cuda(x: torch.Tensor, ctx: torch.Tensor,
+                       wavelet: DiscreteWavelet, level: int) -> torch.Tensor:
+    """Launch the context variant as ``jwave::modwt_fwd_ctx``: x (B, n),
+    ctx (B, halo) → (level+1, B, n), x's dtype."""
+    return modwt_fwd_ctx_op(x, ctx, *op_taps(wavelet), level)
+
+
+def modwt_shard(x: torch.Tensor, ctx: torch.Tensor, wavelet: DiscreteWavelet,
+                level: int) -> torch.Tensor:
+    """The forward of a shard ``x`` (..., n) given the ``halo(M, level)``
+    samples before its position 0, ``ctx`` (..., halo): (level+1, ..., n).
+
+    One launch of the context variant for a CUDA float32/bfloat16 shard
+    whose shape the kernel takes (:func:`kernel_supported`) and that needs
+    no gradient; :func:`modwt_fwd_ctx_plain` otherwise."""
+    n = x.shape[-1]
+    grad = torch.is_grad_enabled() and (x.requires_grad or ctx.requires_grad)
+    if (x.is_cuda and x.dtype in DTYPE_CODES and ctx.dtype == x.dtype
+            and not grad
+            and kernel_supported(n, level, wavelet.length, "fwd")):
+        rows = x.reshape(-1, n).contiguous()
+        out = modwt_fwd_ctx_cuda(rows, ctx.reshape(rows.shape[0], -1)
+                                 .contiguous(), wavelet, level)
+        return out.reshape((level + 1,) + tuple(x.shape))
+    return modwt_fwd_ctx_plain(x, ctx, wavelet, level)
 
 
 def _check_inv(c: torch.Tensor, g, h, traced: bool = True) -> None:

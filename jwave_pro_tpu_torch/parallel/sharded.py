@@ -14,11 +14,15 @@ collectives go to the process group of the mesh dim the JAX body names:
     all-to-all are ``all_gather``, ``all_reduce`` and ``all_to_all``.
 
 Every collective the tier posts goes through this module and is counted in
-:data:`COLLECTIVES` by kind (the JAX tests read the same facts off the
-compiled HLO).  A function takes a DTensor or a plain tensor; a plain
-tensor is the global value, the same on every rank (as JAX takes a host
-array), and each rank keeps its own slice of it.  Results are DTensors
-placed as the JAX function's ``out_specs``; ``.full_tensor()`` gathers one.
+:data:`COLLECTIVES` by kind, with the bytes this rank handed it in
+:data:`COLLECTIVE_BYTES` (the JAX tests read the same facts off the
+compiled HLO).  Spans (``utils/profiling.span``) mark the signal-sharded
+MODWT (``jwave.sharded.modwt``), each fetch of ring context
+(``jwave.sharded.halo``) and each ring hop (``jwave.sharded.hop``).  A
+function takes a DTensor or a plain tensor; a plain tensor is the global
+value, the same on every rank (as JAX takes a host array), and each rank
+keeps its own slice of it.  Results are DTensors placed as the JAX
+function's ``out_specs``; ``.full_tensor()`` gathers one.
 Hops and all-gathers are differentiable (the backward of a hop is the
 opposite hop), so are the transforms built on them.  The gradient of a
 plain-tensor input holds this rank's part; that of a DTensor is whole.
@@ -39,7 +43,9 @@ from ..ops.modwt import (
     _check_level, _combined_adjoint, _level_conv, _use_fft,
     modwt_base_filters, taps_as,
 )
+from ..kernels.modwt_cuda import halo as _halo, modwt_shard
 from ..utils.device import as_input
+from ..utils.profiling import spanned
 from ..wavelets.base import DiscreteWavelet
 from .mesh import P, mesh_device, placements
 
@@ -50,21 +56,32 @@ __all__ = [
     "modwpt_sharded", "imodwpt_sharded",
     "scattering_sharded", "scattering2d_sharded", "ssq_sharded",
     "modwt2_sharded", "imodwt2_sharded", "dtcwt_sharded", "idtcwt_sharded",
-    "COLLECTIVES", "reset_collectives",
+    "COLLECTIVES", "COLLECTIVE_BYTES", "reset_collectives",
 ]
+
+_KINDS = ("hop", "all_gather", "all_reduce_sum", "all_reduce_max",
+          "all_to_all")
 
 #: Collectives this tier has posted, by kind: ring hops, tiled all-gathers,
 #: SUM and MAX all-reduces, all-to-alls.  An op over a group of one rank
 #: posts nothing and counts nothing.  :func:`reset_collectives` sets them
 #: to 0 (backward passes post and count theirs too).
-COLLECTIVES = dict.fromkeys(
-    ("hop", "all_gather", "all_reduce_sum", "all_reduce_max", "all_to_all"),
-    0)
+COLLECTIVES = dict.fromkeys(_KINDS, 0)
+
+#: Bytes this rank handed the collectives it posted, by kind: a hop's sent
+#: block, an all-gather's shard, an all-reduce's operand, an all-to-all's
+#: whole input.  Counted and reset with :data:`COLLECTIVES`.
+COLLECTIVE_BYTES = dict.fromkeys(_KINDS, 0)
 
 
 def reset_collectives() -> None:
-    for kind in COLLECTIVES:
-        COLLECTIVES[kind] = 0
+    for kind in _KINDS:
+        COLLECTIVES[kind] = COLLECTIVE_BYTES[kind] = 0
+
+
+def _posted(kind: str, t: torch.Tensor) -> None:
+    COLLECTIVES[kind] += 1
+    COLLECTIVE_BYTES[kind] += t.numel() * t.element_size()
 
 
 # ---------------------------------------------------------------------------
@@ -149,6 +166,7 @@ def _size(group) -> int:
     return dist.get_world_size(group)
 
 
+@spanned("jwave.sharded.hop")
 def _send_recv(x: torch.Tensor, group, shift: int) -> torch.Tensor:
     """Send ``x`` ``shift`` places along the ring, receive from ``-shift``
     places: one ``batch_isend_irecv`` pair to global ranks."""
@@ -161,7 +179,7 @@ def _send_recv(x: torch.Tensor, group, shift: int) -> torch.Tensor:
            dist.P2POp(dist.irecv, out, ranks[(i - shift) % n], group)]
     for req in dist.batch_isend_irecv(ops):
         req.wait()
-    COLLECTIVES["hop"] += 1
+    _posted("hop", x)
     return out
 
 
@@ -194,8 +212,8 @@ def _real(x: torch.Tensor) -> torch.Tensor:
 def _reduce(x: torch.Tensor, group, op) -> torch.Tensor:
     out = x.detach().clone(memory_format=torch.contiguous_format)
     dist.all_reduce(_real(out), op=op, group=group)
-    COLLECTIVES["all_reduce_sum" if op == dist.ReduceOp.SUM
-                else "all_reduce_max"] += 1
+    _posted("all_reduce_sum" if op == dist.ReduceOp.SUM
+            else "all_reduce_max", out)
     return out
 
 
@@ -233,7 +251,7 @@ class _AllGather(torch.autograd.Function):
         x = x.contiguous()
         parts = [torch.empty_like(x) for _ in range(_size(group))]
         dist.all_gather(parts, x, group=group)
-        COLLECTIVES["all_gather"] += 1
+        _posted("all_gather", x)
         return torch.cat(parts, dim=dim)
 
     @staticmethod
@@ -252,7 +270,7 @@ def _exchange(x: torch.Tensor, group, split: int, cat: int) -> torch.Tensor:
     ins = [c.contiguous() for c in x.chunk(n, dim=split)]
     outs = [torch.empty_like(c) for c in ins]
     dist.all_to_all(outs, ins, group=group)
-    COLLECTIVES["all_to_all"] += 1
+    _posted("all_to_all", x)
     return torch.cat(outs, dim=cat)
 
 
@@ -275,35 +293,42 @@ def _all_to_all(x: torch.Tensor, group, split: int, cat: int):
     return x if _size(group) == 1 else _AllToAll.apply(x, group, split, cat)
 
 
+@spanned("jwave.sharded.halo")
 def _left_context(x: torch.Tensor, halo: int, group) -> torch.Tensor:
     """Fetch ``halo`` samples of circular left context along the ring.
 
-    Halos longer than one shard take more hops: after hop t a rank holds
-    shard (i − t − 1), whose tail is the context at that distance."""
+    Each hop sends only the samples the next rank keeps: one hop of the
+    last ``halo`` samples when the halo fits in a shard.  A longer halo
+    takes more hops: hop t brings a rank the tail of shard (i − t), which
+    it passes on at the next hop."""
     s = x.shape[-1]
     pieces = []
     got = 0
     send = x
     while got < halo:
-        send = _hop(send, group, 1)
         take = min(halo - got, s)
-        pieces.append(send[..., s - take:])
+        send = _hop(send[..., send.shape[-1] - take:], group, 1)
+        pieces.append(send)
         got += take
     # nearest context first: the signal order is the reverse
-    return torch.cat(pieces[::-1], dim=-1)[..., -halo:]
+    return pieces[0] if len(pieces) == 1 else torch.cat(pieces[::-1],
+                                                        dim=-1)
 
 
+@spanned("jwave.sharded.halo")
 def _right_context(x: torch.Tensor, halo: int, group) -> torch.Tensor:
+    """Fetch ``halo`` samples of circular right context along the ring,
+    as :func:`_left_context` fetches the left."""
     s = x.shape[-1]
     pieces = []
     got = 0
     send = x
     while got < halo:
-        send = _hop(send, group, -1)
         take = min(halo - got, s)
-        pieces.append(send[..., :take])
+        send = _hop(send[..., :take], group, -1)
+        pieces.append(send)
         got += take
-    return torch.cat(pieces, dim=-1)[..., :halo]
+    return pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim=-1)
 
 
 def _extend(x: torch.Tensor, halo: int, group, adjoint: bool):
@@ -326,14 +351,6 @@ def _taps(xe: torch.Tensor, f, d: int, base: int, s: int, adjoint: bool):
     return acc
 
 
-def _halo_level(v, g, h, d: int, group):
-    """One forward MODWT level on the sharded last axis: one context
-    fetch, then the (g, h) pair — returns (V, W)."""
-    s = v.shape[-1]
-    xe, base = _extend(v, (len(g) - 1) * d, group, adjoint=False)
-    return (_taps(xe, g, d, base, s, False), _taps(xe, h, d, base, s, False))
-
-
 def _halo_adjoint(v, w, g, h, d: int, group):
     """One inverse MODWT level on the sharded last axis: V and W share one
     context fetch; returns adj(V, g) + adj(W, h)."""
@@ -354,32 +371,30 @@ def _float_input(x, mesh):
     return x
 
 
+@spanned("jwave.sharded.modwt")
 def modwt_sharded(x, wavelet: DiscreteWavelet, level: int, mesh: DeviceMesh,
                   signal_axis: str = "signal", batch_axis: str = "data"):
     """Forward MODWT with the signal axis sharded across ``mesh``.
 
     Output layout matches :func:`..ops.modwt.modwt`: ``(level+1, ..., N)``
-    with the last axis still sharded.  Per level the only communication is
-    one ring fetch of ``(M−1)·2^(j−1)`` halo samples (more hops when the
-    halo exceeds a shard).
+    with the last axis still sharded.  The only communication is one ring
+    fetch of the whole halo, the (M−1)(2^L − 1) samples before the shard
+    (one hop, more when the halo exceeds a shard); then every level runs
+    on this rank: one launch of the forward kernel's context variant on a
+    CUDA float32/bfloat16 shard, its plain version otherwise
+    (:func:`..kernels.modwt_cuda.modwt_shard`).
     """
     x = _float_input(x, mesh)
     _check_level(x.shape[-1], level)
-    g64, h64 = modwt_base_filters(wavelet)
     n_dev, _, group = _axis(mesh, signal_axis)
     n_shard = x.shape[-1] // n_dev
-    max_halo = (g64.shape[0] - 1) * (1 << (level - 1))
+    max_halo = (wavelet.length - 1) * (1 << (level - 1))
     if n_shard < 1 or max_halo > n_shard * n_dev:
         raise ValueError("halo exceeds total signal length")
     spec = _specs(mesh, x.ndim, signal_axis, batch_axis)
     v = _local(x, mesh, spec)
-    g, h = taps_as(g64, v.dtype), taps_as(h64, v.dtype)
-    rows = []
-    for j in range(1, level + 1):
-        v, w = _halo_level(v, g, h, 1 << (j - 1), group)
-        rows.append(w)
-    rows.append(v)
-    return _wrap(torch.stack(rows), mesh, P(None, *spec))
+    ctx = _left_context(v, _halo(wavelet.length, level), group)
+    return _wrap(modwt_shard(v, ctx, wavelet, level), mesh, P(None, *spec))
 
 
 def imodwt_sharded(c, wavelet: DiscreteWavelet, mesh: DeviceMesh,

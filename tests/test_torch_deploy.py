@@ -130,7 +130,8 @@ def test_export_leaves_the_constant_caches_real(rng):
 
 OPS = ("modwt_fwd", "modwt_inv", "modwt_denoise", "modwt_var", "modwpt_fwd",
        "modwpt_select", "modwpt_inv", "modwt2_fwd", "modwt2_inv",
-       "modwt2_denoise", "modwt3_fwd", "modwt3_inv", "cwt_ifft", "median")
+       "modwt2_denoise", "modwt3_fwd", "modwt3_inv", "cwt_ifft", "median",
+       "modwt_fwd_ctx")
 # operators that take float32 alone (the CWT's complex64)
 F32_ONLY = ("cwt_ifft", "median")
 
@@ -148,6 +149,7 @@ def _operands(device, dtype=torch.float32):
         return a.to(device)
 
     x1, x2, x3 = t(3, 300), t(2, 40, 48), t(2, 8, 8, 16)
+    ctx1 = t(3, kc.halo(DB4.length, 3))
     c1, p1, c2, c3 = t(4, 3, 300), t(8, 3, 300), t(7, 2, 40, 48), \
         t(8, 2, 8, 8, 16)
     thr1, thr2 = t(3, dt=torch.float32), t(2, dt=torch.float32)
@@ -179,6 +181,8 @@ def _operands(device, dtype=torch.float32):
         "cwt_ifft": ((on(xf), on(mult), 200, 0),
                      lambda: kw.cwt_ifft_plain(xf, mult, 200, False)),
         "median": ((on(x1), True), lambda: km.median_plain(x1, True)),
+        "modwt_fwd_ctx": ((on(x1), on(ctx1), g, h, 3),
+                          lambda: kc.modwt_fwd_ctx_plain(x1, ctx1, DB4, 3)),
     }
 
 
@@ -279,6 +283,8 @@ F32 = torch.float32
      [((4, 1024), C64, True), ((6, 1024), C64, False)], {"cwt_ifft"}),
     (lambda v: km.median_rows(v, True), [((8, 4096), F32, True)],
      {"median"}),
+    (lambda v, c: kc.modwt_fwd_ctx_cuda(v, c, DB4, 5),
+     [((8, 4096), F32, True), ((8, 217), F32, True)], {"modwt_fwd_ctx"}),
     (lambda a, m: tfwt._mm(a, m, True),
      [((8, 64, 32), F32, True), ((32, 16), F32, False)], {"f32_mm"}),
 ])
@@ -296,3 +302,6 @@ def test_export_records_each_operator_as_one_node(launch, specs, ops):
                              "jwave.modwt_var.default"):
             g, h = kc.op_taps(DB4)
             assert list(n.args[1]) == g and list(n.args[2]) == h
+        if str(n.target) == "jwave.modwt_fwd_ctx.default":
+            g, h = kc.op_taps(DB4)
+            assert list(n.args[2]) == g and list(n.args[3]) == h

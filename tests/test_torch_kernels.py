@@ -31,7 +31,12 @@ an order of magnitude).  The banded CWT's tiers against the host f64
 irfft path, the JAX tests' bounds (``tests/test_cwt_banded.py``):
 'highest' 2e-5, 'high' 1e-3 + 1e-6, 'default' 2e-2 relative to max|c|.
 The streaming path's coefficients against the host f64 MODWT of the whole
-signal on the columns ≥ halo: 1e-5 absolute, the forward's bound.
+signal on the columns ≥ halo: 1e-5 absolute, the forward's bound.  The
+forward's context variant (``jwave::modwt_fwd_ctx``) as the forward:
+1e-5 absolute against its plain model, bitwise the forward kernel where
+the context is the row's own wrapped end, and at the sharded cell's
+(8, 2²⁷) shard 1e-5 absolute against the float64 segment reference
+(``wavebench/reference/modwt_segment.py``) on blocks past 2³¹ elements.
 """
 import numpy as np
 import pytest
@@ -191,6 +196,69 @@ def test_entry_points_reject_shared_memory_off_their_layout(dev):
             g.ctypes.data, h.ctypes.data, 8, kc.TILES["denoise"], hal, smem,
             0, 0, 0, stream) == want
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch,n,level,name", FWD_EDGES + [
+    (8, 4096, 5, "Daubechies 4"), (3, 100, 5, "Daubechies 4"),
+    (1, 1 << 16, 5, "Symlet 8")])
+def test_forward_with_context_matches_plain_and_the_forward(dev, batch, n,
+                                                            level, name,
+                                                            dtype):
+    """The context variant against its plain model; with the row's own
+    last ``halo`` samples (wrapped where the halo passes N) as the
+    context, bitwise the forward kernel: the same window, the same
+    chains."""
+    w = jt.wavelet(name)
+    h = kc.halo(w.length, level)
+    x = _signal(dev, batch, n, seed=17, dtype=dtype)
+    ctx = _signal(dev, batch, h, seed=18, dtype=dtype)
+    before = LAUNCHES["modwt_fwd_ctx"]
+    got = kc.modwt_fwd_ctx_cuda(x, ctx, w, level)
+    assert LAUNCHES["modwt_fwd_ctx"] - before == 1
+    assert got.dtype == dtype and got.shape == (level + 1, batch, n)
+    _close(got, kc.modwt_fwd_ctx_plain(x, ctx, w, level), dtype)
+    own = x[:, torch.arange(-h, 0, device=dev) % n].contiguous()
+    assert torch.equal(kc.modwt_fwd_ctx_cuda(x, own, w, level),
+                       kc.modwt_fwd_cuda(x, w, level))
+
+
+def test_forward_with_context_at_the_sharded_cells_shard(dev):
+    """One launch over (8, 2²⁷): 6.4·10⁹ outputs, past 2³¹, so the last
+    rows' offsets need 64 bits; the first block of W₁ (where the context
+    enters), a block of W₃ and the last block of V₅ against the float64
+    segment reference."""
+    from wavebench.reference import filters
+    from wavebench.reference import modwt_segment as seg
+
+    rows, n, level, block = 8, 1 << 27, 5, 1 << 16
+    gen = torch.Generator(device=dev).manual_seed(22)
+    x = torch.randn((rows, n), generator=gen, device=dev)
+    ctx = torch.randn((rows, 217), generator=gen, device=dev)
+    c = kc.modwt_fwd_ctx_cuda(x, ctx, DB4, level)
+    torch.cuda.synchronize()
+    f = filters.DAUBECHIES_4
+    for row, start in ((0, 0), (2, n // 2), (level, n - block)):
+        want = seg.modwt_segment(x, ctx, f, level, start, block)[row]
+        got = c[row, :, start:start + block].double()
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+def test_modwt_shard_launches_once_and_is_the_plain_path_elsewhere(dev):
+    x = _signal(dev, 4, 8192, seed=19)
+    ctx = _signal(dev, 4, 217, seed=20)
+    before = LAUNCHES["modwt_fwd_ctx"]
+    got = kc.modwt_shard(x, ctx, DB4, 5)
+    assert LAUNCHES["modwt_fwd_ctx"] - before == 1
+    _close(got, kc.modwt_fwd_ctx_plain(x, ctx, DB4, 5), torch.float32)
+    # float64, a gradient wanted, a halo past the kernel's gate: plain
+    kc.modwt_shard(x.double(), ctx.double(), DB4, 5)
+    kc.modwt_shard(x.requires_grad_(), ctx, DB4, 5).sum().backward()
+    long = _signal(dev, 1, 1 << 14)
+    kc.modwt_shard(long, _signal(dev, 1, kc.halo(8, 13)), DB4, 13)
+    assert LAUNCHES["modwt_fwd_ctx"] - before == 1
+    with pytest.raises(ValueError, match="ctx"):
+        kc.modwt_fwd_ctx_cuda(x.detach(), ctx[:, 1:].contiguous(), DB4, 5)
 
 
 def test_public_path_launches_each_kernel(dev):

@@ -471,6 +471,7 @@ def test_forward_gate_admits_what_it_admitted_before_the_w_slices(m):
 
 
 _ENTRY_POINTS = {"fwd": ("modwt.cu", "jw_modwt_fwd"),
+                 "fwd_ctx": ("modwt.cu", "jw_modwt_fwd_ctx"),
                  "var": ("variance.cu", "jw_modwt_var"),
                  "select": ("modwpt.cu", "jw_modwpt_select"),
                  "inv": ("modwt.cu", "jw_modwt_inv"),
@@ -483,9 +484,11 @@ _ENTRY_POINTS = {"fwd": ("modwt.cu", "jw_modwt_fwd"),
 def test_smem_bytes_is_the_layout_the_entry_point_accepts(kind):
     """The C entry point rejects any shared-memory size but its layout's;
     its check, read from the source and evaluated here, equals
-    :func:`smem_bytes` for every level the gate admits."""
+    :func:`smem_bytes` for every level the gate admits (the forward's
+    context variant takes the forward's plan)."""
     import re
     fname, fn = _ENTRY_POINTS[kind]
+    kind = kind.removesuffix("_ctx")
     src = (REPO / "jwave_pro_tpu_torch" / "csrc" / fname).read_text()
     body = src[src.index(f"int {fn}("):]
     expr = re.search(r"smem != \(int\)sizeof\(float\) \*\s*(\(.*?\))\)\s*"

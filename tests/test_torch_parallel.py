@@ -110,7 +110,7 @@ def _modwt(par, m):
 
 @_case("w4", "modwt_multihop", "signal")
 def _modwt_multihop(par, m):
-    # level-5 halo 7·16 = 112 > the 64-sample shard: two hops
+    # the level-5 halo 7·31 = 217 > the 64-sample shard: four hops
     return {"c": par.modwt_sharded(_t(_x("modwt_multihop", 256)),
                                    jt.wavelet(DB4), 5, m)}
 
@@ -996,12 +996,14 @@ def _hops(halos, shard):
 # tests/test_parallel.py (no collective in the packet, scale and path
 # forwards; one all-gather in each packet inverse; one SUM in
 # ssq_sharded(gamma=…), one more MAX with the default γ; only ring hops in
-# the MODWT and overlap-save paths), in counts
+# the MODWT and overlap-save paths), in counts.  The port's MODWT forward
+# fetches its whole halo, (M − 1)(2^L − 1) samples, at once, where the JAX
+# body fetches one level's at a time
 NONE = {}
 PINS = {
-    "modwt": {"hop": _hops([7, 14, 28, 56], 128)},
-    "modwt_multihop": {"hop": _hops([7, 14, 28, 56, 112], 64)},
-    "modwt_2d_mesh": {"hop": _hops([7, 14, 28], 128)},
+    "modwt": {"hop": _hops([7 * 15], 128)},
+    "modwt_multihop": {"hop": _hops([7 * 31], 64)},
+    "modwt_2d_mesh": {"hop": _hops([7 * 7], 128)},
     "modwt_size1": NONE,
     "imodwt": {"hop": _hops([7, 14, 28, 56], 128)},
     "imodwt_any": {"hop": _hops([7, 14, 28, 56], 128)},

@@ -1,19 +1,26 @@
-"""The program's spans (``utils/profiling.py:span``, ``spanned``) and its
-one launch count (``kernels/modwt_cuda.py:LAUNCHES``).
+"""The program's spans (``utils/profiling.py:span``, ``spanned``), its
+one launch count (``kernels/modwt_cuda.py:LAUNCHES``) and the sharded
+tier's collective counts (``parallel.sharded.COLLECTIVES``,
+``COLLECTIVE_BYTES``).
 
 With no profiler running a span is the one shared null context and
 ``record_function`` is never called.  Under ``torch.profiler`` the spans
 of ``modwt_denoise``, ``cwt`` and a ``StreamingMODWT.update`` nest as
 the stages run: the threshold and the shrink inside the denoise, the
 host-to-device copies of the axes inside the CWT, the buffer's stages
-inside the update, and a launch inside the transform that makes it.  On
-the card (``cuda``), a launch's span holds its ``cudaLaunchKernel`` and
-``LAUNCHES`` counts eager and served launches alike.
+inside the update, and a launch inside the transform that makes it.  In
+a spawned gloo world of 4 ranks, a signal-sharded MODWT forward spans its
+one fetch of the halo and that fetch its one ring hop, of rows × 217
+float32 samples at Daubechies 4 L5.  On the card (``cuda``), a launch's
+span holds its ``cudaLaunchKernel`` and ``LAUNCHES`` counts eager and
+served launches alike.
 """
 import importlib
 import json
+import multiprocessing
 import os
 import tempfile
+import traceback
 
 import numpy as np
 import pytest
@@ -211,6 +218,101 @@ def test_no_span_while_torch_traces():
     assert not [t for t in targets if "record_function" in t]
     torch.testing.assert_close(jt.load_pipeline(under)(x),
                                jt.load_pipeline(plain)(x), rtol=0, atol=0)
+
+
+# -- a signal-sharded forward in a gloo world of 4 ranks ----------------------
+
+RANKS, SHARDED_CALLS, SHARDED_SHAPE = 4, 3, (3, 4 * 1024)
+SHARDED_NESTING = [("jwave.sharded.modwt", None),
+                   ("jwave.sharded.halo", "jwave.sharded.modwt"),
+                   ("jwave.sharded.hop", "jwave.sharded.halo")]
+
+
+def _sharded_rank(rank: int, path: str) -> None:
+    """One rank: the forward's spans under a profiler, its hops and bytes
+    counted, and its answer with ``record_function`` made to raise."""
+    import torch.distributed as dist
+
+    from jwave_pro_tpu_torch import parallel as par
+    from jwave_pro_tpu_torch.parallel import sharded
+
+    torch.set_num_threads(1)
+    out = {}
+    try:
+        par.init_distributed(f"file://{path}/store", RANKS, rank,
+                             device_type="cpu", timeout=60)
+        mesh = par.make_mesh({"signal": RANKS}, device_type="cpu")
+        x = _signal(*SHARDED_SHAPE, seed=7)
+
+        def calls():
+            return [par.modwt_sharded(x, DB4, 5, mesh).to_local()
+                    for _ in range(SHARDED_CALLS)]
+
+        want = calls()
+        sharded.reset_collectives()
+        events = _profiled(calls)
+        out["parents"] = np.array(json.dumps(_parents(events)))
+        out["hops"] = np.array(sharded.COLLECTIVES["hop"])
+        out["bytes"] = np.array(sharded.COLLECTIVE_BYTES["hop"])
+
+        def refuse(name):
+            raise AssertionError(f"record_function({name!r}) with no "
+                                 f"profiler")
+
+        torch.profiler.record_function = refuse
+        torch.autograd.profiler.record_function = refuse
+        got = calls()
+        out["unprofiled_equal"] = np.array(all(
+            torch.equal(a, b) for a, b in zip(got, want)))
+        dist.destroy_process_group()
+    except Exception:
+        out["error"] = np.array(traceback.format_exc())
+    np.savez(f"{path}/rank{rank}.npz", **out)
+
+
+@pytest.fixture(scope="module")
+def sharded_ranks(tmp_path_factory):
+    path = tmp_path_factory.mktemp("sharded")
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_sharded_rank, args=(r, str(path)))
+             for r in range(RANKS)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(180)
+    alive = [p for p in procs if p.is_alive()]
+    for p in alive:
+        p.kill()
+        p.join()
+    assert not alive and [p.exitcode for p in procs] == [0] * RANKS
+    ranks = []
+    for r in range(RANKS):
+        with np.load(path / f"rank{r}.npz") as saved:
+            got = dict(saved)
+        assert "error" not in got, str(got.get("error"))
+        ranks.append(got)
+    return ranks
+
+
+@pytest.mark.parametrize("rank", range(RANKS))
+def test_sharded_forward_spans_one_fetch_and_one_hop(sharded_ranks, rank):
+    got = [tuple(p) for p in json.loads(str(sharded_ranks[rank]["parents"]))]
+    assert got == SHARDED_NESTING * SHARDED_CALLS
+
+
+@pytest.mark.parametrize("rank", range(RANKS))
+def test_sharded_hop_counts_its_bytes(sharded_ranks, rank):
+    """One hop a call, of the halo's rows × 217 float32 samples (the
+    Daubechies 4 L5 halo, shorter than the 1024-sample shard)."""
+    r = sharded_ranks[rank]
+    rows = SHARDED_SHAPE[0]
+    assert int(r["hops"]) == SHARDED_CALLS
+    assert int(r["bytes"]) == SHARDED_CALLS * rows * 217 * 4
+
+
+@pytest.mark.parametrize("rank", range(RANKS))
+def test_sharded_spans_never_record_without_a_profiler(sharded_ranks, rank):
+    assert bool(sharded_ranks[rank]["unprofiled_equal"])
 
 
 # -- on the card --------------------------------------------------------------
