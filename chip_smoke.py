@@ -80,7 +80,14 @@ sort path in its place); and the forward's context variant (phase 36:
 against its plain model at the forward's edges, bitwise the forward with
 the row's own end as the context, one launch at the sharded cell's
 (8, 2^27) shard held to the float64 segment reference past 2^31 outputs,
-timed beside the forward and its bound).  The
+timed beside the forward and its bound); and the inverse that shrinks
+the denoise's detail rows as it loads them (phase 37: bitwise the shrink
+and ``imodwt`` it replaces at the inverse's edges, f32 and bf16, soft and
+hard, under every threshold shape the denoise passes it; one launch in a
+default ``modwt_denoise``, bitwise the pipeline it replaces; at the
+denoise cell's p95 request and at the north star's shape bitwise that
+pipeline and within the inverse's bound of its plain model, timed beside
+the inverse, the shrink and the ``cat`` it replaces and its bound).  The
 kernels' launch counters, set to 0
 before each path and read after it, show that the path ran through them;
 CUDA events time each kernel against its plain version (``event_time``:
@@ -216,6 +223,9 @@ MEDIAN_SHAPES = ((16, 1 << 20), (16, 2_000_000))
 # modwt_db4_l5_sharded4.json) and the blocks of its check
 SHARD_SHAPE = (8, 1 << 27)
 SHARD_BLOCK = 1 << 16
+# phase 37: the denoise cell's request at about its p95 length (16 rows,
+# wavebench/workloads/modwt_db4_l5.denoise.json), and the north star's shape
+SHRINK_SHAPES = ((16, 1_720_000), MAIN_SHAPE)
 # the H100's published peaks (SXM, 700 W): HBM bytes/s, f32 FLOP/s
 HBM_RATE, F32_RATE = 3.35e12, 67e12
 
@@ -365,8 +375,9 @@ def run(smoke: Smoke, torch, jt) -> dict:
     marching = ("cwt_ifft", "modwt3_inv", "modwt3_fwd", "modwt2_denoise",
                 "modwt2_fwd", "modwt2_inv", "modwt_var", "modwpt_select",
                 "jw_modwt_fwd_kernel", "jw_modwt_fwd_ctx_kernel",
-                "jw_modwt_inv_kernel", "jw_denoise_kernel",
-                "jw_modwpt_fwd_kernel", "jw_modwpt_inv_kernel")
+                "jw_modwt_inv_kernel", "jw_modwt_inv_shrink_kernel",
+                "jw_denoise_kernel", "jw_modwpt_fwd_kernel",
+                "jw_modwpt_inv_kernel")
     report = _build.ptxas_report()
     for name, (regs, stack, st, ld) in sorted(report.items()):
         if any(k in name for k in marching):
@@ -381,6 +392,10 @@ def run(smoke: Smoke, torch, jt) -> dict:
         count = sum(kernel in name for name in report)
         smoke.require(f"ptxas reports {kernel} for all 8 instantiations",
                       count == 8, f"({count})")
+    # the shrinking inverse: f32/bf16 x M = 2, 8, 16, any M x soft, hard
+    count = sum("jw_modwt_inv_shrink_kernel" in name for name in report)
+    smoke.require("ptxas reports jw_modwt_inv_shrink_kernel for all 16 "
+                  "instantiations", count == 16, f"({count})")
 
     print("== phase 3: forward kernel vs plain (f32)", flush=True)
     small = {}
@@ -656,6 +671,9 @@ def run(smoke: Smoke, torch, jt) -> dict:
     for part, got in zip((launches, errs, times),
                          run_shard_slice(smoke, torch, jt, signal, card)):
         part.update(got)
+    for part, got in zip((launches, errs, times),
+                         run_inv_shrink_slice(smoke, torch, jt, signal, card)):
+        part.update(got)
 
     src = "jwave_pro_tpu_torch/csrc/"
     tpu = "jwave_pro_tpu/kernels/"
@@ -678,6 +696,9 @@ def run(smoke: Smoke, torch, jt) -> dict:
         # the forward of one shard: the JAX package's sharded forward is
         # plain XLA a level, no Pallas kernel
         "modwt_fwd_ctx": ("modwt.cu", None),
+        # the inverse of shrunk details: the JAX package shrinks in plain
+        # XLA before its inverse kernel
+        "modwt_inv_shrink": ("modwt.cu", None),
     }
     bounds = kernel_bounds(w)
     for name in meta:
@@ -752,6 +773,10 @@ def kernel_bounds(w) -> dict:
         "modwt_fwd_ctx": bound(4 * cells * (LEVEL + 2)
                                + 4 * b * (m - 1) * ((1 << LEVEL) - 1),
                                cells * 4 * m * LEVEL),
+        # the inverse's 7 planes and a threshold a row and level; a shrink
+        # of each detail value
+        "modwt_inv_shrink": bound(4 * cells * (LEVEL + 2) + 4 * b * LEVEL,
+                                  cells * (4 * m + 3) * LEVEL),
     }
 
 
@@ -1701,8 +1726,8 @@ def run_volume_cwt_slice(smoke: Smoke, torch, jt, dev, signal, card):
 
 def all_launchers() -> tuple:
     """Every kernel operator, by the name its launches count under."""
-    return ("modwt_fwd", "modwt_fwd_ctx", "modwt_inv", "modwt_denoise",
-            "modwt_var", "modwpt_fwd", "modwpt_select", "modwpt_inv",
+    return ("modwt_fwd", "modwt_fwd_ctx", "modwt_inv", "modwt_inv_shrink",
+            "modwt_denoise", "modwt_var", "modwpt_fwd", "modwpt_select", "modwpt_inv",
             "modwt2_fwd", "modwt2_inv", "modwt2_denoise", "modwt3_fwd",
             "modwt3_inv", "cwt_ifft")
 
@@ -3153,7 +3178,7 @@ def host_cost_per_launch(torch, jt, signal) -> tuple:
 
 def run_export_slice(smoke: Smoke, torch, jt, signal, card) -> None:
     """Phase 32: export and serving.  ``export_pipeline`` of the denoise
-    (``method='auto'``: #1 and #3), the fused denoise (#4) and the
+    (``method='auto'``: #1 and #3 shrinking), the fused denoise (#4) and the
     wavelet variance (#5) at MAIN_SHAPE, batch-polymorphic, to bytes and
     back; each served at SERVE_BATCHES from the one artifact in counted
     windows (its kernels once a call, nothing else) and bitwise the eager
@@ -3174,7 +3199,7 @@ def run_export_slice(smoke: Smoke, torch, jt, signal, card) -> None:
     pipelines = (
         ("modwt_denoise(threshold=0.8)",
          lambda v: jt.modwt_denoise(v, w, LEVEL, threshold=0.8),
-         {"modwt_fwd": 1, "modwt_inv": 1}),
+         {"modwt_fwd": 1, "modwt_inv_shrink": 1}),
         ("modwt_denoise(threshold=0.8, method='fused')",
          lambda v: jt.modwt_denoise(v, w, LEVEL, threshold=0.8,
                                     method="fused"), {"modwt_denoise": 1}),
@@ -3606,7 +3631,7 @@ def run_median_slice(smoke: Smoke, torch, jt, signal, card) -> tuple:
     _, got = counted_run(smoke, torch, all_launchers() + ("median",),
                          "a default modwt_denoise (16, 300007)",
                          lambda: jt.modwt_denoise(x, w, LEVEL),
-                         {"modwt_fwd": 1, "modwt_inv": 1, "median": 1})
+                         {"modwt_fwd": 1, "modwt_inv_shrink": 1, "median": 1})
     times, library = {}, {}
     for shape in MEDIAN_SHAPES:
         x = signal(*shape)
@@ -3740,6 +3765,125 @@ def run_shard_slice(smoke: Smoke, torch, jt, signal, card) -> tuple:
     print(f"  phase 36 took {time.perf_counter() - t_phase:.1f} s",
           flush=True)
     return {"modwt_fwd_ctx": launched}, {"modwt_fwd_ctx": err}, times
+
+
+def run_inv_shrink_slice(smoke: Smoke, torch, jt, signal, card) -> tuple:
+    """Phase 37: the inverse that shrinks its detail rows as it loads them
+    (``jwave::modwt_inv_shrink``) against the pipeline it replaces, the
+    shrink and ``imodwt`` on the inverse kernel, bit for bit, at the
+    inverse's edges, f32 and bf16, soft and hard, for a number, a
+    threshold a signal and one a level and signal, a NaN and both zeros
+    among the details; against its plain model within the inverse's
+    bound; one default ``modwt_denoise`` (16, 1 000 003) in a counted
+    window (the forward, the median and the shrinking inverse once, the
+    plain inverse never), its output bitwise the pipeline it replaces
+    (``modwt``, the universal threshold, the shrink and ``imodwt``) on the
+    same input; at SHRINK_SHAPES, with the universal threshold, bitwise
+    that pipeline and within 1e-4 of its plain model, then timed beside
+    the pipeline (#3, the shrink's passes and the ``cat``) and #3 alone,
+    in the order pipeline, kernel, kernel, pipeline, with the bound of
+    #3's 7 planes.  Returns (launches, errors, times) under
+    ``modwt_inv_shrink``; the error is the one at MAIN_SHAPE."""
+    from jwave_pro_tpu_torch.kernels import modwt_cuda as kc
+    from jwave_pro_tpu_torch.ops import denoise as dn
+
+    t_phase = time.perf_counter()
+    print(f"== phase 37: the shrinking inverse on {card}", flush=True)
+    w = jt.wavelet(WAVELET)
+
+    def bits(a, b) -> bool:
+        a, b = a.float(), b.float()
+        return bool(((a.view(torch.int32) == b.view(torch.int32))
+                     | (a.isnan() & b.isnan())).all())
+
+    for b, n, lvl, name in INV_EDGES:
+        wv = jt.wavelet(name)
+        for dtype in (torch.float32, torch.bfloat16):
+            c = signal(lvl + 1, b, n, dtype=dtype)
+            c[0, 0, 5] = math.nan
+            c[1, -1, 7], c[1, -1, 8] = 0.0, -0.0
+            dev = c.device
+            for kind, t in (
+                    ("0.8", 0.8),
+                    ("(B, 1)", torch.linspace(0.2, 1.0, b, device=dev,
+                                              dtype=dtype)[:, None]),
+                    ("(L, B, 1)", torch.linspace(
+                        0.1, 1.5, lvl * b, device=dev,
+                        dtype=dtype).reshape(lvl, b, 1))):
+                for mode in ("soft", "hard"):
+                    hard = int(mode != "soft")
+                    ops = dn._shrink_operands(c, t, wv, hard)
+                    got = kc.modwt_inv_shrink_cuda(c, *ops, wv, hard)
+                    want = jt.imodwt(dn._shrunk(c, lvl, t, mode), wv)
+                    smoke.require(f"inv_shrink ({b}, {n}) {name} L{lvl} "
+                                  f"{dtype} {mode} t {kind} = shrink and "
+                                  f"imodwt bitwise", bits(got, want))
+                    plain = kc.modwt_inv_shrink_plain(c, *ops, wv, hard)
+                    e = max_err(got.nan_to_num(0.0), plain.nan_to_num(0.0))
+                    smoke.check(f"inv_shrink ({b}, {n}) {name} L{lvl} "
+                                f"{dtype} {mode} t {kind} vs plain", e,
+                                1e-4 if dtype == torch.float32 else 5e-2)
+
+    def pipeline(c, t):
+        """What the denoise ran before the shrink moved into #3."""
+        return jt.imodwt(dn._shrunk(c, LEVEL, t, "soft"), w)
+
+    def universal(c):
+        return dn._rule_threshold("universal", c[0], c[:LEVEL],
+                                  c.shape[-1])[..., None]
+
+    x = signal(16, 1_000_003)
+    out, got = counted_run(smoke, torch, all_launchers() + ("median",),
+                           "a default modwt_denoise (16, 1000003)",
+                           lambda: jt.modwt_denoise(x, w, LEVEL),
+                           {"modwt_fwd": 1, "median": 1,
+                            "modwt_inv_shrink": 1})
+    c = jt.modwt(x, w, LEVEL)
+    smoke.require("a default modwt_denoise (16, 1000003) = modwt, the "
+                  "universal threshold, the shrink and imodwt bitwise",
+                  bits(out, pipeline(c, universal(c))))
+    del x, c, out
+    times, err = {}, math.inf
+    for shape in SHRINK_SHAPES:
+        rows, n = shape
+        c = kc.modwt_fwd_cuda(signal(*shape), w, LEVEL)
+        t = universal(c)
+        ops = dn._shrink_operands(c, t, w, 0)
+        cut = lambda v: kc.modwt_inv_shrink_cuda(v, *ops, w, 0)  # noqa: E731
+        before = lambda v: pipeline(v, t)  # noqa: E731
+        got_c = cut(c)
+        smoke.require(f"inv_shrink {shape} = shrink and imodwt bitwise",
+                      bits(got_c, before(c)))
+        e = smoke.check(f"inv_shrink {shape} vs plain", max_err(
+            got_c, kc.modwt_inv_shrink_plain(c, *ops, w, 0)), 1e-4)
+        del got_c
+        if shape == MAIN_SHAPE:
+            err = e
+        tb1 = event_time(torch, before, c, k=10, repeats=3) * 1e3
+        tk1 = event_time(torch, cut, c, k=10, repeats=3) * 1e3
+        tk2 = event_time(torch, cut, c, k=10, repeats=3) * 1e3
+        tb2 = event_time(torch, before, c, k=10, repeats=3) * 1e3
+        tinv = event_time(torch, lambda v: kc.modwt_inv_cuda(v, w), c, k=10,
+                          repeats=3) * 1e3
+        tk, tb = (tk1 + tk2) / 2, (tb1 + tb2) / 2
+        bound_ms, by = bound(4 * rows * n * (LEVEL + 2) + 4 * rows * LEVEL,
+                             rows * n * (4 * w.length + 3) * LEVEL)
+        print(f"  inv_shrink {shape}: kernel {tk:.4f} ms; #3, the shrink "
+              f"and the cat {tb:.4f} ms ({tb / tk:.2f}x); #3 alone "
+              f"{tinv:.4f} ms; bound {bound_ms:.4f} ms ({by}), "
+              f"{bound_ms / tk:.1%} of it [{card}]", flush=True)
+        if shape == MAIN_SHAPE:
+            tp = event_time(torch, lambda v: kc.modwt_inv_shrink_plain(
+                v, *ops, w, 0), c, k=2, repeats=3) * 1e3
+            print(f"  inv_shrink {shape}: plain version {tp:.4f} ms "
+                  f"[{card}]", flush=True)
+            times["modwt_inv_shrink"] = (tk, tp)
+        del c, t, ops
+    torch.cuda.empty_cache()
+    print(f"  phase 37 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return ({"modwt_inv_shrink": got["modwt_inv_shrink"]},
+            {"modwt_inv_shrink": err}, times)
 
 
 def main() -> int:

@@ -65,15 +65,22 @@ __device__ __forceinline__ void jw_stage_taps(const JwTaps& taps, float* sg,
   }
 }
 
-// dst[i] = x[(base + i) mod n] for i in [0, count): each thread issues
-// JW_LOAD_BATCH device loads before it stores any, so a block waits for
-// device memory once a batch, not once an element (a loop that stores
-// each load before the next waits for every one of them in turn).
+// What jw_load_window stores by default: each value as loaded.
+struct JwKeep {
+  __device__ __forceinline__ float operator()(float v) const { return v; }
+};
+
+// dst[i] = map(x[(base + i) mod n]) for i in [0, count): each thread
+// issues JW_LOAD_BATCH device loads before it stores any, so a block waits
+// for device memory once a batch, not once an element (a loop that stores
+// each load before the next waits for every one of them in turn).  map
+// runs at the store, once the batch has arrived.
 #define JW_LOAD_BATCH 8
-template <typename T>
+template <typename T, typename Map = JwKeep>
 __device__ __forceinline__ void jw_load_window(const T* __restrict__ x,
                                                long long base, int n,
-                                               float* dst, int count) {
+                                               float* dst, int count,
+                                               Map map = Map()) {
   for (int i0 = threadIdx.x; i0 < count; i0 += JW_LOAD_BATCH * blockDim.x) {
     float t[JW_LOAD_BATCH];
 #pragma unroll
@@ -84,7 +91,7 @@ __device__ __forceinline__ void jw_load_window(const T* __restrict__ x,
 #pragma unroll
     for (int u = 0; u < JW_LOAD_BATCH; ++u) {
       const int i = i0 + u * (int)blockDim.x;
-      if (i < count) dst[i] = t[u];
+      if (i < count) dst[i] = map(t[u]);
     }
   }
 }

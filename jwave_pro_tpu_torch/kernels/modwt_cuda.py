@@ -20,6 +20,13 @@ forward stages each warp's W outputs in shared memory so that its stores,
 L + 1 rows for each row read, stay coalesced; the inverse has the next
 level's W row in flight while a level runs.
 
+The inverse has a second instantiation for the denoise
+(``jw_modwt_inv_shrink_kernel``, its entry point in
+``csrc/modwt_shrink.cu``, operator ``jwave::modwt_inv_shrink``): every
+detail row is shrunk by the soft or hard rule as the kernel loads it, so
+``ops/denoise.py:modwt_denoise`` reads the forward's coefficients as they
+lie, with no shrunk copy and no stack of them.
+
 The forward has a second instantiation for one shard of a longer signal
 (``jw_modwt_fwd_ctx_kernel``, operator ``jwave::modwt_fwd_ctx``): the
 halo samples before each row's position 0 come from a (rows, halo)
@@ -28,11 +35,12 @@ row's own wrapped end.  ``parallel/sharded.py:modwt_sharded`` fetches
 that context in one ring hop and makes one launch.
 
 Beside each kernel: its plain PyTorch version (``modwt_fwd_plain``,
-``modwt_fwd_ctx_plain``, ``modwt_inv_plain``), which the CPU path runs
-and the chip smoke compares against, and a launch count
-(``LAUNCHES["modwt_fwd"]``, ``LAUNCHES["modwt_fwd_ctx"]``,
-``LAUNCHES["modwt_inv"]``).  Each launch is a ``torch.library`` operator
-(``jwave::modwt_fwd``, ``jwave::modwt_inv``) whose taps travel as float
+``modwt_fwd_ctx_plain``, ``modwt_inv_plain``, ``modwt_inv_shrink_plain``),
+which the CPU path runs and the chip smoke compares against, and a launch
+count (``LAUNCHES["modwt_fwd"]``, ``LAUNCHES["modwt_fwd_ctx"]``,
+``LAUNCHES["modwt_inv"]``, ``LAUNCHES["modwt_inv_shrink"]``).  Each launch
+is a ``torch.library`` operator (``jwave::modwt_fwd``,
+``jwave::modwt_inv``) whose taps travel as float
 lists (:func:`op_taps`) and whose grid is planned at launch, so a
 batch-polymorphic ``torch.export`` records the launch and the served graph
 runs the kernel; its fake gives the output's shape.  bfloat16 tensors are
@@ -64,8 +72,9 @@ __all__ = [
     "modwt_fused", "imodwt_fused", "kernel_supported",
     "modwt_fwd_cuda", "modwt_inv_cuda", "modwt_fwd_plain", "modwt_inv_plain",
     "modwt_fwd_ctx_cuda", "modwt_fwd_ctx_plain", "modwt_shard",
-    "modwt_fwd_op", "modwt_fwd_ctx_op", "modwt_inv_op", "op_taps",
-    "kernel_op", "LAUNCHES",
+    "modwt_inv_shrink_cuda", "modwt_inv_shrink_plain",
+    "modwt_fwd_op", "modwt_fwd_ctx_op", "modwt_inv_op", "modwt_inv_shrink_op",
+    "op_taps", "kernel_op", "LAUNCHES",
 ]
 
 MAX_TAPS = 64                 # JW_MAX_TAPS in csrc/common.cuh
@@ -278,6 +287,31 @@ def modwt_inv_plain(c: torch.Tensor, wavelet: DiscreteWavelet) -> torch.Tensor:
     return v.to(c.dtype)
 
 
+def modwt_inv_shrink_plain(c: torch.Tensor, thr: torch.Tensor | None,
+                           value: float, wavelet: DiscreteWavelet,
+                           hard: int = 0) -> torch.Tensor:
+    """The shrinking inverse's function in plain PyTorch: c (level+1, B,
+    N) → (B, N), c's dtype, each detail row W_j = c[j − 1] shrunk by its
+    threshold for row b, ``thr[j − 1, b]`` (thr (level, B) of c's dtype),
+    or the float32 ``value`` for every row where ``thr`` is None, then
+    :func:`modwt_inv_plain`.
+
+    The shrink as the kernel computes it, in float32: soft sign(w)·max(|w|
+    − t, 0) with NaN passed on and the difference rounded to c's dtype
+    first (as torch's bfloat16 subtraction rounds it), hard w·1[|w| > t]."""
+    level = c.shape[0] - 1
+    w = c[:level].to(torch.float32)
+    t = (torch.tensor(value, dtype=torch.float32) if thr is None
+         else thr.to(torch.float32)[..., None])
+    if hard:
+        shrunk = torch.where(w.abs() > t, w, 0.0)
+    else:
+        a = (w.abs() - t).to(c.dtype).to(torch.float32)
+        shrunk = torch.sign(w) * torch.clamp_min(a, 0.0)
+    return modwt_inv_plain(torch.cat([shrunk.to(c.dtype), c[level:]]),
+                           wavelet)
+
+
 # ---------------------------------------------------------------------------
 # Kernel launchers (CUDA tensors only)
 # ---------------------------------------------------------------------------
@@ -291,6 +325,10 @@ def _lib() -> ctypes.CDLL:
     lib.jw_modwt_fwd_ctx.argtypes = [_P, _P, _P, _I, _I, _I, _P, _P, _I, _I,
                                      _I, _I, _I, _I, _P]
     lib.jw_modwt_fwd_ctx.restype = _I
+    lib.jw_modwt_inv_shrink.argtypes = [_P, _P, ctypes.c_float, _I, _I, _I,
+                                        _P, _I, _I, _I, _P, _P, _I, _I, _I,
+                                        _I, _I, _I, _P]
+    lib.jw_modwt_inv_shrink.restype = _I
     return lib
 
 
@@ -600,6 +638,62 @@ def modwt_inv_cuda(c: torch.Tensor, wavelet: DiscreteWavelet) -> torch.Tensor:
     """Launch the inverse kernel as ``jwave::modwt_inv``: c (level+1,
     B, N) → (B, N), c's dtype."""
     return modwt_inv_op(c, *op_taps(wavelet))
+
+
+def _check_inv_shrink(c: torch.Tensor, thr: torch.Tensor | None, g, h,
+                      traced: bool = True) -> None:
+    _check_inv(c, g, h, traced)
+    if thr is not None and (
+            thr.dtype != c.dtype or thr.ndim != 2
+            or not traced and (tuple(thr.shape) != (c.shape[0] - 1,
+                                                    c.shape[1])
+                               or thr.device != c.device)):
+        raise ValueError(f"threshold: kernel needs a (level, B) tensor of "
+                         f"the coefficients' dtype on their device, got "
+                         f"{thr.dtype} {tuple(thr.shape)}")
+
+
+@kernel_op("modwt_inv_shrink")
+def modwt_inv_shrink_op(c: torch.Tensor, thr: torch.Tensor | None,
+                        value: float, g: list[float], h: list[float],
+                        hard: int) -> torch.Tensor:
+    """The shrinking inverse's launch as an operator (``torch.ops.jwave.
+    modwt_inv_shrink``): c (level+1, B, N) → (B, N), c's dtype, every
+    detail row W_j shrunk as the kernel loads it by ``thr[j − 1, b]`` (thr
+    (level, B) of c's dtype, any strides: a broadcast view is read as it
+    lies), or by ``value`` (as float32) for every row where ``thr`` is
+    None; ``hard`` 1 for hard shrinkage, 0 for soft.  The plan is the
+    inverse's."""
+    _check_inv_shrink(c, thr, g, h, traced=False)
+    rows, b, n = c.shape
+    level, m = rows - 1, len(g)
+    check_grid(b, n, "inv")
+    out = torch.empty((b, n), dtype=c.dtype, device=c.device)
+    ls, rs = (0, 0) if thr is None else thr.stride()
+    gh, hh = host_taps(g, h)
+    lib = _lib()
+    code = lib.jw_modwt_inv_shrink(
+        c.data_ptr(), None if thr is None else thr.data_ptr(), value, ls, rs,
+        hard, out.data_ptr(), b, n, level, gh.ctypes.data, hh.ctypes.data, m,
+        TILES["inv"], halo(m, level), smem_bytes(level, m, "inv"),
+        DTYPE_CODES[c.dtype], c.device.index,
+        torch.cuda.current_stream(c.device).cuda_stream)
+    _build.check(lib, code, "modwt shrinking inverse kernel")
+    return out
+
+
+@modwt_inv_shrink_op.register_fake
+def _(c, thr, value, g, h, hard):
+    _check_inv_shrink(c, thr, g, h)
+    return c.new_empty(tuple(c.shape[1:]))
+
+
+def modwt_inv_shrink_cuda(c: torch.Tensor, thr: torch.Tensor | None,
+                          value: float, wavelet: DiscreteWavelet,
+                          hard: int = 0) -> torch.Tensor:
+    """Launch the shrinking inverse as ``jwave::modwt_inv_shrink``: c
+    (level+1, B, N), thr (level, B) or None → (B, N), c's dtype."""
+    return modwt_inv_shrink_op(c, thr, value, *op_taps(wavelet), hard)
 
 
 # ---------------------------------------------------------------------------

@@ -195,6 +195,13 @@ def modwt_denoise(x: torch.Tensor, wavelet: DiscreteWavelet, level: int,
     level-1 MAD); a number or tensor is used as-is (broadcast against the
     detail rows).
 
+    Under ``'auto'`` and ``'pallas'`` on the card, the shrink runs inside
+    the inverse kernel, which shrinks each detail row as it loads it
+    (:func:`_shrink_operands` says where: float32/bfloat16 coefficients, a
+    number or one threshold a detail row of each signal, no gradient);
+    the result is bitwise that of the shrink and :func:`imodwt` in turn,
+    which every other call runs.
+
     ``method='fused'`` runs forward → shrink → inverse as ONE CUDA kernel
     (``kernels/denoise_cuda.py``; its plain version on the CPU): the
     coefficients never reach device memory.  The default threshold then
@@ -222,6 +229,16 @@ def modwt_denoise(x: torch.Tensor, wavelet: DiscreteWavelet, level: int,
     if threshold is None or isinstance(threshold, str):
         threshold = _rule_threshold(threshold or "universal", c[0],
                                     c[:level], x.shape[-1])[..., None]
+    if method in ("auto", "pallas"):
+        hard = int(mode != "soft")
+        operands = _shrink_operands(c, threshold, wavelet, hard)
+        if operands is not None:
+            from ..kernels.modwt_cuda import modwt_inv_shrink_cuda
+
+            c3 = c if c.ndim == 3 else c.unsqueeze(1)
+            out = modwt_inv_shrink_cuda(c3.contiguous(), *operands, wavelet,
+                                        hard)
+            return out.reshape(c.shape[1:])
     return imodwt(_shrunk(c, level, threshold, mode), wavelet, method)
 
 
@@ -231,6 +248,58 @@ def _shrunk(c: torch.Tensor, level: int, threshold, mode: str
     """``c`` with its ``level`` detail rows shrunk by ``threshold``."""
     shrink = soft_threshold if mode == "soft" else hard_threshold
     return torch.cat([shrink(c[:level], threshold), c[level:]], dim=0)
+
+
+def _shrink_operands(c: torch.Tensor, threshold, wavelet: DiscreteWavelet,
+                     hard: int):
+    """The threshold operands with which the shrinking inverse kernel
+    (``kernels/modwt_cuda.py:modwt_inv_shrink_cuda``) computes
+    ``imodwt(_shrunk(c, level, threshold, mode))`` bit for bit from the
+    coefficients ``c`` (level+1, B, N) or (level+1, N), ``hard`` 1 for
+    ``mode='hard'``: ``(thr, value)``, ``thr`` a (level, B) view of a
+    threshold tensor (stride 0 where it broadcasts) and ``value`` unused,
+    or ``thr`` None and ``value`` a number threshold as the card's torch
+    takes it against a bfloat16 tensor: in float32 where it subtracts it,
+    rounded to bfloat16 where it compares with it.
+
+    None, and the plain shrink and :func:`imodwt` run, where the kernel
+    would not give that answer: coefficients off the card or not
+    float32/bfloat16, a shape the inverse kernel does not take, a
+    gradient wanted of the coefficients or the threshold, a threshold
+    tensor of another dtype (the shrink would promote), one that is not
+    one value a detail row of each signal (its last axis longer than 1,
+    or not broadcasting to (level, ..., 1)), a bool, or an integer past
+    2⁵³ (which a double does not hold exactly)."""
+    from ..kernels import modwt_cuda as kc
+
+    level = c.shape[0] - 1
+    if not (c.is_cuda and c.dtype in kc.DTYPE_CODES and c.ndim in (2, 3)
+            and kc.kernel_supported(c.shape[-1], level, wavelet.length,
+                                    "inv")):
+        return None
+    t = _threshold_like(threshold, c)
+    if isinstance(t, bool) or (isinstance(t, int) and abs(t) > 2 ** 53):
+        return None
+    if isinstance(t, (int, float)):
+        if _needs_grad(c):
+            return None
+        value = float(t)
+        if hard and c.dtype == torch.bfloat16:
+            value = float(torch.tensor(value, dtype=torch.float32)
+                          .to(torch.bfloat16))
+        return None, value
+    details = (level,) + tuple(c.shape[1:])
+    if (t.dtype != c.dtype or _needs_grad(c, t) or t.ndim > len(details)
+            or (t.ndim and t.shape[-1] != 1)
+            or any(a not in (1, b) for a, b in zip(reversed(t.shape),
+                                                   reversed(details)))):
+        return None
+    thr = t.expand(details[:-1] + (1,)).select(-1, 0)
+    return (thr if c.ndim == 3 else thr.unsqueeze(1)), 0.0
+
+
+def _needs_grad(*tensors: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def modwt_denoise_inplace(x: torch.Tensor, wavelet: DiscreteWavelet,

@@ -34,6 +34,12 @@ def sub(old: str, new: str):
     return apply
 
 
+def headers(src_dir: Path) -> tuple:
+    """The ``.cuh`` headers of a ``csrc/`` directory, which every source
+    may include."""
+    return tuple(sorted(f.name for f in src_dir.glob("*.cuh")))
+
+
 def card() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -63,14 +69,14 @@ def wait(procs) -> dict:
 def build(jobs: dict, out: Path, extra=()):
     """Build every variant: ``jobs`` maps a name to (source directory,
     the .cu files it links, {file: substitution}).  Each variant's
-    ``common.cuh`` and files, substituted, go to ``out/<name>/``; every
+    headers and files, substituted, go to ``out/<name>/``; every
     nvcc starts at once, ``extra`` [(name, process)] is waited for with
     them.  Returns ({name: its shared library}, {name: ptxas log})."""
     procs = list(extra)
     for name, (src_dir, files, subs) in jobs.items():
         d = out / name
         d.mkdir(parents=True, exist_ok=True)
-        for f in ("common.cuh",) + tuple(files):
+        for f in headers(src_dir) + tuple(files):
             src = (src_dir / f).read_text()
             (d / f).write_text(subs[f](src) if f in subs else src)
         procs += [(name, nvcc("-c", "-o", str(d / (f + ".o")), str(d / f)))

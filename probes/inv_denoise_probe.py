@@ -9,8 +9,9 @@ Run from the root of a checkout, on a machine with an NVIDIA card and nvcc:
 (for example the parent commit, unpacked with ``git archive``); its
 ``modwt.cu`` and ``denoise.cu`` are built and timed beside these, through
 the same C entry points, as the variant ``parent``.  Each other variant is
-the checkout's ``common.cuh`` and one of ``modwt.cu`` / ``denoise.cu``
-after a text substitution, built with the package's nvcc flags into
+the checkout's headers and one of ``modwt.cu`` / ``denoise.cu`` after a
+text substitution (the inverse's defines and body are in
+``modwt_inv.cuh``), built with the package's nvcc flags into
 ``build/probes/<variant>/``:
 
 * ``new``: the sources as they are;
@@ -63,24 +64,26 @@ LEVEL = 5
 
 def _r(name: str, r: int):
     """Register chains of r outputs instead of the sources' count."""
-    f = "modwt.cu" if name == "JW_INV_R" else "denoise.cu"
+    f = "modwt_inv.cuh" if name == "JW_INV_R" else "denoise.cu"
     src = re.search(rf"#define {name} \d+", (CSRC / f).read_text()).group(0)
     return _sub(src, f"#define {name} {r}")
 
 
 def _threads(kernel: str, threads: int, blocks: int):
-    """The kernel's block size and launch bounds replaced."""
+    """The kernel's block size and launch bounds replaced (the inverse's
+    size is defined in the header its body lives in)."""
     define = {"inv": "JW_INV_THREADS", "den": "JW_DENOISE_THREADS"}[kernel]
     f = {"inv": "modwt.cu", "den": "denoise.cu"}[kernel]
+    fd = {"inv": "modwt_inv.cuh", "den": "denoise.cu"}[kernel]
     src = re.search(rf"#define {define} (\d+)",
-                    (CSRC / f).read_text()).group(0)
+                    (CSRC / fd).read_text()).group(0)
     bounds = re.search(rf"__launch_bounds__\({define}, \d+\)",
                        (CSRC / f).read_text()).group(0)
-
-    def apply(text: str) -> str:
-        return _sub(bounds, f"__launch_bounds__({define}, {blocks})")(
-            _sub(src, f"#define {define} {threads}")(text))
-    return {f: apply}
+    size = _sub(src, f"#define {define} {threads}")
+    launch = _sub(bounds, f"__launch_bounds__({define}, {blocks})")
+    if f == fd:
+        return {f: lambda text: launch(size(text))}
+    return {fd: size, f: launch}
 
 
 # variant -> (files built, {file: substitution}, inverse tiles timed,
@@ -88,15 +91,15 @@ def _threads(kernel: str, threads: int, blocks: int):
 VARIANTS = {
     "new": (("modwt.cu", "denoise.cu"), {}, (2048, 4096),
             (1024, 1536, 2048)),
-    "inv_R3": (("modwt.cu",), {"modwt.cu": _r("JW_INV_R", 3)}, (4096,), ()),
-    "inv_R5": (("modwt.cu",), {"modwt.cu": _r("JW_INV_R", 5)}, (4096,), ()),
-    "inv_prefetch1": (("modwt.cu",), {"modwt.cu": lambda t: re.sub(
+    "inv_R3": (("modwt.cu",), {"modwt_inv.cuh": _r("JW_INV_R", 3)}, (4096,), ()),
+    "inv_R5": (("modwt.cu",), {"modwt_inv.cuh": _r("JW_INV_R", 5)}, (4096,), ()),
+    "inv_prefetch1": (("modwt.cu",), {"modwt_inv.cuh": lambda t: re.sub(
         r"#define JW_INV_PREFETCH(_M16)? \d+", r"#define JW_INV_PREFETCH\1 1",
         t)}, (4096,), ()),
-    "inv_prefetch9": (("modwt.cu",), {"modwt.cu": _sub(
+    "inv_prefetch9": (("modwt.cu",), {"modwt_inv.cuh": _sub(
         "#define JW_INV_PREFETCH 17", "#define JW_INV_PREFETCH 9")},
         (4096,), ()),
-    "inv_nocompute": (("modwt.cu",), {"modwt.cu": _sub(
+    "inv_nocompute": (("modwt.cu",), {"modwt_inv.cuh": _sub(
         "    jw_level_adjoint<MT, JW_INV_R>(v, w, 0, next, j - 1, m, taps, "
         "sg, sh,\n", "    if (0) jw_level_adjoint<MT, JW_INV_R>(v, w, 0, "
         "next, j - 1, m, taps, sg, sh,\n")}, (4096,), ()),

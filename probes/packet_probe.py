@@ -189,7 +189,7 @@ def build(parent: Path | None):
                               ("parent_other", parent)):
             d = OUT / side
             d.mkdir(parents=True, exist_ok=True)
-            for f in ("common.cuh",) + OTHER_SOURCES:
+            for f in hz.headers(src_dir) + OTHER_SOURCES:
                 (d / f).write_text((src_dir / f).read_text())
             for f in OTHER_SOURCES:
                 cubins.append((side, d / (f + ".cubin")))

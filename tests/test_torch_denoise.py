@@ -14,6 +14,7 @@ import functools
 import numpy as np
 import pytest
 import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
 
 import jax
 import jax.numpy as jnp
@@ -395,3 +396,157 @@ def test_denoise_reduces_mse():
                                threshold=rule).numpy()
         assert np.mean((out - clean) ** 2) < 0.5 * np.mean(
             (noisy - clean) ** 2), rule
+
+
+# -- the shrink inside the inverse kernel (jwave::modwt_inv_shrink) ----------
+
+# coefficient shapes (batch, N), levels and wavelets: M = 2, 8, 16, lengths
+# off a power of two, one (L+1, N) stack of a single signal
+SHRINK_SHAPES = [((3, 1001), 3, "Haar"), ((2, 3000), 5, DB4),
+                 ((1500,), 4, DB4), ((2, 777), 2, "Symlet 8")]
+SHRINK_THRESHOLDS = ["number", "zero", "negative", "per signal",
+                     "per level", "scalar tensor"]
+
+
+def _shrink_case(shape, level, kind, dtype):
+    """Coefficients (level+1, *shape) with a NaN in W₁ and both zeros in W₂,
+    and the threshold of ``kind`` in their dtype (a number stays one)."""
+    rng = np.random.default_rng(level * 1000 + shape[-1])
+    c = torch.from_numpy(rng.standard_normal((level + 1,) + shape)
+                         .astype(np.float32)).to(dtype)
+    c[0].view(-1)[5] = np.nan
+    c[1].view(-1)[7], c[1].view(-1)[8] = 0.0, -0.0
+    batch = shape[:-1]
+    t = {"number": 0.8, "zero": 0.0, "negative": -0.3,
+         "per signal": torch.linspace(0.2, 1.0, int(np.prod(batch)))
+         .reshape(batch + (1,)),
+         "per level": torch.from_numpy(rng.uniform(
+             0.1, 1.5, (level,) + batch + (1,)).astype(np.float32)),
+         "scalar tensor": torch.tensor(0.7)}[kind]
+    return c, t.to(dtype) if isinstance(t, torch.Tensor) else t
+
+
+def _bits_equal(a, b):
+    a, b = a.float(), b.float()
+    return bool(((a.view(torch.int32) == b.view(torch.int32))
+                 | (a.isnan() & b.isnan())).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["soft", "hard"])
+@pytest.mark.parametrize("kind", SHRINK_THRESHOLDS)
+@pytest.mark.parametrize("shape,level,name", SHRINK_SHAPES)
+def test_inv_shrink_plain_is_the_plain_pipeline_bitwise(shape, level, name,
+                                                        kind, mode, dtype):
+    """The shrinking inverse's plain model is bit for bit the inverse
+    kernel's plain version of the plain shrink (``imodwt(_shrunk(c))``
+    itself in float32, where the CPU's ``imodwt`` computes as the kernel's
+    plain version; its bfloat16 path computes in bfloat16, the kernel in
+    float32).  A number threshold enters rounded to the coefficients'
+    dtype, as the CPU's torch rounds a number against a tensor."""
+    from jwave_pro_tpu_torch.kernels import modwt_cuda as kc
+    from jwave_pro_tpu_torch.ops import denoise as dn
+
+    w = jt.wavelet(name)
+    c, t = _shrink_case(shape, level, kind, dtype)
+    c3 = c if c.ndim == 3 else c[:, None]
+    if isinstance(t, torch.Tensor):
+        thr, value = t.expand(c[:level, ..., :1].shape)[..., 0], 0.0
+        thr = thr if c.ndim == 3 else thr[:, None]
+    else:
+        thr, value = None, float(torch.tensor(t, dtype=dtype))
+    shrunk = dn._shrunk(c, level, t, mode)
+    got = kc.modwt_inv_shrink_plain(c3, thr, value, w, int(mode != "soft"))
+    assert got.dtype == dtype
+    got = got.reshape(shape)
+    assert _bits_equal(got, kc.modwt_inv_plain(shrunk, w))
+    if dtype == torch.float32:
+        assert _bits_equal(got, jt.imodwt(shrunk, w))
+
+
+def _fake(shape, dtype=torch.float32, grad=False):
+    return torch.empty(shape, device="cuda", dtype=dtype).requires_grad_(grad)
+
+
+# (coefficients, threshold) -> (thr's shape, thr's strides, value), or None
+# for the plain shrink and imodwt, with soft shrinkage and gradients on
+# unless the third item says otherwise; on fake CUDA tensors
+SHRINK_DECISIONS = {
+    "number": (lambda: (_fake((6, 16, 1000)), 0.8), ((), (), 0.8)),
+    "number, bfloat16": (lambda: (_fake((6, 16, 1000), torch.bfloat16),
+                                  0.8), ((), (), 0.8)),
+    # the card compares a bfloat16 tensor with a number rounded to bfloat16
+    "number, bfloat16, hard": (lambda: (_fake((6, 16, 1000), torch.bfloat16),
+                                        0.8), ((), (), 0.80078125),
+                               {"hard": 1}),
+    "number, hard": (lambda: (_fake((6, 16, 1000)), 0.8), ((), (), 0.8),
+                     {"hard": 1}),
+    "int": (lambda: (_fake((6, 16, 1000)), 1), ((), (), 1.0)),
+    "bool": (lambda: (_fake((6, 16, 1000)), True), None),
+    "int past 2^53": (lambda: (_fake((6, 16, 1000)), 2 ** 53 + 1), None),
+    "per signal": (lambda: (_fake((6, 16, 1000)), _fake((16, 1))),
+                   ((5, 16), (0, 1), 0.0)),
+    "per level": (lambda: (_fake((6, 16, 1000)), _fake((5, 16, 1))),
+                  ((5, 16), (16, 1), 0.0)),
+    "scalar tensor": (lambda: (_fake((6, 16, 1000)), _fake(())),
+                      ((5, 16), (0, 0), 0.0)),
+    "per level, one signal": (lambda: (_fake((6, 1000)), _fake((5, 1))),
+                              ((5, 1), (1, 1), 0.0)),
+    "per signal, bfloat16": (lambda: (_fake((6, 16, 1000), torch.bfloat16),
+                                      _fake((16, 1), torch.bfloat16)),
+                             ((5, 16), (0, 1), 0.0)),
+    "along time": (lambda: (_fake((6, 16, 1000)), _fake((1000,))), None),
+    "per sample": (lambda: (_fake((6, 16, 1000)), _fake((16, 1000))), None),
+    "wider than the details": (lambda: (_fake((6, 16, 1000)),
+                                        _fake((1, 5, 16, 1))), None),
+    "another signal count": (lambda: (_fake((6, 16, 1000)), _fake((8, 1))),
+                             None),
+    "threshold of another dtype": (lambda: (
+        _fake((6, 16, 1000), torch.bfloat16), _fake((16, 1))), None),
+    "float64 threshold": (lambda: (_fake((6, 16, 1000)),
+                                   _fake((16, 1), torch.float64)), None),
+    "float64 coefficients": (lambda: (_fake((6, 16, 1000), torch.float64),
+                                      0.8), None),
+    "coefficients need a gradient": (lambda: (
+        _fake((6, 16, 1000), grad=True), 0.8), None),
+    "threshold needs a gradient": (lambda: (
+        _fake((6, 16, 1000)), _fake((16, 1), grad=True)), None),
+    "gradients off": (lambda: (_fake((6, 16, 1000), grad=True), 0.8),
+                      ((), (), 0.8), {"grad": False}),
+    "level past the kernel's gate": (lambda: (_fake((13, 2, 8192)), 0.8),
+                                     None),
+    "three batch axes": (lambda: (_fake((6, 2, 3, 1000)), 0.8), None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SHRINK_DECISIONS))
+def test_shrink_operands_decide_from_the_input(case):
+    """Whether the denoise shrinks inside the inverse kernel is a function
+    of the coefficients' device, dtype and shape, the threshold's kind,
+    dtype and shape, and whether a gradient is wanted; and the operands it
+    gives read the threshold as it lies (stride 0 where it broadcasts)."""
+    from jwave_pro_tpu_torch.ops import denoise as dn
+
+    make, want, *how = SHRINK_DECISIONS[case]
+    how = how[0] if how else {}
+    with FakeTensorMode(), torch.set_grad_enabled(how.get("grad", True)):
+        c, t = make()
+        got = dn._shrink_operands(c, t, jt.wavelet(DB4), how.get("hard", 0))
+        if want is None:
+            assert got is None
+        else:
+            thr, value = got
+            shape, strides, want_value = want
+            if shape:
+                assert thr.dtype == c.dtype
+                assert (tuple(thr.shape), thr.stride()) == (shape, strides)
+            else:
+                assert thr is None
+            assert value == want_value
+
+
+def test_shrink_operands_leave_the_cpu_to_the_plain_shrink():
+    from jwave_pro_tpu_torch.ops import denoise as dn
+
+    assert dn._shrink_operands(torch.zeros(6, 2, 1000), 0.8,
+                               jt.wavelet(DB4), 0) is None

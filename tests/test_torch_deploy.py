@@ -131,7 +131,7 @@ def test_export_leaves_the_constant_caches_real(rng):
 OPS = ("modwt_fwd", "modwt_inv", "modwt_denoise", "modwt_var", "modwpt_fwd",
        "modwpt_select", "modwpt_inv", "modwt2_fwd", "modwt2_inv",
        "modwt2_denoise", "modwt3_fwd", "modwt3_inv", "cwt_ifft", "median",
-       "modwt_fwd_ctx")
+       "modwt_fwd_ctx", "modwt_inv_shrink")
 # operators that take float32 alone (the CWT's complex64)
 F32_ONLY = ("cwt_ifft", "median")
 
@@ -153,6 +153,7 @@ def _operands(device, dtype=torch.float32):
     c1, p1, c2, c3 = t(4, 3, 300), t(8, 3, 300), t(7, 2, 40, 48), \
         t(8, 2, 8, 8, 16)
     thr1, thr2 = t(3, dt=torch.float32), t(2, dt=torch.float32)
+    thr_l = t(3, 3)                  # a threshold a detail row of c1
     xf = t(2, 256, dt=torch.complex64)
     mult = t(5, 256, dt=torch.complex64)
 
@@ -183,6 +184,9 @@ def _operands(device, dtype=torch.float32):
         "median": ((on(x1), True), lambda: km.median_plain(x1, True)),
         "modwt_fwd_ctx": ((on(x1), on(ctx1), g, h, 3),
                           lambda: kc.modwt_fwd_ctx_plain(x1, ctx1, DB4, 3)),
+        "modwt_inv_shrink": ((on(c1), on(thr_l), 0.0, g, h, 0),
+                             lambda: kc.modwt_inv_shrink_plain(c1, thr_l, 0.0,
+                                                               DB4)),
     }
 
 
@@ -234,6 +238,11 @@ def test_operator_fakes_reject_what_the_kernel_does_not_take():
         torch.ops.jwave.modwt_fwd(x, g, h[:-1], 2)
     with pytest.raises(ValueError, match="takes float32"):
         torch.ops.jwave.median(x.double(), True)
+    with pytest.raises(ValueError, match="threshold"):
+        torch.ops.jwave.modwt_inv_shrink(
+            torch.empty(3, 4, 1024, device="meta"),
+            torch.empty(2, 4, device="meta", dtype=torch.bfloat16), 0.0, g,
+            h, 0)
     with pytest.raises(ValueError, match="2\\^level"):
         torch.ops.jwave.modwpt_inv(torch.empty(3, 4, 1024, device="meta"),
                                    g, h)
@@ -285,6 +294,13 @@ F32 = torch.float32
      {"median"}),
     (lambda v, c: kc.modwt_fwd_ctx_cuda(v, c, DB4, 5),
      [((8, 4096), F32, True), ((8, 217), F32, True)], {"modwt_fwd_ctx"}),
+    (lambda v, t: kc.modwt_inv_shrink_cuda(
+        kc.modwt_fused(v, DB4, 5), t.expand(5, -1), 0.0, DB4, 1),
+     [((8, 4096), F32, True), ((8,), F32, True)],
+     {"modwt_fwd", "modwt_inv_shrink", "aten.expand.default"}),
+    # the served denoise of utils/deploy.py: the shrink inside the inverse
+    (lambda v: jt.modwt_denoise(v, DB4, 5, threshold=0.8),
+     [((8, 4096), F32, True)], {"modwt_fwd", "modwt_inv_shrink"}),
     (lambda a, m: tfwt._mm(a, m, True),
      [((8, 64, 32), F32, True), ((32, 16), F32, False)], {"f32_mm"}),
 ])
@@ -305,3 +321,6 @@ def test_export_records_each_operator_as_one_node(launch, specs, ops):
         if str(n.target) == "jwave.modwt_fwd_ctx.default":
             g, h = kc.op_taps(DB4)
             assert list(n.args[2]) == g and list(n.args[3]) == h
+        if str(n.target) == "jwave.modwt_inv_shrink.default":
+            g, h = kc.op_taps(DB4)
+            assert list(n.args[3]) == g and list(n.args[4]) == h

@@ -37,7 +37,14 @@ forward's context variant (``jwave::modwt_fwd_ctx``) as the forward:
 the context is the row's own wrapped end, and at the sharded cell's
 (8, 2²⁷) shard 1e-5 absolute against the float64 segment reference
 (``wavebench/reference/modwt_segment.py``) on blocks past 2³¹ elements.
+The inverse that shrinks its detail rows as it loads them
+(``jwave::modwt_inv_shrink``): bit for bit the pipeline it replaces, the
+shrink and ``imodwt`` on the inverse kernel (the same float32 operations
+on the same values), in float32 and bfloat16; against its plain model as
+the inverse.
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -190,6 +197,11 @@ def test_entry_points_reject_shared_memory_off_their_layout(dev):
             c.data_ptr(), out.data_ptr(), 2, 4096, 3, g.ctypes.data,
             h.ctypes.data, 8, kc.TILES["inv"], hal, smem, 0, 0,
             stream) == want
+        smem = kc.smem_bytes(3, 8, "inv") + delta
+        assert kc._lib().jw_modwt_inv_shrink(
+            c.data_ptr(), None, 0.5, 0, 0, 0, out.data_ptr(), 2, 4096, 3,
+            g.ctypes.data, h.ctypes.data, 8, kc.TILES["inv"], hal, smem, 0,
+            0, stream) == want
         smem = kc.smem_bytes(3, 8, "denoise") + delta
         assert kd._lib().jw_modwt_denoise(
             x.data_ptr(), thr.data_ptr(), out.data_ptr(), 2, 4096, 3,
@@ -259,6 +271,131 @@ def test_modwt_shard_launches_once_and_is_the_plain_path_elsewhere(dev):
     assert LAUNCHES["modwt_fwd_ctx"] - before == 1
     with pytest.raises(ValueError, match="ctx"):
         kc.modwt_fwd_ctx_cuda(x.detach(), ctx[:, 1:].contiguous(), DB4, 5)
+
+
+def _bits_equal(a, b) -> bool:
+    """Bit for bit, NaN where the other is NaN (payloads aside)."""
+    a, b = a.float(), b.float()
+    return bool(((a.view(torch.int32) == b.view(torch.int32))
+                 | (a.isnan() & b.isnan())).all())
+
+
+def _parent_denoise(x, w, level, mode="soft", threshold=None):
+    """``modwt_denoise``'s 'auto' path before the shrink moved into the
+    inverse kernel: the forward, the threshold, the plain shrink and the
+    ``cat`` of ``_shrunk``, then ``imodwt``."""
+    from jwave_pro_tpu_torch.ops import denoise as dn
+
+    c = jt.modwt(x, w, level)
+    if threshold is None or isinstance(threshold, str):
+        threshold = dn._rule_threshold(threshold or "universal", c[0],
+                                       c[:level], x.shape[-1])[..., None]
+    return jt.imodwt(dn._shrunk(c, level, threshold, mode), w)
+
+
+SHRINK_THRESHOLDS = ("number", "zero", "negative", "per signal",
+                     "per level", "scalar tensor")
+
+
+def _card_threshold(kind, level, batch, dtype, dev):
+    return {"number": 0.8, "zero": 0.0, "negative": -0.3,
+            "per signal": torch.linspace(0.2, 1.0, batch, device=dev,
+                                         dtype=dtype)[:, None],
+            "per level": torch.linspace(0.1, 1.5, level * batch, device=dev,
+                                        dtype=dtype).reshape(level, batch, 1),
+            "scalar tensor": torch.tensor(0.7, device=dev, dtype=dtype)
+            }[kind]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["soft", "hard"])
+@pytest.mark.parametrize("kind", SHRINK_THRESHOLDS)
+@pytest.mark.parametrize("batch,n,level,name", INV_EDGES + [
+    (16, 1000003, 5, "Daubechies 4")])
+def test_inverse_shrink_is_the_pipeline_bitwise(dev, batch, n, level, name,
+                                                kind, mode, dtype):
+    """One launch of the shrinking inverse, on the operands the denoise
+    gives it, against the shrink and ``imodwt`` it replaces on the same
+    coefficients (a NaN in W₁, both zeros in W₂): bit for bit; against its
+    plain model within the inverse's bound."""
+    from jwave_pro_tpu_torch.ops import denoise as dn
+
+    w = jt.wavelet(name)
+    c = _signal(dev, level + 1, batch, n, seed=52, dtype=dtype)
+    c[0, 0, 5] = math.nan
+    c[1, -1, 7], c[1, -1, 8] = 0.0, -0.0
+    t = _card_threshold(kind, level, batch, dtype, dev)
+    hard = int(mode != "soft")
+    operands = dn._shrink_operands(c, t, w, hard)
+    assert operands is not None
+    before = LAUNCHES["modwt_inv_shrink"]
+    got = kc.modwt_inv_shrink_cuda(c, *operands, w, hard)
+    assert LAUNCHES["modwt_inv_shrink"] - before == 1
+    assert got.dtype == dtype and got.shape == (batch, n)
+    assert _bits_equal(got, jt.imodwt(dn._shrunk(c, level, t, mode), w))
+    plain = kc.modwt_inv_shrink_plain(c, *operands, w, hard)
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(got.float(), plain.float(), rtol=2 ** -7,
+                                   atol=1e-5, equal_nan=True)
+    else:
+        torch.testing.assert_close(got, plain, rtol=0, atol=1e-5,
+                                   equal_nan=True)
+
+
+def test_default_denoise_shrinks_inside_the_inverse(dev):
+    """A default ``modwt_denoise`` at (16, 1 000 003) launches the forward,
+    the median and the shrinking inverse once each and the plain inverse
+    never, and is bit for bit the pipeline before; so are a 1D signal,
+    hard mode, the per-level rules, bfloat16, a number threshold, and a
+    threshold that wants a gradient under ``no_grad``."""
+    x = _signal(dev, 16, 1000003, seed=50)
+    counters = ("modwt_fwd", "median", "modwt_inv_shrink", "modwt_inv")
+    before = [LAUNCHES[op] for op in counters]
+    got = jt.modwt_denoise(x, DB4, 5)
+    torch.cuda.synchronize()
+    assert [LAUNCHES[op] - b for op, b in zip(counters, before)] == [
+        1, 1, 1, 0]
+    assert _bits_equal(got, _parent_denoise(x, DB4, 5))
+    y = x[:4, :65537].contiguous()
+    wants_grad = torch.full((4, 1), 0.6, device=dev, requires_grad=True)
+    for v, kw in ((y[0], {}), (y, {"mode": "hard"}),
+                  (y, {"threshold": "sure"}),
+                  (y, {"threshold": "bayes", "mode": "hard"}),
+                  (y.to(torch.bfloat16), {}),
+                  (y.to(torch.bfloat16), {"threshold": 0.8}),
+                  (y, {"threshold": 0.8, "mode": "hard"})):
+        before = LAUNCHES["modwt_inv_shrink"]
+        got = jt.modwt_denoise(v, DB4, 5, **kw)
+        assert LAUNCHES["modwt_inv_shrink"] - before == 1, kw
+        assert got.shape == v.shape and got.dtype == v.dtype
+        assert _bits_equal(got, _parent_denoise(v, DB4, 5, **kw)), kw
+    with torch.no_grad():
+        before = LAUNCHES["modwt_inv_shrink"]
+        got = jt.modwt_denoise(y, DB4, 5, threshold=wants_grad)
+        assert LAUNCHES["modwt_inv_shrink"] - before == 1
+        assert _bits_equal(got, _parent_denoise(y, DB4, 5,
+                                                threshold=wants_grad))
+
+
+def test_denoise_keeps_the_plain_shrink_where_the_kernel_would_differ(dev):
+    """A call that wants a gradient, a threshold along time ((N,)), one of
+    another dtype than the coefficients', and float64 coefficients take
+    the shrink and ``imodwt``: no launch of the shrinking inverse, the
+    pipeline's answer."""
+    x = _signal(dev, 4, 8192, seed=51)
+    for v, kw in ((x.clone().requires_grad_(), {}),
+                  (x, {"threshold": torch.full((8192,), 0.5, device=dev)}),
+                  (x.to(torch.bfloat16),
+                   {"threshold": torch.full((4, 1), 0.5, device=dev)}),
+                  (x.double(), {})):
+        before = [LAUNCHES["modwt_inv_shrink"], LAUNCHES["modwt_inv"]]
+        got = jt.modwt_denoise(v, DB4, 5, **kw)
+        torch.cuda.synchronize()
+        assert LAUNCHES["modwt_inv_shrink"] == before[0]
+        assert LAUNCHES["modwt_inv"] - before[1] == (v.dtype != torch.float64)
+        want = _parent_denoise(v, DB4, 5, **kw)
+        assert got.dtype == want.dtype
+        assert _bits_equal(got.detach(), want.detach())
 
 
 def test_public_path_launches_each_kernel(dev):
@@ -1250,16 +1387,18 @@ def test_streaming_path_launches_the_forward_kernel(dev):
 # -- the kernel operators and the serving export ------------------------------
 
 def test_exported_pipelines_launch_their_kernels(dev):
-    """An exported denoise (forward and inverse kernels, or the fused
-    kernel) and variance (the variance kernel), served from bytes on the
-    card at three batch sizes from one artifact: each call launches its
-    kernels once, and the output is bitwise the eager call's."""
+    """An exported denoise (the forward and the shrinking inverse, or
+    the fused kernel) and variance (the variance kernel), served from
+    bytes on the card at three batch sizes from one artifact: each call
+    launches its kernels once, and the output is bitwise the eager
+    call's."""
     x = _signal(dev, 8, 8192, seed=40)
     counters = {"fwd": "modwt_fwd", "inv": "modwt_inv",
-                "fused": "modwt_denoise", "var": "modwt_var"}
+                "inv_shrink": "modwt_inv_shrink", "fused": "modwt_denoise",
+                "var": "modwt_var"}
     pipelines = (
         (lambda v: jt.modwt_denoise(v, DB4, 5, threshold=0.8),
-         {"fwd": 1, "inv": 1}),
+         {"fwd": 1, "inv_shrink": 1}),
         (lambda v: jt.modwt_denoise(v, DB4, 5, threshold=0.8,
                                     method="fused"), {"fused": 1}),
         (lambda v: jt.modwt_variance(v, DB4, 5), {"var": 1}))
@@ -1285,6 +1424,10 @@ def test_operator_checks_of_the_1d_kernels(dev):
     thr = torch.full((3,), 0.5, device=dev)
     for op, args in ((torch.ops.jwave.modwt_fwd, (x, g, h, 3)),
                      (torch.ops.jwave.modwt_inv, (c, g, h)),
+                     (torch.ops.jwave.modwt_inv_shrink,
+                      (c, torch.full((3, 3), 0.5, device=dev), 0.0, g, h, 0)),
+                     (torch.ops.jwave.modwt_inv_shrink,
+                      (c, None, 0.5, g, h, 1)),
                      (torch.ops.jwave.modwt_denoise, (x, thr, g, h, 3, 0)),
                      (torch.ops.jwave.modwt_var, (x, g, h, 3)),
                      (torch.ops.jwave.median, (x, True))):

@@ -475,6 +475,7 @@ _ENTRY_POINTS = {"fwd": ("modwt.cu", "jw_modwt_fwd"),
                  "var": ("variance.cu", "jw_modwt_var"),
                  "select": ("modwpt.cu", "jw_modwpt_select"),
                  "inv": ("modwt.cu", "jw_modwt_inv"),
+                 "inv_shrink": ("modwt_shrink.cu", "jw_modwt_inv_shrink"),
                  "denoise": ("denoise.cu", "jw_modwt_denoise"),
                  "pfwd": ("modwpt.cu", "jw_modwpt_fwd"),
                  "pinv": ("modwpt.cu", "jw_modwpt_inv")}
@@ -485,10 +486,11 @@ def test_smem_bytes_is_the_layout_the_entry_point_accepts(kind):
     """The C entry point rejects any shared-memory size but its layout's;
     its check, read from the source and evaluated here, equals
     :func:`smem_bytes` for every level the gate admits (the forward's
-    context variant takes the forward's plan)."""
+    context variant takes the forward's plan, the shrinking inverse the
+    inverse's)."""
     import re
     fname, fn = _ENTRY_POINTS[kind]
-    kind = kind.removesuffix("_ctx")
+    kind = kind.removesuffix("_ctx").removesuffix("_shrink")
     src = (REPO / "jwave_pro_tpu_torch" / "csrc" / fname).read_text()
     body = src[src.index(f"int {fn}("):]
     expr = re.search(r"smem != \(int\)sizeof\(float\) \*\s*(\(.*?\))\)\s*"
