@@ -344,6 +344,7 @@ def card_line() -> str:
 def run(smoke: Smoke, torch, jt) -> dict:
     from jwave_pro_tpu_torch.kernels import _build
     from jwave_pro_tpu_torch.kernels import denoise_cuda as kd
+    from jwave_pro_tpu_torch.kernels import _launch as kl
     from jwave_pro_tpu_torch.kernels import modwt_cuda as kc
 
     dev = torch.device("cuda", 0)
@@ -544,18 +545,18 @@ def run(smoke: Smoke, torch, jt) -> dict:
     counters = ("modwt_fwd", "modwt_inv", "modwt_denoise")
     torch.cuda.synchronize()
     for name in counters:
-        kc.LAUNCHES[name] = 0
+        kl.LAUNCHES[name] = 0
     c = jt.modwt(x, w, LEVEL)
     xr = jt.imodwt(c, w)
     den = jt.modwt_denoise(x, w, LEVEL, method="fused")
-    fwd_batched = kc.LAUNCHES["modwt_fwd"]
+    fwd_batched = kl.LAUNCHES["modwt_fwd"]
     c1 = jt.modwt(x1, w, LEVEL)
     torch.cuda.synchronize()
     launches = {
         "modwt_fwd": fwd_batched,
-        "modwt_fwd_1d": kc.LAUNCHES["modwt_fwd"] - fwd_batched,
-        "modwt_inv": kc.LAUNCHES["modwt_inv"],
-        "modwt_denoise": kc.LAUNCHES["modwt_denoise"],
+        "modwt_fwd_1d": kl.LAUNCHES["modwt_fwd"] - fwd_batched,
+        "modwt_inv": kl.LAUNCHES["modwt_inv"],
+        "modwt_denoise": kl.LAUNCHES["modwt_denoise"],
     }
     print(f"  launches on the main path: {launches}", flush=True)
     for name, count in launches.items():
@@ -785,7 +786,7 @@ def counted_run(smoke: Smoke, torch, counters, what: str, calls,
     """Run ``calls`` with the launch count of every operator named in
     ``counters`` at 0 and require exactly the launches ``want`` names (0
     for the others); returns (output, counts)."""
-    from jwave_pro_tpu_torch.kernels.modwt_cuda import LAUNCHES
+    from jwave_pro_tpu_torch.kernels._launch import LAUNCHES
 
     torch.cuda.synchronize()
     for name in counters:
@@ -2739,7 +2740,7 @@ def run_streaming_slice(smoke: Smoke, torch, jt, signal, card) -> list:
     batched ones the batched forward (#1); both must run.  Returns phase
     29's calls and the launches each makes."""
     from jwave_pro_tpu_torch import streaming as st
-    from jwave_pro_tpu_torch.kernels import modwt_cuda as kc
+    from jwave_pro_tpu_torch.kernels import _launch as kl
 
     t_phase = time.perf_counter()
     w = jt.wavelet(WAVELET)
@@ -2751,13 +2752,13 @@ def run_streaming_slice(smoke: Smoke, torch, jt, signal, card) -> list:
 
     def counted(kind, fn):
         torch.cuda.synchronize()
-        before = kc.LAUNCHES["modwt_fwd"]
+        before = kl.LAUNCHES["modwt_fwd"]
         out = fn()
         torch.cuda.synchronize()
-        launched[kind] += kc.LAUNCHES["modwt_fwd"] - before
+        launched[kind] += kl.LAUNCHES["modwt_fwd"] - before
         return out
 
-    kc.LAUNCHES["modwt_fwd"] = 0
+    kl.LAUNCHES["modwt_fwd"] = 0
     c0 = signal(LEVEL + 1, STREAM_CH, buf)
     window = c0[-1, :, :halo + chunk]
     tail = counted("#1 batched",
@@ -3151,11 +3152,12 @@ def host_cost_per_launch(torch, jt, signal) -> tuple:
     without the dispatcher) per launch of the forward kernel at
     a host-bound shape (1, 4096) L5: 200 launches a run between a
     synchronize and another, median of 5."""
+    from jwave_pro_tpu_torch.kernels import _launch as kl
     from jwave_pro_tpu_torch.kernels import modwt_cuda as kc
 
     w = jt.wavelet(WAVELET)
     v = signal(1, 4096)
-    taps = kc.op_taps(w)
+    taps = kl.op_taps(w)
     direct = kc.modwt_fwd_op
 
     def per_launch(fn):
@@ -3687,7 +3689,7 @@ def run_shard_slice(smoke: Smoke, torch, jt, signal, card) -> tuple:
     at MAIN_SHAPE and SHARD_SHAPE beside the forward kernel and the
     bound.  Returns (launches, errors, times) under ``modwt_fwd_ctx``."""
     from jwave_pro_tpu_torch.kernels import modwt_cuda as kc
-    from jwave_pro_tpu_torch.kernels.modwt_cuda import LAUNCHES
+    from jwave_pro_tpu_torch.kernels._launch import LAUNCHES
     from wavebench.reference import filters
     from wavebench.reference import modwt_segment as seg
 

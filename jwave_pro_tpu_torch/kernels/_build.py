@@ -25,7 +25,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["library", "build_dir", "ptxas_report", "NVCC_FLAGS"]
+__all__ = ["library", "declare", "build_dir", "ptxas_report", "NVCC_FLAGS",
+           "SIGNATURES"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -33,6 +34,33 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _LIB_NAME = "libjwave_kernels.so"
 _PTXAS_LOG = "ptxas.log"
+
+# Every C entry point of the library, as the prototypes in the ``extern
+# "C"`` blocks of ``csrc/*.cu`` declare it: (result, arguments), one letter
+# a value: P a pointer, I an int, F a float, S a C string.  The int
+# results are CUDA error codes, 0 for success (:func:`check`).
+SIGNATURES = {
+    "jw_error_string": ("S", "I"),
+    "jw_modwt_fwd": ("I", "PPIIIPPIIIIIIP"),
+    "jw_modwt_fwd_ctx": ("I", "PPPIIIPPIIIIIIP"),
+    "jw_modwt_inv": ("I", "PPIIIPPIIIIIIP"),
+    "jw_modwt_inv_shrink": ("I", "PPFIIIPIIIPPIIIIIIP"),
+    "jw_modwt_denoise": ("I", "PPPIIIPPIIIIIIIP"),
+    "jw_modwt_var": ("I", "PPPPIIIPPIIIIIP"),
+    "jw_modwpt_fwd": ("I", "PPIIIPPIIIIIIP"),
+    "jw_modwpt_select": ("I", "PPPPIIIPPIIIIIP"),
+    "jw_modwpt_inv": ("I", "PPIIIPPIIIIIIP"),
+    "jw_modwt2_fwd": ("I", "PPIIIIIPPIIIIIIIP"),
+    "jw_modwt2_inv": ("I", "PPIIIIIPPIIIIIIIP"),
+    "jw_modwt2_denoise": ("I", "PPPPIIIIIPPIIIIIIIIP"),
+    "jw_modwt2_blocks": ("I", "IIIIIP"),
+    "jw_modwt3_fwd": ("I", "PPPIIIIIPPIPPIIP"),
+    "jw_modwt3_inv": ("I", "PPPIIIIIPPIPIIP"),
+    "jw_cwt_ifft": ("I", "PPPPIIIIIIP"),
+    "jw_median": ("I", "PPPPPIIIIIP"),
+}
+_CTYPES = {"P": ctypes.c_void_p, "I": ctypes.c_int, "F": ctypes.c_float,
+           "S": ctypes.c_char_p}
 
 
 def _sources():
@@ -98,9 +126,18 @@ def library() -> ctypes.CDLL:
     target = build_dir() / _LIB_NAME
     if not target.exists():
         _compile(target)
-    lib = ctypes.CDLL(str(target))
-    lib.jw_error_string.argtypes = [ctypes.c_int]
-    lib.jw_error_string.restype = ctypes.c_char_p
+    return declare(ctypes.CDLL(str(target)))
+
+
+def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argument and result types of every entry point of
+    :data:`SIGNATURES` that ``lib`` exports (a probe's library built from
+    some of the sources exports some); return ``lib``."""
+    for name, (result, args) in SIGNATURES.items():
+        fn = getattr(lib, name, None)
+        if fn is not None:
+            fn.argtypes = [_CTYPES[a] for a in args]
+            fn.restype = _CTYPES[result]
     return lib
 
 

@@ -26,19 +26,17 @@ row fills 135 KB of the 227 KB), any B and S.
 Beside the kernel: its plain PyTorch version :func:`cwt_ifft_plain` (the
 JAX kernel's two-stage DFT with the same stage constants, as complex
 matrix products in float32, or float64 for complex128 input) and a launch
-count (``modwt_cuda.LAUNCHES["cwt_ifft"]``).  The launch is the operator
+count (``_launch.LAUNCHES["cwt_ifft"]``).  The launch is the operator
 ``jwave::cwt_ifft``.
 """
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import numpy as np
 import torch
 
-from . import _build
-from .modwt_cuda import _I, _P, kernel_op
+from ._launch import check_operand, kernel_op, launch
 
 __all__ = [
     "cwt_fused_supported", "cwt_ifft_fused", "cwt_ifft_cuda",
@@ -114,31 +112,12 @@ def twiddles(p: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(t).to(device)
 
 
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = _build.library()
-    lib.jw_cwt_ifft.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
-    lib.jw_cwt_ifft.restype = _I
-    return lib
-
-
-def _check_spectrum(t: torch.Tensor, name: str, traced: bool) -> None:
-    if not (traced or t.is_cuda):
-        raise ValueError(f"{name}: kernel needs a CUDA tensor, got {t.device}")
-    if t.dtype != torch.complex64:
-        raise ValueError(f"{name}: kernel takes complex64, got {t.dtype}")
-    if t.ndim != 2:
-        raise ValueError(f"{name}: expected 2 dims, got {tuple(t.shape)}")
-    if not (traced or t.is_contiguous()):
-        raise ValueError(f"{name}: kernel needs a contiguous tensor")
-
-
 def _check_cwt(xf: torch.Tensor, mult: torch.Tensor, n: int,
                traced: bool) -> None:
     """The launch's checks; ``traced``: the fake's, on a traced or ``meta``
     tensor (no device, strides or batch)."""
-    _check_spectrum(xf, "xf", traced)
-    _check_spectrum(mult, "mult", traced)
+    for t, name in ((xf, "xf"), (mult, "mult")):
+        check_operand(t, name, 2, traced, (torch.complex64,))
     p = xf.shape[1]
     if mult.shape[1] != p or not (traced or mult.device == xf.device):
         raise ValueError("mult: need (S, P) on xf's device")
@@ -161,13 +140,9 @@ def cwt_ifft_op(xf: torch.Tensor, mult: torch.Tensor, n: int,
         raise ValueError(f"{b}×{s} rows exceed the CWT kernel grid")
     out = torch.empty((b, s, n), device=xf.device,
                       dtype=torch.float32 if is_real else torch.complex64)
-    lib = _lib()
-    tw = twiddles(p, xf.device)
-    code = lib.jw_cwt_ifft(
-        xf.data_ptr(), mult.data_ptr(), tw.data_ptr(), out.data_ptr(), b, s,
-        p, n, int(is_real), xf.device.index,
-        torch.cuda.current_stream(xf.device).cuda_stream)
-    _build.check(lib, code, "CWT kernel")
+    launch("jw_cwt_ifft", "CWT kernel", xf.device, xf.data_ptr(),
+           mult.data_ptr(), twiddles(p, xf.device).data_ptr(), out.data_ptr(),
+           b, s, p, n, int(is_real))
     return out
 
 

@@ -18,25 +18,24 @@ budgets.  Any N runs, since each block reads its circular context
 directly.
 
 Beside the kernel: its plain PyTorch version (:func:`modwt_denoise_plain`)
-and its launch count (``modwt_cuda.LAUNCHES["modwt_denoise"]``).  The
-launch is the operator ``jwave::modwt_denoise`` (``kernels/modwt_cuda.py``
+and its launch count (``_launch.LAUNCHES["modwt_denoise"]``).  The
+launch is the operator ``jwave::modwt_denoise`` (``kernels/_launch.py``
 says why).  Not differentiable: shrinkage is piecewise; the
 ``method='auto'`` pipeline is.
 """
 from __future__ import annotations
-
-import functools
 
 import torch
 
 from ..ops.denoise import hard_threshold, soft_threshold
 from ..ops.modwt import _check_level
 from ..wavelets.base import DiscreteWavelet
-from . import _build
+from ._launch import (
+    DTYPE_CODES, check_grid, check_operand, check_taps, check_threshold,
+    compute_dtype, host_taps, kernel_op, launch, op_taps,
+)
 from .modwt_cuda import (
-    _I, _P, DTYPE_CODES, TILES, _compute_dtype, check_grid, check_operand,
-    check_taps, halo, host_taps, kernel_supported, modwt_fwd_plain,
-    modwt_inv_plain, op_taps, smem_bytes, kernel_op,
+    KernelPlan, check_fused, modwt_fwd_plain, modwt_inv_plain, require_plan,
 )
 
 __all__ = ["modwt_denoise_fused", "modwt_denoise_cuda", "modwt_denoise_plain",
@@ -50,7 +49,7 @@ def modwt_denoise_plain(x: torch.Tensor, threshold: torch.Tensor,
     (B,) → (B, N).  The whole chain runs in float32 (float64 for float64
     input) and rounds to ``x``'s dtype once, at the end, as the kernel does.
     """
-    cdt = _compute_dtype(x.dtype)
+    cdt = compute_dtype(x.dtype)
     c = modwt_fwd_plain(x.to(cdt), wavelet, level)
     shrink = soft_threshold if mode == "soft" else hard_threshold
     thr = threshold.to(dtype=cdt, device=x.device)[None, :, None]
@@ -58,27 +57,12 @@ def modwt_denoise_plain(x: torch.Tensor, threshold: torch.Tensor,
     return modwt_inv_plain(c, wavelet).to(x.dtype)
 
 
-@functools.cache
-def _lib():
-    lib = _build.library()
-    lib.jw_modwt_denoise.argtypes = [_P, _P, _P, _I, _I, _I, _P, _P, _I, _I,
-                                     _I, _I, _I, _I, _I, _P]
-    lib.jw_modwt_denoise.restype = _I
-    return lib
-
-
 def _check_denoise(x: torch.Tensor, threshold: torch.Tensor, g, h,
-                   level: int, traced: bool = True) -> None:
+                   level: int, traced: bool = True) -> KernelPlan:
     check_operand(x, "x", 2, traced)
-    if (threshold.dtype != torch.float32 or threshold.ndim != 1
-            or not traced and (threshold.shape[0] != x.shape[0]
-                               or threshold.device != x.device
-                               or not threshold.is_contiguous())):
-        raise ValueError("threshold: kernel needs a contiguous (B,) float32 "
-                         "tensor on x's device")
-    if not kernel_supported(x.shape[1], level, check_taps(g, h), "denoise"):
-        raise ValueError(f"unsupported shape {tuple(x.shape)} level {level} "
-                         f"for the fused denoise kernel")
+    check_threshold(threshold, x, traced)
+    return require_plan("denoise", x.shape[1], level, check_taps(g, h),
+                        x.shape, "fused denoise")
 
 
 @kernel_op("modwt_denoise")
@@ -88,19 +72,14 @@ def modwt_denoise_op(x: torch.Tensor, threshold: torch.Tensor,
     """The denoise kernel's launch as an operator (``torch.ops.jwave.
     modwt_denoise``): x (B, N), threshold (B,) float32 → (B, N); ``hard``
     1 for hard shrinkage, 0 for soft."""
-    _check_denoise(x, threshold, g, h, level, traced=False)
+    plan = _check_denoise(x, threshold, g, h, level, traced=False)
     b, n = x.shape
-    m = len(g)
-    check_grid(b, n, "denoise")
+    check_grid(b, n, plan.tile)
     out = torch.empty_like(x)
     gh, hh = host_taps(g, h)
-    lib = _lib()
-    code = lib.jw_modwt_denoise(
-        x.data_ptr(), threshold.data_ptr(), out.data_ptr(), b, n, level,
-        gh.ctypes.data, hh.ctypes.data, m, TILES["denoise"], halo(m, level),
-        smem_bytes(level, m, "denoise"), int(hard), DTYPE_CODES[x.dtype],
-        x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(lib, code, "fused denoise kernel")
+    launch("jw_modwt_denoise", "fused denoise kernel", x.device, x.data_ptr(),
+           threshold.data_ptr(), out.data_ptr(), b, n, level, gh.ctypes.data,
+           hh.ctypes.data, len(g), *plan, int(hard), DTYPE_CODES[x.dtype])
     return out
 
 
@@ -132,14 +111,9 @@ def modwt_denoise_fused(x: torch.Tensor, threshold: torch.Tensor,
     """
     if x.ndim != 2:
         raise ValueError(f"fused denoise takes (B, N), got {tuple(x.shape)}")
-    n = x.shape[-1]
-    _check_level(n, level)
-    if not kernel_supported(n, level, wavelet.length, "denoise"):
-        raise ValueError(f"unsupported shape {tuple(x.shape)} for fused "
-                         f"denoise")
+    _check_level(x.shape[-1], level)
+    check_fused(x, "denoise", level, wavelet.length, "fused denoise")
     if x.is_cuda:
         return modwt_denoise_cuda(x.contiguous(), threshold, wavelet, level,
                                   mode)
-    if x.device.type != "cpu":
-        raise ValueError(f"no denoise kernel for device {x.device}")
     return modwt_denoise_plain(x, threshold, wavelet, level, mode)

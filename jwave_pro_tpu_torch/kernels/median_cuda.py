@@ -21,16 +21,15 @@ launch.
 
 Beside the kernel: its plain PyTorch version (:func:`median_plain`, the
 same passes), which the CPU runs; the launch count
-``modwt_cuda.LAUNCHES["median"]``; the operator ``jwave::median``.
+``_launch.LAUNCHES["median"]``; the operator ``jwave::median``.
 """
 from __future__ import annotations
 
-import functools
-
 import torch
 
-from . import _build
-from .modwt_cuda import _I, _P, kernel_op, tickets, zeroed
+from ._launch import (
+    check_operand, kernel_op, launch, sm_count, tickets, zeroed,
+)
 
 __all__ = ["median_rows", "median_plain", "median_op", "median_parts"]
 
@@ -102,11 +101,6 @@ def median_plain(x: torch.Tensor, absolute: bool = False) -> torch.Tensor:
     return torch.where(torch.isnan(x).any(-1), torch.nan, mid)
 
 
-@functools.cache
-def _sms(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def median_parts(rows: int, n: int, sms: int) -> int:
     """Blocks a row: enough for ``BLOCKS_PER_SM`` blocks on each of the
     ``sms`` SMs, no more than leave each ``MIN_PART`` elements, at least
@@ -115,24 +109,11 @@ def median_parts(rows: int, n: int, sms: int) -> int:
     return max(1, min(want, n // MIN_PART))
 
 
-@functools.cache
-def _lib():
-    lib = _build.library()
-    lib.jw_median.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
-    lib.jw_median.restype = _I
-    return lib
-
-
 def _check_median(x: torch.Tensor, traced: bool = True) -> None:
-    if not (traced or x.is_cuda):
-        raise ValueError(f"x: kernel needs a CUDA tensor, got {x.device}")
-    if x.dtype != torch.float32:
-        raise ValueError(f"x: the median kernel takes float32, got {x.dtype}")
-    if x.ndim != 2 or x.shape[0] < 1 or not 1 <= x.shape[1] < 2 ** 31:
+    check_operand(x, "x", 2, traced, (torch.float32,))
+    if x.shape[0] < 1 or not 1 <= x.shape[1] < 2 ** 31:
         raise ValueError(f"x: expected (rows, n) with rows ≥ 1 and "
                          f"1 ≤ n < 2³¹, got {tuple(x.shape)}")
-    if not (traced or x.is_contiguous()):
-        raise ValueError("x: kernel needs a contiguous tensor")
 
 
 @kernel_op("median")
@@ -143,7 +124,7 @@ def median_op(x: torch.Tensor, absolute: bool) -> torch.Tensor:
     scratch are taken here, from the concrete shape."""
     _check_median(x, traced=False)
     rows, n = x.shape
-    parts = median_parts(rows, n, _sms(x.device.index))
+    parts = median_parts(rows, n, sm_count(x.device.index))
     if rows * parts >= 2 ** 31:
         raise ValueError(f"{rows}×{n} exceeds the median kernel's grid")
     state = torch.empty((rows, STATE), dtype=torch.int32, device=x.device)
@@ -153,11 +134,9 @@ def median_op(x: torch.Tensor, absolute: bool) -> torch.Tensor:
     if parts > 1:    # the rows' histograms, which their last blocks reset
         scratch = zeroed("median", x.device, stream, rows * SLOTS)
         ticket = tickets(x.device, stream, rows)
-    lib = _lib()
-    code = lib.jw_median(x.data_ptr(), state.data_ptr(), scratch, ticket,
-                         out.data_ptr(), rows, n, parts, int(absolute),
-                         x.device.index, stream)
-    _build.check(lib, code, "median kernel")
+    launch("jw_median", "median kernel", x.device, x.data_ptr(),
+           state.data_ptr(), scratch, ticket, out.data_ptr(), rows, n, parts,
+           int(absolute), stream=stream)
     return out
 
 

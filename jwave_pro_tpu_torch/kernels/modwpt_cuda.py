@@ -8,7 +8,7 @@ Replaces ``jwave_pro_tpu/kernels/modwpt_pallas.py``:
   cascade with a per-node arg-max of |w| in place of the stores —
   ``(absmax, shift, value)``, each ``(2^L, B)``; the ``(2^L, B, N)`` block is
   never written.  Each block writes its tile's best per node, and the
-  row's last block to finish (an atomic ticket, :func:`tickets`) merges the
+  row's last block to finish (an atomic ticket, :func:`_launch.tickets`) merges the
   tiles inside the same launch, as the TPU kernel kept a running max across
   its sequential tile axis.  Every merge takes the larger |w|, then the
   smaller position, so the result is the arg-max over the whole
@@ -29,7 +29,7 @@ leaf pair with batched loads.
 
 Beside each kernel: its plain PyTorch version (``modwpt_fwd_plain``,
 ``modwpt_inv_plain``, ``modwpt_select_plain``) and a launch count
-(``modwt_cuda.LAUNCHES["<op>"]``).  Each launch is an operator
+(``_launch.LAUNCHES["<op>"]``).  Each launch is an operator
 (``jwave::modwpt_fwd``, ``jwave::modwpt_select``, ``jwave::modwpt_inv``).
 bfloat16 is read and written as bfloat16 and computed in float32; the select
 returns float32.  The autograd pair (:func:`modwpt_fused`,
@@ -39,22 +39,23 @@ reorder is a permutation, so each direction's backward is the other kernel.
 """
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from ..ops.modwpt import _level_forward, _level_inverse
 from ..ops.modwt import _check_level, modwt_base_filters
 from ..wavelets.base import DiscreteWavelet
-from . import _build
+from ._launch import (
+    DTYPE_CODES, check_grid, check_operand, check_taps, compute_dtype,
+    host_taps, kernel_op, launch, op_taps, tickets,
+)
 from .modwt_cuda import (
-    _I, _P, DTYPE_CODES, TilePlan, _compute_dtype, check_grid, check_operand,
-    check_taps, halo, host_taps, kernel_supported, op_taps, smem_bytes,
-    tickets, tile_of, tile_plan, kernel_op,
+    KernelPlan, TilePlan, check_fused, kernel_supported, require_plan,
+    tile_plan,
 )
 
 __all__ = [
-    "modwpt_fused", "imodwpt_fused", "modwpt_select_fused",
+    "modwpt_fused", "imodwpt_fused", "ModwptFused", "ImodwptFused",
+    "modwpt_select_fused",
     "select_fused_supported", "modwpt_fwd_cuda", "modwpt_inv_cuda",
     "modwpt_select_cuda", "modwpt_fwd_plain", "modwpt_inv_plain",
     "modwpt_select_plain", "select_plan", "modwpt_fwd_op", "modwpt_inv_op",
@@ -72,7 +73,7 @@ def modwpt_fwd_plain(x: torch.Tensor, wavelet: DiscreteWavelet,
     ``(2^level, ..., N)``, computed in float32 (float64 for float64 input)
     and returned in ``x``'s dtype."""
     g, h = modwt_base_filters(wavelet)
-    nodes = x.to(_compute_dtype(x.dtype))[None]
+    nodes = x.to(compute_dtype(x.dtype))[None]
     for j in range(1, level + 1):
         nodes = _level_forward(nodes, g, h, j, "direct")
     return nodes.to(x.dtype)
@@ -83,7 +84,7 @@ def modwpt_inv_plain(c: torch.Tensor, wavelet: DiscreteWavelet
     """The inverse kernel's function in plain PyTorch: ``(2^level, ..., N)``
     → ``(..., N)``, computed like :func:`modwpt_fwd_plain`."""
     g, h = modwt_base_filters(wavelet)
-    nodes = c.to(_compute_dtype(c.dtype))
+    nodes = c.to(compute_dtype(c.dtype))
     for j in range(c.shape[0].bit_length() - 1, 0, -1):
         nodes = _level_inverse(nodes, g, h, j, "direct")
     return nodes[0].to(c.dtype)
@@ -95,7 +96,7 @@ def modwpt_select_plain(x: torch.Tensor, wavelet: DiscreteWavelet,
     ``(absmax, shift, value)``, each ``(2^level, B)``: per node the largest
     |w| (float32; float64 for float64 input), its first position (int32) and
     the signed coefficient there."""
-    c = modwpt_fwd_plain(x.to(_compute_dtype(x.dtype)), wavelet, level)
+    c = modwpt_fwd_plain(x.to(compute_dtype(x.dtype)), wavelet, level)
     shift = torch.argmax(torch.abs(c), dim=-1, keepdim=True)
     value = torch.gather(c, -1, shift)[..., 0]
     return torch.abs(value), shift[..., 0].to(torch.int32), value
@@ -105,29 +106,11 @@ def modwpt_select_plain(x: torch.Tensor, wavelet: DiscreteWavelet,
 # Kernel launchers (CUDA tensors only)
 # ---------------------------------------------------------------------------
 
-@functools.cache
-def _lib():
-    lib = _build.library()
-    for fn in (lib.jw_modwpt_fwd, lib.jw_modwpt_inv):
-        fn.argtypes = [_P, _P, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P]
-        fn.restype = _I
-    lib.jw_modwpt_select.argtypes = [_P, _P, _P, _P, _I, _I, _I, _P, _P, _I,
-                                     _I, _I, _I, _I, _P]
-    lib.jw_modwpt_select.restype = _I
-    return lib
-
-
-def _require(n: int, level: int, m: int, kind: str, shape,
-             what: str) -> None:
-    if not kernel_supported(n, level, m, kind):
-        raise ValueError(f"unsupported shape {tuple(shape)} level {level} "
-                         f"for the {what} kernel")
-
-
 def _check_pfwd(x: torch.Tensor, g, h, level: int, kind: str,
-                what: str, traced: bool = True) -> None:
+                what: str, traced: bool = True) -> KernelPlan:
     check_operand(x, "x", 2, traced)
-    _require(x.shape[1], level, check_taps(g, h), kind, x.shape, what)
+    return require_plan(kind, x.shape[1], level, check_taps(g, h), x.shape,
+                        what)
 
 
 @kernel_op("modwpt_fwd")
@@ -135,20 +118,14 @@ def modwpt_fwd_op(x: torch.Tensor, g: list[float], h: list[float],
                   level: int) -> torch.Tensor:
     """The forward kernel's launch as an operator (``torch.ops.jwave.
     modwpt_fwd``): x (B, N) → (2^level, B, N), x's dtype."""
-    _check_pfwd(x, g, h, level, "pfwd", "MODWPT forward", traced=False)
+    plan = _check_pfwd(x, g, h, level, "pfwd", "MODWPT forward", traced=False)
     b, n = x.shape
-    m = len(g)
-    tile = tile_of("pfwd", level, m)
-    check_grid(b, n, "pfwd", tile)
+    check_grid(b, n, plan.tile)
     out = torch.empty((1 << level, b, n), dtype=x.dtype, device=x.device)
     gh, hh = host_taps(g, h)
-    lib = _lib()
-    code = lib.jw_modwpt_fwd(
-        x.data_ptr(), out.data_ptr(), b, n, level, gh.ctypes.data,
-        hh.ctypes.data, m, tile, halo(m, level),
-        smem_bytes(level, m, "pfwd"), DTYPE_CODES[x.dtype], x.device.index,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(lib, code, "MODWPT forward kernel")
+    launch("jw_modwpt_fwd", "MODWPT forward kernel", x.device, x.data_ptr(),
+           out.data_ptr(), b, n, level, gh.ctypes.data, hh.ctypes.data,
+           len(g), *plan, DTYPE_CODES[x.dtype])
     return out
 
 
@@ -165,15 +142,21 @@ def modwpt_fwd_cuda(x: torch.Tensor, wavelet: DiscreteWavelet,
     return modwpt_fwd_op(x, *op_taps(wavelet), level)
 
 
-def _check_pinv(c: torch.Tensor, g, h, traced: bool = True) -> int:
-    check_operand(c, "coeffs", 3, traced)
-    nodes, n = c.shape[0], c.shape[2]
+def _packet_level(c: torch.Tensor, msg: str) -> int:
+    """The level of a (2^level, ...) packet stack; raise ``msg`` with the
+    node count unless it is a power of two ≥ 2."""
+    nodes = c.shape[0]
     if nodes < 2 or nodes & (nodes - 1):
-        raise ValueError(f"coeffs: leading axis must be 2^level ≥ 2 packet "
-                         f"nodes, got {nodes}")
-    level = nodes.bit_length() - 1
-    _require(n, level, check_taps(g, h), "pinv", c.shape, "MODWPT inverse")
-    return level
+        raise ValueError(f"{msg} 2^level ≥ 2 packet nodes, got {nodes}")
+    return nodes.bit_length() - 1
+
+
+def _check_pinv(c: torch.Tensor, g, h,
+                traced: bool = True) -> tuple[int, KernelPlan]:
+    check_operand(c, "coeffs", 3, traced)
+    level = _packet_level(c, "coeffs: leading axis must be")
+    return level, require_plan("pinv", c.shape[2], level, check_taps(g, h),
+                               c.shape, "MODWPT inverse")
 
 
 @kernel_op("modwpt_inv")
@@ -181,20 +164,14 @@ def modwpt_inv_op(c: torch.Tensor, g: list[float], h: list[float]
                   ) -> torch.Tensor:
     """The inverse kernel's launch as an operator (``torch.ops.jwave.
     modwpt_inv``): c (2^level, B, N) → (B, N), c's dtype."""
-    level = _check_pinv(c, g, h, traced=False)
+    level, plan = _check_pinv(c, g, h, traced=False)
     _, b, n = c.shape
-    m = len(g)
-    tile = tile_of("pinv", level, m)
-    check_grid(b, n, "pinv", tile)
+    check_grid(b, n, plan.tile)
     out = torch.empty((b, n), dtype=c.dtype, device=c.device)
     gh, hh = host_taps(g, h)
-    lib = _lib()
-    code = lib.jw_modwpt_inv(
-        c.data_ptr(), out.data_ptr(), b, n, level, gh.ctypes.data,
-        hh.ctypes.data, m, tile, halo(m, level),
-        smem_bytes(level, m, "pinv"), DTYPE_CODES[c.dtype], c.device.index,
-        torch.cuda.current_stream(c.device).cuda_stream)
-    _build.check(lib, code, "MODWPT inverse kernel")
+    launch("jw_modwpt_inv", "MODWPT inverse kernel", c.device, c.data_ptr(),
+           out.data_ptr(), b, n, level, gh.ctypes.data, hh.ctypes.data,
+           len(g), *plan, DTYPE_CODES[c.dtype])
     return out
 
 
@@ -224,10 +201,9 @@ def modwpt_select_op(x: torch.Tensor, g: list[float], h: list[float],
     the position's int32 bits and w.  The tile plan, the tiles' keys and
     the ticket buffer are taken here, from the concrete batch; one launch
     and nothing else on the stream."""
-    _check_pfwd(x, g, h, level, "select", "MODWPT select", traced=False)
+    check_operand(x, "x", 2)
     b, n = x.shape
-    m = len(g)
-    plan = select_plan(b, n, level, m)
+    plan = select_plan(b, n, level, check_taps(g, h))
     nodes = 1 << level
     # each tile's best per leaf as a 64-bit key; the rows' (|w|, position
     # bits, w)
@@ -236,12 +212,10 @@ def modwpt_select_op(x: torch.Tensor, g: list[float], h: list[float],
     out = torch.empty((3, nodes, b), dtype=torch.float32, device=x.device)
     gh, hh = host_taps(g, h)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    lib = _lib()
-    code = lib.jw_modwpt_select(
-        x.data_ptr(), partial.data_ptr(), tickets(x.device, stream, b),
-        out.data_ptr(), b, n, level, gh.ctypes.data, hh.ctypes.data, m,
-        plan.tile, plan.smem, DTYPE_CODES[x.dtype], x.device.index, stream)
-    _build.check(lib, code, "MODWPT select kernel")
+    launch("jw_modwpt_select", "MODWPT select kernel", x.device,
+           x.data_ptr(), partial.data_ptr(), tickets(x.device, stream, b),
+           out.data_ptr(), b, n, level, gh.ctypes.data, hh.ctypes.data,
+           len(g), plan.tile, plan.smem, DTYPE_CODES[x.dtype], stream=stream)
     return out
 
 
@@ -280,71 +254,55 @@ def modwpt_select_fused(x: torch.Tensor, wavelet: DiscreteWavelet,
     tensor runs the plain version."""
     if x.ndim != 2:
         raise ValueError(f"fused select takes (B, N), got {tuple(x.shape)}")
-    n = x.shape[-1]
-    _check_level(n, level)
-    _require(n, level, wavelet.length, "select", x.shape, "fused select")
+    _check_level(x.shape[-1], level)
+    check_fused(x, "select", level, wavelet.length, "fused select")
     if x.is_cuda:
         return modwpt_select_cuda(x.contiguous(), wavelet, level)
-    if x.device.type != "cpu":
-        raise ValueError(f"no select kernel for device {x.device}")
     return modwpt_select_plain(x, wavelet, level)
 
 
-def _modwpt_fused_impl(x: torch.Tensor, wavelet: DiscreteWavelet,
-                       level: int) -> torch.Tensor:
-    if x.ndim not in (1, 2):
-        raise ValueError(f"fused MODWPT takes (N,) or (B, N), got "
-                         f"{tuple(x.shape)}")
-    n = x.shape[-1]
-    _check_level(n, level)
-    _require(n, level, wavelet.length, "pfwd", x.shape, "fused MODWPT")
-    if x.is_cuda:
-        out = modwpt_fwd_cuda(x.contiguous().reshape(-1, n), wavelet, level)
-        return out.reshape((1 << level,) + tuple(x.shape))
-    if x.device.type != "cpu":
-        raise ValueError(f"no MODWPT kernel for device {x.device}")
-    return modwpt_fwd_plain(x, wavelet, level)
+def _fwd(x: torch.Tensor, wavelet: DiscreteWavelet,
+         level: int) -> torch.Tensor:
+    if not x.is_cuda:
+        return modwpt_fwd_plain(x, wavelet, level)
+    out = modwpt_fwd_cuda(x.contiguous().reshape(-1, x.shape[-1]), wavelet,
+                          level)
+    return out.reshape((1 << level,) + tuple(x.shape))
 
 
-def _imodwpt_fused_impl(c: torch.Tensor, wavelet: DiscreteWavelet
-                        ) -> torch.Tensor:
-    if c.ndim not in (2, 3):
-        raise ValueError(f"fused iMODWPT takes (2^L, N) or (2^L, B, N), got "
-                         f"{tuple(c.shape)}")
-    nodes, n = c.shape[0], c.shape[-1]
-    if nodes < 2 or nodes & (nodes - 1):
-        raise ValueError(f"leading axis must be 2^level ≥ 2 packet nodes, "
-                         f"got {nodes}")
-    _require(n, nodes.bit_length() - 1, wavelet.length, "pinv", c.shape,
-             "fused iMODWPT")
-    if c.is_cuda:
-        out = modwpt_inv_cuda(c.contiguous().reshape(nodes, -1, n), wavelet)
-        return out.reshape(tuple(c.shape[1:]))
-    if c.device.type != "cpu":
-        raise ValueError(f"no iMODWPT kernel for device {c.device}")
-    return modwpt_inv_plain(c, wavelet)
+def _inv(c: torch.Tensor, wavelet: DiscreteWavelet) -> torch.Tensor:
+    if not c.is_cuda:
+        return modwpt_inv_plain(c, wavelet)
+    out = modwpt_inv_cuda(c.contiguous().reshape(c.shape[0], -1,
+                                                 c.shape[-1]), wavelet)
+    return out.reshape(tuple(c.shape[1:]))
 
 
-class _ModwptFused(torch.autograd.Function):
+class ModwptFused(torch.autograd.Function):
+    """The packet forward kernel (the plain version off the card) with the
+    inverse as its backward, unchecked: for a caller that has checked the
+    shape, as :func:`modwpt_fused` and ``ops/modwpt.py:_try_kernel`` do."""
     @staticmethod
     def forward(ctx, x, wavelet, level):
         ctx.wavelet = wavelet
-        return _modwpt_fused_impl(x, wavelet, level)
+        return _fwd(x, wavelet, level)
 
     @staticmethod
     def backward(ctx, cot):
-        return _imodwpt_fused_impl(cot, ctx.wavelet), None, None
+        return _inv(cot, ctx.wavelet), None, None
 
 
-class _ImodwptFused(torch.autograd.Function):
+class ImodwptFused(torch.autograd.Function):
+    """The packet inverse kernel with the forward as its backward,
+    unchecked, as :class:`ModwptFused`."""
     @staticmethod
     def forward(ctx, c, wavelet):
         ctx.wavelet, ctx.level = wavelet, c.shape[0].bit_length() - 1
-        return _imodwpt_fused_impl(c, wavelet)
+        return _inv(c, wavelet)
 
     @staticmethod
     def backward(ctx, cot):
-        return _modwpt_fused_impl(cot, ctx.wavelet, ctx.level), None
+        return _fwd(cot, ctx.wavelet, ctx.level), None
 
 
 def modwpt_fused(x: torch.Tensor, wavelet: DiscreteWavelet,
@@ -355,10 +313,20 @@ def modwpt_fused(x: torch.Tensor, wavelet: DiscreteWavelet,
     A CUDA tensor runs the kernel or raises; a CPU tensor runs the plain
     version.  Raises for shapes :func:`kernel_supported` rejects.
     """
-    return _ModwptFused.apply(x, wavelet, level)
+    if x.ndim not in (1, 2):
+        raise ValueError(f"fused MODWPT takes (N,) or (B, N), got "
+                         f"{tuple(x.shape)}")
+    _check_level(x.shape[-1], level)
+    check_fused(x, "pfwd", level, wavelet.length, "fused MODWPT")
+    return ModwptFused.apply(x, wavelet, level)
 
 
 def imodwpt_fused(c: torch.Tensor, wavelet: DiscreteWavelet) -> torch.Tensor:
     """Fused inverse MODWPT: (2^level, B, N) → (B, N), (2^level, N) → (N,);
     differentiable (the backward is the forward kernel)."""
-    return _ImodwptFused.apply(c, wavelet)
+    if c.ndim not in (2, 3):
+        raise ValueError(f"fused iMODWPT takes (2^L, N) or (2^L, B, N), got "
+                         f"{tuple(c.shape)}")
+    level = _packet_level(c, "leading axis must be")
+    check_fused(c, "pinv", level, wavelet.length, "fused iMODWPT")
+    return ImodwptFused.apply(c, wavelet)

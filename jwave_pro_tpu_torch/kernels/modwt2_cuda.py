@@ -36,7 +36,7 @@ L4, Symlet 8 to L3, Haar to L7), the denoise every (M, L) whose strip has
 
 Beside each kernel: its plain PyTorch version (``modwt2_fwd_plain``,
 ``modwt2_inv_plain``, ``modwt2_denoise_plain``) and a launch count
-(``modwt_cuda.LAUNCHES["<op>"]``).  Each launch is an operator
+(``_launch.LAUNCHES["<op>"]``).  Each launch is an operator
 (``jwave::modwt2_fwd``, ``jwave::modwt2_inv``, ``jwave::modwt2_denoise``)
 that plans its grid from the concrete batch.  bfloat16 is read and written as
 bfloat16 and computed in float32.  Not differentiable: the JAX kernels have
@@ -54,10 +54,12 @@ from ..ops.denoise import hard_threshold, soft_threshold
 from ..ops.modwt2d import _check_nd, _imodwt2_direct, _modwt2_direct
 from ..wavelets.base import DiscreteWavelet
 from . import _build
-from .modwt_cuda import (
-    _I, _P, DTYPE_CODES, MAX_TAPS, SMEM_LIMIT, _compute_dtype, check_operand,
-    check_taps, halo, host_taps, op_taps, kernel_op,
+from ._launch import (
+    DTYPE_CODES, MAX_TAPS, SMEM_LIMIT, check_device, check_operand,
+    check_taps, check_threshold, compute_dtype, host_taps, kernel_op, launch,
+    op_taps,
 )
+from .modwt_cuda import halo
 
 __all__ = [
     "modwt2_fused", "imodwt2_fused", "modwt2_denoise_fused",
@@ -212,7 +214,7 @@ def modwt2_fwd_plain(x: torch.Tensor, wavelet: DiscreteWavelet,
     """The forward kernel's function in plain PyTorch: ``(..., R, C)`` →
     ``(3·level+1, ..., R, C)``, computed in float32 (float64 for float64
     input) and returned in ``x``'s dtype."""
-    cdt = _compute_dtype(x.dtype)
+    cdt = compute_dtype(x.dtype)
     return _modwt2_direct(x.to(cdt), wavelet, level).to(x.dtype)
 
 
@@ -220,7 +222,7 @@ def modwt2_inv_plain(c: torch.Tensor, wavelet: DiscreteWavelet
                      ) -> torch.Tensor:
     """The inverse kernel's function in plain PyTorch: ``(3·level+1, ...,
     R, C)`` → ``(..., R, C)``, computed like :func:`modwt2_fwd_plain`."""
-    cdt = _compute_dtype(c.dtype)
+    cdt = compute_dtype(c.dtype)
     return _imodwt2_direct(c.to(cdt), wavelet).to(c.dtype)
 
 
@@ -231,7 +233,7 @@ def modwt2_denoise_plain(x: torch.Tensor, threshold: torch.Tensor,
     threshold (B,) → (B, R, C).  Every detail band is shrunk by its image's
     threshold, LL kept; the chain runs in float32 (float64 for float64
     input) and rounds to ``x``'s dtype once, at the end."""
-    cdt = _compute_dtype(x.dtype)
+    cdt = compute_dtype(x.dtype)
     c = _modwt2_direct(x.to(cdt), wavelet, level)
     shrink = soft_threshold if mode == "soft" else hard_threshold
     thr = threshold.to(dtype=cdt, device=x.device)[:, None, None]
@@ -244,25 +246,10 @@ def modwt2_denoise_plain(x: torch.Tensor, threshold: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 @functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = _build.library()
-    for fn in (lib.jw_modwt2_fwd, lib.jw_modwt2_inv):
-        fn.argtypes = [_P, _P, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I,
-                       _I, _I, _P]
-        fn.restype = _I
-    lib.jw_modwt2_denoise.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
-                                      _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]
-    lib.jw_modwt2_denoise.restype = _I
-    lib.jw_modwt2_blocks.argtypes = [_I, _I, _I, _I, _I, _P]
-    lib.jw_modwt2_blocks.restype = _I
-    return lib
-
-
-@functools.cache
 def _resident_blocks(kind: str, smem: int, m: int, dtype: int,
                      device: int) -> int:
     """Blocks of 2D kernel ``kind`` the card holds at once."""
-    lib = _lib()
+    lib = _build.library()
     blocks = ctypes.c_int(0)
     code = lib.jw_modwt2_blocks(KINDS2[kind], smem, m, dtype, device,
                                 ctypes.addressof(blocks))
@@ -290,33 +277,29 @@ def transform2_launch_plan(shape, level: int, m: int, kind: str,
     return w, grp, tc, run, min(b * -(-r // run) * -(-c // tc), blocks)
 
 
-def _check_transform(kind: str, a: torch.Tensor, shape: tuple, level: int,
-                     g, h) -> None:
-    what = "2D forward" if kind == "fwd" else "2D inverse"
+_WHAT2 = {"fwd": "2D forward", "inv": "2D inverse"}
+
+
+def _check_transform(kind: str, shape: tuple, level: int, g, h) -> None:
     if not kernel2d_supported(shape[1], shape[2], level, check_taps(g, h),
                               kind):
         raise ValueError(f"unsupported shape {tuple(shape)} level {level} "
-                         f"for the {what} kernel")
+                         f"for the {_WHAT2[kind]} kernel")
 
 
 def _launch_transform(kind: str, a: torch.Tensor, shape: tuple, level: int,
                       g, h) -> torch.Tensor:
     """Launch the forward or inverse kernel on ``a`` over (B, R, C) images
     of ``shape``; returns its new output."""
-    m = len(g)
-    what = "2D forward" if kind == "fwd" else "2D inverse"
-    w, grp, tc, run, grid = transform2_launch_plan(shape, level, m, kind,
+    w, grp, tc, run, grid = transform2_launch_plan(shape, level, len(g), kind,
                                                    a.dtype, a.device)
     out = torch.empty((3 * level + 1,) + shape if kind == "fwd" else shape,
                       dtype=a.dtype, device=a.device)
     gh, hh = host_taps(g, h)
-    lib = _lib()
-    launch = lib.jw_modwt2_fwd if kind == "fwd" else lib.jw_modwt2_inv
-    code = launch(a.data_ptr(), out.data_ptr(), grid, *shape, level,
-                  gh.ctypes.data, hh.ctypes.data, m, w, grp, tc, run,
-                  DTYPE_CODES[a.dtype], a.device.index,
-                  torch.cuda.current_stream(a.device).cuda_stream)
-    _build.check(lib, code, f"{what} kernel")
+    launch("jw_modwt2_fwd" if kind == "fwd" else "jw_modwt2_inv",
+           f"{_WHAT2[kind]} kernel", a.device, a.data_ptr(), out.data_ptr(),
+           grid, *shape, level, gh.ctypes.data, hh.ctypes.data, len(g), w,
+           grp, tc, run, DTYPE_CODES[a.dtype])
     return out
 
 
@@ -327,15 +310,14 @@ def modwt2_fwd_op(x: torch.Tensor, g: list[float], h: list[float],
     modwt2_fwd``): x (B, R, C) → (3·level+1, B, R, C).  The launch plan
     (grid, strips, row runs) is made here, from the concrete batch."""
     check_operand(x, "x", 3)
-    _check_transform("fwd", x, tuple(x.shape), level, g, h)
-    out = _launch_transform("fwd", x, tuple(x.shape), level, g, h)
-    return out
+    _check_transform("fwd", tuple(x.shape), level, g, h)
+    return _launch_transform("fwd", x, tuple(x.shape), level, g, h)
 
 
 @modwt2_fwd_op.register_fake
 def _(x, g, h, level):
     check_operand(x, "x", 3, traced=True)
-    _check_transform("fwd", x, tuple(x.shape), level, g, h)
+    _check_transform("fwd", tuple(x.shape), level, g, h)
     return x.new_empty((3 * level + 1,) + tuple(x.shape))
 
 
@@ -352,7 +334,7 @@ def _check_inv2(c: torch.Tensor, g, h, traced: bool) -> int:
     if rows % 3 != 1:
         raise ValueError(f"coeffs: need 3·level+1 bands, got {rows}")
     level = (rows - 1) // 3
-    _check_transform("inv", c, tuple(c.shape[1:]), level, g, h)
+    _check_transform("inv", tuple(c.shape[1:]), level, g, h)
     return level
 
 
@@ -362,8 +344,7 @@ def modwt2_inv_op(c: torch.Tensor, g: list[float], h: list[float]
     """The inverse kernel's launch as an operator (``torch.ops.jwave.
     modwt2_inv``): c (3·level+1, B, R, C) → (B, R, C)."""
     level = _check_inv2(c, g, h, False)
-    out = _launch_transform("inv", c, tuple(c.shape[1:]), level, g, h)
-    return out
+    return _launch_transform("inv", c, tuple(c.shape[1:]), level, g, h)
 
 
 @modwt2_inv_op.register_fake
@@ -382,12 +363,7 @@ def modwt2_inv_cuda(c: torch.Tensor, wavelet: DiscreteWavelet
 def _check_denoise2(x: torch.Tensor, threshold: torch.Tensor, g, h,
                     level: int, traced: bool) -> None:
     check_operand(x, "x", 3, traced)
-    if (threshold.dtype != torch.float32 or threshold.ndim != 1
-            or not traced and (threshold.shape[0] != x.shape[0]
-                               or threshold.device != x.device
-                               or not threshold.is_contiguous())):
-        raise ValueError("threshold: kernel needs a contiguous (B,) float32 "
-                         "tensor on x's device")
+    check_threshold(threshold, x, traced)
     if not kernel2d_supported(x.shape[1], x.shape[2], level,
                               check_taps(g, h), "denoise"):
         raise ValueError(f"unsupported shape {tuple(x.shape)} level {level} "
@@ -416,13 +392,10 @@ def modwt2_denoise_op(x: torch.Tensor, threshold: torch.Tensor,
         dtype=torch.float32, device=x.device)
     out = torch.empty_like(x)
     gh, hh = host_taps(g, h)
-    lib = _lib()
-    code = lib.jw_modwt2_denoise(
-        x.data_ptr(), threshold.data_ptr(), out.data_ptr(),
-        scratch.data_ptr(), grid, b, r, c, level, gh.ctypes.data,
-        hh.ctypes.data, m, w, grp, tc, run, int(hard), dtype,
-        x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(lib, code, "2D denoise kernel")
+    launch("jw_modwt2_denoise", "2D denoise kernel", x.device, x.data_ptr(),
+           threshold.data_ptr(), out.data_ptr(), scratch.data_ptr(), grid, b,
+           r, c, level, gh.ctypes.data, hh.ctypes.data, m, w, grp, tc, run,
+           int(hard), dtype)
     return out
 
 
@@ -445,15 +418,6 @@ def modwt2_denoise_cuda(x: torch.Tensor, threshold: torch.Tensor,
 # Dispatch by device
 # ---------------------------------------------------------------------------
 
-def _check_device(a: torch.Tensor, what: str) -> None:
-    if a.is_cuda:
-        if a.requires_grad and torch.is_grad_enabled():
-            raise ValueError(f"the {what} kernel has no backward; use "
-                             f"method='direct' for a differentiable call")
-    elif a.device.type != "cpu":
-        raise ValueError(f"no {what} kernel for device {a.device}")
-
-
 def modwt2_fused(x: torch.Tensor, wavelet: DiscreteWavelet,
                  level: int) -> torch.Tensor:
     """Fused forward 2D MODWT: (B, R, C) → (3·level+1, B, R, C), (R, C) →
@@ -470,7 +434,7 @@ def modwt2_fused(x: torch.Tensor, wavelet: DiscreteWavelet,
     if not kernel2d_supported(r, c, level, wavelet.length, "fwd"):
         raise ValueError(f"unsupported shape {tuple(x.shape)} level {level} "
                          f"for fused 2D MODWT")
-    _check_device(x, "2D forward")
+    check_device(x, "2D forward")
     if x.is_cuda:
         out = modwt2_fwd_cuda(x.contiguous().reshape(-1, r, c), wavelet,
                               level)
@@ -489,7 +453,7 @@ def imodwt2_fused(c: torch.Tensor, wavelet: DiscreteWavelet) -> torch.Tensor:
     if not kernel2d_supported(r, cols, level, wavelet.length, "inv"):
         raise ValueError(f"unsupported shape {tuple(c.shape)} for fused 2D "
                          f"iMODWT")
-    _check_device(c, "2D inverse")
+    check_device(c, "2D inverse")
     if c.is_cuda:
         out = modwt2_inv_cuda(c.contiguous().reshape(c.shape[0], -1, r, cols),
                               wavelet)
@@ -518,7 +482,7 @@ def modwt2_denoise_fused(x: torch.Tensor, threshold: torch.Tensor,
     if not kernel2d_supported(r, c, level, wavelet.length, "denoise"):
         raise ValueError(f"unsupported shape {tuple(x.shape)} level {level} "
                          f"for fused 2D denoise")
-    _check_device(x, "2D denoise")
+    check_device(x, "2D denoise")
     xb = x.reshape(-1, r, c)
     if x.is_cuda:
         out = modwt2_denoise_cuda(xb.contiguous(), threshold, wavelet, level,

@@ -40,7 +40,7 @@ Db4 to L2, Haar to L5, Symlet 8 at L1.  Deeper levels and longer filters
 take the plain path under ``method='auto'`` and raise under ``'pallas'``.
 
 Beside each kernel: its plain PyTorch version (``modwt3_fwd_plain``,
-``modwt3_inv_plain``) and a launch count (``modwt_cuda.LAUNCHES["<op>"]``,
+``modwt3_inv_plain``) and a launch count (``_launch.LAUNCHES["<op>"]``,
 one a call).  Each call is an operator (``jwave::modwt3_fwd``,
 ``jwave::modwt3_inv``) that plans its depth runs from the concrete batch.
 bfloat16 is read and written as bfloat16 and computed in float32
@@ -50,7 +50,6 @@ that requires a gradient to the plain path.
 """
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import numpy as np
@@ -58,11 +57,10 @@ import torch
 
 from ..ops.modwt2d import _check_nd, _imodwt3_direct, _modwt3_direct
 from ..wavelets.base import DiscreteWavelet
-from . import _build
-from .modwt2_cuda import _check_device
-from .modwt_cuda import (
-    _I, _P, DTYPE_CODES, MAX_TAPS, SMEM_LIMIT, _compute_dtype, check_operand,
-    check_taps, host_taps, op_taps, kernel_op,
+from ._launch import (
+    DTYPE_CODES, MAX_TAPS, SMEM_LIMIT, check_device, check_operand,
+    check_taps, compute_dtype, host_taps, kernel_op, launch, op_taps,
+    sm_count,
 )
 
 __all__ = [
@@ -188,7 +186,7 @@ def modwt3_fwd_plain(x: torch.Tensor, wavelet: DiscreteWavelet,
     """The forward kernel's function in plain PyTorch: ``(..., D, R, C)``
     → ``(7·level+1, ..., D, R, C)``, computed in float32 (float64 for
     float64 input) and returned in ``x``'s dtype."""
-    cdt = _compute_dtype(x.dtype)
+    cdt = compute_dtype(x.dtype)
     return _modwt3_direct(x.to(cdt), wavelet, level).to(x.dtype)
 
 
@@ -197,24 +195,13 @@ def modwt3_inv_plain(c: torch.Tensor, wavelet: DiscreteWavelet
     """The inverse kernel's function in plain PyTorch: ``(7·level+1, ...,
     D, R, C)`` → ``(..., D, R, C)``, computed like
     :func:`modwt3_fwd_plain`."""
-    cdt = _compute_dtype(c.dtype)
+    cdt = compute_dtype(c.dtype)
     return _imodwt3_direct(c.to(cdt), wavelet).to(c.dtype)
 
 
 # ---------------------------------------------------------------------------
 # Kernel launchers (CUDA tensors only)
 # ---------------------------------------------------------------------------
-
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = _build.library()
-    lib.jw_modwt3_fwd.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _I,
-                                  _P, _P, _I, _I, _P]
-    lib.jw_modwt3_inv.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _I,
-                                  _P, _I, _I, _P]
-    lib.jw_modwt3_fwd.restype = lib.jw_modwt3_inv.restype = _I
-    return lib
-
 
 def _scratch(src: torch.Tensor, shape, level: int) -> torch.Tensor:
     """LLL between levels: min(L−1, 2) f32 volumes (ping-pong)."""
@@ -241,20 +228,17 @@ def modwt3_fwd_op(x: torch.Tensor, g: list[float], h: list[float],
     m = len(g)
     out = torch.empty((7 * level + 1,) + tuple(x.shape), dtype=x.dtype,
                       device=x.device)
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    sms = sm_count(x.device.index)
     halos = [level_halo(m, j) for j in range(1, level + 1)]
     tr = np.array([fwd3_rows(hl, m) for hl in halos], dtype=np.int32)
     dc = np.array([fwd3_depth_run(b, d, r, c, hl, m, sms) for hl in halos],
                   dtype=np.int32)
     scratch = _scratch(x, x.shape, level)
     gh, hh = host_taps(g, h)
-    lib = _lib()
-    code = lib.jw_modwt3_fwd(
-        x.data_ptr(), out.data_ptr(), scratch.data_ptr(), b, d, r, c,
-        level, gh.ctypes.data, hh.ctypes.data, m, tr.ctypes.data,
-        dc.ctypes.data, DTYPE_CODES[x.dtype], x.device.index,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(lib, code, "3D forward kernel")
+    launch("jw_modwt3_fwd", "3D forward kernel", x.device, x.data_ptr(),
+           out.data_ptr(), scratch.data_ptr(), b, d, r, c, level,
+           gh.ctypes.data, hh.ctypes.data, m, tr.ctypes.data, dc.ctypes.data,
+           DTYPE_CODES[x.dtype])
     return out
 
 
@@ -292,18 +276,15 @@ def modwt3_inv_op(c: torch.Tensor, g: list[float], h: list[float]
     b, d, r, cols = c.shape[1:]
     m = len(g)
     out = torch.empty(tuple(c.shape[1:]), dtype=c.dtype, device=c.device)
-    sms = torch.cuda.get_device_properties(c.device).multi_processor_count
+    sms = sm_count(c.device.index)
     dc = np.array([inv3_depth_run(b, d, r, cols, level_halo(m, j), m, sms)
                    for j in range(1, level + 1)], dtype=np.int32)
     scratch = _scratch(c, c.shape[1:], level)
     gh, hh = host_taps(g, h)
-    lib = _lib()
-    code = lib.jw_modwt3_inv(
-        c.data_ptr(), out.data_ptr(), scratch.data_ptr(), b, d, r, cols,
-        level, gh.ctypes.data, hh.ctypes.data, m, dc.ctypes.data,
-        DTYPE_CODES[c.dtype], c.device.index,
-        torch.cuda.current_stream(c.device).cuda_stream)
-    _build.check(lib, code, "3D inverse kernel")
+    launch("jw_modwt3_inv", "3D inverse kernel", c.device, c.data_ptr(),
+           out.data_ptr(), scratch.data_ptr(), b, d, r, cols, level,
+           gh.ctypes.data, hh.ctypes.data, m, dc.ctypes.data,
+           DTYPE_CODES[c.dtype])
     return out
 
 
@@ -340,7 +321,7 @@ def modwt3_fused(x: torch.Tensor, wavelet: DiscreteWavelet,
     if not kernel3d_supported(d, r, c, level, wavelet.length, "fwd"):
         raise ValueError(f"unsupported shape {tuple(x.shape)} level {level} "
                          f"for fused 3D MODWT")
-    _check_device(x, "3D forward")
+    check_device(x, "3D forward")
     if x.is_cuda:
         out = modwt3_fwd_cuda(x.contiguous().reshape(-1, d, r, c), wavelet,
                               level)
@@ -359,7 +340,7 @@ def imodwt3_fused(c: torch.Tensor, wavelet: DiscreteWavelet) -> torch.Tensor:
     if not kernel3d_supported(d, r, cols, level, wavelet.length, "inv"):
         raise ValueError(f"unsupported shape {tuple(c.shape)} for fused 3D "
                          f"iMODWT")
-    _check_device(c, "3D inverse")
+    check_device(c, "3D inverse")
     if c.is_cuda:
         out = modwt3_inv_cuda(
             c.contiguous().reshape(c.shape[0], -1, d, r, cols), wavelet)

@@ -37,49 +37,47 @@ that context in one ring hop and makes one launch.
 Beside each kernel: its plain PyTorch version (``modwt_fwd_plain``,
 ``modwt_fwd_ctx_plain``, ``modwt_inv_plain``, ``modwt_inv_shrink_plain``),
 which the CPU path runs and the chip smoke compares against, and a launch
-count (``LAUNCHES["modwt_fwd"]``, ``LAUNCHES["modwt_fwd_ctx"]``,
-``LAUNCHES["modwt_inv"]``, ``LAUNCHES["modwt_inv_shrink"]``).  Each launch
+count (``_launch.LAUNCHES["modwt_fwd"]`` and the others).  Each launch
 is a ``torch.library`` operator (``jwave::modwt_fwd``,
-``jwave::modwt_inv``) whose taps travel as float
-lists (:func:`op_taps`) and whose grid is planned at launch, so a
+``jwave::modwt_inv``, :func:`_launch.kernel_op`) whose taps travel as float
+lists (:func:`_launch.op_taps`) and whose grid is planned at launch, so a
 batch-polymorphic ``torch.export`` records the launch and the served graph
-runs the kernel; its fake gives the output's shape.  bfloat16 tensors are
-read and written as bfloat16 and computed in float32, in the kernels and
-their plain versions alike.  The autograd pair (:func:`modwt_fused`,
-:func:`imodwt_fused`) rests on Aᵀ = A⁻¹ for the analysis operator A: each
-direction's backward is the other kernel.
+runs the kernel; its fake gives the output's shape.  The 1D kernels'
+shared-memory plan lives here too (:func:`kernel_plan`, computed once a
+kind, level and filter length), which the packet, variance and denoise
+kernels share.  bfloat16 tensors are read and written as bfloat16 and
+computed in float32, in the kernels and their plain versions alike.  The
+autograd pair (:class:`ModwtFused`, :class:`ImodwtFused`, checked by
+:func:`modwt_fused` and :func:`imodwt_fused`) rests on Aᵀ = A⁻¹ for the
+analysis operator A: each direction's backward is the other kernel.
 """
 from __future__ import annotations
 
-import collections
-import ctypes
 import functools
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
 from ..ops.modwt import (
     _check_level, _combined_adjoint, _conv_channels, modwt_base_filters,
     taps_as,
 )
-from ..utils.device import tracing
-from ..utils.profiling import spanned
 from ..wavelets.base import DiscreteWavelet
-from . import _build
+from ._launch import (
+    DTYPE_CODES, MAX_TAPS, SMEM_LIMIT, check_grid, check_operand, check_taps,
+    compute_dtype, host_taps, kernel_op, launch, op_taps,
+)
 
 __all__ = [
-    "modwt_fused", "imodwt_fused", "kernel_supported",
+    "modwt_fused", "imodwt_fused", "ModwtFused", "ImodwtFused",
+    "kernel_supported", "kernel_plan", "KernelPlan", "require_plan", "check_fused",
     "modwt_fwd_cuda", "modwt_inv_cuda", "modwt_fwd_plain", "modwt_inv_plain",
     "modwt_fwd_ctx_cuda", "modwt_fwd_ctx_plain", "modwt_shard",
     "modwt_inv_shrink_cuda", "modwt_inv_shrink_plain",
     "modwt_fwd_op", "modwt_fwd_ctx_op", "modwt_inv_op", "modwt_inv_shrink_op",
-    "op_taps", "kernel_op", "LAUNCHES",
 ]
 
-MAX_TAPS = 64                 # JW_MAX_TAPS in csrc/common.cuh
 WARPS = 512 // 32             # JW_THREADS / 32 in csrc/common.cuh
-SMEM_LIMIT = 232_448          # shared memory one H100 block may use (227 KB)
 # outputs per block; the packet kernels ('pfwd', 'select', 'pinv') keep
 # 2L - 1 or 2L window rows, hence the smaller tile of two (the select's and
 # both forwards' are cut where their rows do not fit: :func:`tile_of`)
@@ -104,9 +102,6 @@ SLICES = {"fwd": FWD_SLICE, "pfwd": PFWD_SLICE}
 # runs only where that leaves this much, i.e. where its halo fits beside a
 # full tile in two rows without the slice
 FWD_MIN_TILE = TILES["fwd"] - FWD_SLICE // 2
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}   # JwDtype
-
-_P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 def halo(m: int, level: int) -> int:
@@ -164,6 +159,40 @@ def smem_bytes(level: int, m: int, kind: str, tile: int | None = None,
     return 4 * (2 * MAX_TAPS + rows)
 
 
+class KernelPlan(NamedTuple):
+    """One block of 1D kernel ``kind`` at a level and filter length:
+    ``tile`` outputs, the ``halo`` of context, ``smem`` bytes of dynamic
+    shared memory (:func:`tile_of`, :func:`halo`, :func:`smem_bytes`)."""
+    tile: int
+    halo: int
+    smem: int
+
+
+def kernel_plan(kind: str, level: int, m: int) -> KernelPlan | None:
+    """Kernel ``kind``'s plan at this level and filter length, computed
+    once; None where it does not run (:func:`kernel_supported`).  A
+    symbolic level (an operator's fake under a dynamic-shape trace) keys
+    no cache: its plan is computed each time."""
+    plan = _plan if isinstance(level, int) else _plan.__wrapped__
+    return plan(kind, level, m)
+
+
+@functools.lru_cache(maxsize=1024)
+def _plan(kind: str, level: int, m: int) -> KernelPlan | None:
+    if not (level >= 1 and 1 <= m <= MAX_TAPS):
+        return None
+    h = halo(m, level)
+    if kind in ("pfwd", "pinv"):
+        rows = 2 * level - (kind == "pfwd")
+        if 4 * (2 * MAX_TAPS + rows * (TILES[kind] + h)) > SMEM_LIMIT:
+            return None
+    tile = tile_of(kind, level, m)
+    if tile < (FWD_MIN_TILE if kind == "fwd" else 1):
+        return None
+    smem = smem_bytes(level, m, kind, tile)
+    return KernelPlan(tile, h, smem) if smem <= SMEM_LIMIT else None
+
+
 def kernel_supported(n: int, level: int, m: int, kind: str) -> bool:
     """Whether kernel ``kind`` runs this shape: 'fwd', 'inv', 'denoise',
     'var' (MODWT), 'pfwd', 'select', 'pinv' (MODWPT).
@@ -175,29 +204,44 @@ def kernel_supported(n: int, level: int, m: int, kind: str) -> bool:
     halo does not fit).  The forwards' staging slices come out of their
     tiles, not their gates: 'fwd' runs where its halo fits beside a
     ``FWD_MIN_TILE`` tile, and 'pfwd' and 'pinv' where their 2L − 1 and 2L
-    rows fit at the full 2048-sample tile.
+    rows fit at the full 2048-sample tile.  Reads :func:`kernel_plan`.
     """
-    if not (1 <= n < 2 ** 31 and level >= 1 and 1 <= m <= MAX_TAPS):
-        return False
-    if kind in ("pfwd", "pinv"):
-        rows = 2 * level - (kind == "pfwd")
-        if 4 * (2 * MAX_TAPS + rows * (TILES[kind] + halo(m, level))
-                ) > SMEM_LIMIT:
-            return False
-    return (tile_of(kind, level, m) >= (FWD_MIN_TILE if kind == "fwd"
-                                        else 1)
-            and smem_bytes(level, m, kind) <= SMEM_LIMIT)
+    return 1 <= n < 2 ** 31 and kernel_plan(kind, level, m) is not None
 
 
-@functools.lru_cache(maxsize=64)
-def kernel_taps(wavelet: DiscreteWavelet):
-    """(g̃, h̃) as contiguous float32 host arrays, as the kernels take them."""
-    return tuple(np.ascontiguousarray(f, dtype=np.float32)
-                 for f in modwt_base_filters(wavelet))
+def require_plan(kind: str, n: int, level: int, m: int, shape,
+                 what: str) -> KernelPlan:
+    """:func:`kernel_plan` of a shape :func:`kernel_supported` admits;
+    raise for any other, naming the ``what`` kernel."""
+    plan = kernel_plan(kind, level, m)
+    if plan is None or not 1 <= n < 2 ** 31:
+        raise ValueError(f"unsupported shape {tuple(shape)} level {level} "
+                         f"for the {what} kernel")
+    return plan
 
 
-def _compute_dtype(dtype: torch.dtype) -> torch.dtype:
-    return torch.float64 if dtype == torch.float64 else torch.float32
+class TilePlan(NamedTuple):
+    """Launch geometry of a kernel that finishes its reduction over a row's
+    tiles inside the launch ('var', 'select'): ``tile`` outputs a block,
+    ``ntiles`` tiles a row, ``grid`` blocks (B × ntiles), ``smem`` bytes of
+    shared memory a block, ``chain`` outputs in a thread's register chain."""
+    tile: int
+    ntiles: int
+    grid: int
+    smem: int
+    chain: int
+
+
+@functools.lru_cache(maxsize=256)
+def tile_plan(kind: str, batch: int, n: int, level: int, m: int
+              ) -> TilePlan:
+    """Kernel ``kind``'s launch for (B, N) at this level and filter length
+    (:func:`kernel_plan`); raises where :func:`kernel_supported` rejects the
+    shape."""
+    plan = require_plan(kind, n, level, m, (batch, n), f"'{kind}'")
+    check_grid(batch, n, plan.tile)
+    ntiles = -(-n // plan.tile)
+    return TilePlan(plan.tile, ntiles, batch * ntiles, plan.smem, CHAIN[kind])
 
 
 # ---------------------------------------------------------------------------
@@ -209,7 +253,7 @@ def modwt_fwd_plain(x: torch.Tensor, wavelet: DiscreteWavelet,
     """The forward kernel's function in plain PyTorch: ``(..., N)`` →
     ``(level+1, ..., N)``, computed in float32 (float64 for float64 input)
     and returned in ``x``'s dtype."""
-    cdt = _compute_dtype(x.dtype)
+    cdt = compute_dtype(x.dtype)
     g, h = (taps_as(f, cdt) for f in modwt_base_filters(wavelet))
     v = x.to(cdt)
     rows = []
@@ -254,7 +298,7 @@ def modwt_fwd_ctx_plain(x: torch.Tensor, ctx: torch.Tensor,
         raise ValueError(f"context {tuple(ctx.shape)} for a shard "
                          f"{tuple(x.shape)} at level {level}: need "
                          f"(..., {halo(m, level)})")
-    cdt = x.dtype if x.is_complex() else _compute_dtype(x.dtype)
+    cdt = x.dtype if x.is_complex() else compute_dtype(x.dtype)
     g, h = (taps_as(f, cdt.to_real()) for f in modwt_base_filters(wavelet))
     v = torch.cat([ctx.to(cdt), x.to(cdt)], dim=-1)
     out = x.new_empty((level + 1,) + tuple(x.shape))
@@ -278,7 +322,7 @@ def modwt_fwd_ctx_plain(x: torch.Tensor, ctx: torch.Tensor,
 def modwt_inv_plain(c: torch.Tensor, wavelet: DiscreteWavelet) -> torch.Tensor:
     """The inverse kernel's function in plain PyTorch: ``(level+1, ..., N)``
     → ``(..., N)``, computed like :func:`modwt_fwd_plain`."""
-    cdt = _compute_dtype(c.dtype)
+    cdt = compute_dtype(c.dtype)
     g, h = (taps_as(f, cdt) for f in modwt_base_filters(wavelet))
     level = c.shape[0] - 1
     v = c[level].to(cdt)
@@ -316,184 +360,11 @@ def modwt_inv_shrink_plain(c: torch.Tensor, thr: torch.Tensor | None,
 # Kernel launchers (CUDA tensors only)
 # ---------------------------------------------------------------------------
 
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = _build.library()
-    for fn in (lib.jw_modwt_fwd, lib.jw_modwt_inv):
-        fn.argtypes = [_P, _P, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P]
-        fn.restype = _I
-    lib.jw_modwt_fwd_ctx.argtypes = [_P, _P, _P, _I, _I, _I, _P, _P, _I, _I,
-                                     _I, _I, _I, _I, _P]
-    lib.jw_modwt_fwd_ctx.restype = _I
-    lib.jw_modwt_inv_shrink.argtypes = [_P, _P, ctypes.c_float, _I, _I, _I,
-                                        _P, _I, _I, _I, _P, _P, _I, _I, _I,
-                                        _I, _I, _I, _P]
-    lib.jw_modwt_inv_shrink.restype = _I
-    return lib
-
-
-def check_operand(t: torch.Tensor, name: str, ndim: int,
-                  traced: bool = False) -> None:
-    """Raise unless ``t`` is what the kernels take.  ``traced``: the check
-    an operator's fake makes, on a traced or ``meta`` tensor, leaves out
-    the device and the strides (which may be symbolic there); the launch
-    checks both on the concrete tensor."""
-    if not (traced or t.is_cuda):
-        raise ValueError(f"{name}: kernel needs a CUDA tensor, got {t.device}")
-    if t.dtype not in DTYPE_CODES:
-        raise ValueError(f"{name}: kernel takes float32/bfloat16, got {t.dtype}")
-    if t.ndim != ndim:
-        raise ValueError(f"{name}: expected {ndim} dims, got {tuple(t.shape)}")
-    if not (traced or t.is_contiguous()):
-        raise ValueError(f"{name}: kernel needs a contiguous tensor")
-
-
-def check_grid(batch: int, n: int, kind: str, tile: int | None = None
-               ) -> None:
-    if -(-n // (tile or TILES[kind])) * batch >= 2 ** 31:
-        raise ValueError(f"{batch}×{n} exceeds the kernel grid")
-
-
-class TilePlan(NamedTuple):
-    """Launch geometry of a kernel that finishes its reduction over a row's
-    tiles inside the launch ('var', 'select'): ``tile`` outputs a block,
-    ``ntiles`` tiles a row, ``grid`` blocks (B × ntiles), ``smem`` bytes of
-    shared memory a block, ``chain`` outputs in a thread's register chain."""
-    tile: int
-    ntiles: int
-    grid: int
-    smem: int
-    chain: int
-
-
-@functools.lru_cache(maxsize=256)
-def tile_plan(kind: str, batch: int, n: int, level: int, m: int
-              ) -> TilePlan:
-    """Kernel ``kind``'s launch for (B, N) at this level and filter length
-    (:func:`tile_of`); raises where :func:`kernel_supported` rejects the
-    shape."""
-    if not kernel_supported(n, level, m, kind):
-        raise ValueError(f"unsupported shape ({batch}, {n}) level {level} "
-                         f"for the '{kind}' kernel")
-    tile = tile_of(kind, level, m)
-    check_grid(batch, n, kind, tile)
-    ntiles = -(-n // tile)
-    return TilePlan(tile, ntiles, batch * ntiles, smem_bytes(level, m, kind),
-                    CHAIN[kind])
-
-
-_ZEROED: dict = {}
-
-
-def zeroed(name: str, device: torch.device, stream: int, count: int) -> int:
-    """Address of int32 zeros that the kernels using them leave zero when
-    a launch ends: one buffer per (``name``, device, stream), at least
-    ``count`` long.  Launches on one stream run in order, and two streams
-    never share a buffer.  ``stream``: the CUDA stream handle the kernel
-    runs on (the current stream's ``cuda_stream``)."""
-    key = (name, device.index, stream)
-    buf = _ZEROED.get(key)
-    if buf is None or buf.numel() < count:
-        buf = torch.zeros(max(count, 256), dtype=torch.int32, device=device)
-        _ZEROED[key] = buf
-    return buf.data_ptr()
-
-
-def tickets(device: torch.device, stream: int, rows: int) -> int:
-    """Address of the per-row ticket counters of the kernels that finish
-    their cross-tile reduction inside the launch ('var', 'select', the
-    median): :func:`zeroed`, at least ``rows`` long.  The row's last block
-    resets its ticket."""
-    return zeroed("tickets", device, stream, rows)
-
-
-@functools.lru_cache(maxsize=64)
-def _op_taps(wavelet: DiscreteWavelet) -> tuple:
-    return tuple(tuple(f.tolist()) for f in kernel_taps(wavelet))
-
-
-def op_taps(wavelet: DiscreteWavelet) -> tuple[list[float], list[float]]:
-    """(g̃, h̃) as the kernel operators take them: the float32 taps of
-    :func:`kernel_taps` as lists of Python floats (each exact), so an
-    exported graph carries them as constants and a wavelet built from
-    custom taps exports too."""
-    return tuple(list(f) for f in _op_taps(wavelet))
-
-
-@functools.lru_cache(maxsize=64)
-def _host_taps(g: tuple, h: tuple):
-    return tuple(np.ascontiguousarray(f, dtype=np.float32) for f in (g, h))
-
-
-def host_taps(g, h):
-    """The operators' tap lists back as the contiguous float32 host arrays
-    the C entry points read (cached)."""
-    return _host_taps(tuple(g), tuple(h))
-
-
-def check_taps(g, h) -> int:
-    """Raise unless (g, h) is a filter pair the kernels take; its length."""
-    if len(g) != len(h) or not 1 <= len(g) <= MAX_TAPS:
-        raise ValueError(f"taps: need two filters of equal length in "
-                         f"[1, {MAX_TAPS}], got {len(g)} and {len(h)}")
-    return len(g)
-
-
-# The launchers' operators.  Each is defined on this library with its
-# launch as the one kernel for CPU and CUDA tensors (a CPU tensor raises in
-# the launch) and a fake.  The dispatcher's host time (a sixth of a
-# ``torch.library.custom_op``'s, ``probes/op_dispatch_probe.py``) is paid
-# only where a graph needs the operator: while torch traces, and in a
-# served graph.
-_OPS = torch.library.Library("jwave", "FRAGMENT")
-
-
-#: Kernel launches by operator name (``LAUNCHES["modwt_fwd"]``), eager and
-#: served alike: each is counted where :func:`kernel_op` launches it.
-LAUNCHES: collections.Counter = collections.Counter()
-
-
-def kernel_op(name: str):
-    """Decorator: define the operator ``jwave::<name>``, its schema the
-    decorated launch's signature, with the launch as its kernel; return
-    the launchers' entry to it.  The entry calls the operator while torch
-    traces, so the trace records one node that launches the kernel when
-    served, and the launch itself otherwise: the same kernel, without the
-    dispatcher's host time on every eager launch.  Either way the launch
-    runs inside the span ``jwave.launch.<name>`` and, once it returns,
-    counts in ``LAUNCHES[name]``.  The entry has ``register_fake``, the
-    decorator that sets the operator's fake (what ``meta`` tensors and
-    ``torch.export`` run)."""
-    def define(launch):
-        _OPS.define(name + torch.library.infer_schema(launch,
-                                                      mutates_args=()))
-        @spanned("jwave.launch." + name)
-        @functools.wraps(launch)
-        def counted(*args):
-            out = launch(*args)
-            LAUNCHES[name] += 1
-            return out
-
-        for key in ("CPU", "CUDA"):
-            _OPS.impl(name, counted, key)
-        op = getattr(torch.ops.jwave, name).default
-
-        @functools.wraps(launch)
-        def call(*args):
-            return op(*args) if tracing() else counted(*args)
-
-        call.register_fake = torch.library.register_fake(
-            f"jwave::{name}", lib=_OPS)
-        return call
-    return define
-
-
 def _check_fwd(x: torch.Tensor, g, h, level: int,
-               traced: bool = True) -> None:
+               traced: bool = True) -> KernelPlan:
     check_operand(x, "x", 2, traced)
-    if not kernel_supported(x.shape[1], level, check_taps(g, h), "fwd"):
-        raise ValueError(f"unsupported shape {tuple(x.shape)} level {level} "
-                         f"for the MODWT forward kernel")
+    return require_plan("fwd", x.shape[1], level, check_taps(g, h), x.shape,
+                        "MODWT forward")
 
 
 @kernel_op("modwt_fwd")
@@ -502,20 +373,14 @@ def modwt_fwd_op(x: torch.Tensor, g: list[float], h: list[float],
     """The forward kernel's launch as an operator (``torch.ops.jwave.
     modwt_fwd``): x (B, N) → (level+1, B, N), x's dtype.  The grid is
     planned here, from the concrete batch."""
-    _check_fwd(x, g, h, level, traced=False)
+    plan = _check_fwd(x, g, h, level, traced=False)
     b, n = x.shape
-    m = len(g)
-    tile = tile_of("fwd", level, m)
-    check_grid(b, n, "fwd", tile)
+    check_grid(b, n, plan.tile)
     out = torch.empty((level + 1, b, n), dtype=x.dtype, device=x.device)
     gh, hh = host_taps(g, h)
-    lib = _lib()
-    code = lib.jw_modwt_fwd(
-        x.data_ptr(), out.data_ptr(), b, n, level, gh.ctypes.data,
-        hh.ctypes.data, m, tile, halo(m, level),
-        smem_bytes(level, m, "fwd"), DTYPE_CODES[x.dtype], x.device.index,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(lib, code, "modwt forward kernel")
+    launch("jw_modwt_fwd", "modwt forward kernel", x.device, x.data_ptr(),
+           out.data_ptr(), b, n, level, gh.ctypes.data, hh.ctypes.data,
+           len(g), *plan, DTYPE_CODES[x.dtype])
     return out
 
 
@@ -533,13 +398,14 @@ def modwt_fwd_cuda(x: torch.Tensor, wavelet: DiscreteWavelet,
 
 
 def _check_fwd_ctx(x: torch.Tensor, ctx: torch.Tensor, g, h, level: int,
-                   traced: bool = True) -> None:
-    _check_fwd(x, g, h, level, traced)
+                   traced: bool = True) -> KernelPlan:
+    plan = _check_fwd(x, g, h, level, traced)
     check_operand(ctx, "ctx", 2, traced)
-    want = (x.shape[0], halo(len(g), level))
+    want = (x.shape[0], plan.halo)
     if tuple(ctx.shape) != want or ctx.dtype != x.dtype:
         raise ValueError(f"ctx: expected {x.dtype} {want}, got {ctx.dtype} "
                          f"{tuple(ctx.shape)}")
+    return plan
 
 
 @kernel_op("modwt_fwd_ctx")
@@ -549,20 +415,15 @@ def modwt_fwd_ctx_op(x: torch.Tensor, ctx: torch.Tensor, g: list[float],
     modwt_fwd_ctx``): a shard x (B, n) and the halo samples before each
     row's position 0, ctx (B, halo(M, level)) → (level+1, B, n), x's
     dtype.  The plan is the forward's."""
-    _check_fwd_ctx(x, ctx, g, h, level, traced=False)
+    plan = _check_fwd_ctx(x, ctx, g, h, level, traced=False)
     b, n = x.shape
-    m = len(g)
-    tile = tile_of("fwd", level, m)
-    check_grid(b, n, "fwd", tile)
+    check_grid(b, n, plan.tile)
     out = torch.empty((level + 1, b, n), dtype=x.dtype, device=x.device)
     gh, hh = host_taps(g, h)
-    lib = _lib()
-    code = lib.jw_modwt_fwd_ctx(
-        x.data_ptr(), ctx.data_ptr(), out.data_ptr(), b, n, level,
-        gh.ctypes.data, hh.ctypes.data, m, tile, halo(m, level),
-        smem_bytes(level, m, "fwd"), DTYPE_CODES[x.dtype], x.device.index,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(lib, code, "modwt forward kernel with context")
+    launch("jw_modwt_fwd_ctx", "modwt forward kernel with context", x.device,
+           x.data_ptr(), ctx.data_ptr(), out.data_ptr(), b, n, level,
+           gh.ctypes.data, hh.ctypes.data, len(g), *plan,
+           DTYPE_CODES[x.dtype])
     return out
 
 
@@ -599,12 +460,10 @@ def modwt_shard(x: torch.Tensor, ctx: torch.Tensor, wavelet: DiscreteWavelet,
     return modwt_fwd_ctx_plain(x, ctx, wavelet, level)
 
 
-def _check_inv(c: torch.Tensor, g, h, traced: bool = True) -> None:
+def _check_inv(c: torch.Tensor, g, h, traced: bool = True) -> KernelPlan:
     check_operand(c, "coeffs", 3, traced)
-    if not kernel_supported(c.shape[2], c.shape[0] - 1, check_taps(g, h),
-                            "inv"):
-        raise ValueError(f"unsupported shape {tuple(c.shape)} for the MODWT "
-                         f"inverse kernel")
+    return require_plan("inv", c.shape[2], c.shape[0] - 1, check_taps(g, h),
+                        c.shape, "MODWT inverse")
 
 
 @kernel_op("modwt_inv")
@@ -612,19 +471,14 @@ def modwt_inv_op(c: torch.Tensor, g: list[float], h: list[float]
                  ) -> torch.Tensor:
     """The inverse kernel's launch as an operator (``torch.ops.jwave.
     modwt_inv``): c (level+1, B, N) → (B, N), c's dtype."""
-    _check_inv(c, g, h, traced=False)
+    plan = _check_inv(c, g, h, traced=False)
     rows, b, n = c.shape
-    level, m = rows - 1, len(g)
-    check_grid(b, n, "inv")
+    check_grid(b, n, plan.tile)
     out = torch.empty((b, n), dtype=c.dtype, device=c.device)
     gh, hh = host_taps(g, h)
-    lib = _lib()
-    code = lib.jw_modwt_inv(
-        c.data_ptr(), out.data_ptr(), b, n, level, gh.ctypes.data,
-        hh.ctypes.data, m, TILES["inv"], halo(m, level),
-        smem_bytes(level, m, "inv"), DTYPE_CODES[c.dtype], c.device.index,
-        torch.cuda.current_stream(c.device).cuda_stream)
-    _build.check(lib, code, "modwt inverse kernel")
+    launch("jw_modwt_inv", "modwt inverse kernel", c.device, c.data_ptr(),
+           out.data_ptr(), b, n, rows - 1, gh.ctypes.data, hh.ctypes.data,
+           len(g), *plan, DTYPE_CODES[c.dtype])
     return out
 
 
@@ -641,8 +495,8 @@ def modwt_inv_cuda(c: torch.Tensor, wavelet: DiscreteWavelet) -> torch.Tensor:
 
 
 def _check_inv_shrink(c: torch.Tensor, thr: torch.Tensor | None, g, h,
-                      traced: bool = True) -> None:
-    _check_inv(c, g, h, traced)
+                      traced: bool = True) -> KernelPlan:
+    plan = _check_inv(c, g, h, traced)
     if thr is not None and (
             thr.dtype != c.dtype or thr.ndim != 2
             or not traced and (tuple(thr.shape) != (c.shape[0] - 1,
@@ -651,6 +505,7 @@ def _check_inv_shrink(c: torch.Tensor, thr: torch.Tensor | None, g, h,
         raise ValueError(f"threshold: kernel needs a (level, B) tensor of "
                          f"the coefficients' dtype on their device, got "
                          f"{thr.dtype} {tuple(thr.shape)}")
+    return plan
 
 
 @kernel_op("modwt_inv_shrink")
@@ -664,21 +519,16 @@ def modwt_inv_shrink_op(c: torch.Tensor, thr: torch.Tensor | None,
     lies), or by ``value`` (as float32) for every row where ``thr`` is
     None; ``hard`` 1 for hard shrinkage, 0 for soft.  The plan is the
     inverse's."""
-    _check_inv_shrink(c, thr, g, h, traced=False)
+    plan = _check_inv_shrink(c, thr, g, h, traced=False)
     rows, b, n = c.shape
-    level, m = rows - 1, len(g)
-    check_grid(b, n, "inv")
+    check_grid(b, n, plan.tile)
     out = torch.empty((b, n), dtype=c.dtype, device=c.device)
     ls, rs = (0, 0) if thr is None else thr.stride()
     gh, hh = host_taps(g, h)
-    lib = _lib()
-    code = lib.jw_modwt_inv_shrink(
-        c.data_ptr(), None if thr is None else thr.data_ptr(), value, ls, rs,
-        hard, out.data_ptr(), b, n, level, gh.ctypes.data, hh.ctypes.data, m,
-        TILES["inv"], halo(m, level), smem_bytes(level, m, "inv"),
-        DTYPE_CODES[c.dtype], c.device.index,
-        torch.cuda.current_stream(c.device).cuda_stream)
-    _build.check(lib, code, "modwt shrinking inverse kernel")
+    launch("jw_modwt_inv_shrink", "modwt shrinking inverse kernel", c.device,
+           c.data_ptr(), None if thr is None else thr.data_ptr(), value, ls,
+           rs, hard, out.data_ptr(), b, n, rows - 1, gh.ctypes.data,
+           hh.ctypes.data, len(g), *plan, DTYPE_CODES[c.dtype])
     return out
 
 
@@ -697,63 +547,61 @@ def modwt_inv_shrink_cuda(c: torch.Tensor, thr: torch.Tensor | None,
 
 
 # ---------------------------------------------------------------------------
-# Dispatch by device, and the autograd pair
+# The autograd pair, and its checked entries
 # ---------------------------------------------------------------------------
 
-def _modwt_fused_impl(x: torch.Tensor, wavelet: DiscreteWavelet,
-                      level: int) -> torch.Tensor:
-    if x.ndim not in (1, 2):
-        raise ValueError(f"fused MODWT takes (N,) or (B, N), got "
-                         f"{tuple(x.shape)}")
-    n = x.shape[-1]
-    _check_level(n, level)
-    if not kernel_supported(n, level, wavelet.length, "fwd"):
-        raise ValueError(f"unsupported shape {tuple(x.shape)} for fused MODWT")
-    if x.is_cuda:
-        out = modwt_fwd_cuda(x.contiguous().reshape(-1, n), wavelet, level)
-        return out.reshape((level + 1,) + tuple(x.shape))
-    if x.device.type != "cpu":
-        raise ValueError(f"no MODWT kernel for device {x.device}")
-    return modwt_fwd_plain(x, wavelet, level)
+def _fwd(x: torch.Tensor, wavelet: DiscreteWavelet,
+         level: int) -> torch.Tensor:
+    if not x.is_cuda:
+        return modwt_fwd_plain(x, wavelet, level)
+    out = modwt_fwd_cuda(x.contiguous().reshape(-1, x.shape[-1]), wavelet,
+                         level)
+    return out.reshape((level + 1,) + tuple(x.shape))
 
 
-def _imodwt_fused_impl(c: torch.Tensor, wavelet: DiscreteWavelet
-                       ) -> torch.Tensor:
-    if c.ndim not in (2, 3):
-        raise ValueError(f"fused iMODWT takes (L+1, N) or (L+1, B, N), got "
-                         f"{tuple(c.shape)}")
-    rows, n = c.shape[0], c.shape[-1]
-    if not kernel_supported(n, rows - 1, wavelet.length, "inv"):
-        raise ValueError(f"unsupported shape {tuple(c.shape)} for fused "
-                         f"iMODWT")
-    if c.is_cuda:
-        out = modwt_inv_cuda(c.contiguous().reshape(rows, -1, n), wavelet)
-        return out.reshape(tuple(c.shape[1:]))
-    if c.device.type != "cpu":
-        raise ValueError(f"no iMODWT kernel for device {c.device}")
-    return modwt_inv_plain(c, wavelet)
+def _inv(c: torch.Tensor, wavelet: DiscreteWavelet) -> torch.Tensor:
+    if not c.is_cuda:
+        return modwt_inv_plain(c, wavelet)
+    out = modwt_inv_cuda(c.contiguous().reshape(c.shape[0], -1, c.shape[-1]),
+                         wavelet)
+    return out.reshape(tuple(c.shape[1:]))
 
 
-class _ModwtFused(torch.autograd.Function):
+class ModwtFused(torch.autograd.Function):
+    """The forward kernel (the plain version off the card) with the inverse
+    as its backward, unchecked: for a caller that has checked the shape,
+    as :func:`modwt_fused` and ``ops/modwt.py:_try_kernel`` do."""
     @staticmethod
     def forward(ctx, x, wavelet, level):
         ctx.wavelet = wavelet
-        return _modwt_fused_impl(x, wavelet, level)
+        return _fwd(x, wavelet, level)
 
     @staticmethod
     def backward(ctx, cot):
-        return _imodwt_fused_impl(cot, ctx.wavelet), None, None
+        return _inv(cot, ctx.wavelet), None, None
 
 
-class _ImodwtFused(torch.autograd.Function):
+class ImodwtFused(torch.autograd.Function):
+    """The inverse kernel with the forward as its backward, unchecked, as
+    :class:`ModwtFused`."""
     @staticmethod
     def forward(ctx, c, wavelet):
         ctx.wavelet, ctx.level = wavelet, c.shape[0] - 1
-        return _imodwt_fused_impl(c, wavelet)
+        return _inv(c, wavelet)
 
     @staticmethod
     def backward(ctx, cot):
-        return _modwt_fused_impl(cot, ctx.wavelet, ctx.level), None
+        return _fwd(cot, ctx.wavelet, ctx.level), None
+
+
+def check_fused(a: torch.Tensor, kind: str, level: int, m: int,
+                what: str) -> None:
+    """The 1D ``*_fused`` functions' check of a CUDA or CPU tensor ``a``
+    (..., N) for kernel ``kind``: raise naming ``what`` where the kernel
+    does not run."""
+    require_plan(kind, a.shape[-1], level, m, a.shape, what)
+    if not (a.is_cuda or a.device.type == "cpu"):
+        raise ValueError(f"no {what} kernel for device {a.device}")
 
 
 def modwt_fused(x: torch.Tensor, wavelet: DiscreteWavelet,
@@ -764,10 +612,19 @@ def modwt_fused(x: torch.Tensor, wavelet: DiscreteWavelet,
     A CUDA tensor runs the kernel or raises; a CPU tensor runs the plain
     version.  Raises for shapes :func:`kernel_supported` rejects.
     """
-    return _ModwtFused.apply(x, wavelet, level)
+    if x.ndim not in (1, 2):
+        raise ValueError(f"fused MODWT takes (N,) or (B, N), got "
+                         f"{tuple(x.shape)}")
+    _check_level(x.shape[-1], level)
+    check_fused(x, "fwd", level, wavelet.length, "fused MODWT")
+    return ModwtFused.apply(x, wavelet, level)
 
 
 def imodwt_fused(c: torch.Tensor, wavelet: DiscreteWavelet) -> torch.Tensor:
     """Fused inverse MODWT: (level+1, B, N) → (B, N), (level+1, N) → (N,);
     differentiable (the backward is the forward kernel)."""
-    return _ImodwtFused.apply(c, wavelet)
+    if c.ndim not in (2, 3):
+        raise ValueError(f"fused iMODWT takes (L+1, N) or (L+1, B, N), got "
+                         f"{tuple(c.shape)}")
+    check_fused(c, "inv", c.shape[0] - 1, wavelet.length, "fused iMODWT")
+    return ImodwtFused.apply(c, wavelet)

@@ -27,7 +27,7 @@ import torch
 from ..utils.device import as_input, as_signal
 from ..wavelets.base import DiscreteWavelet
 from .fwt import _on
-from .modwt import modwt
+from .modwt import _check_level, modwt
 
 __all__ = [
     "modwt_variance", "modwt_variance_ci", "VarianceCI", "modwt_covariance",
@@ -183,8 +183,12 @@ def _try_var_fused(x: torch.Tensor, wavelet: DiscreteWavelet, level: int,
     """
     if method not in ("auto", "fused"):
         return None
+    from ..kernels import variance_cuda as kv
+    from ..kernels._launch import DTYPE_CODES
+    from ..kernels.modwt_cuda import kernel_supported
+
     x = torch.as_tensor(x)
-    if x.ndim not in (1, 2) or x.dtype not in (torch.float32, torch.bfloat16):
+    if x.ndim not in (1, 2) or x.dtype not in DTYPE_CODES:
         if method == "fused":
             raise ValueError(
                 f"fused variance needs a float32/bfloat16 (N,) or (B, N) "
@@ -192,15 +196,13 @@ def _try_var_fused(x: torch.Tensor, wavelet: DiscreteWavelet, level: int,
         return None
     if method == "auto" and not x.is_cuda:
         return None
-    from ..kernels.modwt_cuda import kernel_supported
-    from ..kernels.variance_cuda import modwt_var_fused
-
     if not kernel_supported(x.shape[-1], level, wavelet.length, "var"):
         if method == "fused":
             raise ValueError(
                 f"fused variance unavailable for shape {tuple(x.shape)}")
         return None
-    return modwt_var_fused(x, wavelet, level)[:level]
+    _check_level(x.shape[-1], level)
+    return kv.modwt_var_rows(x, wavelet, level)[:level]
 
 
 def modwt_covariance(x: torch.Tensor, y: torch.Tensor,

@@ -270,12 +270,12 @@ def _shrink_operands(c: torch.Tensor, threshold, wavelet: DiscreteWavelet,
     one value a detail row of each signal (its last axis longer than 1,
     or not broadcasting to (level, ..., 1)), a bool, or an integer past
     2⁵³ (which a double does not hold exactly)."""
-    from ..kernels import modwt_cuda as kc
+    from ..kernels._launch import DTYPE_CODES
+    from ..kernels.modwt_cuda import kernel_supported
 
     level = c.shape[0] - 1
-    if not (c.is_cuda and c.dtype in kc.DTYPE_CODES and c.ndim in (2, 3)
-            and kc.kernel_supported(c.shape[-1], level, wavelet.length,
-                                    "inv")):
+    if not (c.is_cuda and c.dtype in DTYPE_CODES and c.ndim in (2, 3)
+            and kernel_supported(c.shape[-1], level, wavelet.length, "inv")):
         return None
     t = _threshold_like(threshold, c)
     if isinstance(t, bool) or (isinstance(t, int) and abs(t) > 2 ** 53):

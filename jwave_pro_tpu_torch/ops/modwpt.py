@@ -76,15 +76,16 @@ def _try_kernel(x: torch.Tensor, wavelet: DiscreteWavelet, level: int,
 
     Decided from device, dtype and shape before any launch: float64 and
     shapes :func:`kernels.modwt_cuda.kernel_supported` rejects return None
-    (the plain path), as ``_try_pallas`` sends them to XLA.
+    (the plain path), as ``_try_pallas`` sends them to XLA.  Once decided,
+    the call goes straight to the autograd pair.
     """
-    if not x.is_cuda or x.dtype not in (torch.float32, torch.bfloat16):
-        return None
     from ..kernels import modwpt_cuda as kp
+    from ..kernels._launch import DTYPE_CODES
     from ..kernels.modwt_cuda import kernel_supported
 
     # inverse: (2^L, B, N) or (2^L, N); forward: (B, N) or (N,)
-    if x.ndim not in ((2, 3) if inverse else (1, 2)):
+    if (not x.is_cuda or x.dtype not in DTYPE_CODES
+            or x.ndim not in ((2, 3) if inverse else (1, 2))):
         return None
     # a differentiable call also needs the other direction's kernel, which
     # is its backward
@@ -92,9 +93,8 @@ def _try_kernel(x: torch.Tensor, wavelet: DiscreteWavelet, level: int,
     if not all(kernel_supported(x.shape[-1], level, wavelet.length, kind)
                for kind in kinds[:1 + x.requires_grad]):
         return None
-    x = x.contiguous()
-    return (kp.imodwpt_fused(x, wavelet) if inverse
-            else kp.modwpt_fused(x, wavelet, level))
+    return (kp.ImodwptFused.apply(x, wavelet) if inverse
+            else kp.ModwptFused.apply(x, wavelet, level))
 
 
 @functools.lru_cache(maxsize=64)

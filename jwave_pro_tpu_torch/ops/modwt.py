@@ -215,14 +215,16 @@ def _try_kernel(x: torch.Tensor, wavelet: DiscreteWavelet, level: int,
 
     The decision is made from device, dtype and shape before any launch:
     float64 and shapes :func:`kernel_supported` rejects return None (the
-    plain path), as ``_try_pallas`` sends them to XLA.
+    plain path), as ``_try_pallas`` sends them to XLA.  Once decided, the
+    call goes straight to the autograd pair, whose operator checks its
+    operands again as any caller's.
     """
-    if not x.is_cuda or x.dtype not in (torch.float32, torch.bfloat16):
-        return None
     from ..kernels import modwt_cuda as kc
+    from ..kernels._launch import DTYPE_CODES
 
     # inverse: (L+1, B, N) batched or (L+1, N); forward: (B, N) or (N,)
-    if x.ndim not in ((2, 3) if inverse else (1, 2)):
+    if (not x.is_cuda or x.dtype not in DTYPE_CODES
+            or x.ndim not in ((2, 3) if inverse else (1, 2))):
         return None
     # a differentiable call also needs the other direction's kernel, which
     # is its backward
@@ -230,9 +232,8 @@ def _try_kernel(x: torch.Tensor, wavelet: DiscreteWavelet, level: int,
     if not all(kc.kernel_supported(x.shape[-1], level, wavelet.length, kind)
                for kind in kinds[:1 + x.requires_grad]):
         return None
-    x = x.contiguous()
-    return (kc.imodwt_fused(x, wavelet) if inverse
-            else kc.modwt_fused(x, wavelet, level))
+    return (kc.ImodwtFused.apply(x, wavelet) if inverse
+            else kc.ModwtFused.apply(x, wavelet, level))
 
 
 def _as_signal(x) -> torch.Tensor:

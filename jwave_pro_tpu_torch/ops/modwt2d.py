@@ -101,13 +101,12 @@ def _try_kernel2(a: torch.Tensor, wavelet: DiscreteWavelet, level: int,
     A tensor that requires a gradient returns None (the plain path): the 2D
     kernels have no backward, as the JAX package's have no VJP.
     """
-    if (not a.is_cuda or a.dtype not in (torch.float32, torch.bfloat16)
-            or a.requires_grad):
-        return None
-    if a.ndim not in ((3, 4) if inverse else (2, 3)):
-        return None
     from ..kernels import modwt2_cuda as k2
+    from ..kernels._launch import DTYPE_CODES
 
+    if (not a.is_cuda or a.dtype not in DTYPE_CODES or a.requires_grad
+            or a.ndim not in ((3, 4) if inverse else (2, 3))):
+        return None
     r, c = a.shape[-2:]
     if not k2.kernel2d_supported(r, c, level, wavelet.length,
                                  "inv" if inverse else "fwd"):
@@ -245,13 +244,12 @@ def _try_kernel3(a: torch.Tensor, wavelet: DiscreteWavelet, level: int,
     A tensor that requires a gradient returns None (the plain path): the 3D
     kernels have no backward, as the JAX package's have no VJP.
     """
-    if (not a.is_cuda or a.dtype not in (torch.float32, torch.bfloat16)
-            or a.requires_grad):
-        return None
-    if a.ndim not in ((4, 5) if inverse else (3, 4)):
-        return None
     from ..kernels import modwt3_cuda as k3
+    from ..kernels._launch import DTYPE_CODES
 
+    if (not a.is_cuda or a.dtype not in DTYPE_CODES or a.requires_grad
+            or a.ndim not in ((4, 5) if inverse else (3, 4))):
+        return None
     d, r, c = a.shape[-3:]
     if not k3.kernel3d_supported(d, r, c, level, wavelet.length,
                                  "inv" if inverse else "fwd"):

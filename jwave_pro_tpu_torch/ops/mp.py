@@ -179,9 +179,11 @@ def matching_pursuit(x: torch.Tensor, wavelet: DiscreteWavelet, level: int,
     # broadcast 1/‖f_n‖ over the (2^L, ..., N) coefficient stack
     inv_b = inv_norms.reshape((num_nodes,) + (1,) * x.ndim)
 
+    from ..kernels._launch import DTYPE_CODES
+
     use_fused_select = False
     if (method == "auto" and x.ndim == 2 and x.is_cuda
-            and x.dtype in (torch.float32, torch.bfloat16)):
+            and x.dtype in DTYPE_CODES):
         from ..kernels.modwpt_cuda import (
             modwpt_select_fused, select_fused_supported)
         use_fused_select = select_fused_supported(x.shape[0], n, level,

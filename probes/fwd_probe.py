@@ -46,7 +46,6 @@ SASS instruction mix of the M = 8 float32 forward of ``new`` and
 ``parent``.  The last line is one JSON object of every time.
 """
 import argparse
-import ctypes
 import json
 import sys
 from pathlib import Path
@@ -57,6 +56,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 import jwave_pro_tpu_torch as jt  # noqa: E402
 from chip_smoke import FWD_EDGES  # noqa: E402
+from jwave_pro_tpu_torch.kernels import _launch as kl  # noqa: E402
 from jwave_pro_tpu_torch.kernels import modwt_cuda as kc  # noqa: E402
 from probes import harness as hz  # noqa: E402
 from probes.harness import sub as _sub  # noqa: E402
@@ -65,7 +65,6 @@ OUT = hz.ROOT / "build" / "probes" / "fwd"
 LEVEL = 5
 SHAPES = ((32, 1 << 20), (1, 1 << 24))
 OTHER_SOURCES = ("variance.cu", "modwpt.cu", "denoise.cu")
-_P, _I = ctypes.c_void_p, ctypes.c_int
 
 STAGED = '''#pragma unroll
             for (int k = 0; k < JW_FWD_R; ++k) {
@@ -187,8 +186,6 @@ def build(parent: Path | None):
     for name, lib in libs.items():
         regs = " ".join(hz.ptxas(logs[name], "fwd_kernel"))
         print(f"  ptxas {name}: {regs}", flush=True)
-        lib.jw_modwt_fwd.argtypes = [_P, _P] + [_I] * 3 + [_P, _P] \
-            + [_I] * 6 + [_P]
     for name in ("new", "parent"):
         if name not in libs:
             continue
@@ -235,11 +232,11 @@ def main() -> int:
     def call(name, x, out, wav, level, tile, threads, r):
         b, n = x.shape
         m = wav.length
-        g, h = kc.kernel_taps(wav)
+        g, h = kl.kernel_taps(wav)
         code = libs[name].jw_modwt_fwd(
             x.data_ptr(), out.data_ptr(), b, n, level, g.ctypes.data,
             h.ctypes.data, m, tile, kc.halo(m, level),
-            smem(name, threads, r, tile, m, level), kc.DTYPE_CODES[x.dtype],
+            smem(name, threads, r, tile, m, level), kl.DTYPE_CODES[x.dtype],
             0, torch.cuda.current_stream().cuda_stream)
         assert code == 0, (name, code)
         return out

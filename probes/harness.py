@@ -91,7 +91,7 @@ def build(jobs: dict, out: Path, extra=()):
         subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
                         str(d / "lib.so")] + [str(d / (f + ".o"))
                                               for f in files], check=True)
-        libs[name] = ctypes.CDLL(str(d / "lib.so"))
+        libs[name] = _build.declare(ctypes.CDLL(str(d / "lib.so")))
     return libs, logs
 
 

@@ -41,7 +41,6 @@ float32 kernels of ``new`` and ``parent``.  The last line is one JSON
 object of every time.
 """
 import argparse
-import ctypes
 import json
 import re
 import sys
@@ -52,6 +51,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 import jwave_pro_tpu_torch as jt  # noqa: E402
+from jwave_pro_tpu_torch.kernels import _launch as kl  # noqa: E402
 from jwave_pro_tpu_torch.kernels import denoise_cuda as kd  # noqa: E402
 from jwave_pro_tpu_torch.kernels import modwt_cuda as kc  # noqa: E402
 from probes import harness as hz  # noqa: E402
@@ -117,7 +117,6 @@ VARIANTS = {
     "den_t512_lb1": (("denoise.cu",), _threads("den", 512, 1), (), (4096,)),
 }
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 def build(parent: Path | None):
@@ -132,12 +131,6 @@ def build(parent: Path | None):
         regs = hz.ptxas(logs[name], "inv_kernel", "denoise_kernel")
         print(f"  ptxas {name}: {' '.join(regs)}", flush=True)
         lib = built[name]
-        if "modwt.cu" in files:
-            lib.jw_modwt_inv.argtypes = [_P, _P] + [_I] * 3 + [_P, _P] \
-                + [_I] * 6 + [_P]
-        if "denoise.cu" in files:
-            lib.jw_modwt_denoise.argtypes = [_P, _P, _P] + [_I] * 3 \
-                + [_P, _P] + [_I] * 7 + [_P]
         libs[name] = (files, lib, tiles_inv, tiles_den)
     for name in ("new", "parent"):
         if name not in libs:
@@ -166,7 +159,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     w = jt.wavelet("Daubechies 4")
     m = w.length
-    g, h = kc.kernel_taps(w)
+    g, h = kl.kernel_taps(w)
     gen = torch.Generator(device=dev).manual_seed(0)
     x = torch.randn(32, 1 << 20, device=dev, generator=gen)
     b, n = x.shape

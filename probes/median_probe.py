@@ -38,8 +38,8 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from jwave_pro_tpu_torch.kernels import _build  # noqa: E402
+from jwave_pro_tpu_torch.kernels import _launch as kl  # noqa: E402
 from jwave_pro_tpu_torch.kernels import median_cuda as km  # noqa: E402
-from jwave_pro_tpu_torch.kernels import modwt_cuda as kc  # noqa: E402
 from jwave_pro_tpu_torch.ops import denoise as dn  # noqa: E402
 from probes import harness as hz  # noqa: E402
 
@@ -168,7 +168,6 @@ def variants(card: str) -> dict:
         for bps in (4, 8, 16):
             parts = max(1, min(-(-bps * sms // rows), n // km.MIN_PART))
             for name, lib in libs.items():
-                lib.jw_median.argtypes = km._lib().jw_median.argtypes
                 out = torch.empty(rows, device=DEV)
                 state = torch.empty((rows, km.STATE), dtype=torch.int32,
                                     device=DEV)
@@ -177,8 +176,8 @@ def variants(card: str) -> dict:
                     st = torch.cuda.current_stream().cuda_stream
                     code = lib.jw_median(
                         x.data_ptr(), state.data_ptr(),
-                        kc.zeroed("median", DEV, st, rows * km.SLOTS),
-                        kc.tickets(DEV, st, rows), out.data_ptr(), rows, n,
+                        kl.zeroed("median", DEV, st, rows * km.SLOTS),
+                        kl.tickets(DEV, st, rows), out.data_ptr(), rows, n,
                         parts, 1, 0, st)
                     assert code == 0, code
                 ms = statistics.median(hz.graph_ms(call) for _ in range(2))

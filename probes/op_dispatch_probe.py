@@ -7,7 +7,7 @@ operator with the kernel operators' schema (a tensor, two float lists, an
 int; its body allocates a one-element output and does nothing else)
 called three ways: as a ``torch.library.custom_op``, as an operator
 defined with ``torch.library.Library`` and one backend kernel (the route
-the package's kernel operators take, ``kernels/modwt_cuda.py:kernel_op``),
+the package's kernel operators take, ``kernels/_launch.py:kernel_op``),
 and as the body itself.  On a machine with a card the tensors lie on it;
 every line names their device.
 """
@@ -21,7 +21,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 import jwave_pro_tpu_torch as jt  # noqa: E402
-from jwave_pro_tpu_torch.kernels import modwt_cuda as kc  # noqa: E402
+from jwave_pro_tpu_torch.kernels import _launch as kl  # noqa: E402
 
 
 def per_call(fn, calls: int = 20_000, runs: int = 5) -> float:
@@ -53,7 +53,7 @@ def main() -> None:
     lib.impl("launch", body, "CUDA" if dev.type == "cuda" else "CPU")
 
     x = torch.ones(3, device=dev)
-    g, h = kc.op_taps(jt.wavelet("Daubechies 4"))
+    g, h = kl.op_taps(jt.wavelet("Daubechies 4"))
     plain = torch.ops.jwprobe2.launch.default
     for name, fn in (("custom_op", lambda: probe(x, g, h, 5)),
                      ("Library.impl", lambda: plain(x, g, h, 5)),

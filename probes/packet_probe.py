@@ -50,7 +50,6 @@ SASS instruction mix of the M = 8 float32 kernels of ``new`` and
 ``parent``.  The last line is one JSON object of every time.
 """
 import argparse
-import ctypes
 import json
 import sys
 from pathlib import Path
@@ -61,6 +60,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 import jwave_pro_tpu_torch as jt  # noqa: E402
 from chip_smoke import PACKET_EDGES  # noqa: E402
+from jwave_pro_tpu_torch.kernels import _launch as kl  # noqa: E402
 from jwave_pro_tpu_torch.kernels import modwpt_cuda as kp  # noqa: E402
 from jwave_pro_tpu_torch.kernels import modwt_cuda as kc  # noqa: E402
 from probes import harness as hz  # noqa: E402
@@ -72,7 +72,6 @@ FWD_SHAPE = (32, 1 << 18)
 OTHER_SOURCES = ("modwt.cu", "variance.cu", "denoise.cu", "modwt2.cu",
                  "modwt3.cu", "cwt.cu")
 SELECT_SHAPE = (8, 65536)
-_P, _I = ctypes.c_void_p, ctypes.c_int
 
 FWD_WALK = '''jw_packet_walk<MT, JW_PFWD_R>(
       rows, tile + halo, end, level, m, taps, sg, sh,'''
@@ -200,12 +199,6 @@ def build(parent: Path | None):
         for kernel in ("modwpt_fwd", "modwpt_inv"):
             regs = " ".join(hz.ptxas(logs[name], kernel))
             print(f"  ptxas {name} {kernel}: {regs}", flush=True)
-        for fn in (lib.jw_modwpt_fwd, lib.jw_modwpt_inv):
-            fn.argtypes = [_P, _P] + [_I] * 3 + [_P, _P] + [_I] * 6 + [_P]
-            fn.restype = _I
-        lib.jw_modwpt_select.argtypes = [_P, _P, _P, _P, _I, _I, _I, _P, _P,
-                                         _I, _I, _I, _I, _I, _P]
-        lib.jw_modwpt_select.restype = _I
     sass = {name: hz.sass(OUT / name / "lib.so")
             for name in ("new", "parent") if name in libs}
     for name, fns in sass.items():
@@ -256,12 +249,12 @@ def main() -> int:
         threads, r = config(name)
         b, n = x.shape
         m = wav.length
-        g, h = kc.kernel_taps(wav)
+        g, h = kl.kernel_taps(wav)
         code = libs[name].jw_modwpt_fwd(
             x.data_ptr(), out.data_ptr(), b, n, level, g.ctypes.data,
             h.ctypes.data, m, tile, kc.halo(m, level),
             layout(name, "pfwd", threads, r, tile, m, level),
-            kc.DTYPE_CODES[x.dtype], 0, stream())
+            kl.DTYPE_CODES[x.dtype], 0, stream())
         assert code == 0, (name, code)
         return out
 
@@ -269,12 +262,12 @@ def main() -> int:
         threads, r = config(name)
         nodes, b, n = c.shape
         level, m = nodes.bit_length() - 1, wav.length
-        g, h = kc.kernel_taps(wav)
+        g, h = kl.kernel_taps(wav)
         code = libs[name].jw_modwpt_inv(
             c.data_ptr(), out.data_ptr(), b, n, level, g.ctypes.data,
             h.ctypes.data, m, tile, kc.halo(m, level),
             layout(name, "pinv", threads, r, tile, m, level),
-            kc.DTYPE_CODES[c.dtype], 0, stream())
+            kl.DTYPE_CODES[c.dtype], 0, stream())
         assert code == 0, (name, code)
         return out
 
@@ -316,7 +309,7 @@ def main() -> int:
         # the select (#7), whose walk the forward now shares
         xs = torch.randn(*SELECT_SHAPE, device=dev, generator=gen)
         plan = kp.select_plan(*SELECT_SHAPE, LEVEL, db4.length)
-        g, h = kc.kernel_taps(db4)
+        g, h = kl.kernel_taps(db4)
         partial = torch.empty((1 << LEVEL, SELECT_SHAPE[0], plan.ntiles),
                               dtype=torch.int64, device=dev)
         tickets = torch.zeros(256, dtype=torch.int32, device=dev)

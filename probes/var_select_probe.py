@@ -27,7 +27,6 @@ arg-max of the packet forward kernel's output (select).  Then the select
 wrapper's host-side pieces, on the host clock.  The last line is one JSON
 object of every time.
 """
-import ctypes
 import json
 import sys
 import time
@@ -38,6 +37,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 import jwave_pro_tpu_torch as jt  # noqa: E402
+from jwave_pro_tpu_torch.kernels import _launch as kl  # noqa: E402
 from jwave_pro_tpu_torch.kernels import modwpt_cuda as kp  # noqa: E402
 from jwave_pro_tpu_torch.kernels import modwt_cuda as kc  # noqa: E402
 from jwave_pro_tpu_torch.kernels import variance_cuda as kv  # noqa: E402
@@ -121,14 +121,10 @@ VARIANTS = {
 def build():
     libs, logs = hz.build({name: (hz.CSRC, ("variance.cu", "modwpt.cu"), subs)
                            for name, subs in VARIANTS.items()}, OUT)
-    args = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 \
-        + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     for name, lib in libs.items():
         regs = [f"{k} {' '.join(hz.ptxas(logs[name], k + '_kernelIfLi8E'))}"
                 for k in ("var", "select")]
         print(f"  ptxas {name} (f32, M = 8): {', '.join(regs)}", flush=True)
-        lib.jw_modwt_var.argtypes = args
-        lib.jw_modwpt_select.argtypes = args
     for name in ("old", "new"):
         sass = hz.sass(OUT / name / "lib.so")
         for fn in ("_Z19jw_modwt_var_kernelIfLi8E",
@@ -174,7 +170,7 @@ def main() -> int:
     def var_call(lib, wname, level, tile=kc.TILES["var"]):
         w = wavs[wname]
         m = w.length
-        g, h = kc.kernel_taps(w)
+        g, h = kl.kernel_taps(w)
         b, n = x.shape
         nt = -(-n // tile)
         partial = torch.empty((level + 1, b, nt), device=dev)
@@ -188,7 +184,7 @@ def main() -> int:
         return out
 
     def sel_call(lib, tile, level=3):
-        g, h = kc.kernel_taps(wavs["Daubechies 4"])
+        g, h = kl.kernel_taps(wavs["Daubechies 4"])
         b, n = xm.shape
         nt = -(-n // tile)
         partial = torch.empty((1 << level, b, nt), dtype=torch.int64,
@@ -234,7 +230,7 @@ def main() -> int:
                       flush=True)
 
     w = wavs["Daubechies 4"]
-    g, h = kc.kernel_taps(w)
+    g, h = kl.kernel_taps(w)
     st = stream()
     partial = torch.empty((8, 8, 16), dtype=torch.int64, device=dev)
     out = torch.empty((3, 8, 8), device=dev)
@@ -246,9 +242,9 @@ def main() -> int:
             torch.empty((8, 8, 16), dtype=torch.int64, device=dev),
             torch.empty((3, 8, 8), device=dev)),
         "torch.cuda.current_stream": lambda: stream(),
-        "kernel_taps": lambda: kc.kernel_taps(w),
+        "kernel_taps": lambda: kl.kernel_taps(w),
         "select_plan": lambda: kp.select_plan(8, 65536, 3, 8),
-        "tickets": lambda: kc.tickets(dev, st, 8),
+        "tickets": lambda: kl.tickets(dev, st, 8),
         "C entry point and launch": lambda: libs["new"].jw_modwpt_select(
             xm.data_ptr(), partial.data_ptr(), ticket.data_ptr(),
             out.data_ptr(), 8, 65536, 3, g.ctypes.data, h.ctypes.data, 8,

@@ -38,7 +38,7 @@ from jwave_pro_tpu.kernels.cwt_pallas import (
 )
 from jwave_pro_tpu.ops.cwt import pad_signal as jax_pad_signal
 from jwave_pro_tpu_torch.kernels import cwt_cuda as kc
-from jwave_pro_tpu_torch.kernels.modwt_cuda import LAUNCHES
+from jwave_pro_tpu_torch.kernels._launch import LAUNCHES
 
 # the module (``jwave_pro_tpu_torch.ops.cwt`` names the function)
 tcwt = importlib.import_module("jwave_pro_tpu_torch.ops.cwt")

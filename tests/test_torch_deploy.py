@@ -24,6 +24,7 @@ import jax.numpy as jnp
 
 import jwave_pro_tpu as jw
 import jwave_pro_tpu_torch as jt
+from jwave_pro_tpu_torch.kernels import _launch as kl
 from jwave_pro_tpu_torch.kernels import cwt_cuda as kw
 from jwave_pro_tpu_torch.kernels import denoise_cuda as kd
 from jwave_pro_tpu_torch.kernels import median_cuda as km
@@ -139,7 +140,7 @@ F32_ONLY = ("cwt_ifft", "median")
 def _operands(device, dtype=torch.float32):
     """Each operator's call on ``device`` tensors at a small shape, beside
     its plain version's call on CPU tensors of the same shape."""
-    g, h = kc.op_taps(DB4)
+    g, h = kl.op_taps(DB4)
     gen = torch.Generator().manual_seed(0)
 
     def t(*shape, dt=dtype):
@@ -229,7 +230,7 @@ def test_operators_reject_cpu_tensors():
 
 def test_operator_fakes_reject_what_the_kernel_does_not_take():
     x = torch.empty(4, 1024, device="meta")
-    g, h = kc.op_taps(DB4)
+    g, h = kl.op_taps(DB4)
     with pytest.raises(ValueError, match="float32/bfloat16"):
         torch.ops.jwave.modwt_fwd(x.double(), g, h, 2)
     with pytest.raises(ValueError, match="unsupported shape"):
@@ -267,6 +268,26 @@ def _recorded(fn, *specs):
 
 
 F32 = torch.float32
+
+
+@pytest.mark.parametrize("op,args", [
+    ("modwt_inv", ()), ("modwt_inv_shrink", (None, 0.5)),
+])
+def test_export_keeps_the_level_axis_symbolic(op, args):
+    """The inverse operators' fakes plan from the coefficients' level axis;
+    an export that makes that axis symbolic, as ``torch.library.opcheck``'s
+    dynamic-shape check does, keeps it symbolic (the cached plan is keyed
+    on concrete levels only)."""
+    g, h = kl.op_taps(DB4)
+    call = getattr(torch.ops.jwave, op)
+    fn = ((lambda c: call(c, *args, g, h, 0)) if args
+          else (lambda c: call(c, g, h)))
+    with FakeTensorMode():
+        c = torch.empty((6, 8, 4096), device="cuda")
+    dims = {0: torch.export.Dim("rows", min=2, max=12),
+            1: torch.export.Dim("b", min=1)}
+    ep = torch.export.export(_Pipeline(fn), (c,), dynamic_shapes=((dims,),))
+    assert len(ep.range_constraints) == 2
 
 
 @pytest.mark.parametrize("launch,specs,ops", [
@@ -316,11 +337,11 @@ def test_export_records_each_operator_as_one_node(launch, specs, ops):
     for n in nodes:
         if str(n.target) in ("jwave.modwt_fwd.default",
                              "jwave.modwt_var.default"):
-            g, h = kc.op_taps(DB4)
+            g, h = kl.op_taps(DB4)
             assert list(n.args[1]) == g and list(n.args[2]) == h
         if str(n.target) == "jwave.modwt_fwd_ctx.default":
-            g, h = kc.op_taps(DB4)
+            g, h = kl.op_taps(DB4)
             assert list(n.args[2]) == g and list(n.args[3]) == h
         if str(n.target) == "jwave.modwt_inv_shrink.default":
-            g, h = kc.op_taps(DB4)
+            g, h = kl.op_taps(DB4)
             assert list(n.args[3]) == g and list(n.args[4]) == h

@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions, on the card.
 
-Every test here needs a CUDA device and skips without one; the decision is
-made in a fixture, at run time.  The file imports neither JAX nor the JAX
+Every test here but the signature table's needs a CUDA device and skips
+without one; the decision is made in a fixture, at run time.  The
+signature tests read ``csrc/*.cu`` and run on any machine.  The file imports neither JAX nor the JAX
 package, so on a machine without JAX it runs alone, without the suite's
 conftest:
 
@@ -44,12 +45,16 @@ on the same values), in float32 and bfloat16; against its plain model as
 the inverse.
 """
 import math
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
 import jwave_pro_tpu_torch as jt
+from jwave_pro_tpu_torch.kernels import _build
+from jwave_pro_tpu_torch.kernels import _launch as kl
 from jwave_pro_tpu_torch.kernels import cwt_cuda as kcw
 from jwave_pro_tpu_torch.kernels import denoise_cuda as kd
 from jwave_pro_tpu_torch.kernels import median_cuda as km
@@ -58,7 +63,7 @@ from jwave_pro_tpu_torch.kernels import modwt2_cuda as k2
 from jwave_pro_tpu_torch.kernels import modwt3_cuda as k3
 from jwave_pro_tpu_torch.kernels import modwt_cuda as kc
 from jwave_pro_tpu_torch.kernels import variance_cuda as kv
-from jwave_pro_tpu_torch.kernels.modwt_cuda import LAUNCHES
+from jwave_pro_tpu_torch.kernels._launch import LAUNCHES
 
 pytestmark = pytest.mark.cuda
 
@@ -169,6 +174,51 @@ def test_denoise_edges_bitwise_repeatable(dev, batch, n, level, name, mode,
     assert torch.equal(got, kd.modwt_denoise_cuda(x, thr, w, level, mode))
 
 
+def _prototypes() -> list:
+    """(name, (result, arguments)) of every prototype inside the ``extern
+    "C"`` blocks of ``csrc/*.cu``, in ``_build.SIGNATURES``'s letters: P a
+    pointer, I an int, F a float, S a C string."""
+    found = []
+    for src in sorted(_build.CSRC.glob("*.cu")):
+        for block in re.findall(r'extern "C" \{(.*?)\}  // extern "C"',
+                                src.read_text(), re.S):
+            for res, name, args in re.findall(
+                    r"^(int|const char\*) (jw_\w+)\(([^)]*)\)", block, re.M):
+                kinds = "".join(
+                    "P" if "*" in a else "F" if a.split()[0] == "float"
+                    else "I" for a in args.split(","))
+                found.append((name, ("I" if res == "int" else "S", kinds)))
+    return found
+
+
+def _launched() -> list:
+    """The entry points the launchers call by name: ``launch("jw_…")``
+    and ``library().jw_…``."""
+    names = set()
+    for src in sorted(Path(_build.__file__).parent.glob("*.py")):
+        text = src.read_text()
+        for call in re.findall(r"\blaunch\((.*?),", text, re.S):
+            names.update(re.findall(r'"(jw_\w+)"', call))
+        names.update(re.findall(r"\blib\.(jw_\w+)", text))
+    return sorted(names)
+
+
+@pytest.mark.parametrize("name", sorted(
+    {n for n, _ in _prototypes()} | set(_build.SIGNATURES)))
+def test_signature_table_matches_the_c_prototype(name):
+    """Each C entry point has one prototype, and ``_build.SIGNATURES``
+    declares it with the same arity and the same pointer/int/float kind in
+    each position (ctypes converts the arguments by that table)."""
+    protos = [sig for n, sig in _prototypes() if n == name]
+    assert len(protos) == 1, f"{name}: {len(protos)} prototypes in csrc"
+    assert _build.SIGNATURES.get(name) == protos[0]
+
+
+@pytest.mark.parametrize("name", _launched())
+def test_every_launched_entry_point_is_in_the_table(name):
+    assert name in _build.SIGNATURES
+
+
 def test_entry_points_reject_shared_memory_off_their_layout(dev):
     """The forward's, the inverse's and the denoise's C entry points launch
     only with the plan's shared-memory size (smem_bytes) and halo, and
@@ -177,33 +227,33 @@ def test_entry_points_reject_shared_memory_off_their_layout(dev):
     c = kc.modwt_fwd_cuda(x, DB4, 3)
     thr = torch.ones(2, device=dev)
     out = torch.empty_like(x)
-    g, h = kc.kernel_taps(DB4)
+    g, h = kl.kernel_taps(DB4)
     stream = torch.cuda.current_stream(dev).cuda_stream
     hal = kc.halo(8, 3)
     coeffs = torch.empty_like(c)
     for dh, want in ((1, 1), (-1, 1), (0, 0)):
-        assert kc._lib().jw_modwt_fwd(
+        assert _build.library().jw_modwt_fwd(
             x.data_ptr(), coeffs.data_ptr(), 2, 4096, 3, g.ctypes.data,
             h.ctypes.data, 8, kc.TILES["fwd"], hal + dh,
             kc.smem_bytes(3, 8, "fwd"), 0, 0, stream) == want
     for delta, want in ((4, 1), (-4, 1), (0, 0)):
         smem = kc.smem_bytes(3, 8, "fwd") + delta
-        assert kc._lib().jw_modwt_fwd(
+        assert _build.library().jw_modwt_fwd(
             x.data_ptr(), coeffs.data_ptr(), 2, 4096, 3, g.ctypes.data,
             h.ctypes.data, 8, kc.TILES["fwd"], hal, smem, 0, 0,
             stream) == want
         smem = kc.smem_bytes(3, 8, "inv") + delta
-        assert kc._lib().jw_modwt_inv(
+        assert _build.library().jw_modwt_inv(
             c.data_ptr(), out.data_ptr(), 2, 4096, 3, g.ctypes.data,
             h.ctypes.data, 8, kc.TILES["inv"], hal, smem, 0, 0,
             stream) == want
         smem = kc.smem_bytes(3, 8, "inv") + delta
-        assert kc._lib().jw_modwt_inv_shrink(
+        assert _build.library().jw_modwt_inv_shrink(
             c.data_ptr(), None, 0.5, 0, 0, 0, out.data_ptr(), 2, 4096, 3,
             g.ctypes.data, h.ctypes.data, 8, kc.TILES["inv"], hal, smem, 0,
             0, stream) == want
         smem = kc.smem_bytes(3, 8, "denoise") + delta
-        assert kd._lib().jw_modwt_denoise(
+        assert _build.library().jw_modwt_denoise(
             x.data_ptr(), thr.data_ptr(), out.data_ptr(), 2, 4096, 3,
             g.ctypes.data, h.ctypes.data, 8, kc.TILES["denoise"], hal, smem,
             0, 0, 0, stream) == want
@@ -672,10 +722,10 @@ def test_packet_entry_points_reject_layouts_off_their_plan(dev):
     x = _signal(dev, 2, 4096, seed=18)
     c = kp.modwpt_fwd_cuda(x, DB4, 3)
     out_c, out_x = torch.empty_like(c), torch.empty_like(x)
-    g, h = kc.kernel_taps(DB4)
+    g, h = kl.kernel_taps(DB4)
     stream = torch.cuda.current_stream(dev).cuda_stream
     hal = kc.halo(8, 3)
-    lib = kp._lib()
+    lib = _build.library()
     for dh, ds, want in ((1, 0, 1), (-1, 0, 1), (0, 4, 1), (0, -4, 1),
                          (0, 0, 0)):
         assert lib.jw_modwpt_fwd(
@@ -1418,7 +1468,7 @@ def test_operator_checks_of_the_1d_kernels(dev):
     """``torch.library.opcheck`` (schema, fake against the launch, the
     autograd registration, a traced dynamic-shape call) on the 1D
     operators #1-#5 at a small shape."""
-    g, h = kc.op_taps(DB4)
+    g, h = kl.op_taps(DB4)
     x = _signal(dev, 3, 1000, seed=41)
     c = kc.modwt_fwd_cuda(x, DB4, 3)
     thr = torch.full((3,), 0.5, device=dev)

@@ -31,7 +31,7 @@ from jwave_pro_tpu.kernels.modwt2_pallas import (
     modwt2_fused as jax_modwt2_fused,
 )
 from jwave_pro_tpu_torch.kernels import modwt2_cuda as k2
-from jwave_pro_tpu_torch.kernels.modwt_cuda import LAUNCHES
+from jwave_pro_tpu_torch.kernels._launch import LAUNCHES
 
 DB4 = "Daubechies 4"
 WAVELETS = [DB4, "Haar", "Symlet 8"]

@@ -33,7 +33,7 @@ from jwave_pro_tpu.kernels.modwt3_pallas import (
 )
 from jwave_pro_tpu_torch.kernels import modwt3_cuda as k3
 from jwave_pro_tpu_torch.kernels import modwpt_cuda as kp
-from jwave_pro_tpu_torch.kernels.modwt_cuda import LAUNCHES
+from jwave_pro_tpu_torch.kernels._launch import LAUNCHES
 
 DB4 = "Daubechies 4"
 # (name, shape, level): non-cubic sizes, halo (Db4 L3: 49) larger than

@@ -1,5 +1,5 @@
 """The program's spans (``utils/profiling.py:span``, ``spanned``), its
-one launch count (``kernels/modwt_cuda.py:LAUNCHES``) and the sharded
+one launch count (``kernels/_launch.py:LAUNCHES``) and the sharded
 tier's collective counts (``parallel.sharded.COLLECTIVES``,
 ``COLLECTIVE_BYTES``).
 
@@ -28,7 +28,7 @@ import torch
 
 import jwave_pro_tpu_torch as jt
 from jwave_pro_tpu_torch import streaming as st
-from jwave_pro_tpu_torch.kernels.modwt_cuda import LAUNCHES, op_taps
+from jwave_pro_tpu_torch.kernels._launch import LAUNCHES, op_taps
 
 profiling = importlib.import_module("jwave_pro_tpu_torch.utils.profiling")
 
