@@ -1718,6 +1718,8 @@ def run_volume_cwt_slice(smoke: Smoke, torch, jt, dev, signal, card):
             torch, lambda: jt.cwt(xs, scales, wav, method="fused")),
         f"cwt(method='fft') {CWT_SHAPE} Morlet": wall_ms(
             torch, lambda: jt.cwt(xs, scales, wav, method="fft")),
+        f"cwt() {CWT_SHAPE} Morlet, the default": wall_ms(
+            torch, lambda: jt.cwt(xs, scales, wav)),
     }
     for name, ms in walls.items():
         print(f"  wall {name}: {ms:.3f} ms (host clock, median of 3) "
@@ -2070,8 +2072,10 @@ def run_continuous_slice(smoke: Smoke, torch, jt, signal, card) -> None:
     path, the direct CWT, the inverse CWT, the Hilbert tools and the
     wavelet coherence, float32 on the card at bench.py's shapes.  Each call
     is held to the port's own CPU float64 result on its first two rows,
-    timed, and put beside its bound.  None of them reaches a kernel of the
-    package: cuBLAS products, cuFFT and elementwise torch."""
+    timed, and put beside its bound.  Only the coherence reaches a kernel
+    of the package, the CWT's (#14) once for each of its two default
+    transforms; the rest is cuBLAS products, cuFFT and elementwise
+    torch."""
     t_phase = time.perf_counter()
     w, haar = jt.wavelet(WAVELET), jt.wavelet("Haar")
     b, n = MAIN_SHAPE
@@ -2339,7 +2343,7 @@ def run_continuous_slice(smoke: Smoke, torch, jt, signal, card) -> None:
          lambda: jt.wavelet_coherence(xc, y, scales, morlet), (xc, y)),
     ]
     counted_run(smoke, torch, all_launchers(), "the continuous slice",
-                lambda: [call() for _, call, _ in calls], {})
+                lambda: [call() for _, call, _ in calls], {"cwt_ifft": 2})
     for name, call, inputs in calls:
         out = call()
         nbytes = tensor_bytes(inputs) + tensor_bytes(out)
@@ -2871,7 +2875,8 @@ def run_slice_walls(smoke: Smoke, torch, jt, calls: list, stream_calls: list,
                     card) -> None:
     """Phase 29: every call of phases 27-28 in a counted window (phase
     27's launch none of the 14 kernels, phase 28's the forward kernel as
-    many times as their windows), then each call's wall beside its bound:
+    many times as their windows and the streaming CWT's update #14 once),
+    then each call's wall beside its bound:
     max(bytes / 3.35 TB/s, FFT-and-product flops / 67 TFLOP/s), with
     each FFT 5·n·log₂n (a real one half) and the ridge DP's adds and
     compares counted too."""
@@ -2882,7 +2887,8 @@ def run_slice_walls(smoke: Smoke, torch, jt, calls: list, stream_calls: list,
                 "slice", lambda: [c() for _, c, _, _ in calls], {})
     counted_run(smoke, torch, all_launchers(), "the streaming calls",
                 lambda: [c() for _, c, _, _, _ in stream_calls],
-                {"modwt_fwd": sum(n for *_, n in stream_calls)})
+                {"modwt_fwd": sum(n for *_, n in stream_calls),
+                 "cwt_ifft": 1})
     for name, call, inputs, extra, *_ in calls + stream_calls:
         out = call()
         nbytes = tensor_bytes(inputs) + tensor_bytes(out)
@@ -3415,9 +3421,10 @@ def run_sharded_slice(smoke: Smoke, torch, jt, signal, card) -> None:
     ``make_mesh`` meshes at bench.py's shapes, each gathered result held
     to the port's single-device call on the card (forwards 1e-5 ×
     max|ref|, round trips 1e-4, synchrosqueezing's bin decisions all the
-    single-device ones); a counted window shows they launch one kernel,
-    the forward's context variant for ``modwt_sharded``, and none other
-    (plain torch and collectives); each call's collectives posted (none on
+    single-device ones); a counted window shows they launch two kernels,
+    the forward's context variant for ``modwt_sharded`` and the CWT's
+    (#14) for each of the two sharded CWTs, and none other (plain torch
+    and collectives); each call's collectives posted (none on
     one rank) and its wall beside the single-device wall."""
     import tempfile
 
@@ -3448,7 +3455,7 @@ def run_sharded_slice(smoke: Smoke, torch, jt, signal, card) -> None:
                     run()
 
             counted_run(smoke, torch, all_launchers(), "the sharded tier",
-                        every_call, {"modwt_fwd_ctx": 1})
+                        every_call, {"modwt_fwd_ctx": 1, "cwt_ifft": 2})
             for name, inp, run, single, check in calls:
                 sharded.reset_collectives()
                 got = run()

@@ -13,21 +13,26 @@ ContinuousWaveletTransform.java``:
 The per-scale loop is one batched multiply: ψ̂ is evaluated on an
 ``(n_scales, n_freq)`` grid on the host in float64 (cached per wavelet,
 scale grid, length and rate), the products inverse-FFT as one batch.
-``method``: 'auto' and 'fft' take the half-spectrum ``torch.fft.irfft``
-path (real input, static scales); 'fused' takes the multiply + inverse FFT
-kernel (``kernels/cwt_cuda.py``: the CUDA kernel on a CUDA tensor, its
-plain version on the CPU) for float32 input at the lengths it supports,
-else the 'fft' path; 'banded' the pruned-band path
-(``ops/cwt_banded.py``: per-scale spectral bands and a factorized inverse
-DFT on cuBLAS products).  Complex input, and scales given as a tensor that
-requires grad (the counterpart of the JAX package's traced scales: ψ̂ is
-evaluated on the tensor's device), take the full-FFT path; any other
-tensor of scales is static, as a concrete array is in the JAX package.
+``method``: 'fft' takes the half-spectrum ``torch.fft.irfft`` path (real
+input, static scales); 'fused' takes the multiply + inverse FFT kernel
+(``kernels/cwt_cuda.py``: the CUDA kernel on a CUDA tensor, its plain
+version on the CPU) for float32 input at the lengths it supports, else the
+'fft' path; 'banded' the pruned-band path (``ops/cwt_banded.py``:
+per-scale spectral bands and a factorized inverse DFT on cuBLAS products);
+'auto' the fused path where the CUDA kernel runs and the answer needs no
+gradient, else the 'fft' path (:func:`_auto_method`).  Complex input, and
+scales given as a tensor that requires grad (the counterpart of the JAX
+package's traced scales: ψ̂ is evaluated on the tensor's device), take the
+full-FFT path; any other tensor of scales is static, as a concrete array
+is in the JAX package.
 
-'auto' keeps the irfft path where the JAX package's rule takes the banded
-one on a TPU (``_banded_auto_ok``): that rule was tuned against an XLA FFT
-at ~1 TFLOP/s effective, which cuFFT is not; the two paths agree to 5e-8
-relative, and ``chip_smoke.py`` times both on the card for the choice.
+The JAX package's 'auto' takes the banded path on a TPU
+(``_banded_auto_ok``) and its kernel nowhere: that rule was tuned against
+an XLA FFT at ~1 TFLOP/s effective, which cuFFT is not.  On the card one
+``torch.fft.fft`` and one launch of the kernel replace the irfft path's
+per-chunk products, inverse FFTs, ``cat`` and ``complex``, and write the
+coefficients once; on the CPU the kernel's plain version is a matrix DFT,
+so 'auto' keeps the irfft path there.
 
 Also here: ``cwt_direct`` (the reference's time-domain correlation with
 support clipping) and ``icwt`` (the frequency-compensated single-integral
@@ -288,6 +293,27 @@ def _cwt_fused(xp: torch.Tensor, n: int, scales_np: np.ndarray,
     return out.reshape(lead + (n_scales, n))
 
 
+def _auto_method(x: torch.Tensor, scales) -> str:
+    """The path ``method='auto'`` takes for ``x`` (integer input already
+    cast to float32) and ``scales``: 'fused' where the CUDA kernel gives
+    the answer — a real CUDA tensor of float32, or of bfloat16 or float16
+    (computed in float32), static scales, no gradient wanted of ``x`` (the
+    kernel has no backward) and a padded length the kernel takes (a power
+    of two in [64, 16384]) — else 'fft'."""
+    from ..kernels.cwt_cuda import cwt_fused_supported
+
+    if (not x.is_cuda
+            or x.dtype not in (torch.float32, torch.bfloat16, torch.float16)
+            or (isinstance(scales, torch.Tensor) and scales.requires_grad)
+            or (torch.is_grad_enabled() and x.requires_grad)):
+        return "fft"
+    n_scales = (scales.numel() if isinstance(scales, torch.Tensor)
+                else np.size(scales))
+    fits = cwt_fused_supported(math.prod(x.shape[:-1]), n_scales,
+                               next_power_of_two(x.shape[-1]))
+    return "fused" if fits else "fft"
+
+
 def _scale_chunk(batch_elems: int, padded_n: int, s_count: int) -> int:
     """Scale-axis chunk size that bounds the (batch, S, P) complex
     intermediate of the irfft path.
@@ -357,12 +383,14 @@ def cwt(x: torch.Tensor, scales, wavelet: ContinuousWavelet | None = None,
     """FFT-based CWT; coefficients ``(..., n_scales, N)`` on ``x``'s device.
 
     Equivalent of ``transformFFT`` (``ContinuousWaveletTransform.java:
-    183-229``) in one batched op.  ``method``: 'auto' and 'fft' (the
-    half-spectrum irfft path; 'auto' does not switch to 'banded' as the
-    JAX package's TPU rule does — see the module docstring), 'fused' (the
-    multiply + inverse FFT kernel
-    for float32 input at power-of-two padded lengths 64..16384, else the
-    'fft' path), or 'banded' (the pruned-band path, ``ops/cwt_banded.py``;
+    183-229``) in one batched op.  ``method``: 'fft' (the half-spectrum
+    irfft path), 'fused' (the multiply + inverse FFT kernel for float32
+    input at power-of-two padded lengths 64..16384, else the 'fft' path),
+    'auto' ('fused' for a real float32, bfloat16 or float16 CUDA tensor at
+    those lengths with static scales and no gradient wanted of ``x``, else
+    'fft'; never 'banded', which the JAX package's TPU rule takes — see
+    the module docstring), or 'banded' (the pruned-band path,
+    ``ops/cwt_banded.py``;
     it needs a padded length that is a multiple of 128 and at least 512,
     and raises ``ValueError`` otherwise).  For wavelets with real-even ψ̂
     (Mexican Hat, even-order DOG) the coefficients are mathematically real
@@ -384,6 +412,8 @@ def cwt(x: torch.Tensor, scales, wavelet: ContinuousWavelet | None = None,
     x = as_input(x)
     if not (x.is_floating_point() or x.is_complex()):
         x = x.to(torch.float32)
+    if method == "auto":
+        method = _auto_method(x, scales)
     low_prec = x.dtype in (torch.bfloat16, torch.float16)
     if low_prec:
         x = x.to(torch.float32)       # spectra and FFTs have no bf16 form

@@ -15,7 +15,7 @@ scalograms).
   ∂_t W come from one shared rfft and four batched irffts.  That front end
   runs on every device: the JAX package takes its banded front end
   (``cwt_banded_wd``) on a TPU only, and on the H100 the irfft path beats
-  the banded one (``PERF.md``), the rule ``cwt(method='auto')`` keeps.
+  the banded one (``PERF.md``), which ``cwt(method='auto')`` never takes.
   :func:`_reassign_planes` takes either front end's planes.
 * The reassignment scatters with ``scatter_add_`` along the bin axis, the
   real and imaginary planes as two float tensors.  On CUDA the atomics

@@ -9,6 +9,8 @@ Inputs are numpy arrays from a seed handed to both packages.  Tolerances:
   both sides, in another order).
 * the complex-input path, 1e-6 relative: both packages compute it in
   complex64 (the JAX package's dtype rule, copied).
+* ``cwt`` 'auto' on the CPU bitwise 'fft': the kernel runs only on the
+  card, where ``tests/test_torch_kernels.py`` holds 'auto' to 'fused'.
 * ``cwt_ifft_plain`` and ``cwt(method='fused')`` against the JAX package's
   interpret-mode Pallas kernel, f32, 5e-4 absolute: the bound
   ``tests/test_pallas_kernels.py`` holds that kernel to (its 3-pass bf16
@@ -30,6 +32,7 @@ import torch
 
 import jax
 import jax.numpy as jnp
+from torch._subclasses.fake_tensor import FakeTensorMode
 
 import jwave_pro_tpu as jw
 import jwave_pro_tpu_torch as jt
@@ -342,6 +345,70 @@ def test_fused_gate_and_fallbacks():
         jt.cwt(x64, scales, w, method="fft").coefficients, rtol=0, atol=0)
     before = LAUNCHES["cwt_ifft"]
     jt.cwt(_t(x), scales, w, method="fused")
+    assert LAUNCHES["cwt_ifft"] == before
+
+
+def _fake(shape, dtype=torch.float32, grad=False, device="cuda"):
+    return torch.empty(shape, device=device, dtype=dtype).requires_grad_(grad)
+
+
+_SCALES = np.geomspace(1.0, 64.0, 8)
+
+# (signal, scales) -> the path method='auto' takes, with gradients on
+# unless the third item turns them off; on fake tensors, CUDA unless named
+AUTO_DECISIONS = {
+    **{f"{dt}, P = {p}": (lambda dt=dt, p=p: (_fake((3, p), dt), _SCALES),
+                          "fused")
+       for dt in (torch.float32, torch.bfloat16, torch.float16)
+       for p in (64, 1024, 16384)},
+    "float32, n = 1000 pads to 1024": (
+        lambda: (_fake((2, 5, 1000)), _SCALES), "fused"),
+    "float32, one signal": (lambda: (_fake((16384,)), [4.0]), "fused"),
+    "float32, concrete tensor scales": (
+        lambda: (_fake((3, 1024)), torch.ones(8)), "fused"),
+    "float32, x needs a gradient, gradients off": (
+        lambda: (_fake((3, 1024), grad=True), _SCALES), "fused",
+        {"grad": False}),
+    "float64": (lambda: (_fake((3, 1024), torch.float64), _SCALES), "fft"),
+    "complex64": (lambda: (_fake((3, 1024), torch.complex64), _SCALES),
+                  "fft"),
+    "x needs a gradient": (lambda: (_fake((3, 1024), grad=True), _SCALES),
+                           "fft"),
+    "scales need a gradient": (
+        lambda: (_fake((3, 1024)), torch.ones(8, requires_grad=True)),
+        "fft"),
+    "P = 32": (lambda: (_fake((3, 32)), _SCALES), "fft"),
+    "P = 32768": (lambda: (_fake((3, 20000)), _SCALES), "fft"),
+    "no signals": (lambda: (_fake((0, 1024)), _SCALES), "fft"),
+    "CPU tensor": (lambda: (_fake((3, 1024), device="cpu"), _SCALES), "fft"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(AUTO_DECISIONS))
+def test_auto_rule_decides_from_the_input(case):
+    """What method='auto' takes is a function of the signal's device,
+    dtype, batch and padded length, whether a gradient is wanted of it,
+    and whether the scales need one: the kernel where it gives the
+    answer, else the irfft path."""
+    make, want, *how = AUTO_DECISIONS[case]
+    how = how[0] if how else {}
+    with FakeTensorMode(), torch.set_grad_enabled(how.get("grad", True)):
+        x, scales = make()
+        assert tcwt._auto_method(x, scales) == want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("make", [lambda p: p.MorletWavelet(),
+                                  lambda p: p.MexicanHatWavelet()],
+                         ids=["Morlet", "Mexican Hat"])
+def test_auto_on_the_cpu_is_the_fft_path_bitwise(make, dtype):
+    x = _t(np.random.default_rng(9).standard_normal((3, 1000))).to(dtype)
+    scales = jt.generate_log_scales(1.0, 32.0, 6)
+    before = LAUNCHES["cwt_ifft"]
+    auto = jt.cwt(x, scales, make(jt))
+    fft = jt.cwt(x, scales, make(jt), method="fft")
+    assert torch.equal(auto.coefficients, fft.coefficients)
+    assert torch.equal(auto.scales, fft.scales)
     assert LAUNCHES["cwt_ifft"] == before
 
 

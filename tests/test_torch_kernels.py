@@ -25,7 +25,12 @@ kernels: forward 1e-5 and inverse and round trip 1e-4 absolute (the
 on-chip bounds above: the same f32 cascade in another order); bf16 as
 above, the bf16 round trip 1e-1.  The CWT kernel: 1e-4 × max|c| against
 its plain version and against ``torch.fft.ifft`` (an f32 FFT against an
-f32 two-stage DFT and cuFFT, errors ~log₂P ulps of the largest value).
+f32 two-stage DFT and cuFFT, errors ~log₂P ulps of the largest value);
+the default ``cwt`` on the card bitwise ``method='fused'``, and at the CWT
+cell's shape within its limit, 3e-5 relative to max|ref|, of the float64
+reference ``wavebench/reference/cwt.py``; its callers within the smoke's
+bounds of the CPU f64 results (coherence 1e-3 absolute, a streaming
+update 1e-5 relative).
 The decimated products' gradients under TF32: 1e-5 relative to the host
 f64 gradient (the forward's on-chip bound; a TF32 backward misses it by
 an order of magnitude).  The banded CWT's tiers against the host f64
@@ -1251,6 +1256,86 @@ def test_cwt_public_path_launches_the_kernel(dev):
     jt.cwt(_signal(dev, 1, 20000), scales, jt.MorletWavelet(),
            method="fused")
     assert LAUNCHES["cwt_ifft"] == before + 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("wav", [jt.MorletWavelet(), jt.MexicanHatWavelet()])
+def test_default_cwt_is_the_fused_path(dev, wav, dtype):
+    """'auto' on a CUDA tensor launches the kernel once and is the fused
+    path bit for bit."""
+    x = _signal(dev, 4, 3000, seed=23, dtype=dtype)
+    scales = jt.generate_log_scales(1.0, 64.0, 11)
+    before = LAUNCHES["cwt_ifft"]
+    auto = jt.cwt(x, scales, wav)
+    assert LAUNCHES["cwt_ifft"] == before + 1
+    fused = jt.cwt(x, scales, wav, method="fused")
+    assert torch.equal(auto.coefficients, fused.coefficients)
+    assert torch.equal(auto.scales, fused.scales)
+    assert torch.equal(auto.time_axis, fused.time_axis)
+
+
+def test_default_cwt_at_the_cell_shape_against_float64(dev):
+    """(64, 16384) S = 64, Morlet ω0 = 6: within the CWT cell's limit of
+    the float64 reference (``wavebench/reference/cwt.py``)."""
+    from wavebench.reference import compare
+    from wavebench.reference import cwt as ref
+
+    x = _signal(dev, 64, 16384, seed=24)
+    scales = ref.log_scales(1.0, 256.0, 64)
+    before = LAUNCHES["cwt_ifft"]
+    got = jt.cwt(x, scales, jt.MorletWavelet.from_omega0(6.0)).coefficients
+    assert LAUNCHES["cwt_ifft"] == before + 1
+    assert got.dtype == torch.complex64 and got.shape == (64, 64, 16384)
+    err = compare.rel_err_rows(
+        got, lambda i, j: ref.cwt(x[i:j], scales, 6.0), 64, axis=0)
+    assert err <= 3e-5
+
+
+def test_default_cwt_under_grad_keeps_the_fft_path(dev):
+    """The kernel has no backward: with a gradient wanted of x 'auto' is
+    the 'fft' path, its answer and its gradient; without one, the
+    kernel."""
+    x = _signal(dev, 2, 1000, seed=25).requires_grad_(True)
+    scales = jt.generate_log_scales(1.0, 32.0, 7)
+    wav = jt.MorletWavelet()
+    before = LAUNCHES["cwt_ifft"]
+    auto = jt.cwt(x, scales, wav).coefficients
+    fft = jt.cwt(x, scales, wav, method="fft").coefficients
+    assert LAUNCHES["cwt_ifft"] == before
+    assert torch.equal(auto, fft)
+    (g_auto,) = torch.autograd.grad(auto.abs().square().sum(), x)
+    (g_fft,) = torch.autograd.grad(fft.abs().square().sum(), x)
+    assert torch.equal(g_auto, g_fft)
+    with torch.no_grad():
+        jt.cwt(x, scales, wav)
+    assert LAUNCHES["cwt_ifft"] == before + 1
+
+
+def test_coherence_and_streaming_cwt_take_the_kernel(dev):
+    """The default's callers on the card: the coherence's two transforms
+    and a streaming CWT update each launch the kernel, within the smoke's
+    bounds of the float64 results on the CPU (coherence 1e-3 absolute,
+    the stream 1e-5 relative to max|ref|)."""
+    from jwave_pro_tpu_torch import streaming as st
+
+    x, y = _signal(dev, 2, 4096, seed=26), _signal(dev, 2, 4096, seed=27)
+    y = 0.5 * torch.roll(x, 3, dims=-1) + y
+    scales = jt.generate_log_scales(1.0, 64.0, 16)
+    before = LAUNCHES["cwt_ifft"]
+    wc = jt.wavelet_coherence(x, y, scales)
+    assert LAUNCHES["cwt_ifft"] == before + 2
+    wc64 = jt.wavelet_coherence(x.cpu().double(), y.cpu().double(), scales)
+    assert float((wc.coherence.cpu().double() - wc64.coherence).abs().max()
+                 ) <= 1e-3
+    s = st.streaming_transform("cwt", jt.MorletWavelet(),
+                               st.StreamingConfig(4096, 3), scales=scales)
+    s64 = st.streaming_transform("cwt", jt.MorletWavelet(), st.StreamingConfig(
+        4096, 3, dtype=torch.float64, device="cpu"), scales=scales)
+    got = s.update(x[0, :1024])
+    want = s64.update(x[0, :1024].cpu().double())
+    assert LAUNCHES["cwt_ifft"] == before + 3
+    gap = (got.cpu().to(torch.complex128) - want).abs().max()
+    assert float(gap / want.abs().max()) <= 1e-5
 
 
 def test_cwt_launcher_rejects_what_the_kernel_does_not_take(dev):
