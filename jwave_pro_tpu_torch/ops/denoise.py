@@ -243,11 +243,12 @@ def modwt_denoise(x: torch.Tensor, wavelet: DiscreteWavelet, level: int,
 
 
 @spanned("jwave.denoise.shrink")
-def _shrunk(c: torch.Tensor, level: int, threshold, mode: str
+def _shrunk(c: torch.Tensor, details: int, threshold, mode: str
             ) -> torch.Tensor:
-    """``c`` with its ``level`` detail rows shrunk by ``threshold``."""
+    """``c`` with its first ``details`` rows (the detail rows or bands)
+    shrunk by ``threshold``."""
     shrink = soft_threshold if mode == "soft" else hard_threshold
-    return torch.cat([shrink(c[:level], threshold), c[level:]], dim=0)
+    return torch.cat([shrink(c[:details], threshold), c[details:]], dim=0)
 
 
 def _shrink_operands(c: torch.Tensor, threshold, wavelet: DiscreteWavelet,
@@ -334,6 +335,7 @@ def _per_image(threshold, x: torch.Tensor, dtype: torch.dtype,
     return t
 
 
+@spanned("jwave.modwt2_denoise")
 def modwt2_denoise(x: torch.Tensor, wavelet: DiscreteWavelet, level: int,
                    mode: str = "soft", threshold=None,
                    method: str = "auto") -> torch.Tensor:
@@ -386,26 +388,17 @@ def modwt2_denoise(x: torch.Tensor, wavelet: DiscreteWavelet, level: int,
     c = modwt2(x, wavelet, level, method=method)   # (3L+1, ..., R, C)
     n_bands = 3 * level
     if threshold is None or isinstance(threshold, str):
-        kind = threshold or "universal"
         hh1 = c[2].flatten(-2)                   # finest diagonal band
-        flat = c[:n_bands].flatten(-2)
-        if kind == "universal":
-            threshold = universal_threshold(hh1)
-        elif kind == "sure":
-            threshold = sure_threshold(flat, mad_sigma(hh1))
-        elif kind == "bayes":
-            threshold = bayes_threshold(flat, mad_sigma(hh1))
-        else:
-            raise ValueError(f"unknown threshold rule {threshold!r}")
-        threshold = threshold[..., None, None]
+        threshold = _rule_threshold(threshold or "universal", hh1,
+                                    c[:n_bands].flatten(-2),
+                                    hh1.shape[-1])[..., None, None]
     else:
         threshold = _per_image(threshold, x, c.dtype)
-    shrink = soft_threshold if mode == "soft" else hard_threshold
-    details = shrink(c[:n_bands], threshold)
-    return imodwt2(torch.cat([details, c[n_bands:]], dim=0), wavelet,
+    return imodwt2(_shrunk(c, n_bands, threshold, mode), wavelet,
                    method=method)
 
 
+@spanned("jwave.modwt3_denoise")
 def modwt3_denoise(x: torch.Tensor, wavelet: DiscreteWavelet, level: int,
                    mode: str = "soft", threshold=None) -> torch.Tensor:
     """Volume denoising via the 3D MODWT: shrink every detail octant (7 per
@@ -427,23 +420,13 @@ def modwt3_denoise(x: torch.Tensor, wavelet: DiscreteWavelet, level: int,
     c = modwt3(x, wavelet, level)            # (7L+1, ..., D, R, C)
     n_bands = 7 * level
     if threshold is None or isinstance(threshold, str):
-        kind = threshold or "universal"
         hhh1 = c[6].flatten(-3)                # finest corner octant
-        flat = c[:n_bands].flatten(-3)
-        if kind == "universal":
-            threshold = universal_threshold(hhh1)
-        elif kind == "sure":
-            threshold = sure_threshold(flat, mad_sigma(hhh1))
-        elif kind == "bayes":
-            threshold = bayes_threshold(flat, mad_sigma(hhh1))
-        else:
-            raise ValueError(f"unknown threshold rule {threshold!r}")
-        threshold = threshold[..., None, None, None]
+        threshold = _rule_threshold(threshold or "universal", hhh1,
+                                    c[:n_bands].flatten(-3),
+                                    hhh1.shape[-1])[..., None, None, None]
     else:
         threshold = _per_image(threshold, x, c.dtype, nd=3)
-    shrink = soft_threshold if mode == "soft" else hard_threshold
-    details = shrink(c[:n_bands], threshold)
-    return imodwt3(torch.cat([details, c[n_bands:]], dim=0), wavelet)
+    return imodwt3(_shrunk(c, n_bands, threshold, mode), wavelet)
 
 
 def wpt_denoise(x: torch.Tensor, wavelet: DiscreteWavelet, level=None,

@@ -5,15 +5,17 @@ tier's collective counts (``parallel.sharded.COLLECTIVES``,
 
 With no profiler running a span is the one shared null context and
 ``record_function`` is never called.  Under ``torch.profiler`` the spans
-of ``modwt_denoise``, ``cwt`` and a ``StreamingMODWT.update`` nest as
-the stages run: the threshold and the shrink inside the denoise, the
+of ``modwt_denoise``, ``modwt2_denoise``, ``modwt3_denoise``, ``cwt``
+and a ``StreamingMODWT.update`` nest as the stages run: the threshold and
+the shrink inside each denoise (one pair of helpers for 1D, 2D and 3D), the
 host-to-device copies of the axes inside the CWT, the buffer's stages
 inside the update, and a launch inside the transform that makes it.  In
 a spawned gloo world of 4 ranks, a signal-sharded MODWT forward spans its
 one fetch of the halo and that fetch its one ring hop, of rows × 217
 float32 samples at Daubechies 4 L5.  On the card (``cuda``), a launch's
-span holds its ``cudaLaunchKernel`` and ``LAUNCHES`` counts eager and
-served launches alike.
+span holds its ``cudaLaunchKernel``, ``LAUNCHES`` counts eager and
+served launches alike, and a default 2D denoise launches the 2D forward,
+the median and the 2D inverse once each.
 """
 import importlib
 import json
@@ -51,11 +53,15 @@ def _stream(seed=0):
 
 
 def _calls():
-    """The three calls the spans are checked on, as thunks."""
+    """The calls the spans are checked on, as thunks."""
     x = _signal(2, 1000, seed=1)
+    image = _signal(2, 40, 48, seed=7)
+    volume = _signal(2, 6, 10, 12, seed=8)
     scales = jt.generate_log_scales(1.0, 32.0, 6)
     stream, chunk = _stream()
     return {"modwt_denoise": lambda: jt.modwt_denoise(x, DB4, 3),
+            "modwt2_denoise": lambda: jt.modwt2_denoise(image, DB4, 2),
+            "modwt3_denoise": lambda: jt.modwt3_denoise(volume, DB4, 2),
             "cwt": lambda: jt.cwt(x, scales),
             "update": lambda: stream.update(chunk)}
 
@@ -101,7 +107,8 @@ def test_span_without_a_profiler_is_the_shared_null_context():
         assert got is None
 
 
-@pytest.mark.parametrize("call", ["modwt_denoise", "cwt", "update"])
+@pytest.mark.parametrize("call", ["modwt_denoise", "modwt2_denoise",
+                                  "modwt3_denoise", "cwt", "update"])
 def test_no_profiler_never_records(monkeypatch, call):
     """Every span site of the call is guarded: with ``record_function``
     made to raise, the call runs and gives the answer it gives with the
@@ -136,6 +143,12 @@ NESTING = {
                       ("jwave.denoise.threshold", "jwave.modwt_denoise"),
                       ("jwave.denoise.shrink", "jwave.modwt_denoise"),
                       ("jwave.imodwt", "jwave.modwt_denoise")],
+    "modwt2_denoise": [("jwave.modwt2_denoise", None),
+                       ("jwave.denoise.threshold", "jwave.modwt2_denoise"),
+                       ("jwave.denoise.shrink", "jwave.modwt2_denoise")],
+    "modwt3_denoise": [("jwave.modwt3_denoise", None),
+                       ("jwave.denoise.threshold", "jwave.modwt3_denoise"),
+                       ("jwave.denoise.shrink", "jwave.modwt3_denoise")],
     "cwt": [("jwave.cwt", None), ("jwave.cwt.axes", "jwave.cwt"),
             ("jwave.cwt.axes", "jwave.cwt")],
     "update": [("jwave.stream.update", None),
@@ -169,6 +182,13 @@ def test_the_fused_denoise_spans_its_threshold():
         lambda: jt.modwt_denoise(x, DB4, 3, threshold=0.5)))]
     assert "jwave.denoise.threshold" not in names
     assert "jwave.denoise.shrink" in names
+
+
+def test_a_given_2d_threshold_takes_no_estimate():
+    x = _signal(2, 40, 48, seed=9)
+    names = [n for n, _ in _parents(_profiled(
+        lambda: jt.modwt2_denoise(x, DB4, 2, threshold=0.5)))]
+    assert names == ["jwave.modwt2_denoise", "jwave.denoise.shrink"]
 
 
 def test_multipliers_span_only_when_built():
@@ -354,3 +374,29 @@ def test_launches_count_eager_and_served_alike(dev):
         ran = {k: LAUNCHES[k] - before[k] for k in LAUNCHES
                if LAUNCHES[k] != before[k]}
         assert ran == {"modwt_fwd": 1, "modwt_inv_shrink": 1}
+
+
+@pytest.mark.cuda
+def test_default_2d_denoise_launches_each_2d_kernel_once(dev):
+    """The default 2D denoise on the card: the 2D forward, the threshold's
+    median on |HH1| and the 2D inverse, one launch each a call, inside the
+    denoise's span with its threshold and shrink."""
+    x = _signal(4, 512, 512, seed=10).to(dev)
+    jt.modwt2_denoise(x, DB4, 3)
+    torch.cuda.synchronize()
+    for _ in range(2):
+        before = LAUNCHES.copy()
+        jt.modwt2_denoise(x, DB4, 3)
+        torch.cuda.synchronize()
+        ran = {k: LAUNCHES[k] - before[k] for k in LAUNCHES
+               if LAUNCHES[k] != before[k]}
+        assert ran == {"modwt2_fwd": 1, "median": 1, "modwt2_inv": 1}
+    got = _parents(_profiled(lambda: (jt.modwt2_denoise(x, DB4, 3),
+                                      torch.cuda.synchronize()),
+                             ACTS + [torch.profiler.ProfilerActivity.CUDA]))
+    assert got == [("jwave.modwt2_denoise", None),
+                   ("jwave.launch.modwt2_fwd", "jwave.modwt2_denoise"),
+                   ("jwave.denoise.threshold", "jwave.modwt2_denoise"),
+                   ("jwave.launch.median", "jwave.denoise.threshold"),
+                   ("jwave.denoise.shrink", "jwave.modwt2_denoise"),
+                   ("jwave.launch.modwt2_inv", "jwave.modwt2_denoise")]
