@@ -87,8 +87,16 @@ hard, under every threshold shape the denoise passes it; one launch in a
 default ``modwt_denoise``, bitwise the pipeline it replaces; at the
 denoise cell's p95 request and at the north star's shape bitwise that
 pipeline and within the inverse's bound of its plain model, timed beside
-the inverse, the shrink and the ``cat`` it replaces and its bound).  The
-kernels' launch counters, set to 0
+the inverse, the shrink and the ``cat`` it replaces and its bound); and
+the 2D inverse that shrinks the 2D denoise's detail bands as it loads
+them (phase 38: bitwise the shrink and ``imodwt2`` it replaces at the 2D
+inverse's edges, f32 and bf16, soft and hard, for a number, a threshold
+an image and one a band and image; one launch in a default
+``modwt2_denoise`` at the 2D cell's (16, 2048²), bitwise the pipeline it
+replaces; at the cell's (10, 16, 2048²) coefficients bitwise that
+pipeline and within the 2D inverse's bound of its plain model, timed
+beside the 2D inverse, the shrink and the ``cat`` it replaces and its
+bound).  The kernels' launch counters, set to 0
 before each path and read after it, show that the path ran through them;
 CUDA events time each kernel against its plain version (``event_time``:
 the median time of one call on a fixed input).  Every check
@@ -226,6 +234,15 @@ SHARD_BLOCK = 1 << 16
 # phase 37: the denoise cell's request at about its p95 length (16 rows,
 # wavebench/workloads/modwt_db4_l5.denoise.json), and the north star's shape
 SHRINK_SHAPES = ((16, 1_720_000), MAIN_SHAPE)
+# phase 38: the 2D shrinking inverse's edges (batch, rows, cols, level,
+# wavelet): an image below the halo, an odd shape, a strip crossing C's
+# end at M = 16, Haar at the transforms' gate, a filter length without a
+# specialised kernel
+INV2_SHRINK_EDGES = ((2, 40, 48, 3, "Daubechies 4"),
+                     (3, 509, 771, 3, "Daubechies 4"),
+                     (2, 64, 600, 2, "Symlet 8"),
+                     (1, 200, 140, 7, "Haar"),
+                     (2, 33, 70, 2, "Daubechies 2"))
 # the H100's published peaks (SXM, 700 W): HBM bytes/s, f32 FLOP/s
 HBM_RATE, F32_RATE = 3.35e12, 67e12
 
@@ -393,10 +410,12 @@ def run(smoke: Smoke, torch, jt) -> dict:
         count = sum(kernel in name for name in report)
         smoke.require(f"ptxas reports {kernel} for all 8 instantiations",
                       count == 8, f"({count})")
-    # the shrinking inverse: f32/bf16 x M = 2, 8, 16, any M x soft, hard
-    count = sum("jw_modwt_inv_shrink_kernel" in name for name in report)
-    smoke.require("ptxas reports jw_modwt_inv_shrink_kernel for all 16 "
-                  "instantiations", count == 16, f"({count})")
+    # the shrinking inverses: f32/bf16 x M = 2, 8, 16, any M x soft, hard
+    for kernel in ("jw_modwt_inv_shrink_kernel",
+                   "jw_modwt2_inv_shrink_kernel"):
+        count = sum(kernel in name for name in report)
+        smoke.require(f"ptxas reports {kernel} for all 16 instantiations",
+                      count == 16, f"({count})")
 
     print("== phase 3: forward kernel vs plain (f32)", flush=True)
     small = {}
@@ -675,6 +694,10 @@ def run(smoke: Smoke, torch, jt) -> dict:
     for part, got in zip((launches, errs, times),
                          run_inv_shrink_slice(smoke, torch, jt, signal, card)):
         part.update(got)
+    for part, got in zip((launches, errs, times),
+                         run_inv2_shrink_slice(smoke, torch, jt, signal,
+                                               card)):
+        part.update(got)
 
     src = "jwave_pro_tpu_torch/csrc/"
     tpu = "jwave_pro_tpu/kernels/"
@@ -700,6 +723,9 @@ def run(smoke: Smoke, torch, jt) -> dict:
         # the inverse of shrunk details: the JAX package shrinks in plain
         # XLA before its inverse kernel
         "modwt_inv_shrink": ("modwt.cu", None),
+        # the 2D inverse of shrunk bands: the JAX package's 2D denoise
+        # shrinks in plain XLA before its inverse kernel
+        "modwt2_inv_shrink": ("modwt2_shrink.cu", None),
     }
     bounds = kernel_bounds(w)
     for name in meta:
@@ -778,6 +804,11 @@ def kernel_bounds(w) -> dict:
         # of each detail value
         "modwt_inv_shrink": bound(4 * cells * (LEVEL + 2) + 4 * b * LEVEL,
                                   cells * (4 * m + 3) * LEVEL),
+        # the 2D inverse's 3L + 1 bands and output, and a threshold an
+        # image and band; three shrinks a pixel and level
+        "modwt2_inv_shrink": bound(4 * img * (3 * l2 + 2)
+                                   + 4 * IMAGE_SHAPE[0] * 3 * l2,
+                                   img * (12 * m + 9) * l2),
     }
 
 
@@ -1236,8 +1267,8 @@ def run_image_slice(smoke: Smoke, torch, jt, dev, signal, card):
           flush=True)
     x = signal(*IMAGE_SHAPE)
     xm = signal(*MRA_SHAPE)
-    counters = ("modwt2_fwd", "modwt2_inv", "modwt2_denoise", "modwpt_fwd",
-                "modwpt_inv")
+    counters = ("modwt2_fwd", "modwt2_inv", "modwt2_inv_shrink",
+                "modwt2_denoise", "modwpt_fwd", "modwpt_inv")
 
     def counted(what, calls, want):
         return counted_run(smoke, torch, counters, what, calls, want)
@@ -1264,7 +1295,7 @@ def run_image_slice(smoke: Smoke, torch, jt, dev, signal, card):
     den_p, _ = counted(
         "the full-width pipeline denoise",
         lambda: jt.modwt2_denoise(x, w, lvl, threshold=IMAGE_THR),
-        {"modwt2_fwd": 1, "modwt2_inv": 1})
+        {"modwt2_fwd": 1, "modwt2_inv_shrink": 1})
     mra, _ = counted("the 2D MRA", lambda: jt.modwt2_mra(xm, w, lvl),
                      {"modwt2_fwd": 1, "modwt2_inv": 3 * lvl + 1})
     nodes = 1 << PACKET2_LEVEL
@@ -1731,8 +1762,8 @@ def all_launchers() -> tuple:
     """Every kernel operator, by the name its launches count under."""
     return ("modwt_fwd", "modwt_fwd_ctx", "modwt_inv", "modwt_inv_shrink",
             "modwt_denoise", "modwt_var", "modwpt_fwd", "modwpt_select", "modwpt_inv",
-            "modwt2_fwd", "modwt2_inv", "modwt2_denoise", "modwt3_fwd",
-            "modwt3_inv", "cwt_ifft")
+            "modwt2_fwd", "modwt2_inv", "modwt2_inv_shrink", "modwt2_denoise",
+            "modwt3_fwd", "modwt3_inv", "cwt_ifft")
 
 
 def op_flops(call) -> int:
@@ -3893,6 +3924,127 @@ def run_inv_shrink_slice(smoke: Smoke, torch, jt, signal, card) -> tuple:
           flush=True)
     return ({"modwt_inv_shrink": got["modwt_inv_shrink"]},
             {"modwt_inv_shrink": err}, times)
+
+
+def run_inv2_shrink_slice(smoke: Smoke, torch, jt, signal, card) -> tuple:
+    """Phase 38: the 2D inverse that shrinks its detail bands as it loads
+    them (``jwave::modwt2_inv_shrink``, #10s) against the pipeline it
+    replaces, the shrink and ``imodwt2`` on the 2D inverse kernel #10, bit
+    for bit, at INV2_SHRINK_EDGES, f32 and bf16, soft and hard, for a
+    number, a threshold an image and one a band and image, a NaN and both
+    zeros among the details; against its plain model within the 2D
+    inverse's bound; one default ``modwt2_denoise`` at IMAGE_SHAPE in a
+    counted window (the 2D forward, the median and #10s once, #10 never),
+    its output bitwise the pipeline it replaces (``modwt2``, the universal
+    threshold, the shrink and ``imodwt2``) on the same input; on that
+    input's (10, 16, 2048²) coefficients with the universal threshold,
+    bitwise that pipeline and within 1e-4 of its plain model, then timed
+    beside the pipeline (#10, the shrink's passes and the ``cat``) and #10
+    alone, in the order pipeline, kernel, kernel, pipeline, with the bound
+    of #10's bands and the thresholds.  Returns (launches, errors, times)
+    under ``modwt2_inv_shrink``."""
+    from jwave_pro_tpu_torch.kernels import modwt2_cuda as k2
+    from jwave_pro_tpu_torch.ops import denoise as dn
+
+    t_phase = time.perf_counter()
+    print(f"== phase 38: the 2D shrinking inverse on {card}", flush=True)
+    w = jt.wavelet(WAVELET)
+    lvl = IMAGE_LEVEL
+    bands = 3 * lvl
+
+    def bits(a, b) -> bool:
+        a, b = a.float(), b.float()
+        return bool(((a.view(torch.int32) == b.view(torch.int32))
+                     | (a.isnan() & b.isnan())).all())
+
+    for b, r, cols, level, name in INV2_SHRINK_EDGES:
+        wv = jt.wavelet(name)
+        nb = 3 * level
+        for dtype in (torch.float32, torch.bfloat16):
+            c = signal(nb + 1, b, r, cols, dtype=dtype)
+            c[0, 0, 1, 5] = math.nan
+            c[1, -1, 2, 7], c[1, -1, 2, 8] = 0.0, -0.0
+            dev = c.device
+            for kind, t in (
+                    ("0.8", 0.8),
+                    ("(B, 1, 1)", torch.linspace(
+                        0.2, 1.0, b, device=dev,
+                        dtype=dtype).reshape(b, 1, 1)),
+                    ("(3L, B, 1, 1)", torch.linspace(
+                        0.1, 1.5, nb * b, device=dev,
+                        dtype=dtype).reshape(nb, b, 1, 1))):
+                for mode in ("soft", "hard"):
+                    hard = int(mode != "soft")
+                    ops = dn._shrink2_operands(c, t, wv, hard)
+                    got = k2.modwt2_inv_shrink_cuda(c, *ops, wv, hard)
+                    want = jt.imodwt2(dn._shrunk(c, nb, t, mode), wv)
+                    tag = (f"inv2_shrink ({b}, {r}, {cols}) {name} L{level} "
+                           f"{dtype} {mode} t {kind}")
+                    smoke.require(f"{tag} = shrink and imodwt2 bitwise",
+                                  bits(got, want))
+                    plain = k2.modwt2_inv_shrink_plain(c, *ops, wv, hard)
+                    e = max_err(got.nan_to_num(0.0), plain.nan_to_num(0.0))
+                    smoke.check(f"{tag} vs plain", e,
+                                1e-4 if dtype == torch.float32 else 5e-2)
+
+    def pipeline(c, t):
+        """What the 2D denoise ran before the shrink moved into #10."""
+        return jt.imodwt2(dn._shrunk(c, bands, t, "soft"), w)
+
+    def universal(c):
+        hh1 = c[2].flatten(-2)
+        return dn._rule_threshold("universal", hh1, c[:bands].flatten(-2),
+                                  hh1.shape[-1])[..., None, None]
+
+    x = signal(*IMAGE_SHAPE)
+    out, got = counted_run(smoke, torch, all_launchers() + ("median",),
+                           f"a default modwt2_denoise {IMAGE_SHAPE}",
+                           lambda: jt.modwt2_denoise(x, w, lvl),
+                           {"modwt2_fwd": 1, "median": 1,
+                            "modwt2_inv_shrink": 1})
+    c = k2.modwt2_fwd_cuda(x, w, lvl)
+    del x
+    t = universal(c)
+    smoke.require(f"a default modwt2_denoise {IMAGE_SHAPE} = modwt2, the "
+                  f"universal threshold, the shrink and imodwt2 bitwise",
+                  bits(out, pipeline(c, t)))
+    del out
+    ops = dn._shrink2_operands(c, t, w, 0)
+    cut = lambda v: k2.modwt2_inv_shrink_cuda(v, *ops, w, 0)  # noqa: E731
+    before = lambda v: pipeline(v, t)  # noqa: E731
+    got_c = cut(c)
+    shape = tuple(c.shape)
+    smoke.require(f"inv2_shrink {shape} = shrink and imodwt2 bitwise",
+                  bits(got_c, before(c)))
+    err = smoke.check(f"inv2_shrink {shape} vs plain", max_err(
+        got_c, k2.modwt2_inv_shrink_plain(c, *ops, w, 0)), 1e-4)
+    del got_c
+    torch.cuda.empty_cache()
+    tb1 = event_time(torch, before, c, k=5, repeats=3) * 1e3
+    tk1 = event_time(torch, cut, c, k=10, repeats=3) * 1e3
+    tk2 = event_time(torch, cut, c, k=10, repeats=3) * 1e3
+    tb2 = event_time(torch, before, c, k=5, repeats=3) * 1e3
+    tinv = event_time(torch, lambda v: k2.modwt2_inv_cuda(v, w), c, k=10,
+                      repeats=3) * 1e3
+    tk, tb = (tk1 + tk2) / 2, (tb1 + tb2) / 2
+    img = math.prod(IMAGE_SHAPE)
+    bound_ms, by = bound(4 * img * (bands + 2) + 4 * IMAGE_SHAPE[0] * bands,
+                         img * (12 * w.length + 9) * lvl)
+    print(f"  inv2_shrink {shape}: kernel {tk:.4f} ms ({tk1:.4f}, "
+          f"{tk2:.4f}); #10, the shrink and the cat {tb:.4f} ms ({tb1:.4f}, "
+          f"{tb2:.4f}; {tb / tk:.2f}x); #10 alone {tinv:.4f} ms "
+          f"(#10s {tk / tinv - 1:+.1%}); bound {bound_ms:.4f} ms ({by}), "
+          f"{bound_ms / tk:.1%} of it [{card}]", flush=True)
+    tp = event_time(torch, lambda v: k2.modwt2_inv_shrink_plain(
+        v, *ops, w, 0), c, k=2, repeats=3) * 1e3
+    print(f"  inv2_shrink {shape}: plain version {tp:.4f} ms [{card}]",
+          flush=True)
+    del c, t, ops
+    torch.cuda.empty_cache()
+    print(f"  phase 38 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return ({"modwt2_inv_shrink": got["modwt2_inv_shrink"]},
+            {"modwt2_inv_shrink": err}, {"modwt2_inv_shrink": (tk, tp)})
 
 
 def main() -> int:

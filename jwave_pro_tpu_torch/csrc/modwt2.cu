@@ -30,15 +30,11 @@
 // L3.  The design loads each device row once, coalesced; packs the values
 // one tap reads into one vector load (float2, float4); takes the taps from
 // the parameter bank when M is a template constant; and wraps ring slots
-// by a conditional add, with one modulo a level and step.
+// by a conditional add, with one modulo a level and step.  The inverse's
+// body and the layout's shared pieces live in modwt2_inv.cuh, which the
+// shrinking inverse (#10s, modwt2_shrink.cu) includes too.
 
-#include "common.cuh"
-
-#define JW_WARPS (JW_THREADS / 32)
-
-// tap k of g and h: a parameter-bank constant when M is a template constant
-#define JW2D_G(k) (MT > 0 ? taps.g[k] : sg[k])
-#define JW2D_H(k) (MT > 0 ? taps.h[k] : sh[k])
+#include "modwt2_inv.cuh"
 
 // the kernel instantiated for filter length m: M = 8, 2, 16 as template
 // constants, any other M at run time
@@ -46,43 +42,6 @@
   ((m) == 8 ? kernel<T, 8>                                   \
             : (m) == 2 ? kernel<T, 2>                        \
                        : (m) == 16 ? kernel<T, 16> : kernel<T, 0>)
-
-// A strip kernel's work item: image b, rows [ra, rb), strip `strip`.  Items:
-// B x ceil(R / run) runs x nstrips strips, strips fastest.
-struct JwStrip {
-  int b, ra, rb, strip;
-};
-
-__device__ __forceinline__ JwStrip jw_strip(long long it, int nstrips,
-                                            int nruns, int run, int rows) {
-  JwStrip s;
-  s.strip = (int)(it % nstrips);
-  const long long rest = it / nstrips;
-  s.ra = (int)(rest % nruns) * run;
-  s.b = (int)(rest / nruns);
-  s.rb = min(s.ra + run, rows);
-  return s;
-}
-
-// (z, LH, HL, HH) at one pixel, p pointing at LH: a level's bands are a
-// plane apart.
-template <typename T>
-__device__ __forceinline__ float4 jw_bands(const T* p, size_t plane,
-                                           float z) {
-  return make_float4(z, jw_load(p), jw_load(p + plane),
-                     jw_load(p + 2 * plane));
-}
-
-// Shared floats of one transform block at window width w and G rows a step:
-// the taps, then the forward's G rows of (g, h) row-pass pairs and a ring of
-// p_j + G rows of LL_{j-1} a level, or the inverse's G rows of (Z, LH, HL,
-// HH) quadruples and a ring of p_j + G rows of (U_j, V_j) pairs a level.
-static inline int jw2t_smem_floats(int inverse, int w, int grp, int level,
-                                   int m) {
-  const int rings = (m - 1) * ((1 << level) - 1) + level * grp;
-  return 2 * JW_MAX_TAPS +
-         w * (inverse ? 4 * grp + 2 * rings : 2 * grp + rings);
-}
 
 // Forward.  The window is W = Tc + H columns from H before the strip's
 // first output column; the analysis reads left and up.  At step t every
@@ -206,130 +165,15 @@ jw_modwt2_fwd_kernel(const T* __restrict__ x, T* __restrict__ out, int batch,
   }
 }
 
-// Inverse.  The window is W = Tc + H columns from the strip's first output
-// column; the synthesis reads right and down.  The JAX inverse runs cl =
-// g'_r LL + h'_r HL, ch = g'_r LH + h'_r HH, LL_{j-1} = g'_c cl + h'_c ch
-// (' the adjoint, _r down the rows, _c along the columns); the row and
-// column filters commute, so level j keeps two rings, not four:
-//
-// * stage A: U_j = g'_c Z_j + h'_c LH_j and V_j = g'_c HL_j + h'_c HH_j
-//   along the columns of one row (Z_L = LL_L), into a ring of p_j + G rows
-//   of (U_j, V_j) pairs;
-// * stage B: Z_{j-1} = g'_r U_j + h'_r V_j down the rows, p_j rows ahead.
-//
-// At step t, Z_j comes out at row t - S_{j+1}, so level j's three detail
-// rows are read from device memory at that row, each once, with Z_j's row
-// beside them in a G-row buffer of (Z, LH, HL, HH) quadruples: there is no
-// delay ring.  Each thread loads the bands it stores with its Z_{j-1} one
-// stage early (at level 1, the next step's level L and LL_L).  The output
-// Z_0 is row t - H; columns shrink by p_j a level, from the right.  One
-// block an SM at Db4 L3 (the rings take 221 KB), so up to 128 registers:
-// held to 64 for two blocks of half the width, it ran slower.
+// Inverse: modwt2_inv.cuh's body with the detail bands read as they are.
 template <typename T, int MT>
 __global__ void __launch_bounds__(JW_THREADS, 1)
 jw_modwt2_inv_kernel(const T* __restrict__ c, T* __restrict__ out, int batch,
                      int rows, int cols, int level, int m_run, int w, int grp,
                      int tc, int run, JwTaps taps) {
-  extern __shared__ float smem[];
-  const int m = MT > 0 ? MT : m_run;
-  const int halo = (m - 1) * ((1 << level) - 1);
-  float* sg = smem;
-  float* sh = smem + JW_MAX_TAPS;
-  float4* zb = reinterpret_cast<float4*>(smem + 2 * JW_MAX_TAPS);
-  float2* rings =
-      reinterpret_cast<float2*>(smem + 2 * JW_MAX_TAPS + 4 * grp * w);
-  jw_stage_taps(taps, sg, sh, m);
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int ncw = JW_WARPS / grp;
-  const int g = warp / ncw;                    // this warp's row of a step
-  const int q = (warp - g * ncw) * 32 + lane;  // and this lane's column
-  const bool on = q < w;
-  const int gq = g * w + q;
-
-  const int nstrips = (cols + tc - 1) / tc;
-  const int nruns = (rows + run - 1) / run;
-  const long long items = (long long)batch * nruns * nstrips;
-  const size_t img = (size_t)rows * cols;
-  const size_t plane = (size_t)batch * img;
-
-  for (long long it = blockIdx.x; it < items; it += gridDim.x) {
-    const JwStrip s = jw_strip(it, nstrips, nruns, run, rows);
-    const long long c0 = (long long)s.strip * tc;  // window column 0
-    const size_t col = on ? (size_t)jw_index(c0 + q, cols) : 0;
-    // this column of the image's first band, and of level L's LH
-    const T* cb = c + (size_t)s.b * img + col;
-    const T* top = cb + (size_t)(3 * (level - 1)) * plane;
-    T* ob = out + (size_t)s.b * img + (c0 + q);
-    const int base = s.ra - halo;  // ring slot of row y: (y - base) % depth
-    const bool out_col = on && q < tc && c0 + q < cols;
-
-    // level L's bands and LL_L at the first step's rows (the previous
-    // item's last reader of the buffer is behind its last barrier)
-    if (on) {
-      const T* pt = top + (size_t)jw_index(s.ra + g, rows) * cols;
-      zb[gq] = jw_bands(pt, plane, jw_load(pt + 3 * plane));
-    }
-    __syncthreads();
-
-    for (int t = s.ra; t < s.rb + halo; t += grp) {
-      for (int j = level; j >= 1; --j) {
-        const int d = 1 << (j - 1), p = (m - 1) * d, dep = p + grp;
-        const int sj1 = (m - 1) * ((1 << level) - 2 * d);  // S_{j+1}
-        const int sj = sj1 + p;                             // S_j
-        float2* uv = rings + (size_t)w * ((m - 1) * (d - 1) + (j - 1) * grp);
-        const bool live = on && q < w - sj;  // U_j, V_j and Z_{j-1} valid
-        // the bands stored beside Z_{j-1}: level j-1's at row t - S_j + g,
-        // or at level 1 the next step's level L and LL_L
-        float4 nb = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (j > 1 && live) {
-          nb = jw_bands(cb + (size_t)(3 * (j - 2)) * plane +
-                            (size_t)jw_index(t - sj + g, rows) * cols,
-                        plane, 0.f);
-        } else if (j == 1 && on) {
-          const T* pt = top + (size_t)jw_index(t + grp + g, rows) * cols;
-          nb = jw_bands(pt, plane, jw_load(pt + 3 * plane));
-        }
-        const int sw = (t - sj1 + g - base) % dep;  // row t - S_{j+1} + g
-        // stage A: U_j, V_j along the columns, from columns q + k d
-        if (live) {
-          float u = 0.f, v = 0.f;
-#pragma unroll
-          for (int k = 0; k < m; ++k) {
-            const float4 a = zb[gq + k * d];
-            u = fmaf(JW2D_G(k), a.x, fmaf(JW2D_H(k), a.y, u));
-            v = fmaf(JW2D_G(k), a.z, fmaf(JW2D_H(k), a.w, v));
-          }
-          uv[sw * w + q] = make_float2(u, v);
-        }
-        __syncthreads();
-        // stage B: Z_{j-1} of row t - S_j + g, from rows + k d
-        if (live) {
-          const int dw = d * w, span = dep * w;
-          int o = (sw - p) * w;
-          o += o < 0 ? span : 0;
-          float z = 0.f;
-#pragma unroll
-          for (int k = 0; k < m; ++k) {
-            const float2 a = uv[o + q];
-            z = fmaf(JW2D_G(k), a.x, fmaf(JW2D_H(k), a.y, z));
-            o += dw;
-            o -= o >= span ? span : 0;
-          }
-          if (j > 1) {
-            nb.x = z;
-            zb[gq] = nb;
-          } else {
-            const int y = t - halo + g;
-            if (out_col && y >= s.ra && y < s.rb)
-              jw_store(ob + (size_t)y * cols, z);
-          }
-        }
-        if (j == 1 && on) zb[gq] = nb;
-        __syncthreads();
-      }
-    }
-  }
+  jw_modwt2_inv_body<T, MT, JW_KEEP>(c, out, batch, rows, cols, level, m_run,
+                                     w, grp, tc, run, taps, nullptr, 0.f, 0,
+                                     0);
 }
 
 // Denoise: forward -> shrink every detail band by its image's threshold ->
@@ -588,16 +432,6 @@ jw_modwt2_denoise_kernel(const T* __restrict__ x, const float* __restrict__ thr,
       }
     }
   }
-}
-
-// Whether a strip launch's shape arguments fit the kernels' warp layout:
-// G a divisor of 16, W <= 32 x 16 / G, W = tc + reach (H for the
-// transforms, 2H for the denoise).
-static inline bool jw2d_strip_ok(int grid, int w, int grp, int tc, int run,
-                                 int reach) {
-  return grid >= 1 && grp >= 1 && JW_WARPS % grp == 0 &&
-         w <= 32 * (JW_WARPS / grp) && tc >= 1 && run >= 1 &&
-         w == tc + reach;
 }
 
 template <typename Kernel>

@@ -4,6 +4,7 @@
 #pragma once
 
 #include "common.cuh"
+#include "shrink.cuh"
 
 #define JW_INV_R 7  // outputs in a register chain (odd: distinct banks)
 #define JW_INV_THREADS 256  // a block; four an SM at 4096-sample tiles
@@ -12,31 +13,6 @@
 // chains leave fewer of the 64 registers
 #define JW_INV_PREFETCH 17
 #define JW_INV_PREFETCH_M16 9
-
-// How the inverse treats the detail rows it loads: as they are (#3), or
-// shrunk by ops/denoise.py's soft or hard rule.
-enum JwShrink { JW_KEEP = 0, JW_SOFT = 1, JW_HARD = 2 };
-
-// A detail value w shrunk by t as torch computes _shrunk on the card, bit
-// for bit: soft sign(w) * clamp_min(|w| - t, 0), with sign(0) = sign(NaN)
-// = 0, clamp_min passing NaN on and the difference rounded to T first
-// (torch's bfloat16 subtraction rounds its result; sign and clamp are
-// exact); hard |w| > t ? w : 0.  sign(w) * a is copysign(a, w) where w is
-// neither 0 nor NaN (-1 times +0 is -0), and a real 0 * a elsewhere (NaN
-// where a is NaN or inf): fewer instructions a value than a product with
-// a computed sign, and the shrink runs between two barriers.
-template <typename T, int SHRINK>
-struct JwCut {
-  float t;
-  __device__ __forceinline__ float operator()(float w) const {
-    if (SHRINK == JW_HARD) return fabsf(w) > t ? w : 0.f;
-    float a = fabsf(w) - t;
-    if (std::is_same<T, __nv_bfloat16>::value)
-      a = __bfloat162float(__float2bfloat16_rn(a));
-    a = a <= 0.f ? 0.f : a;
-    return fabsf(w) > 0.f ? copysignf(a, w) : 0.f * a;
-  }
-};
 
 // Block (row, tile): window [s, s + end) mod N, end = min(T, N - s) + H.
 // Shared memory: the taps, two V rows (ping-pong) and one W row, each of

@@ -52,6 +52,7 @@ SIGNATURES = {
     "jw_modwpt_inv": ("I", "PPIIIPPIIIIIIP"),
     "jw_modwt2_fwd": ("I", "PPIIIIIPPIIIIIIIP"),
     "jw_modwt2_inv": ("I", "PPIIIIIPPIIIIIIIP"),
+    "jw_modwt2_inv_shrink": ("I", "PPFIIIPIIIIIPPIIIIIIIP"),
     "jw_modwt2_denoise": ("I", "PPPPIIIIIPPIIIIIIIIP"),
     "jw_modwt2_blocks": ("I", "IIIIIP"),
     "jw_modwt3_fwd": ("I", "PPPIIIIIPPIPPIIP"),

@@ -5,6 +5,12 @@ Replaces ``jwave_pro_tpu/kernels/modwt2_pallas.py``:
 * ``jw_modwt2_fwd_kernel`` ← ``_fwd2_kernel`` (``:192``): (B, R, C) →
   ``(3L+1, B, R, C)``, bands (LH_j, HL_j, HH_j) per level, LL_L last.
 * ``jw_modwt2_inv_kernel`` ← ``_inv2_kernel`` (``:314``): the adjoint.
+* ``jw_modwt2_inv_shrink_kernel`` (``csrc/modwt2_shrink.cu``, #3s's 2D
+  counterpart; no Pallas kernel: the JAX package shrinks in XLA): the
+  adjoint with every detail band shrunk by the soft or hard rule as the
+  kernel loads it, so ``ops/denoise.py:modwt2_denoise`` reads the
+  forward's coefficients as they lie, with no shrunk copy and no stack of
+  them.
 * ``jw_modwt2_denoise_kernel`` ← ``_denoise2_kernel`` (``:460``):
   forward → shrink every detail band by one threshold per image → inverse,
   LL kept, in one launch.
@@ -35,10 +41,12 @@ L4, Symlet 8 to L3, Haar to L7), the denoise every (M, L) whose strip has
 8 columns, halo ≤ 65 (Db4 to L3, Symlet 8 to L2, Haar to L6).
 
 Beside each kernel: its plain PyTorch version (``modwt2_fwd_plain``,
-``modwt2_inv_plain``, ``modwt2_denoise_plain``) and a launch count
+``modwt2_inv_plain``, ``modwt2_inv_shrink_plain``,
+``modwt2_denoise_plain``) and a launch count
 (``_launch.LAUNCHES["<op>"]``).  Each launch is an operator
-(``jwave::modwt2_fwd``, ``jwave::modwt2_inv``, ``jwave::modwt2_denoise``)
-that plans its grid from the concrete batch.  bfloat16 is read and written as
+(``jwave::modwt2_fwd``, ``jwave::modwt2_inv``,
+``jwave::modwt2_inv_shrink``, ``jwave::modwt2_denoise``) that plans its
+grid from the concrete batch.  bfloat16 is read and written as
 bfloat16 and computed in float32.  Not differentiable: the JAX kernels have
 no VJP, and the dispatch gate (``ops/modwt2d.py:_try_kernel2``) sends a
 tensor that requires a gradient to the plain path.
@@ -59,13 +67,14 @@ from ._launch import (
     check_taps, check_threshold, compute_dtype, host_taps, kernel_op, launch,
     op_taps,
 )
-from .modwt_cuda import halo
+from .modwt_cuda import cut_plain, halo
 
 __all__ = [
     "modwt2_fused", "imodwt2_fused", "modwt2_denoise_fused",
     "kernel2d_supported", "modwt2_fwd_cuda", "modwt2_inv_cuda",
-    "modwt2_denoise_cuda", "modwt2_fwd_plain", "modwt2_inv_plain",
-    "modwt2_denoise_plain", "modwt2_fwd_op", "modwt2_inv_op",
+    "modwt2_inv_shrink_cuda", "modwt2_denoise_cuda", "modwt2_fwd_plain",
+    "modwt2_inv_plain", "modwt2_inv_shrink_plain", "modwt2_denoise_plain",
+    "modwt2_fwd_op", "modwt2_inv_op", "modwt2_inv_shrink_op",
     "modwt2_denoise_op",
 ]
 
@@ -226,6 +235,23 @@ def modwt2_inv_plain(c: torch.Tensor, wavelet: DiscreteWavelet
     return _imodwt2_direct(c.to(cdt), wavelet).to(c.dtype)
 
 
+def modwt2_inv_shrink_plain(c: torch.Tensor, thr: torch.Tensor | None,
+                            value: float, wavelet: DiscreteWavelet,
+                            hard: int = 0) -> torch.Tensor:
+    """The shrinking inverse's function in plain PyTorch: c (3·level+1, B,
+    R, C) → (B, R, C), c's dtype, band k of level j (c[3(j − 1) + k])
+    shrunk by its threshold for image b, ``thr[3(j − 1) + k, b]`` (thr
+    (3·level, B) of c's dtype), or the float32 ``value`` for every band
+    and image where ``thr`` is None, LL_L kept, then
+    :func:`modwt2_inv_plain`.  The shrink as the kernel computes it:
+    ``modwt_cuda.cut_plain``."""
+    bands = c.shape[0] - 1
+    t = (torch.tensor(value, dtype=torch.float32) if thr is None
+         else thr.to(torch.float32)[..., None, None])
+    return modwt2_inv_plain(torch.cat([cut_plain(c[:bands], t, hard),
+                                       c[bands:]]), wavelet)
+
+
 def modwt2_denoise_plain(x: torch.Tensor, threshold: torch.Tensor,
                          wavelet: DiscreteWavelet, level: int,
                          mode: str = "soft") -> torch.Tensor:
@@ -288,18 +314,22 @@ def _check_transform(kind: str, shape: tuple, level: int, g, h) -> None:
 
 
 def _launch_transform(kind: str, a: torch.Tensor, shape: tuple, level: int,
-                      g, h) -> torch.Tensor:
+                      g, h, cut: tuple = ()) -> torch.Tensor:
     """Launch the forward or inverse kernel on ``a`` over (B, R, C) images
-    of ``shape``; returns its new output."""
+    of ``shape``; returns its new output.  ``cut``: the shrinking
+    inverse's threshold arguments (thr's address, value, its two strides,
+    hard), which launch it in the inverse's place on the inverse's plan."""
     w, grp, tc, run, grid = transform2_launch_plan(shape, level, len(g), kind,
                                                    a.dtype, a.device)
     out = torch.empty((3 * level + 1,) + shape if kind == "fwd" else shape,
                       dtype=a.dtype, device=a.device)
     gh, hh = host_taps(g, h)
-    launch("jw_modwt2_fwd" if kind == "fwd" else "jw_modwt2_inv",
-           f"{_WHAT2[kind]} kernel", a.device, a.data_ptr(), out.data_ptr(),
-           grid, *shape, level, gh.ctypes.data, hh.ctypes.data, len(g), w,
-           grp, tc, run, DTYPE_CODES[a.dtype])
+    entry = ("jw_modwt2_inv_shrink" if cut
+             else "jw_modwt2_fwd" if kind == "fwd" else "jw_modwt2_inv")
+    what = "2D shrinking inverse" if cut else _WHAT2[kind]
+    launch(entry, f"{what} kernel", a.device, a.data_ptr(), *cut,
+           out.data_ptr(), grid, *shape, level, gh.ctypes.data,
+           hh.ctypes.data, len(g), w, grp, tc, run, DTYPE_CODES[a.dtype])
     return out
 
 
@@ -358,6 +388,52 @@ def modwt2_inv_cuda(c: torch.Tensor, wavelet: DiscreteWavelet
     """Launch the inverse kernel as ``jwave::modwt2_inv``: c
     (3·level+1, B, R, C) → (B, R, C)."""
     return modwt2_inv_op(c, *op_taps(wavelet))
+
+
+def _check_inv2_shrink(c: torch.Tensor, thr: torch.Tensor | None, g, h,
+                       traced: bool = True) -> int:
+    level = _check_inv2(c, g, h, traced)
+    if thr is not None and (
+            thr.dtype != c.dtype or thr.ndim != 2
+            or not traced and (tuple(thr.shape) != (3 * level, c.shape[1])
+                               or thr.device != c.device)):
+        raise ValueError(f"threshold: kernel needs a (3·level, B) tensor of "
+                         f"the coefficients' dtype on their device, got "
+                         f"{thr.dtype} {tuple(thr.shape)}")
+    return level
+
+
+@kernel_op("modwt2_inv_shrink")
+def modwt2_inv_shrink_op(c: torch.Tensor, thr: torch.Tensor | None,
+                         value: float, g: list[float], h: list[float],
+                         hard: int) -> torch.Tensor:
+    """The shrinking inverse's launch as an operator (``torch.ops.jwave.
+    modwt2_inv_shrink``): c (3·level+1, B, R, C) → (B, R, C), c's dtype,
+    band k of level j shrunk as the kernel loads it by ``thr[3(j − 1) + k,
+    b]`` (thr (3·level, B) of c's dtype, any strides: a broadcast view is
+    read as it lies), or by ``value`` (as float32) for every band where
+    ``thr`` is None; ``hard`` 1 for hard shrinkage, 0 for soft.  The plan
+    and the shared memory are the inverse's."""
+    level = _check_inv2_shrink(c, thr, g, h, traced=False)
+    ls, rs = (0, 0) if thr is None else thr.stride()
+    return _launch_transform(
+        "inv", c, tuple(c.shape[1:]), level, g, h,
+        (None if thr is None else thr.data_ptr(), value, ls, rs, hard))
+
+
+@modwt2_inv_shrink_op.register_fake
+def _(c, thr, value, g, h, hard):
+    _check_inv2_shrink(c, thr, g, h)
+    return c.new_empty(tuple(c.shape[1:]))
+
+
+def modwt2_inv_shrink_cuda(c: torch.Tensor, thr: torch.Tensor | None,
+                           value: float, wavelet: DiscreteWavelet,
+                           hard: int = 0) -> torch.Tensor:
+    """Launch the shrinking inverse as ``jwave::modwt2_inv_shrink``: c
+    (3·level+1, B, R, C), thr (3·level, B) or None → (B, R, C), c's
+    dtype."""
+    return modwt2_inv_shrink_op(c, thr, value, *op_taps(wavelet), hard)
 
 
 def _check_denoise2(x: torch.Tensor, threshold: torch.Tensor, g, h,

@@ -73,7 +73,7 @@ __all__ = [
     "kernel_supported", "kernel_plan", "KernelPlan", "require_plan", "check_fused",
     "modwt_fwd_cuda", "modwt_inv_cuda", "modwt_fwd_plain", "modwt_inv_plain",
     "modwt_fwd_ctx_cuda", "modwt_fwd_ctx_plain", "modwt_shard",
-    "modwt_inv_shrink_cuda", "modwt_inv_shrink_plain",
+    "modwt_inv_shrink_cuda", "modwt_inv_shrink_plain", "cut_plain",
     "modwt_fwd_op", "modwt_fwd_ctx_op", "modwt_inv_op", "modwt_inv_shrink_op",
 ]
 
@@ -340,20 +340,27 @@ def modwt_inv_shrink_plain(c: torch.Tensor, thr: torch.Tensor | None,
     or the float32 ``value`` for every row where ``thr`` is None, then
     :func:`modwt_inv_plain`.
 
-    The shrink as the kernel computes it, in float32: soft sign(w)·max(|w|
-    − t, 0) with NaN passed on and the difference rounded to c's dtype
-    first (as torch's bfloat16 subtraction rounds it), hard w·1[|w| > t]."""
+    The shrink as the kernel computes it: :func:`cut_plain`."""
     level = c.shape[0] - 1
-    w = c[:level].to(torch.float32)
     t = (torch.tensor(value, dtype=torch.float32) if thr is None
          else thr.to(torch.float32)[..., None])
+    return modwt_inv_plain(torch.cat([cut_plain(c[:level], t, hard),
+                                      c[level:]]), wavelet)
+
+
+def cut_plain(w: torch.Tensor, t: torch.Tensor, hard: int) -> torch.Tensor:
+    """The detail values ``w`` shrunk by the thresholds ``t`` (float32,
+    broadcasting against ``w``) as the shrinking inverses (#3s, #10s)
+    compute it, in float32: soft sign(w)·max(|w| − t, 0) with NaN passed
+    on and the difference rounded to w's dtype first (as torch's bfloat16
+    subtraction rounds it), hard w·1[|w| > t]; returned in w's dtype."""
+    v = w.to(torch.float32)
     if hard:
-        shrunk = torch.where(w.abs() > t, w, 0.0)
+        shrunk = torch.where(v.abs() > t, v, 0.0)
     else:
-        a = (w.abs() - t).to(c.dtype).to(torch.float32)
-        shrunk = torch.sign(w) * torch.clamp_min(a, 0.0)
-    return modwt_inv_plain(torch.cat([shrunk.to(c.dtype), c[level:]]),
-                           wavelet)
+        a = (v.abs() - t).to(w.dtype).to(torch.float32)
+        shrunk = torch.sign(v) * torch.clamp_min(a, 0.0)
+    return shrunk.to(w.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -278,6 +278,39 @@ def _shrink_operands(c: torch.Tensor, threshold, wavelet: DiscreteWavelet,
     if not (c.is_cuda and c.dtype in DTYPE_CODES and c.ndim in (2, 3)
             and kernel_supported(c.shape[-1], level, wavelet.length, "inv")):
         return None
+    return _cut_operands(c, threshold, hard, level, 1)
+
+
+def _shrink2_operands(c: torch.Tensor, threshold, wavelet: DiscreteWavelet,
+                      hard: int):
+    """:func:`_shrink_operands` for the 2D shrinking inverse
+    (``kernels/modwt2_cuda.py:modwt2_inv_shrink_cuda``), which computes
+    ``imodwt2(_shrunk(c, 3·level, threshold, mode))`` bit for bit from the
+    coefficients ``c`` (3·level+1, B, R, C) or (3·level+1, R, C): ``thr`` a
+    (3·level, B) view of a threshold tensor that is one value a band of
+    each image (a number, a per-image (B, 1, 1), the per-band rules'
+    (3·level, B, 1, 1)), or a number ``value``.  None where the 2D inverse
+    kernel does not take the shape, and wherever :func:`_shrink_operands`
+    gives None (a threshold that varies within a band among them)."""
+    from ..kernels._launch import DTYPE_CODES
+    from ..kernels.modwt2_cuda import kernel2d_supported
+
+    bands = c.shape[0] - 1
+    if not (c.is_cuda and c.dtype in DTYPE_CODES and c.ndim in (3, 4)
+            and kernel2d_supported(c.shape[-2], c.shape[-1], bands // 3,
+                                   wavelet.length, "inv")):
+        return None
+    return _cut_operands(c, threshold, hard, bands, 2)
+
+
+def _cut_operands(c: torch.Tensor, threshold, hard: int, details: int,
+                  nd: int):
+    """The shrinking inverses' threshold operands for the first ``details``
+    rows of ``c`` (details, [B,] and ``nd`` sample axes): ``(thr, 0.0)``,
+    ``thr`` a (details, B) view of a threshold tensor of c's dtype that is
+    one value a row of each signal or image (stride 0 where it
+    broadcasts), or ``(None, value)``, ``value`` a number threshold as the
+    card's torch takes it (:func:`_shrink_operands`); None otherwise."""
     t = _threshold_like(threshold, c)
     if isinstance(t, bool) or (isinstance(t, int) and abs(t) > 2 ** 53):
         return None
@@ -289,14 +322,16 @@ def _shrink_operands(c: torch.Tensor, threshold, wavelet: DiscreteWavelet,
             value = float(torch.tensor(value, dtype=torch.float32)
                           .to(torch.bfloat16))
         return None, value
-    details = (level,) + tuple(c.shape[1:])
-    if (t.dtype != c.dtype or _needs_grad(c, t) or t.ndim > len(details)
-            or (t.ndim and t.shape[-1] != 1)
+    shape = (details,) + tuple(c.shape[1:])
+    if (t.dtype != c.dtype or _needs_grad(c, t) or t.ndim > len(shape)
+            or any(a != 1 for a in t.shape[-nd:])
             or any(a not in (1, b) for a, b in zip(reversed(t.shape),
-                                                   reversed(details)))):
+                                                   reversed(shape)))):
         return None
-    thr = t.expand(details[:-1] + (1,)).select(-1, 0)
-    return (thr if c.ndim == 3 else thr.unsqueeze(1)), 0.0
+    thr = t.expand(shape[:-nd] + (1,) * nd)
+    for _ in range(nd):
+        thr = thr.select(-1, 0)
+    return (thr if c.ndim == nd + 2 else thr.unsqueeze(1)), 0.0
 
 
 def _needs_grad(*tensors: torch.Tensor) -> bool:
@@ -355,12 +390,18 @@ def modwt2_denoise(x: torch.Tensor, wavelet: DiscreteWavelet, level: int,
     bands ('auto'/'direct') or must give one value per image ('fused').
 
     ``method``: 'auto' (the fused 2D CUDA kernels for the transforms where
-    they apply), 'direct' (the plain separable path), or 'fused' — forward
-    → shrink → inverse as ONE CUDA kernel (``kernels/modwt2_cuda.py``; its
-    plain version on the CPU), for (R, C) or (B, R, C) input and
-    per-image thresholds (None/'universal'/number/array); the default
-    threshold then costs one extra single-level pass.  'sure' and 'bayes'
-    are rejected under 'fused', as in the JAX package.
+    they apply; on the card the shrink runs inside the inverse kernel,
+    which shrinks each detail band as it loads it, where
+    :func:`_shrink2_operands` says so: float32/bfloat16 coefficients, a
+    number or one threshold a band of each image, no gradient; the result
+    is bitwise that of the shrink and :func:`imodwt2` in turn, which every
+    other call runs), 'direct' (the plain separable path), or 'fused' —
+    forward → shrink → inverse as ONE CUDA kernel
+    (``kernels/modwt2_cuda.py``; its plain version on the CPU), for (R, C)
+    or (B, R, C) input and per-image thresholds
+    (None/'universal'/number/array); the default threshold then costs one
+    extra single-level pass.  'sure' and 'bayes' are rejected under
+    'fused', as in the JAX package.
     """
     from .modwt2d import imodwt2, modwt2
 
@@ -394,6 +435,16 @@ def modwt2_denoise(x: torch.Tensor, wavelet: DiscreteWavelet, level: int,
                                     hh1.shape[-1])[..., None, None]
     else:
         threshold = _per_image(threshold, x, c.dtype)
+    if method == "auto":
+        hard = int(mode != "soft")
+        operands = _shrink2_operands(c, threshold, wavelet, hard)
+        if operands is not None:
+            from ..kernels.modwt2_cuda import modwt2_inv_shrink_cuda
+
+            c4 = c if c.ndim == 4 else c.unsqueeze(1)
+            out = modwt2_inv_shrink_cuda(c4.contiguous(), *operands,
+                                         wavelet, hard)
+            return out.reshape(c.shape[1:])
     return imodwt2(_shrunk(c, n_bands, threshold, mode), wavelet,
                    method=method)
 

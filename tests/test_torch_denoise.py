@@ -550,3 +550,155 @@ def test_shrink_operands_leave_the_cpu_to_the_plain_shrink():
 
     assert dn._shrink_operands(torch.zeros(6, 2, 1000), 0.8,
                                jt.wavelet(DB4), 0) is None
+
+
+# -- the 2D shrink inside the 2D inverse kernel (jwave::modwt2_inv_shrink) ---
+
+# image shapes ([B,] R, C), levels and wavelets: M = 2, 8, 16, an image
+# below the halo, one (3L+1, R, C) stack of a single image
+SHRINK2_SHAPES = [((2, 12, 10), 2, "Haar"), ((2, 40, 48), 3, DB4),
+                  ((19, 23), 2, DB4), ((2, 17, 21), 1, "Symlet 8")]
+SHRINK2_THRESHOLDS = ["number", "zero", "negative", "per image",
+                      "per band", "scalar tensor"]
+
+
+def _shrink2_case(shape, level, kind, dtype):
+    """Coefficients (3·level+1, *shape) with a NaN in LH₁, both zeros in
+    HL₁ and a NaN in LL_L (which no rule shrinks), and the threshold of
+    ``kind`` in their dtype (a number stays one)."""
+    rng = np.random.default_rng(level * 1000 + shape[-1])
+    c = torch.from_numpy(rng.standard_normal((3 * level + 1,) + shape)
+                         .astype(np.float32)).to(dtype)
+    c[0].view(-1)[5] = np.nan
+    c[1].view(-1)[7], c[1].view(-1)[8] = 0.0, -0.0
+    c[-1].view(-1)[3] = np.nan
+    batch = shape[:-2]
+    t = {"number": 0.8, "zero": 0.0, "negative": -0.3,
+         "per image": torch.linspace(0.2, 1.0, int(np.prod(batch)))
+         .reshape(batch + (1, 1)),
+         "per band": torch.from_numpy(rng.uniform(
+             0.1, 1.5, (3 * level,) + batch + (1, 1)).astype(np.float32)),
+         "scalar tensor": torch.tensor(0.7)}[kind]
+    return c, t.to(dtype) if isinstance(t, torch.Tensor) else t
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["soft", "hard"])
+@pytest.mark.parametrize("kind", SHRINK2_THRESHOLDS)
+@pytest.mark.parametrize("shape,level,name", SHRINK2_SHAPES)
+def test_inv2_shrink_plain_is_the_plain_pipeline_bitwise(shape, level, name,
+                                                         kind, mode, dtype):
+    """The 2D shrinking inverse's plain model is bit for bit the 2D
+    inverse kernel's plain version of the plain shrink
+    (``imodwt2(_shrunk(c))`` itself in float32); LL_L is never shrunk.  A
+    number threshold enters rounded to the coefficients' dtype, as the
+    CPU's torch rounds a number against a tensor."""
+    from jwave_pro_tpu_torch.kernels import modwt2_cuda as k2
+    from jwave_pro_tpu_torch.ops import denoise as dn
+
+    w = jt.wavelet(name)
+    c, t = _shrink2_case(shape, level, kind, dtype)
+    c4 = c if c.ndim == 4 else c[:, None]
+    bands = 3 * level
+    if isinstance(t, torch.Tensor):
+        thr, value = t.expand(c[:bands, ..., :1, :1].shape)[..., 0, 0], 0.0
+        thr = thr if c.ndim == 4 else thr[:, None]
+    else:
+        thr, value = None, float(torch.tensor(t, dtype=dtype))
+    shrunk = dn._shrunk(c, bands, t, mode)
+    got = k2.modwt2_inv_shrink_plain(c4, thr, value, w, int(mode != "soft"))
+    assert got.dtype == dtype
+    got = got.reshape(shape)
+    assert _bits_equal(got, k2.modwt2_inv_plain(shrunk, w))
+    assert torch.isnan(got).any()          # LL_L's NaN passes through
+    if dtype == torch.float32:
+        assert _bits_equal(got, jt.imodwt2(shrunk, w))
+
+
+# (coefficients, threshold) -> (thr's shape, thr's strides, value), or None
+# for the plain shrink and imodwt2, with soft shrinkage and gradients on
+# unless the third item says otherwise; on fake CUDA tensors of Db4 L3
+# coefficients (10, B, R, C)
+SHRINK2_DECISIONS = {
+    "number": (lambda: (_fake((10, 16, 64, 64)), 0.8), ((), (), 0.8)),
+    "number, bfloat16, hard": (lambda: (
+        _fake((10, 16, 64, 64), torch.bfloat16), 0.8),
+        ((), (), 0.80078125), {"hard": 1}),
+    "int": (lambda: (_fake((10, 16, 64, 64)), 1), ((), (), 1.0)),
+    "bool": (lambda: (_fake((10, 16, 64, 64)), True), None),
+    "per image": (lambda: (_fake((10, 16, 64, 64)), _fake((16, 1, 1))),
+                  ((9, 16), (0, 1), 0.0)),
+    "per band": (lambda: (_fake((10, 16, 64, 64)), _fake((9, 16, 1, 1))),
+                 ((9, 16), (16, 1), 0.0)),
+    "scalar tensor": (lambda: (_fake((10, 16, 64, 64)), _fake(())),
+                      ((9, 16), (0, 0), 0.0)),
+    "per band, one image": (lambda: (_fake((10, 64, 64)), _fake((9, 1, 1))),
+                            ((9, 1), (1, 1), 0.0)),
+    "per image, one image": (lambda: (_fake((10, 64, 64)), _fake((1, 1))),
+                             ((9, 1), (0, 1), 0.0)),
+    "per image, bfloat16": (lambda: (
+        _fake((10, 16, 64, 64), torch.bfloat16),
+        _fake((16, 1, 1), torch.bfloat16)), ((9, 16), (0, 1), 0.0)),
+    "along the columns": (lambda: (_fake((10, 16, 64, 64)), _fake((64,))),
+                          None),
+    "within a band": (lambda: (_fake((10, 16, 64, 64)), _fake((16, 64, 1))),
+                      None),
+    "per pixel": (lambda: (_fake((10, 16, 64, 64)), _fake((16, 64, 64))),
+                  None),
+    "wider than the bands": (lambda: (_fake((10, 16, 64, 64)),
+                                      _fake((1, 9, 16, 1, 1))), None),
+    "another image count": (lambda: (_fake((10, 16, 64, 64)),
+                                     _fake((8, 1, 1))), None),
+    "threshold of another dtype": (lambda: (
+        _fake((10, 16, 64, 64), torch.bfloat16), _fake((16, 1, 1))), None),
+    "float64 threshold": (lambda: (_fake((10, 16, 64, 64)),
+                                   _fake((16, 1, 1), torch.float64)), None),
+    "float64 coefficients": (lambda: (_fake((10, 16, 64, 64),
+                                            torch.float64), 0.8), None),
+    "coefficients need a gradient": (lambda: (
+        _fake((10, 16, 64, 64), grad=True), 0.8), None),
+    "threshold needs a gradient": (lambda: (
+        _fake((10, 16, 64, 64)), _fake((16, 1, 1), grad=True)), None),
+    "gradients off": (lambda: (_fake((10, 16, 64, 64), grad=True), 0.8),
+                      ((), (), 0.8), {"grad": False}),
+    "level past the inverse's gate": (lambda: (_fake((16, 2, 64, 64)), 0.8),
+                                      None),
+    "leading axes": (lambda: (_fake((10, 2, 3, 64, 64)), 0.8), None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SHRINK2_DECISIONS))
+def test_shrink2_operands_decide_from_the_input(case):
+    """Whether the 2D denoise shrinks inside the 2D inverse kernel is a
+    function of the coefficients' device, dtype and shape, the threshold's
+    kind, dtype and shape, and whether a gradient is wanted; the operands
+    read the threshold as it lies (stride 0 where it broadcasts)."""
+    from jwave_pro_tpu_torch.ops import denoise as dn
+
+    make, want, *how = SHRINK2_DECISIONS[case]
+    how = how[0] if how else {}
+    with FakeTensorMode(), torch.set_grad_enabled(how.get("grad", True)):
+        c, t = make()
+        got = dn._shrink2_operands(c, t, jt.wavelet(DB4), how.get("hard", 0))
+        if want is None:
+            assert got is None
+        else:
+            thr, value = got
+            shape, strides, want_value = want
+            if shape:
+                assert thr.dtype == c.dtype
+                assert (tuple(thr.shape), thr.stride()) == (shape, strides)
+            else:
+                assert thr is None
+            assert value == want_value
+
+
+def test_shrink2_operands_leave_the_cpu_to_the_plain_shrink():
+    from jwave_pro_tpu_torch.ops import denoise as dn
+
+    assert dn._shrink2_operands(torch.zeros(10, 2, 64, 64), 0.8,
+                                jt.wavelet(DB4), 0) is None
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (2, 40, 48)).astype(np.float32))
+    c = jt.modwt2(x, jt.wavelet(DB4), 3)
+    assert dn._shrink2_operands(c, 0.8, jt.wavelet(DB4), 0) is None

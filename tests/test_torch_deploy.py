@@ -132,7 +132,7 @@ def test_export_leaves_the_constant_caches_real(rng):
 OPS = ("modwt_fwd", "modwt_inv", "modwt_denoise", "modwt_var", "modwpt_fwd",
        "modwpt_select", "modwpt_inv", "modwt2_fwd", "modwt2_inv",
        "modwt2_denoise", "modwt3_fwd", "modwt3_inv", "cwt_ifft", "median",
-       "modwt_fwd_ctx", "modwt_inv_shrink")
+       "modwt_fwd_ctx", "modwt_inv_shrink", "modwt2_inv_shrink")
 # operators that take float32 alone (the CWT's complex64)
 F32_ONLY = ("cwt_ifft", "median")
 
@@ -155,6 +155,7 @@ def _operands(device, dtype=torch.float32):
         t(8, 2, 8, 8, 16)
     thr1, thr2 = t(3, dt=torch.float32), t(2, dt=torch.float32)
     thr_l = t(3, 3)                  # a threshold a detail row of c1
+    thr_b = t(6, 2)                  # a threshold a band and image of c2
     xf = t(2, 256, dt=torch.complex64)
     mult = t(5, 256, dt=torch.complex64)
 
@@ -188,6 +189,9 @@ def _operands(device, dtype=torch.float32):
         "modwt_inv_shrink": ((on(c1), on(thr_l), 0.0, g, h, 0),
                              lambda: kc.modwt_inv_shrink_plain(c1, thr_l, 0.0,
                                                                DB4)),
+        "modwt2_inv_shrink": ((on(c2), on(thr_b), 0.0, g, h, 1),
+                              lambda: k2.modwt2_inv_shrink_plain(
+                                  c2, thr_b, 0.0, DB4, 1)),
     }
 
 

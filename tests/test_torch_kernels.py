@@ -47,7 +47,10 @@ The inverse that shrinks its detail rows as it loads them
 (``jwave::modwt_inv_shrink``): bit for bit the pipeline it replaces, the
 shrink and ``imodwt`` on the inverse kernel (the same float32 operations
 on the same values), in float32 and bfloat16; against its plain model as
-the inverse.
+the inverse.  Its 2D counterpart (``jwave::modwt2_inv_shrink``) likewise:
+bit for bit the shrink and ``imodwt2`` on the 2D inverse kernel, and the
+default ``modwt2_denoise`` bit for bit the pipeline it replaces; against
+its plain model as the 2D inverse.
 """
 import math
 import re
@@ -1016,11 +1019,14 @@ def test_2d_public_path_launches_each_kernel(dev):
 
 
 def test_2d_pipeline_numpy_threshold_stays_on_the_kernels(dev):
+    """A per-image NumPy threshold (float64) takes the coefficients' dtype
+    and the shrinking 2D inverse, not the plain shrink."""
     x = _signal(dev, 3, 64, 96, seed=15)
-    before = LAUNCHES["modwt2_inv"]
+    before = [LAUNCHES["modwt2_inv_shrink"], LAUNCHES["modwt2_inv"]]
     got = jt.modwt2_denoise(x, DB4, 2, threshold=np.array([0.3, 0.6, 1.2]))
     assert got.dtype == torch.float32
-    assert LAUNCHES["modwt2_inv"] == before + 1
+    assert [LAUNCHES["modwt2_inv_shrink"], LAUNCHES["modwt2_inv"]] == [
+        before[0] + 1, before[1]]
 
 
 def test_2d_auto_routes_f64_grad_and_unsupported_shapes_to_plain(dev):
@@ -1063,6 +1069,159 @@ def test_2d_launchers_reject_what_the_kernel_does_not_take(dev):
         k2.modwt2_inv_cuda(x, DB4)
     with pytest.raises(ValueError, match="threshold"):
         k2.modwt2_denoise_cuda(x, torch.ones(3, device=dev), DB4, 2)
+
+
+# -- the 2D shrinking inverse (jwave::modwt2_inv_shrink) ----------------------
+
+# (batch, rows, cols, level, wavelet): an image below the halo, the odd
+# shape, a strip crossing C's end at M = 16, Haar at the transforms' gate
+# (L7), a filter length without a specialised kernel
+INV2_SHRINK_EDGES = [(2, 40, 48, 3, "Daubechies 4"),
+                     (3, 509, 771, 3, "Daubechies 4"),
+                     (2, 64, 600, 2, "Symlet 8"),
+                     (1, 200, 140, 7, "Haar"),
+                     (2, 33, 70, 2, "Daubechies 2")]
+
+
+def _parent_denoise2(x, w, level, mode="soft", threshold=None):
+    """``modwt2_denoise``'s 'auto' path before the shrink moved into the
+    2D inverse kernel: the forward, the threshold, the plain shrink and the
+    ``cat`` of ``_shrunk``, then ``imodwt2``."""
+    from jwave_pro_tpu_torch.ops import denoise as dn
+
+    c = jt.modwt2(x, w, level)
+    bands = 3 * level
+    if threshold is None or isinstance(threshold, str):
+        hh1 = c[2].flatten(-2)
+        threshold = dn._rule_threshold(threshold or "universal", hh1,
+                                       c[:bands].flatten(-2),
+                                       hh1.shape[-1])[..., None, None]
+    else:
+        threshold = dn._per_image(threshold, x, c.dtype)
+    return jt.imodwt2(dn._shrunk(c, bands, threshold, mode), w)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["soft", "hard"])
+@pytest.mark.parametrize("kind", ["number", "per image", "per band"])
+@pytest.mark.parametrize("batch,rows,cols,level,name", INV2_SHRINK_EDGES)
+def test_2d_inverse_shrink_is_the_pipeline_bitwise(dev, batch, rows, cols,
+                                                   level, name, kind, mode,
+                                                   dtype):
+    """One launch of the 2D shrinking inverse, on the operands the denoise
+    gives it, against the shrink and ``imodwt2`` it replaces on the same
+    coefficients (a NaN in LH₁, both zeros in HL₁): bit for bit; against
+    its plain model within the 2D inverse's bound."""
+    from jwave_pro_tpu_torch.ops import denoise as dn
+
+    w = jt.wavelet(name)
+    bands = 3 * level
+    c = _signal(dev, bands + 1, batch, rows, cols, seed=53, dtype=dtype)
+    c[0, 0, 1, 5] = math.nan
+    c[1, -1, 2, 7], c[1, -1, 2, 8] = 0.0, -0.0
+    t = {"number": 0.8,
+         "per image": torch.linspace(0.2, 1.0, batch, device=dev,
+                                     dtype=dtype).reshape(batch, 1, 1),
+         "per band": torch.linspace(0.1, 1.5, bands * batch, device=dev,
+                                    dtype=dtype).reshape(bands, batch, 1, 1)
+         }[kind]
+    hard = int(mode != "soft")
+    operands = dn._shrink2_operands(c, t, w, hard)
+    assert operands is not None
+    before = [LAUNCHES["modwt2_inv_shrink"], LAUNCHES["modwt2_inv"]]
+    got = k2.modwt2_inv_shrink_cuda(c, *operands, w, hard)
+    assert [LAUNCHES["modwt2_inv_shrink"], LAUNCHES["modwt2_inv"]] == [
+        before[0] + 1, before[1]]
+    assert got.dtype == dtype and got.shape == (batch, rows, cols)
+    assert _bits_equal(got, jt.imodwt2(dn._shrunk(c, bands, t, mode), w))
+    plain = k2.modwt2_inv_shrink_plain(c, *operands, w, hard)
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(got.float(), plain.float(), rtol=2 ** -7,
+                                   atol=1e-4, equal_nan=True)
+    else:
+        torch.testing.assert_close(got, plain, rtol=0, atol=1e-4,
+                                   equal_nan=True)
+
+
+def test_default_2d_denoise_shrinks_inside_the_inverse(dev):
+    """A default ``modwt2_denoise`` at (4, 1024, 1024) launches the 2D
+    forward, the median and the 2D shrinking inverse once each and the
+    plain 2D inverse never, and is bit for bit the pipeline before; so are
+    an (R, C) image, hard mode, the per-band rules, bfloat16, a number, a
+    per-image 1-D array and tensor, the odd (3, 509, 771), an image below
+    the halo and a threshold that wants a gradient under ``no_grad``."""
+    x = _signal(dev, 4, 1024, 1024, seed=54)
+    counters = ("modwt2_fwd", "median", "modwt2_inv_shrink", "modwt2_inv")
+    before = [LAUNCHES[op] for op in counters]
+    got = jt.modwt2_denoise(x, DB4, 3)
+    torch.cuda.synchronize()
+    assert [LAUNCHES[op] - b for op, b in zip(counters, before)] == [
+        1, 1, 1, 0]
+    assert _bits_equal(got, _parent_denoise2(x, DB4, 3))
+    y = x[:3, :256, :320].contiguous()
+    wants_grad = torch.full((3,), 0.6, device=dev, requires_grad=True)
+    for v, kw in ((y[0], {}), (y, {"mode": "hard"}),
+                  (y, {"threshold": "sure"}),
+                  (y, {"threshold": "bayes", "mode": "hard"}),
+                  (y, {"threshold": "universal", "mode": "hard"}),
+                  (y.to(torch.bfloat16), {}),
+                  (y.to(torch.bfloat16), {"threshold": 0.8}),
+                  (y.to(torch.bfloat16), {"threshold": 0.8, "mode": "hard"}),
+                  (y, {"threshold": 0.8, "mode": "hard"}),
+                  (y, {"threshold": np.array([0.3, 0.6, 1.2])}),
+                  (y, {"threshold": torch.tensor([0.3, 0.6, 1.2],
+                                                 device=dev)}),
+                  (_signal(dev, 3, 509, 771, seed=55), {}),
+                  (_signal(dev, 2, 40, 48, seed=56), {"mode": "hard"})):
+        before = [LAUNCHES["modwt2_inv_shrink"], LAUNCHES["modwt2_inv"]]
+        got = jt.modwt2_denoise(v, DB4, 3, **kw)
+        assert [LAUNCHES["modwt2_inv_shrink"] - before[0],
+                LAUNCHES["modwt2_inv"] - before[1]] == [1, 0], kw
+        assert got.shape == v.shape and got.dtype == v.dtype
+        assert _bits_equal(got, _parent_denoise2(v, DB4, 3, **kw)), kw
+    with torch.no_grad():
+        before = LAUNCHES["modwt2_inv_shrink"]
+        got = jt.modwt2_denoise(y, DB4, 3, threshold=wants_grad)
+        assert LAUNCHES["modwt2_inv_shrink"] - before == 1
+        assert _bits_equal(got, _parent_denoise2(y, DB4, 3,
+                                                 threshold=wants_grad))
+
+
+def test_2d_denoise_keeps_the_plain_shrink_where_the_kernel_would_differ(dev):
+    """A call that wants a gradient (of the image or of the threshold),
+    float64, and a threshold that varies within a band take the shrink and
+    ``imodwt2``: no launch of the 2D shrinking inverse, the 2D inverse
+    kernel where the parent took it, the pipeline's answer."""
+    x = _signal(dev, 2, 96, 128, seed=57)
+    wants_grad = torch.full((2,), 0.6, device=dev, requires_grad=True)
+    for v, kw, inverse in (
+            (x.clone().requires_grad_(), {}, 0),
+            (x, {"threshold": wants_grad}, 0),
+            (x.double(), {}, 0),
+            (x, {"threshold": torch.full((128,), 0.5, device=dev)}, 1),
+            (x, {"threshold": torch.full((2, 96, 1), 0.5, device=dev)}, 1)):
+        before = [LAUNCHES["modwt2_inv_shrink"], LAUNCHES["modwt2_inv"]]
+        got = jt.modwt2_denoise(v, DB4, 3, **kw)
+        torch.cuda.synchronize()
+        assert LAUNCHES["modwt2_inv_shrink"] == before[0]
+        assert LAUNCHES["modwt2_inv"] - before[1] == inverse
+        want = _parent_denoise2(v, DB4, 3, **kw)
+        assert got.dtype == want.dtype
+        assert _bits_equal(got.detach(), want.detach())
+
+
+def test_2d_shrinking_inverse_rejects_what_it_does_not_take(dev):
+    c = _signal(dev, 7, 2, 64, 64)
+    thr = torch.ones(6, 2, device=dev)
+    with pytest.raises(ValueError, match="threshold"):
+        k2.modwt2_inv_shrink_cuda(c, thr[:3], 0.0, DB4)
+    with pytest.raises(ValueError, match="threshold"):
+        k2.modwt2_inv_shrink_cuda(c, thr.bfloat16(), 0.0, DB4)
+    with pytest.raises(ValueError, match="contiguous"):
+        k2.modwt2_inv_shrink_cuda(c[..., ::2], None, 0.5, DB4)
+    with pytest.raises(ValueError, match="unsupported shape"):
+        k2.modwt2_inv_shrink_cuda(_signal(dev, 16, 2, 64, 64), None, 0.5,
+                                  DB4)
 
 
 # -- the 3D volume kernels ----------------------------------------------------

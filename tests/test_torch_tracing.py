@@ -379,8 +379,9 @@ def test_launches_count_eager_and_served_alike(dev):
 @pytest.mark.cuda
 def test_default_2d_denoise_launches_each_2d_kernel_once(dev):
     """The default 2D denoise on the card: the 2D forward, the threshold's
-    median on |HH1| and the 2D inverse, one launch each a call, inside the
-    denoise's span with its threshold and shrink."""
+    median on |HH1| and the 2D inverse that shrinks the bands as it loads
+    them, one launch each a call, inside the denoise's span with its
+    threshold; no shrink span, since no plain shrink runs."""
     x = _signal(4, 512, 512, seed=10).to(dev)
     jt.modwt2_denoise(x, DB4, 3)
     torch.cuda.synchronize()
@@ -390,7 +391,7 @@ def test_default_2d_denoise_launches_each_2d_kernel_once(dev):
         torch.cuda.synchronize()
         ran = {k: LAUNCHES[k] - before[k] for k in LAUNCHES
                if LAUNCHES[k] != before[k]}
-        assert ran == {"modwt2_fwd": 1, "median": 1, "modwt2_inv": 1}
+        assert ran == {"modwt2_fwd": 1, "median": 1, "modwt2_inv_shrink": 1}
     got = _parents(_profiled(lambda: (jt.modwt2_denoise(x, DB4, 3),
                                       torch.cuda.synchronize()),
                              ACTS + [torch.profiler.ProfilerActivity.CUDA]))
@@ -398,5 +399,5 @@ def test_default_2d_denoise_launches_each_2d_kernel_once(dev):
                    ("jwave.launch.modwt2_fwd", "jwave.modwt2_denoise"),
                    ("jwave.denoise.threshold", "jwave.modwt2_denoise"),
                    ("jwave.launch.median", "jwave.denoise.threshold"),
-                   ("jwave.denoise.shrink", "jwave.modwt2_denoise"),
-                   ("jwave.launch.modwt2_inv", "jwave.modwt2_denoise")]
+                   ("jwave.launch.modwt2_inv_shrink",
+                    "jwave.modwt2_denoise")]
