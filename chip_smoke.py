@@ -96,7 +96,12 @@ an image and one a band and image; one launch in a default
 replaces; at the cell's (10, 16, 2048²) coefficients bitwise that
 pipeline and within the 2D inverse's bound of its plain model, timed
 beside the 2D inverse, the shrink and the ``cat`` it replaces and its
-bound).  The kernels' launch counters, set to 0
+bound); and the packet denoise cell's call (phase 39: ``wpt_denoise`` of
+1024 × 65536 Symlet 8 L6 signals with a basis a row, 36 IEEE float32
+products and one launch a call, no host synchronisation, its five spans,
+eight rows held to the float64 reference under the cell's check, the
+float32 tree and costs against the check's error model, its time and
+peak).  The kernels' launch counters, set to 0
 before each path and read after it, show that the path ran through them;
 CUDA events time each kernel against its plain version (``event_time``:
 the median time of one call on a fixed input).  Every check
@@ -111,6 +116,7 @@ package beside it, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import collections
 import json
 import math
 import statistics
@@ -243,6 +249,10 @@ INV2_SHRINK_EDGES = ((2, 40, 48, 3, "Daubechies 4"),
                      (2, 64, 600, 2, "Symlet 8"),
                      (1, 200, 140, 7, "Haar"),
                      (2, 33, 70, 2, "Daubechies 2"))
+# phase 39: the packet denoise cell's call (wavebench/configs/
+# wpt_sym8_l6.json, workloads/wpt_sym8_l6.denoise.json), its seed, and the
+# rows held to the float64 reference
+WPT_CELL_SHAPE, WPT_CELL_SEED, WPT_CELL_ROWS = (1024, 65536), 3000280901, 8
 # the H100's published peaks (SXM, 700 W): HBM bytes/s, f32 FLOP/s
 HBM_RATE, F32_RATE = 3.35e12, 67e12
 
@@ -698,6 +708,7 @@ def run(smoke: Smoke, torch, jt) -> dict:
                          run_inv2_shrink_slice(smoke, torch, jt, signal,
                                                card)):
         part.update(got)
+    run_wpt_cell_slice(smoke, torch, jt, card)
 
     src = "jwave_pro_tpu_torch/csrc/"
     tpu = "jwave_pro_tpu/kernels/"
@@ -4045,6 +4056,121 @@ def run_inv2_shrink_slice(smoke: Smoke, torch, jt, signal, card) -> tuple:
           flush=True)
     return ({"modwt2_inv_shrink": got["modwt2_inv_shrink"]},
             {"modwt2_inv_shrink": err}, {"modwt2_inv_shrink": (tk, tp)})
+
+
+def run_wpt_cell_slice(smoke: Smoke, torch, jt, card) -> None:
+    """Phase 39: the packet denoise cell's call, ``wpt_denoise`` of
+    WPT_CELL_SHAPE Symlet 8 L6 with a basis a row, on the cell's own
+    signals: its 36 products in IEEE float32 and one launch (the median)
+    a call, no host synchronisation inside it, each of its five spans once
+    under a profiler, WPT_CELL_ROWS seeded rows held to the float64
+    reference under the cell's check (``wavebench/reference/wpt.py:
+    error``, the cell's limit); the float32 tree of those rows against the
+    float64 tree in units of the check's modelled σ, and each packet's
+    SURE cost within the check's bound of the float64 cost; the call's
+    time, peak memory and bound."""
+    import importlib
+    import warnings
+
+    from wavebench import traffic
+    from wavebench.entries import wpt_denoise as cell
+    from wavebench.reference import wpt as ref
+
+    fwt_ops = importlib.import_module("jwave_pro_tpu_torch.ops.fwt")
+    wpt_ops = importlib.import_module("jwave_pro_tpu_torch.ops.wpt")
+    t_phase = time.perf_counter()
+    print(f"== phase 39: the packet denoise cell's call on {card}",
+          flush=True)
+    root = Path(__file__).resolve().parent / "wavebench"
+    work = json.loads((root / "workloads" / "wpt_sym8_l6.denoise.json")
+                      .read_text())
+    limit = work["check"]["limits"]["wpt_err"]
+    w = jt.wavelet("Symlet 8")
+    level = 6
+    b, n = WPT_CELL_SHAPE
+    dev = torch.device("cuda", 0)
+    x = cell.signals(work["signal"], b, n,
+                     traffic.generator(WPT_CELL_SEED, dev), dev)
+    call = lambda: jt.wpt_denoise(x, w, level, per_sample=True)  # noqa: E731
+    call()
+    before = fwt_ops.PRODUCTS.copy()
+    out, _ = counted_run(smoke, torch, all_launchers() + ("median",),
+                         f"a wpt_denoise {WPT_CELL_SHAPE}", call,
+                         {"median": 1})
+    made = {k: fwt_ops.PRODUCTS[k] - before[k] for k in fwt_ops.PRODUCTS
+            if fwt_ops.PRODUCTS[k] != before[k]}
+    print(f"  products of a wpt_denoise {WPT_CELL_SHAPE}: {made}",
+          flush=True)
+    smoke.require("36 products, all IEEE float32", made == {"ieee": 36},
+                  f"(got {made})")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as syncs:
+            warnings.simplefilter("always")
+            call()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    smoke.require("no host synchronisation inside the call", not syncs,
+                  f"({[str(m.message)[:100] for m in syncs[:3]]})")
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    with torch.profiler.profile(activities=acts) as prof:
+        call()
+        torch.cuda.synchronize()
+    names = collections.Counter(e.name for e in prof.events()
+                                if e.name.startswith("jwave."))
+    spans = ("jwave.wpt_denoise", "jwave.wpt.tree", "jwave.wpt.basis",
+             "jwave.denoise.threshold", "jwave.wpt.reconstruct")
+    print(f"  spans of a profiled call: {dict(names)}", flush=True)
+    smoke.require("each of the five spans once a call",
+                  all(names[s] == 1 for s in spans))
+    rows = sorted(np.random.default_rng(WPT_CELL_SEED).choice(
+        b, WPT_CELL_ROWS, replace=False).tolist())
+    err, bases, opened = ref.error(out[rows], x[rows], ref.SYMLET_8, level)
+    print(f"  wpt_err {err:.3e} (limit {limit:g}) on rows {rows}; at most "
+          f"{bases} bases and {opened} open packets a row", flush=True)
+    smoke.require("the cell's check passes", err <= limit
+                  and bases <= ref.MAX_BASES)
+    del out
+    tree32 = jt.wpt_tree(x, w, level)[:, rows].double()
+    tree64 = ref.tree(x[rows], ref.SYMLET_8, level)
+    sigma = ref.deviation(tree64, ref.SYMLET_8)
+    ratio = float(((tree32 - tree64)[1:].abs() / sigma[1:]).max())
+    print(f"  float32 tree: max |error| / modelled sigma {ratio:.3f} "
+          f"(the check admits {ref.DEVIATIONS:g}; the CPU's 2.80)",
+          flush=True)
+    smoke.require("the float32 tree within the check's deviations",
+                  ratio <= ref.DEVIATIONS)
+    bounds = ref.cost_bounds(tree64, ref.SYMLET_8)
+    worst = 0.0
+    for lv in range(level + 1):
+        got = wpt_ops.sure_cost(ref.packets(tree32.float(), lv)).double()
+        want = ref.sure(ref.packets(tree64, lv))
+        worst = max(worst, float(((got - want).abs() / bounds[lv]).max()))
+    print(f"  SURE costs: max |float32 - float64| / bound {worst:.3f}",
+          flush=True)
+    smoke.require("each packet's cost within the check's bound", worst <= 1)
+    del tree32, tree64, sigma
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ms = event_time(torch, lambda v: jt.wpt_denoise(v, w, level,
+                                                    per_sample=True),
+                    x, k=5, repeats=3) * 1e3
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    samples = b * n
+    bound_ms, by = bound(4 * (2 * samples + b),
+                         samples * (4 * w.length * level + 4 * (level + 1)
+                                    + 3))
+    print(f"  wpt_denoise {WPT_CELL_SHAPE}: {ms:.3f} ms a call "
+          f"({samples / ms * 1e3:.4e} samples/s), {peak:.3f} GiB above its "
+          f"input; bound {bound_ms:.4f} ms ({by}), {bound_ms / ms:.2%} of "
+          f"it [{card}]", flush=True)
+    del x
+    torch.cuda.empty_cache()
+    print(f"  phase 39 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
 
 
 def main() -> int:

@@ -480,6 +480,7 @@ def modwt3_denoise(x: torch.Tensor, wavelet: DiscreteWavelet, level: int,
     return imodwt3(_shrunk(c, n_bands, threshold, mode), wavelet)
 
 
+@spanned("jwave.wpt_denoise")
 def wpt_denoise(x: torch.Tensor, wavelet: DiscreteWavelet, level=None,
                 cost: str = "sure", mode: str = "soft",
                 threshold=None, per_sample: bool = False) -> torch.Tensor:
@@ -504,7 +505,7 @@ def wpt_denoise(x: torch.Tensor, wavelet: DiscreteWavelet, level=None,
     flat = basis_coefficients(tree, masks)
     if threshold is None:
         d1 = tree[1][..., n // 2:]            # level-1 details
-        threshold = universal_threshold(d1, n)[..., None]
+        threshold = _rule_threshold("universal", d1, d1, n)[..., None]
     shrink = soft_threshold if mode == "soft" else hard_threshold
     shrunk = shrink(flat, threshold)
     # keep the low-pass packet: positions [0, n >> l) of the level l whose

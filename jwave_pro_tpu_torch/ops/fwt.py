@@ -30,6 +30,7 @@ recursively on the prefix of the array.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import functools
 
@@ -47,6 +48,11 @@ __all__ = [
 ]
 
 _BLK = 256  # input block width of the banded step (outputs 128 lo + 128 hi)
+
+#: Forward products through :func:`_mm` by tier: ``"ieee"`` and ``"tf32"``
+#: on the card (``jwave::f32_mm``), ``"cpu"`` off it (``torch.matmul``);
+#: the counterpart of ``kernels/_launch.LAUNCHES`` for the decimated family.
+PRODUCTS: collections.Counter = collections.Counter()
 
 
 @contextlib.contextmanager
@@ -120,9 +126,12 @@ def _mm(u: torch.Tensor, m: torch.Tensor, tf32: bool = False
     """``u @ m`` (``torch.matmul``'s broadcasting; either side may be the
     constant), float32 and complex64 kept in full float32 on the card — or
     in TF32 where ``tf32`` asks for it — in the forward and the backward
-    alike (:func:`f32_mm`).  On the CPU, ``torch.matmul`` itself."""
+    alike (:func:`f32_mm`).  On the CPU, ``torch.matmul`` itself.  Each
+    call counts one product in :data:`PRODUCTS` under its tier."""
     if not u.is_cuda:
+        PRODUCTS["cpu"] += 1
         return torch.matmul(u, m)
+    PRODUCTS["tf32" if tf32 else "ieee"] += 1
     if u.ndim == 1:
         return f32_mm(u[None], m, int(tf32))[..., 0, :]
     return f32_mm(u, m, int(tf32))

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ..utils.device import as_input, as_signal
+from ..utils.profiling import spanned
 from ..utils.validation import check_power_of_two
 from ..wavelets.base import DiscreteWavelet
 from .fwt import (_BLK, _const, _fused_levels_limit, _fused_synth_limit, _mm,
@@ -214,6 +215,7 @@ def iwpt3(s: torch.Tensor, wavelet: DiscreteWavelet,
     return iwpt(s, wavelet, lr)
 
 
+@spanned("jwave.wpt.tree")
 def wpt_tree(x: torch.Tensor, wavelet: DiscreteWavelet, level=None
              ) -> torch.Tensor:
     """Full packet tree: shape ``(level+1, ..., N)``.
@@ -303,7 +305,18 @@ def best_basis(x: torch.Tensor, wavelet: DiscreteWavelet, level=None,
                                          wavelet.transform_wavelength)))
     cost_fn = _COSTS[cost] if isinstance(cost, str) else cost
     tree = wpt_tree(x, wavelet, level)
-    lead = x.shape[:-1] if per_sample else ()
+    masks, best = _select(tree, cost_fn, per_sample)
+    return masks, best, tree
+
+
+@spanned("jwave.wpt.basis")
+def _select(tree: torch.Tensor, cost_fn, per_sample: bool):
+    """The Coifman–Wickerhauser program over a :func:`wpt_tree`: per-packet
+    costs, the bottom-up choice, the top-down leaf masks.  Returns
+    ``(masks, total_cost)``."""
+    level = tree.shape[0] - 1
+    n = tree.shape[-1]
+    lead = tree.shape[1:-1] if per_sample else ()
 
     # per-packet costs: costs[l] has shape (batch…,) + (2^l,)
     costs = []
@@ -326,7 +339,7 @@ def best_basis(x: torch.Tensor, wavelet: DiscreteWavelet, level=None,
 
     # top down: a packet is a leaf iff every ancestor splits and it does not
     masks = []
-    reach = torch.ones(lead + (1,), dtype=torch.bool, device=x.device)
+    reach = torch.ones(lead + (1,), dtype=torch.bool, device=tree.device)
     for l in range(level + 1):
         if l < level:
             leaf = reach & ~split[l]
@@ -334,9 +347,10 @@ def best_basis(x: torch.Tensor, wavelet: DiscreteWavelet, level=None,
         else:
             leaf = reach
         masks.append(leaf)
-    return masks, best[..., 0], tree
+    return masks, best[..., 0]
 
 
+@spanned("jwave.wpt.reconstruct")
 def basis_reconstruct(flat: torch.Tensor, masks, wavelet: DiscreteWavelet
                       ) -> torch.Tensor:
     """Reconstruct the signal from a best-basis coefficient array.

@@ -1,21 +1,26 @@
 """The program's spans (``utils/profiling.py:span``, ``spanned``), its
-one launch count (``kernels/_launch.py:LAUNCHES``) and the sharded
-tier's collective counts (``parallel.sharded.COLLECTIVES``,
-``COLLECTIVE_BYTES``).
+one launch count (``kernels/_launch.py:LAUNCHES``), its count of the
+decimated family's products (``ops/fwt.py:PRODUCTS``: 12 a packet tree
+and 24 a reconstruction at L6) and the sharded tier's collective counts
+(``parallel.sharded.COLLECTIVES``, ``COLLECTIVE_BYTES``).
 
 With no profiler running a span is the one shared null context and
 ``record_function`` is never called.  Under ``torch.profiler`` the spans
-of ``modwt_denoise``, ``modwt2_denoise``, ``modwt3_denoise``, ``cwt``
-and a ``StreamingMODWT.update`` nest as the stages run: the threshold and
-the shrink inside each denoise (one pair of helpers for 1D, 2D and 3D), the
+of ``modwt_denoise``, ``modwt2_denoise``, ``modwt3_denoise``,
+``wpt_denoise``, ``cwt`` and a ``StreamingMODWT.update`` nest as the
+stages run: the threshold and the shrink inside each MODWT denoise (one
+pair of helpers for 1D, 2D and 3D), the packet tree, the basis search,
+the threshold and the mixed-level synthesis inside the packet denoise,
+whose answers stay bitwise those of its former in-line threshold, the
 host-to-device copies of the axes inside the CWT, the buffer's stages
 inside the update, and a launch inside the transform that makes it.  In
 a spawned gloo world of 4 ranks, a signal-sharded MODWT forward spans its
 one fetch of the halo and that fetch its one ring hop, of rows × 217
 float32 samples at Daubechies 4 L5.  On the card (``cuda``), a launch's
 span holds its ``cudaLaunchKernel``, ``LAUNCHES`` counts eager and
-served launches alike, and a default 2D denoise launches the 2D forward,
-the median and the 2D inverse once each.
+served launches alike, a default 2D denoise launches the 2D forward,
+the median and the 2D inverse once each, and a packet denoise makes its
+36 products in IEEE float32 and one launch, the median's.
 """
 import importlib
 import json
@@ -33,8 +38,11 @@ from jwave_pro_tpu_torch import streaming as st
 from jwave_pro_tpu_torch.kernels._launch import LAUNCHES, op_taps
 
 profiling = importlib.import_module("jwave_pro_tpu_torch.utils.profiling")
+fwt_ops = importlib.import_module("jwave_pro_tpu_torch.ops.fwt")
+denoise_ops = importlib.import_module("jwave_pro_tpu_torch.ops.denoise")
 
 DB4 = jt.wavelet("Daubechies 4")
+SYM8 = jt.wavelet("Symlet 8")
 ACTS = [torch.profiler.ProfilerActivity.CPU]
 
 
@@ -59,7 +67,10 @@ def _calls():
     volume = _signal(2, 6, 10, 12, seed=8)
     scales = jt.generate_log_scales(1.0, 32.0, 6)
     stream, chunk = _stream()
+    packets = _signal(3, 4096, seed=11)
     return {"modwt_denoise": lambda: jt.modwt_denoise(x, DB4, 3),
+            "wpt_denoise": lambda: jt.wpt_denoise(packets, SYM8, 6,
+                                                  per_sample=True),
             "modwt2_denoise": lambda: jt.modwt2_denoise(image, DB4, 2),
             "modwt3_denoise": lambda: jt.modwt3_denoise(volume, DB4, 2),
             "cwt": lambda: jt.cwt(x, scales),
@@ -108,7 +119,8 @@ def test_span_without_a_profiler_is_the_shared_null_context():
 
 
 @pytest.mark.parametrize("call", ["modwt_denoise", "modwt2_denoise",
-                                  "modwt3_denoise", "cwt", "update"])
+                                  "modwt3_denoise", "cwt", "update",
+                                  "wpt_denoise"])
 def test_no_profiler_never_records(monkeypatch, call):
     """Every span site of the call is guarded: with ``record_function``
     made to raise, the call runs and gives the answer it gives with the
@@ -149,6 +161,11 @@ NESTING = {
     "modwt3_denoise": [("jwave.modwt3_denoise", None),
                        ("jwave.denoise.threshold", "jwave.modwt3_denoise"),
                        ("jwave.denoise.shrink", "jwave.modwt3_denoise")],
+    "wpt_denoise": [("jwave.wpt_denoise", None),
+                    ("jwave.wpt.tree", "jwave.wpt_denoise"),
+                    ("jwave.wpt.basis", "jwave.wpt_denoise"),
+                    ("jwave.denoise.threshold", "jwave.wpt_denoise"),
+                    ("jwave.wpt.reconstruct", "jwave.wpt_denoise")],
     "cwt": [("jwave.cwt", None), ("jwave.cwt.axes", "jwave.cwt"),
             ("jwave.cwt.axes", "jwave.cwt")],
     "update": [("jwave.stream.update", None),
@@ -189,6 +206,56 @@ def test_a_given_2d_threshold_takes_no_estimate():
     names = [n for n, _ in _parents(_profiled(
         lambda: jt.modwt2_denoise(x, DB4, 2, threshold=0.5)))]
     assert names == ["jwave.modwt2_denoise", "jwave.denoise.shrink"]
+
+
+@pytest.mark.parametrize("stage,want", [("tree", 12), ("reconstruct", 24),
+                                        ("denoise", 36)])
+def test_products_count_each_filter_bank_product(stage, want):
+    """At L6 with every packet width a multiple of 256, a tree level is
+    one analysis step (2 products) and a reconstruction level one
+    synthesis step (4): 12 and 24 a call, 36 for the denoise, all off the
+    card (``"cpu"``)."""
+    x = _signal(2, 16384, seed=12)
+    masks, _, tree = jt.best_basis(x, SYM8, 6, "sure", per_sample=True)
+    flat = jt.basis_coefficients(tree, masks)
+    call = {"tree": lambda: jt.wpt_tree(x, SYM8, 6),
+            "reconstruct": lambda: jt.basis_reconstruct(flat, masks, SYM8),
+            "denoise": lambda: jt.wpt_denoise(x, SYM8, 6,
+                                              per_sample=True)}[stage]
+    before = fwt_ops.PRODUCTS.copy()
+    call()
+    ran = {k: fwt_ops.PRODUCTS[k] - before[k] for k in fwt_ops.PRODUCTS
+           if fwt_ops.PRODUCTS[k] != before[k]}
+    assert ran == {"cpu": want}
+
+
+def _inline_wpt(x, wavelet, level, per_sample):
+    """What ``wpt_denoise`` ran with its default threshold before that
+    threshold went through ``_rule_threshold``: ``universal_threshold``
+    called in line."""
+    n = x.shape[-1]
+    masks, _, tree = jt.best_basis(x, wavelet, level, "sure",
+                                   per_sample=per_sample)
+    flat = jt.basis_coefficients(tree, masks)
+    threshold = denoise_ops.universal_threshold(tree[1][..., n // 2:],
+                                                n)[..., None]
+    shrunk = jt.soft_threshold(flat, threshold)
+    pos = torch.arange(n)
+    keep = torch.zeros((n,), dtype=torch.bool)
+    for lv, m in enumerate(masks):
+        keep = keep | (m[..., 0:1] & (pos < (n >> lv)))
+    return jt.basis_reconstruct(torch.where(keep, flat, shrunk), masks,
+                                wavelet)
+
+
+@pytest.mark.parametrize("per_sample", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_the_wpt_threshold_answers_bitwise_as_before(per_sample, dtype):
+    x = _signal(3, 4096, seed=13).to(dtype)
+    got = jt.wpt_denoise(x, SYM8, 6, per_sample=per_sample)
+    want = _inline_wpt(x, SYM8, 6, per_sample)
+    assert got.dtype == dtype
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
 def test_multipliers_span_only_when_built():
@@ -401,3 +468,17 @@ def test_default_2d_denoise_launches_each_2d_kernel_once(dev):
                    ("jwave.launch.median", "jwave.denoise.threshold"),
                    ("jwave.launch.modwt2_inv_shrink",
                     "jwave.modwt2_denoise")]
+
+
+@pytest.mark.cuda
+def test_wpt_denoise_products_are_ieee_on_the_card(dev):
+    x = _signal(4, 16384, seed=14).to(dev)
+    jt.wpt_denoise(x, SYM8, 6, per_sample=True)
+    torch.cuda.synchronize()
+    products, launches = fwt_ops.PRODUCTS.copy(), LAUNCHES.copy()
+    jt.wpt_denoise(x, SYM8, 6, per_sample=True)
+    torch.cuda.synchronize()
+    assert {k: fwt_ops.PRODUCTS[k] - products[k] for k in fwt_ops.PRODUCTS
+            if fwt_ops.PRODUCTS[k] != products[k]} == {"ieee": 36}
+    assert {k: LAUNCHES[k] - launches[k] for k in LAUNCHES
+            if LAUNCHES[k] != launches[k]} == {"median": 1}
